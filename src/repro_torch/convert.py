@@ -1,0 +1,96 @@
+"""Carry weights and indexes from the JAX package (or anywhere numpy
+arrays come from) into the port.
+
+``jax.random`` streams cannot be reproduced with a ``torch.Generator``,
+so a parity test feeds the reference's own parameters through
+:func:`params_from_jax`; :func:`index_to_device` turns any object with
+the index's array fields (a ``repro`` index, a port index on another
+device) into the port's index on ``device``.  Nothing here imports jax:
+``np.asarray`` reads a jax array through the array protocol.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .core.index import SegmentInvertedIndex, build_fences
+from .dist.partition import PartitionedIndex
+from .kernels.utils import resolve_device
+from .models.layers import ParamTree
+from .retrievers import get_retriever
+
+INDEX_ARRAYS = ("term_offsets", "doc_ids", "values", "idf", "doc_len",
+                "seg_len")
+PARTITION_ARRAYS = ("term_to_shard", "range_lo")
+OPTIONAL_ARRAYS = ("range_hi", "split_term", "split_doc")
+
+
+def _host(a) -> np.ndarray:
+    """A writable host copy (jax hands out read-only views)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.array(a)
+
+
+def index_from_arrays(arrays: Dict[str, np.ndarray], *, n_docs: int,
+                      vocab_size: int, n_b: int, functions, device=None):
+    """The port's index from host arrays: a :class:`PartitionedIndex`
+    when ``arrays`` holds the routing table, else a
+    :class:`SegmentInvertedIndex`.  Fences are rebuilt from the doc ids,
+    as the reference's loader does."""
+    dev = resolve_device(device)
+    t = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for n, a in arrays.items() if a is not None}
+    static = dict(n_docs=int(n_docs), vocab_size=int(vocab_size),
+                  n_b=int(n_b), functions=tuple(functions))
+    fences = build_fences(t["doc_ids"])
+    if "term_to_shard" not in t:
+        return SegmentInvertedIndex(fences=fences, **static,
+                                    **{n: t[n] for n in INDEX_ARRAYS})
+    return PartitionedIndex(
+        fences=fences, n_shards=int(t["doc_ids"].shape[0]),
+        **static, **{n: t[n] for n in INDEX_ARRAYS + PARTITION_ARRAYS},
+        **{n: t.get(n) for n in OPTIONAL_ARRAYS})
+
+
+def index_to_device(index: Any, device=None):
+    """Move an uncompressed single-CSR or partitioned index — the JAX
+    package's or the port's — onto ``device`` as the port's index."""
+    codec = getattr(index, "codec", "none")
+    if codec != "none":
+        raise NotImplementedError(f"codec {codec!r} is not ported yet")
+    if getattr(index, "is_live", False):
+        raise NotImplementedError("a live index is not ported yet")
+    names = INDEX_ARRAYS + (PARTITION_ARRAYS + OPTIONAL_ARRAYS
+                            if hasattr(index, "term_to_shard") else ())
+    arrays = {n: _host(getattr(index, n)) for n in names
+              if getattr(index, n, None) is not None}
+    return index_from_arrays(
+        arrays, n_docs=index.n_docs, vocab_size=index.vocab_size,
+        n_b=index.n_b, functions=index.functions, device=device)
+
+
+def params_from_jax(retriever: str, tree: Any, device=None) -> ParamTree:
+    """Map a retriever's JAX parameter tree (nested dicts and lists of
+    arrays) onto the port's parameters, checking every name and shape
+    against the port's own ``init``."""
+    spec = get_retriever(retriever)
+
+    def to_torch(x):
+        if isinstance(x, dict):
+            return {k: to_torch(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [to_torch(v) for v in x]
+        return torch.from_numpy(np.array(_host(x), np.float32))
+
+    params = ParamTree(to_torch(tree))
+    want = {n: tuple(p.shape) for n, p in spec.init(
+        torch.Generator().manual_seed(0), 1, (), device="cpu"
+    ).state_dict().items()}
+    got = {n: tuple(p.shape) for n, p in params.state_dict().items()}
+    if want != got:
+        raise ValueError(f"{retriever} parameters do not match the port's "
+                         f"layout: expected {want}, got {got}")
+    return params.to(resolve_device(device))

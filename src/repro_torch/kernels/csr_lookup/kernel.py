@@ -1,0 +1,180 @@
+"""Wrappers of the CUDA kernels in ``csrc/csr_lookup.cu``.
+
+``csr_lookup_kernel`` replaces ``repro/kernels/csr_lookup/kernel.py::
+csr_lookup_pallas`` and ``retrieve_windows_kernel`` replaces
+``retrieve_windows_pallas`` fused with the window merge; the source file
+says what bounds each on the H100 and what the design does about it.
+
+A wrapper given CUDA tensors validates them, allocates its output with
+``torch.empty``, launches on PyTorch's current stream, raises on a
+nonzero ``cudaGetLastError`` and adds one to its ``launches`` count.
+Given CPU tensors it runs its plain PyTorch version instead:
+:func:`csr_lookup_plain`, which repeats the kernel's per-cell algorithm
+(fence bisect, ``jt`` clamp, in-tile bisect, fence-edge case) so the CPU
+tests check the tile-edge logic, and ``ref.scan_block_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.index import INT32_MAX
+from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
+                     stream_handle)
+from .ref import bisect_steps, scan_block_ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    "csr_lookup_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
+    "retrieve_block_launch": [_P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _I,
+                              _I, _I, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return load_library("csr_lookup", _SIGNATURES)
+
+
+def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
+                     *, tile: int) -> torch.Tensor:
+    """The kernel's per-cell algorithm over all (b, q) cells at once, in
+    plain PyTorch (int64 positions).  Same inputs and output as
+    :func:`csr_lookup_kernel`."""
+    n_k, n_max = doc_ids.shape
+    n_fence = fences.shape[1]
+    n_cand, n_q = doc_targets.shape[0], shard.shape[0]
+    shape = (n_cand, n_q)
+    if shard.ndim == 2:                         # per-pair routing (Q, B)
+        k, lo0, hi0 = shard.T, lo.T, hi.T
+    else:
+        k, lo0, hi0 = (shard[None].expand(shape), lo[None].expand(shape),
+                       hi[None].expand(shape))
+    k = k.long().clamp(0, n_k - 1)
+    lo0, hi0 = lo0.long(), hi0.long()
+    d = doc_targets[:, None].expand(shape).long()
+    fflat, dflat = fences.reshape(-1), doc_ids.reshape(-1)
+    fbase, dbase = k * n_fence, k * n_max
+
+    def fence(j):
+        return fflat[fbase + j.clamp(0, n_fence - 1)].long()
+
+    def doc_at(p):                  # int32 max past the row: the tile pad
+        return torch.where(p < n_max,
+                           dflat[dbase + p.clamp(max=n_max - 1)].long(),
+                           INT32_MAX)
+
+    def floordiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    j_lo = floordiv(lo0, tile)
+    j_hi = torch.maximum(floordiv(hi0 - 1, tile), j_lo)
+    flo, fhi = j_lo + 1, j_hi + 1
+    for _ in range(bisect_steps(n_fence)):
+        mid = floordiv(flo + fhi, 2)
+        go = (fence(mid) < d) & (flo < fhi)
+        flo, fhi = torch.where(go, mid + 1, flo), torch.where(go, fhi, mid)
+    jt = (flo - 1).clamp(0, n_fence - 1)
+    base = jt * tile
+    w_hi = torch.minimum(base + tile, hi0)
+    plo, phi = torch.maximum(base, lo0), w_hi
+    for _ in range(bisect_steps(tile)):
+        mid = floordiv(plo + phi, 2)
+        go = (doc_at(base + (mid - base).clamp(0, tile - 1)) < d) & (plo < phi)
+        plo, phi = torch.where(go, mid + 1, plo), torch.where(go, phi, mid)
+    pos = plo
+    v_at = torch.where(pos < w_hi,
+                       doc_at(base + (pos - base).clamp(0, tile - 1)),
+                       fence(jt + 1))
+    found = (pos < hi0) & (v_at == d)
+    rows = values.reshape((-1,) + tuple(values.shape[2:]))
+    vals = rows[dbase + pos.clamp(0, n_max - 1)]
+    return torch.where(found[..., None, None], vals, 0.0)
+
+
+def csr_lookup_kernel(shard, lo, hi, doc_targets, doc_ids, fences, values,
+                      *, tile: int) -> torch.Tensor:
+    """shard/lo/hi (Q,) int32 routed per term, or (Q, B) routed per pair;
+    doc_targets (B,) int32; doc_ids (K, Nmax) int32 (unpadded: the kernel
+    reads int32 max past the row end); fences (K, ceil(Nmax/tile)) int32;
+    values (K, Nmax, n_b, n_f) f32 -> M (B, Q, n_b, n_f) f32."""
+    if doc_ids.device.type != "cuda":
+        return csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences,
+                                values, tile=tile)
+    dev = doc_ids.device
+    n_q, n_cand = shard.shape[0], doc_targets.shape[0]
+    route_ndim = shard.ndim
+    if route_ndim not in (1, 2) or (route_ndim == 2
+                                    and shard.shape[1] != n_cand):
+        raise ValueError(f"routing must be (Q,) or (Q, B={n_cand}), got "
+                         f"{tuple(shard.shape)}")
+    for name, t in (("shard", shard), ("lo", lo), ("hi", hi)):
+        check_cuda_tensor(name, t, torch.int32, dev, route_ndim)
+        if t.shape != shard.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != shard "
+                             f"shape {tuple(shard.shape)}")
+    check_cuda_tensor("doc_targets", doc_targets, torch.int32, dev, 1)
+    check_cuda_tensor("doc_ids", doc_ids, torch.int32, dev, 2)
+    check_cuda_tensor("fences", fences, torch.int32, dev, 2)
+    check_cuda_tensor("values", values, torch.float32, dev, 4)
+    n_k, n_max = doc_ids.shape
+    if fences.shape[0] != n_k or values.shape[:2] != doc_ids.shape:
+        raise ValueError("doc_ids, fences and values disagree on (K, Nmax)")
+    if fences.shape[1] * tile < n_max:
+        raise ValueError(f"{fences.shape[1]} fences at tile {tile} do not "
+                         f"cover {n_max} postings")
+    out = torch.empty((n_cand, n_q) + tuple(values.shape[2:]),
+                      dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.csr_lookup_launch(
+        ptr(shard), ptr(lo), ptr(hi), int(route_ndim == 2),
+        ptr(doc_targets), ptr(doc_ids), n_max, ptr(fences),
+        fences.shape[1], ptr(values), values.shape[2] * values.shape[3],
+        ptr(out), n_q, n_cand, n_k, int(tile),
+        bisect_steps(fences.shape[1]), bisect_steps(tile), stream_handle())
+    check_launch(lib, rc, "csr_lookup_kernel")
+    csr_lookup_kernel.launches += 1
+    return out
+
+
+csr_lookup_kernel.launches = 0
+
+
+def retrieve_windows_kernel(doc_ids, values, lane_lo, lane_hi, blo: int,
+                            block: int, *, tile: int) -> torch.Tensor:
+    """First-stage scan of one doc block: doc_ids (K, Nmax) int32, values
+    (K, Nmax, n_b, n_f) f32, lane_lo/lane_hi (Q, K) int32 flat posting
+    ranges (``ref.retrieve_lanes``) -> M (block, Q, n_b, n_f) f32 for
+    docs ``[blo, blo + block)``.  Each (lane, tile-wide window) block of
+    the launch bisects its lane and copies its window's postings into M."""
+    if doc_ids.device.type != "cuda":
+        return scan_block_ref(doc_ids, values, lane_lo, lane_hi, blo, block)
+    dev = doc_ids.device
+    check_cuda_tensor("doc_ids", doc_ids, torch.int32, dev, 2)
+    check_cuda_tensor("values", values, torch.float32, dev, 4)
+    check_cuda_tensor("lane_lo", lane_lo, torch.int32, dev, 2)
+    check_cuda_tensor("lane_hi", lane_hi, torch.int32, dev, 2)
+    n_k, n_max = doc_ids.shape
+    n_q = lane_lo.shape[0]
+    if values.shape[:2] != doc_ids.shape:
+        raise ValueError("doc_ids and values disagree on (K, Nmax)")
+    if lane_lo.shape != (n_q, n_k) or lane_hi.shape != (n_q, n_k):
+        raise ValueError(f"lanes must be (Q, K={n_k}), got "
+                         f"{tuple(lane_lo.shape)} / {tuple(lane_hi.shape)}")
+    if block <= 0 or tile <= 0:
+        raise ValueError(f"block ({block}) and tile ({tile}) must be > 0")
+    out = torch.empty((block, n_q) + tuple(values.shape[2:]),
+                      dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.retrieve_block_launch(
+        ptr(lane_lo), ptr(lane_hi), ptr(doc_ids), n_k * n_max,
+        bisect_steps(n_max), ptr(values), values.shape[2] * values.shape[3],
+        ptr(out), n_q, n_k, int(blo), int(block), int(tile),
+        stream_handle())
+    check_launch(lib, rc, "retrieve_windows_kernel")
+    retrieve_windows_kernel.launches += 1
+    return out
+
+
+retrieve_windows_kernel.launches = 0

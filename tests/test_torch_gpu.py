@@ -1,0 +1,108 @@
+"""The port's CUDA kernels on the card, each held against its plain
+PyTorch version on the same inputs (bitwise for the lookup and the scan,
+rtol 1e-5 / atol 1e-6 for the KNRM bank), and the engine on CUDA against
+the engine on the CPU.
+
+This file imports neither jax nor repro, so it runs on a GPU host that
+has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_gpu.py``.  Without a CUDA device every test skips.
+"""
+import copy
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.ckpt import load_index
+from repro_torch.data.synth_corpus import build_zipfian_index
+from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
+                                            retrieve_lanes,
+                                            retrieve_windows_kernel)
+from repro_torch.kernels.knrm_pool import knrm_pool_kernel, knrm_pool_ref
+from repro_torch.retrievers import get_retriever
+from repro_torch.serving import SeineEngine
+
+pytestmark = pytest.mark.gpu
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_hot_term_k4")
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _require_cuda():
+    # decided inside the test, never at collection: every xdist worker
+    # must collect the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+
+
+def _index(layout, device):
+    if layout == "k1":
+        return build_zipfian_index(n_docs=300, vocab=50, tail_decay=0.7,
+                                   n_b=4, device=device)
+    return load_index(FIXTURE, device=device)     # K=4, hot term split
+
+
+def _stacked(idx):
+    if hasattr(idx, "term_to_shard"):
+        return (idx.term_offsets, idx.doc_ids, idx.values,
+                idx.term_to_shard, idx.range_lo, idx.range_hi)
+    return (idx.term_offsets[None], idx.doc_ids[None], idx.values[None],
+            None, None, None)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k4"])
+def test_lookup_and_scan_kernels_match_plain(layout):
+    _require_cuda()
+    cpu, gpu = _index(layout, "cpu"), _index(layout, "cuda")
+    q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32)
+    docs = torch.arange(-2, gpu.n_docs + 3, dtype=torch.int32)
+    before = csr_lookup_kernel.launches
+    for tile in (4, 64, 256, 1024):
+        want = cpu.qd_matrix(q, docs, impl="kernel", tile=tile)
+        got = gpu.qd_matrix(q.cuda(), docs.cuda(), tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), f"tile={tile}"
+    assert csr_lookup_kernel.launches == before + 4
+    to, dids, vals, t2s, rlo, rhi = _stacked(gpu)
+    lo, hi = retrieve_lanes(q.cuda(), to, t2s, rlo, rhi, dids.shape[1])
+    for block, blo in ((64, 0), (16, 48), (7, 3), (1024, 0)):
+        got = retrieve_windows_kernel(dids, vals, lo, hi, blo, block,
+                                      tile=4)
+        want = retrieve_windows_kernel(dids.cpu(), vals.cpu(), lo.cpu(),
+                                       hi.cpu(), blo, block, tile=4)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (block, blo)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1000, 6, 20), (5, 130, 7)])
+def test_knrm_pool_kernel_matches_plain(shape):
+    _require_cuda()
+    g = torch.Generator().manual_seed(0)
+    cos = torch.rand(shape, generator=g) * 2 - 1
+    cos.view(-1)[::7] = 1.0
+    mask = (torch.rand((shape[0], shape[2]), generator=g) > 0.25).float()
+    mask[0] = 0.0
+    got = knrm_pool_kernel(cos.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), knrm_pool_ref(cos, mask), **TOL)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k4"])
+def test_engine_on_cuda_matches_cpu(layout):
+    _require_cuda()
+    cpu, gpu = _index(layout, "cpu"), _index(layout, "cuda")
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(0),
+                                        cpu.n_b, cpu.functions, device="cpu")
+    e_cpu = SeineEngine(cpu, "knrm", params)
+    e_gpu = SeineEngine(gpu, "knrm", copy.deepcopy(params))
+    q = np.array([0, 3, 7, -1, 12, 1000], np.int32)
+    docs = np.arange(-1, cpu.n_docs + 2, dtype=np.int32)
+    torch.testing.assert_close(e_gpu.score(q, docs).cpu(),
+                               e_cpu.score(q, docs), **TOL)
+    for doc_block in (None, 16):
+        s_g, d_g = e_gpu.retrieve(q, 10, doc_block=doc_block)
+        s_c, d_c = e_cpu.retrieve(q, 10, doc_block=doc_block)
+        assert torch.equal(d_g.cpu(), d_c)
+        torch.testing.assert_close(s_g.cpu(), s_c, **TOL)

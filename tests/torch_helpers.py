@@ -1,0 +1,55 @@
+"""Shared plumbing of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The JAX package exports an index through its own ``save_index`` and the
+port loads it with its own ``load_index`` on the CPU, so every parity
+test crosses the package boundary the way a real deployment does.
+"""
+import numpy as np
+import torch
+
+from repro.ckpt import save_index
+from repro.dist.sharding import partition_index
+from repro_torch.ckpt import load_index
+
+K_SWEEP = (1, 2, 4)
+TILE_SWEEP = (64, 256, 1024)
+
+
+def jax_layout(index, k):
+    """The JAX index itself at K == 1, else its K-shard partition."""
+    return index if k == 1 else partition_index(index, k)
+
+
+def export(jax_index, path):
+    """JAX ``save_index`` -> port ``load_index`` on the CPU."""
+    save_index(str(path), jax_index)
+    return load_index(str(path), device="cpu")
+
+
+def t(a, dtype=torch.int32):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def adversarial(world, seed, n_tail=3):
+    """(query (8,), docs (9,)) mixing every hostile id class, as
+    tests/test_kernels.py::TestCsrLookup builds them: present terms, OOV
+    padding, absent terms, a past-vocab term, term 0; first/last/random
+    docs, one and many past the end, a negative id and a padded tail
+    repeating docs[0] (the serve_batches pad pattern)."""
+    idx = world["index"]
+    rng = np.random.RandomState(seed)
+    toks = world["toks"]
+    d = rng.randint(0, len(world["ds"].docs))
+    present = np.unique(toks[d][toks[d] >= 0])
+    absent = np.setdiff1d(np.arange(idx.vocab_size), np.unique(toks))[:2]
+    q = np.full(8, -1, np.int32)
+    sel = rng.choice(present, size=min(3, present.size), replace=False)
+    q[:sel.size] = sel
+    q[4:4 + absent.size] = absent
+    q[6] = idx.vocab_size + rng.randint(1, 10)
+    q[7] = 0
+    core = np.array([0, idx.n_docs - 1, rng.randint(0, idx.n_docs),
+                     idx.n_docs, idx.n_docs + rng.randint(1, 50), -3],
+                    np.int32)
+    docs = np.concatenate([core, np.full(n_tail, core[0], np.int32)])
+    return q, docs

@@ -220,11 +220,14 @@ def phase2(index, rng, dev):
     d0_terms = term_of[index.doc_ids.cpu().numpy() == d0]
     q = np.array([0, d0_terms[-1], -1, empty[0] if empty.size else 7,
                   VOCAB + 5, N_HOT], np.int32)
+    # N_CAND candidates in all, the main path's shape
     docs = np.r_[[0, N_DOCS - 1, d0, N_DOCS, N_DOCS + 50, -3],
-                 rng.randint(0, N_DOCS, size=250), [0] * 5].astype(np.int32)
+                 rng.randint(0, N_DOCS, size=N_CAND - 11),
+                 [0] * 5].astype(np.int32)
     qt, dt = torch.from_numpy(q).to(dev), torch.from_numpy(docs).to(dev)
     check_lookup(index, qt, dt, (64, 256, 1024), "full index")
-    log("phase 2: csr_lookup == plain (bitwise) at tiles 64/256/1024")
+    log(f"phase 2: csr_lookup == plain (bitwise) at {Q_SLOTS} x {N_CAND}, "
+        f"tiles 64/256/1024")
 
     # retrieve_windows over every doc block of one query (hot term in it)
     scan_err = check_scan(index, qt, 1024, "full index")
@@ -420,10 +423,11 @@ def time_lookup(index, requests, dev):
     plain_ms = events_ms([lambda a=a: csr_lookup_plain(*a, tile=256)
                           for a in inputs], 16)
     err, found = 0.0, 0
-    for a in inputs:
+    for i, a in enumerate(inputs):
         got = csr_lookup_kernel(*a, tile=256)
-        err = max(err, (got - csr_lookup_plain(*a, tile=256)).abs().max()
-                  .item())
+        want = csr_lookup_plain(*a, tile=256)
+        assert_equal(got, want, f"request {i} csr_lookup")
+        err = max(err, (got - want).abs().max().item())
         found += int((got != 0).reshape(got.shape[0], got.shape[1], -1)
                      .any(-1).sum())
     # yardstick: one searchsorted over the globally sorted (term, doc) key
@@ -437,13 +441,18 @@ def time_lookup(index, requests, dev):
               for q, d in requests]
     lib_ms, _, _ = timed([lambda p=p: torch.searchsorted(keys, p)
                           for p in probes], 160, "earchsorted")
-    # bytes the data needs: each cell's probes (fence + in-tile bisect +
-    # hit check, 4 B each), the found rows read, every row written, the
-    # candidates and the routing
+    # bytes the data needs: each cell's probes (the fence bisect over its
+    # term's own tiles, the in-tile bisect and the hit check, 4 B each),
+    # the found rows read, every row written, the candidates and the
+    # routing
     cells = N_CAND * Q_SLOTS
-    probes_per_cell = (int(index.fences.shape[0]).bit_length()
-                       + (256).bit_length() + 1)
-    n_bytes = (cells * probes_per_cell * 4 + found / len(inputs) * row * 4
+    n_probes = 0
+    for _, _, lo, hi, *_ in inputs:
+        for t_lo, t_hi in zip(lo.tolist(), hi.tolist()):
+            n_tiles = max((t_hi - 1) // 256, t_lo // 256) - t_lo // 256 + 1
+            n_probes += N_CAND * (n_tiles.bit_length()
+                                  + min(256, t_hi - t_lo).bit_length() + 1)
+    n_bytes = ((n_probes * 4 + found * row * 4) / len(inputs)
                + cells * row * 4 + N_CAND * 4 + Q_SLOTS * 12)
     b_ms, b_by = bound(n_bytes, 0)
     return dict(name="csr_lookup", ms=ms, timed_by=how, call_ms=call_ms,
@@ -492,8 +501,10 @@ def time_knrm(index, requests, knrm_err, dev):
         ms, how, call_ms = timed([lambda: knrm_pool_kernel(cos_norm, mask)],
                                  200, "knrm_pool_kernel")
         plain_ms = events_ms([lambda: knrm_pool_ref(cos_norm, mask)], 50)
-        err = (knrm_pool_kernel(cos_norm, mask)
-               - knrm_pool_ref(cos_norm, mask)).abs().max().item()
+        got = knrm_pool_kernel(cos_norm, mask)
+        want = knrm_pool_ref(cos_norm, mask)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        err = (got - want).abs().max().item()
     rows, k = N_CAND * Q_SLOTS, 11
     n_bytes = (rows * N_B + N_CAND * N_B + rows * k) * 4
     # per (row, segment, kernel): sub, div, 2 mul, exp, fma; log1p per sum

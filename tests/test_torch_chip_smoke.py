@@ -1,0 +1,90 @@
+"""``chip_smoke.py`` rehearsed on the CPU at a tiny size.
+
+The script's phases run end to end with the ops routed to the kernel
+wrappers, whose CPU path is the plain version: every check the script
+makes on the card then holds the plain version against itself, and must
+find it bitwise equal.  The wrappers count launches only on the card, so
+the names the ops import are wrapped in counters here.  The timing
+helpers, which need the card, are replaced by host-clock stand-ins.
+"""
+import importlib.util
+import os
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from repro_torch.kernels.csr_lookup import ops as lookup_ops
+from repro_torch.kernels.knrm_pool import ops as knrm_ops
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+def _load_script():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counting(fn):
+    def wrapper(*a, **k):
+        fn.launches += 1
+        return fn(*a, **k)
+    return wrapper
+
+
+def _host_ms(fns, iters):
+    """One pass over ``fns`` on the host clock (``iters`` is for the
+    card's timing loops)."""
+    t0 = time.perf_counter()
+    for fn in fns:
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / len(fns)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phases_run_on_the_cpu(seed, monkeypatch):
+    cs = _load_script()
+    for name, value in dict(N_DOCS=1500, VOCAB=3000, TAIL_DRAWS=30,
+                            N_CAND=120, N_REQUESTS=3, N_RETRIEVE=2,
+                            TOP_K=50).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_ms", lambda fns, iters, kernel: None)
+    monkeypatch.setattr(cs, "device_busy", lambda run, n: (1.0, 1.0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like, codec: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "retrieve_windows_kernel"),
+                      (knrm_ops, "knrm_pool_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+
+    dev = torch.device("cpu")
+    index, rng = cs.build_index(seed, dev)
+    p2 = cs.phase2(index, rng, dev)
+    requests, queries, launches = cs.phase3(index, rng, dev, seed)
+    kernels = cs.phase4(index, requests, queries, launches, p2, dev)
+
+    assert [k["name"] for k in kernels] == ["csr_lookup", "retrieve_windows",
+                                            "knrm_pool"]
+    for k in kernels:
+        assert set(k) >= KEYS
+        assert k["launches"] > 0
+        assert k["max_abs_err"] == 0.0     # the plain version vs itself
+        assert k["bound_ms"] > 0 and k["bound_by"] == "bytes"
+
+
+def test_refuses_to_run_without_cuda():
+    """No card: a non-zero exit and no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert run.returncode != 0
+    assert '"ok"' not in run.stdout

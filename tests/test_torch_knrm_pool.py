@@ -50,3 +50,22 @@ def test_pool_matches_jax(shape, seed):
                 knrm_pool_kernel(c, m), kernel_features(c, m[:, None, :])):
         assert got.shape == shape[:2] + (11,) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 5])
+def test_ref_is_bitwise_stable_across_threads_and_slicing(threads):
+    """The plain version that the kernel and the nine scorers are held
+    against gives the same bits whatever the CPU thread count and however
+    the candidates are batched."""
+    cos, mask = _inputs((64, 6, 20), 3)
+    c, m = torch.from_numpy(cos), torch.from_numpy(mask)
+    want = knrm_pool_ref(c, m)
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        whole = knrm_pool_ref(c, m)
+        sliced = torch.cat([knrm_pool_ref(c[i:i + 7], m[i:i + 7])
+                            for i in range(0, 64, 7)])
+    finally:
+        torch.set_num_threads(saved)
+    assert torch.equal(whole, want) and torch.equal(sliced, want)

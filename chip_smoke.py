@@ -14,23 +14,38 @@ Phases (any failed check raises, and the script exits non-zero):
    4 terms that post in every doc and ~150 distinct terms per doc (~9.8M
    postings, ~7 GB of float32 values).  Postings are drawn on the host
    with numpy from ``--seed``, values on the card from a
-   ``torch.Generator``; the port's ``build_from_rows`` assembles it.
+   ``torch.Generator``; the port's ``build_from_rows`` assembles it.  The
+   port's ``partition_index`` then splits it into K = 4 term-range shards
+   (planned and merged on the host) and ``pack_index`` packs that under
+   codecs ``packed`` and ``packed-q8`` at tile 256; each codec's posting
+   bytes and the host seconds are printed.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving shapes and on adversarial ids: ``csr_lookup`` at tiles
    {64, 256, 1024} (bitwise), ``retrieve_windows`` over every doc block of
    a query (bitwise), ``knrm_pool`` (rtol 1e-5 / atol 1e-6), and the
    committed K=4 hot-term-split fixture (``tests/data/torch_hot_term_k4``:
-   per-pair routing, K > 1; bitwise).
-3. Serving: a ``SeineEngine`` with KNRM on the phase-1 index answers 16
-   requests of 6 query slots x 1,000 candidates through ``serve_batches``
-   and 8 top-1000 queries through ``serve_retrieval``.  The kernels'
-   launch counts are zeroed just before and read just after, and must all
-   have risen.  Scores are checked against the plain path (ref lookup,
-   plain kernel bank, on the CPU) and retrieval against brute force.
+   per-pair routing, K > 1; bitwise).  Then, for both codecs, the same
+   for ``csr_lookup_packed`` (tiles {64, 256, 1024}) and
+   ``retrieve_windows_packed`` (every doc block of a query), and both over
+   the fixture packed on the card; all bitwise, ``packed`` also against
+   the raw index's M.
+3. Serving, one path per codec: a ``SeineEngine`` with KNRM over the raw
+   phase-1 index, then over its ``packed`` and its ``packed-q8``
+   partition, each answers 16 requests of 6 query slots x 1,000
+   candidates through ``serve_batches`` and 8 top-1000 queries through
+   ``serve_retrieval``.  The launch counts are zeroed just before each
+   path and read just after it, and every kernel of that path must have
+   risen.  Raw scores are checked against the plain path (ref lookup,
+   plain kernel bank, on the CPU) and retrieval against brute force;
+   ``packed`` scores and top-k ids must equal the raw path's, and
+   ``packed-q8`` M must stay within max(scale) / 2 of the exact M with the
+   same sparsity, with recall@10 >= 0.9 against the raw path.
 4. Timing: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events; the bound is
    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM
-   data-sheet peaks) for this run's data.
+   data-sheet peaks) for this run's data.  The packed kernels are timed
+   under both codecs (``packed`` in the row's own keys, ``packed-q8``
+   under ``q8``).
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -54,9 +69,15 @@ from repro_torch.ckpt import load_index  # noqa: E402
 from repro_torch.core.index import build_from_rows  # noqa: E402
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
+from repro_torch.dist.partition import pack_index  # noqa: E402
+from repro_torch.dist.sharding import partition_index  # noqa: E402
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
-    csr_lookup_kernel, csr_lookup_plain, retrieve_lanes,
-    retrieve_windows_kernel, route_pairs, route_terms, scan_block_ref)
+    csr_lookup_kernel, csr_lookup_packed_kernel, csr_lookup_packed_plain,
+    csr_lookup_plain, lane_scales, retrieve_lanes, retrieve_windows_kernel,
+    retrieve_windows_packed_kernel, route_pairs, route_terms,
+    scan_block_packed_ref, scan_block_ref)
+from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
+from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
 from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
                                            knrm_pool_ref)
 from repro_torch.retrievers import get_retriever  # noqa: E402
@@ -73,6 +94,9 @@ N_CAND = 1000
 N_REQUESTS = 16
 N_RETRIEVE = 8
 TOP_K = 1000
+K_SHARDS = 4             # term-range shards of the packed indexes
+PACK_TILE = 256          # codec tile (the build-time POSTING_TILE)
+CODECS = ("packed", "packed-q8")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/{}/csrc/{}.cu"
@@ -80,7 +104,21 @@ TPU_KERNELS = {
     "csr_lookup": "src/repro/kernels/csr_lookup/kernel.py:217",
     "retrieve_windows": "src/repro/kernels/csr_lookup/kernel.py:162",
     "knrm_pool": "src/repro/kernels/knrm_pool/kernel.py:34",
+    "csr_lookup_packed": "src/repro/kernels/csr_lookup/kernel.py:359",
+    "retrieve_windows_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
 }
+# the launch counter of each kernel, and the kernels each serving path
+# (codec) must launch
+COUNTERS = {"csr_lookup": csr_lookup_kernel,
+            "retrieve_windows": retrieve_windows_kernel,
+            "knrm_pool": knrm_pool_kernel,
+            "csr_lookup_packed": csr_lookup_packed_kernel,
+            "retrieve_windows_packed": retrieve_windows_packed_kernel}
+PATH_KERNELS = {"none": ("csr_lookup", "retrieve_windows", "knrm_pool"),
+                "packed": ("csr_lookup_packed", "retrieve_windows_packed",
+                           "knrm_pool"),
+                "packed-q8": ("csr_lookup_packed", "retrieve_windows_packed",
+                              "knrm_pool")}
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_hot_term_k4")
 
 
@@ -132,6 +170,36 @@ def build_index(seed: int, dev: torch.device):
         f"empty terms={int((df == 0).sum())} "
         f"built in {time.perf_counter() - t0:.1f}s")
     return index, rng
+
+
+def build_packed(index):
+    """Phase 1, continued: the index split into K_SHARDS term-range shards
+    by the port's ``partition_index`` (planned and merged on the host, as
+    in the reference), then packed under each codec at PACK_TILE."""
+    t0 = time.perf_counter()
+    pidx = partition_index(index, K_SHARDS)
+    torch.cuda.synchronize()
+    secs = {"partition": time.perf_counter() - t0}
+    out = {"none": pidx}
+    for codec in CODECS:
+        t0 = time.perf_counter()
+        out[codec] = pack_index(pidx, codec, tile=PACK_TILE)
+        torch.cuda.synchronize()
+        secs[codec] = time.perf_counter() - t0
+    bits = out["packed"].tile_bits
+    words = out["packed"].packed_words
+    log(f"phase 1: partition_index K={pidx.n_shards} nmax={pidx.nmax} "
+        f"split_term={pidx.split_term is not None} in "
+        f"{secs['partition']:.2f}s (host plan + merge, values to and from "
+        f"the card)")
+    for codec in ("none",) + CODECS:
+        log(f"phase 1: codec {codec}: posting_nbytes="
+            f"{out[codec].posting_nbytes}"
+            + (f" packed in {secs[codec]:.2f}s" if codec in secs else ""))
+    hist = {c: int((bits == c).sum()) for c in (0, 4, 8, 16, 32)}
+    log(f"phase 1: tiles per width class {hist}, packed words with the "
+        f"top bit set: {int((words < 0).sum())}")
+    return out, secs
 
 
 def draw_query(rng, n_real: int) -> np.ndarray:
@@ -257,7 +325,101 @@ def phase2(index, rng, dev):
     for block in (16, 64):
         check_scan(fx, qf, block, "K=4 fixture")
     log("phase 2: K=4 sub-sharded fixture == plain (bitwise)")
-    return dict(scan_err=scan_err, knrm_err=knrm_err)
+    return dict(scan_err=scan_err, knrm_err=knrm_err, q=qt, docs=dt,
+                fixture=fx, fixture_q=qf, fixture_docs=df)
+
+
+def packed_args(pidx, q, docs):
+    """The packed lookup wrapper's arguments at one request, routed and
+    scaled as ``ops.csr_lookup`` routes and scales them."""
+    k, lo, hi, w = _route_cells(q, docs, pidx.term_offsets,
+                                pidx.term_to_shard, pidx.range_lo,
+                                pidx.split_term, pidx.split_doc)
+    scale = (None if pidx.value_scale is None else
+             _lane_scale(pidx.value_scale, pidx.range_lo, k, w).contiguous())
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    return (i32(k), i32(lo), i32(hi), docs, pidx._packed(), pidx.fences,
+            pidx._serve_values, scale)
+
+
+def check_packed_lookup(pidx, q, docs, what, raw=None):
+    """csr_lookup_packed kernel (through the index's lookup, the main
+    path's call) == its plain version == the ref lowering, bit for bit;
+    and == the raw index's M when ``raw`` is given."""
+    got = pidx.qd_matrix(q, docs)
+    want = csr_lookup_packed_plain(*packed_args(pidx, q, docs),
+                                   tile=pidx.codec_tile)
+    torch.cuda.synchronize()
+    assert_equal(got, want, f"{what} csr_lookup_packed")
+    assert_equal(got, pidx.qd_matrix(q, docs, impl="ref"),
+                 f"{what} csr_lookup_packed vs ref")
+    if raw is not None:
+        assert_equal(got, raw.qd_matrix(q, docs),
+                     f"{what} csr_lookup_packed vs the raw index")
+    return got
+
+
+def packed_lanes(pidx, q):
+    """(lane_lo, lane_hi, lane_scale) of one query over a packed index."""
+    lo, hi = retrieve_lanes(q, pidx.term_offsets, pidx.term_to_shard,
+                            pidx.range_lo, pidx.range_hi, pidx.nmax)
+    scale = (None if pidx.value_scale is None else
+             lane_scales(pidx.value_scale, pidx.range_lo, q).contiguous())
+    return (lo.to(torch.int32).contiguous(),
+            hi.to(torch.int32).contiguous(), scale)
+
+
+def check_packed_scan(pidx, q, block, what, raw=None):
+    """retrieve_windows_packed kernel == its plain version over every
+    block (and == the raw scan when ``raw`` is given)."""
+    lo, hi, scale = packed_lanes(pidx, q)
+    args = (pidx._packed(), pidx.fences, pidx._serve_values, scale, lo, hi)
+    if raw is not None:
+        to, dids, vals, t2s, rlo, rhi = stacked(raw)
+        r_lo, r_hi = retrieve_lanes(q, to, t2s, rlo, rhi, dids.shape[1])
+    for blo in range(0, pidx.n_docs, block):
+        got = retrieve_windows_packed_kernel(*args, blo, block,
+                                             tile=pidx.codec_tile)
+        want = scan_block_packed_ref(*args, blo, block,
+                                     tile=pidx.codec_tile)
+        assert_equal(got, want, f"{what} retrieve_windows_packed blo={blo}")
+        if raw is not None:
+            assert_equal(got, retrieve_windows_kernel(
+                dids, vals, r_lo.contiguous(), r_hi.contiguous(), blo,
+                block, tile=256), f"{what} packed scan vs raw blo={blo}")
+
+
+def phase2_packed(index, packed, p2):
+    """The packed kernels against their plain versions on the card."""
+    q, docs = p2["q"], p2["docs"]
+    for codec in CODECS:
+        raw = index if codec == "packed" else None
+        for tile in (64, 256, 1024):
+            pidx = (packed[codec] if tile == PACK_TILE
+                    else pack_index(packed["none"], codec, tile=tile))
+            check_packed_lookup(pidx, q, docs, f"{codec} tile={tile}", raw)
+            del pidx
+        log(f"phase 2: csr_lookup_packed ({codec}) == plain == ref "
+            f"(bitwise) at {Q_SLOTS} x {N_CAND}, tiles 64/256/1024"
+            + (", == the raw index's M" if raw is not None else ""))
+        check_packed_scan(packed[codec], q, 1024, codec, raw)
+        log(f"phase 2: retrieve_windows_packed ({codec}) == plain "
+            "(bitwise) over all blocks"
+            + (", == the raw scan" if raw is not None else ""))
+        fx = pack_index(p2["fixture"], codec, tile=8)
+        for tile in (8, 64, 256):
+            fxt = fx if tile == 8 else pack_index(p2["fixture"], codec,
+                                                  tile=tile)
+            check_packed_lookup(fxt, p2["fixture_q"], p2["fixture_docs"],
+                                f"K=4 fixture {codec} tile={tile}",
+                                p2["fixture"] if codec == "packed" else None)
+            for block in (16, 64):
+                check_packed_scan(fxt, p2["fixture_q"], block,
+                                  f"K=4 fixture {codec} tile={tile}",
+                                  p2["fixture"] if codec == "packed"
+                                  else None)
+        log(f"phase 2: K=4 sub-sharded fixture packed on the card "
+            f"({codec}, tiles 8/64/256) == plain (bitwise)")
 
 
 def reference_scores(engine, q, docs):
@@ -276,19 +438,103 @@ def reference_scores(engine, q, docs):
 
 
 def device_busy(run, n: int):
-    """(device ms, device ops) per request of one profiled replay of a
-    serving loop: kernel, memcpy and memset time summed by CUPTI."""
+    """(device ms, device ops, host summary) per request of two profiled
+    replays of a serving loop: kernel, memcpy and memset time summed by
+    CUPTI, then (profiling the host alone, so no device time is counted
+    twice) the host calls that took the most self time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:6]
+    summary = ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / n:.3f} ms"
+                        f" x{e.count / n:g}" for e in host)
     return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
-            sum(e.count for e in ev) / n)
+            sum(e.count for e in ev) / n, summary)
 
 
-def phase3(index, rng, dev, seed):
+def serve_path(path, engine, requests, queries):
+    """One serving path (codec): a warm-up outside the counted run, then
+    16 re-rank requests and 8 top-k queries with every launch count zeroed
+    just before and read just after; each of the path's kernels must have
+    been launched.  Then one profiled replay of each loop."""
+    serve_batches(engine, requests[:1])        # library load, allocator
+    serve_retrieval(engine, queries[:1], TOP_K)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    scores, stats = serve_batches(engine, requests)
+    hits, rstats = serve_retrieval(engine, queries, TOP_K)
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    log(f"phase 3 [{path}]: launches on the main path {launches}")
+    for name in PATH_KERNELS[path]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 "path")
+    log(f"phase 3 [{path}]: serve_batches {N_REQUESTS} x ({Q_SLOTS} slots, "
+        f"{N_CAND} candidates): p50 {stats.p50_ms:.3f} ms p95 "
+        f"{stats.p95_ms:.3f} ms")
+    log(f"phase 3 [{path}]: serve_retrieval {N_RETRIEVE} x top-{TOP_K}: "
+        f"p50 {rstats.p50_ms:.3f} ms p95 {rstats.p95_ms:.3f} ms")
+    for what, run, n, wall in (
+            ("serve_batches", lambda: serve_batches(engine, requests),
+             N_REQUESTS, stats.ms_per_request),
+            ("serve_retrieval", lambda: serve_retrieval(engine, queries,
+                                                        TOP_K),
+             N_RETRIEVE, rstats.ms_per_request)):
+        dev_ms, ops, host = device_busy(run, n)
+        log(f"phase 3 [{path}]: {what}: device busy {dev_ms:.4f} ms per "
+            f"request of {wall:.4f} ms wall (busy share "
+            f"{dev_ms / wall:.3f}), {ops:.1f} device ops per request; "
+            f"most host self time per request (profiled): {host}")
+    return scores, hits, launches
+
+
+def check_packed_paths(index, packed, requests, queries, results, dev):
+    """``packed`` serves exactly what the raw path serves; ``packed-q8``
+    M stays within max(scale) / 2 of the exact M with the same sparsity,
+    and its top-10 holds >= 90% of the raw path's."""
+    scores, hits = results["none"]
+    p_scores, p_hits = results["packed"]
+    for i, (s, p) in enumerate(zip(scores, p_scores)):
+        if not np.array_equal(s, p):
+            raise AssertionError(f"request {i}: packed scores != raw "
+                                 f"(max |diff| {np.abs(s - p).max()})")
+    for i, ((s, d), (ps, pd)) in enumerate(zip(hits, p_hits)):
+        if not (np.array_equal(d, pd) and np.array_equal(s, ps)):
+            raise AssertionError(f"query {i}: packed top-{TOP_K} != raw")
+    log(f"phase 3: packed scores and top-{TOP_K} ids == the raw path's "
+        "(bitwise)")
+    q8 = packed["packed-q8"]
+    bound = float(q8.value_scale.max()) / 2 + 1e-6
+    err = 0.0
+    for q, docs in requests:
+        qt, dt = torch.from_numpy(q).to(dev), torch.from_numpy(docs).to(dev)
+        exact = index.qd_matrix(qt, dt)
+        approx = q8.qd_matrix(qt, dt)
+        err = max(err, (approx - exact).abs().max().item())
+        if err > bound:
+            raise AssertionError(f"packed-q8 M off by {err} > {bound}")
+        if bool(((exact == 0) & (approx != 0)).any()) or not torch.equal(
+                exact.flatten(2).ne(0).any(-1),
+                approx.flatten(2).ne(0).any(-1)):
+            raise AssertionError("packed-q8 M has another sparsity")
+    q_hits = results["packed-q8"][1]
+    recall = np.mean([len(set(d[:10].tolist()) & set(qd[:10].tolist())) / 10
+                      for (_, d), (_, qd) in zip(hits, q_hits)])
+    log(f"phase 3: packed-q8 M within {err:.3g} of exact (bound "
+        f"max(scale)/2 = {bound:.3g}), same pairs found; recall@10 vs raw "
+        f"{recall:.3f}")
+    if recall < 0.9:
+        raise AssertionError(f"packed-q8 recall@10 {recall} < 0.9")
+
+
+def phase3(index, packed, rng, dev, seed):
     spec = get_retriever("knrm")
     params = spec.init(torch.Generator().manual_seed(seed), N_B,
                        index.functions, device=dev)
@@ -298,35 +544,27 @@ def phase3(index, rng, dev, seed):
                 for _ in range(N_REQUESTS)]
     queries = [draw_query(rng, rng.randint(2, Q_SLOTS + 1))
                for _ in range(N_RETRIEVE)]
-    # warm-up outside the counted run: library load, allocator
-    serve_batches(engine, requests[:1])
-    serve_retrieval(engine, queries[:1], TOP_K)
-    counters = (csr_lookup_kernel, retrieve_windows_kernel, knrm_pool_kernel)
-    for fn in counters:
-        fn.launches = 0
-    scores, stats = serve_batches(engine, requests)
-    hits, rstats = serve_retrieval(engine, queries, TOP_K)
-    launches = {"csr_lookup": csr_lookup_kernel.launches,
-                "retrieve_windows": retrieve_windows_kernel.launches,
-                "knrm_pool": knrm_pool_kernel.launches}
-    log(f"phase 3: launches on the main path {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    log(f"phase 3: serve_batches {N_REQUESTS} x ({Q_SLOTS} slots, {N_CAND} "
-        f"candidates): p50 {stats.p50_ms:.3f} ms p95 {stats.p95_ms:.3f} ms")
-    log(f"phase 3: serve_retrieval {N_RETRIEVE} x top-{TOP_K}: "
-        f"p50 {rstats.p50_ms:.3f} ms p95 {rstats.p95_ms:.3f} ms")
-    for what, run, n, wall in (
-            ("serve_batches", lambda: serve_batches(engine, requests),
-             N_REQUESTS, stats.ms_per_request),
-            ("serve_retrieval", lambda: serve_retrieval(engine, queries,
-                                                        TOP_K),
-             N_RETRIEVE, rstats.ms_per_request)):
-        dev_ms, ops = device_busy(run, n)
-        log(f"phase 3: {what}: device busy {dev_ms:.4f} ms per request of "
-            f"{wall:.4f} ms wall (busy share {dev_ms / wall:.3f}), "
-            f"{ops:.1f} device ops per request")
+    scores, hits, launches = serve_path("none", engine, requests, queries)
+    results = {"none": (scores, hits)}
+    path_launches = {"none": launches}
+    engines = {"none": engine}
+    for codec in CODECS:
+        engines[codec] = SeineEngine(packed[codec], "knrm", params,
+                                     codec=codec)
+        s, h, path_launches[codec] = serve_path(codec, engines[codec],
+                                                requests, queries)
+        results[codec] = (s, h)
+    check_packed_paths(index, packed, requests, queries, results, dev)
+    # host times spread between paths run one after another: a second
+    # round in the reverse order, with the raw K=4 partition beside them
+    # (the same shards as the packed paths, codec "none")
+    engines["none K=4"] = SeineEngine(packed["none"], "knrm", params)
+    for path in ("none K=4", "packed-q8", "packed", "none"):
+        _, st = serve_batches(engines[path], requests)
+        _, rst = serve_retrieval(engines[path], queries, TOP_K)
+        log(f"phase 3 [{path}]: second round: serve_batches p50 "
+            f"{st.p50_ms:.3f} ms p95 {st.p95_ms:.3f} ms, serve_retrieval "
+            f"p50 {rst.p50_ms:.3f} ms p95 {rst.p95_ms:.3f} ms")
 
     # outputs: shapes, finiteness, agreement with the plain path
     for (q, docs), s in zip(requests, scores):
@@ -357,7 +595,7 @@ def phase3(index, rng, dev, seed):
         agree = len(set(d.tolist()) & set(order.tolist())) / TOP_K
         log(f"phase 3: query {i} top-{TOP_K} vs brute force: recall "
             f"{agree:.4f}, scores within rtol 1e-5")
-    return requests, queries, launches
+    return requests, queries, path_launches
 
 
 def events_ms(fns, iters: int) -> float:
@@ -376,10 +614,16 @@ def events_ms(fns, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fns, iters: int, kernel: str):
+def device_ms(fns, iters: int, kernel: str, cold: bool = False):
     """Mean device time per call of the kernels whose name contains
     ``kernel`` (CUPTI, through torch.profiler), or None when the profiler
-    records no device time for them."""
+    records no device time for them.  With ``cold``, 64 MB (more than
+    the card's 50 MB L2) are overwritten before every call, so each
+    launch finds its inputs in device memory as a fresh request would;
+    the overwrite is another kernel, which the sum leaves out."""
+    if cold:
+        buf = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+        fns = [lambda f=f: (buf.zero_(), f()) for f in fns]
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
@@ -393,10 +637,10 @@ def device_ms(fns, iters: int, kernel: str):
     return us / 1e3 / iters if us > 0 else None
 
 
-def timed(fns, iters: int, kernel: str):
+def timed(fns, iters: int, kernel: str, cold: bool = False):
     """(device ms, how it was timed, ms with host launch cost)."""
     call = events_ms(fns, iters)
-    dev = device_ms(fns, iters, kernel)
+    dev = device_ms(fns, iters, kernel, cold=cold)
     return (dev, "cupti", call) if dev is not None else (call, "events",
                                                          call)
 
@@ -418,8 +662,10 @@ def time_lookup(index, requests, dev):
     inputs = [lookup_inputs(index, torch.from_numpy(q).to(dev),
                             torch.from_numpy(d).to(dev))
               for q, d in requests]
-    ms, how, call_ms = timed([lambda a=a: csr_lookup_kernel(*a, tile=256)
-                              for a in inputs], 160, "csr_lookup_kernel")
+    fns = [lambda a=a: csr_lookup_kernel(*a, tile=256) for a in inputs]
+    ms, how, call_ms = timed(fns, 160, "csr_lookup_kernel")
+    # cold L2, as the packed lookups are timed
+    ms_cold = timed(fns, 160, "csr_lookup_kernel", cold=True)[0]
     plain_ms = events_ms([lambda a=a: csr_lookup_plain(*a, tile=256)
                           for a in inputs], 16)
     err, found = 0.0, 0
@@ -457,7 +703,7 @@ def time_lookup(index, requests, dev):
     b_ms, b_by = bound(n_bytes, 0)
     return dict(name="csr_lookup", ms=ms, timed_by=how, call_ms=call_ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, ms_cold=ms_cold)
 
 
 def time_scan(index, queries, scan_err, dev):
@@ -514,21 +760,121 @@ def time_knrm(index, requests, knrm_err, dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase4(index, requests, queries, launches, p2, dev):
-    rows = [time_lookup(index, requests, dev),
-            time_scan(index, queries, p2["scan_err"], dev),
-            time_knrm(index, requests, p2["knrm_err"], dev)]
+def time_packed_lookup(pidx, requests, dev):
+    """csr_lookup_packed at the serving shape over one codec's index,
+    one input set per request, as :func:`time_lookup`."""
+    row = N_B * len(ZIPF_FUNCTIONS)
+    val_bytes = pidx._serve_values.element_size()
+    inputs = [packed_args(pidx, torch.from_numpy(q).to(dev),
+                          torch.from_numpy(d).to(dev)) for q, d in requests]
+    # cold L2: the 16 requests' int8 rows (17 MB) would stay in the 50 MB
+    # L2 across the timing loop, which a stream of fresh requests does not
+    ms, how, call_ms = timed(
+        [lambda a=a: csr_lookup_packed_kernel(*a, tile=PACK_TILE)
+         for a in inputs], 160, "csr_lookup_packed_kernel", cold=True)
+    plain_ms = events_ms([lambda a=a: csr_lookup_packed_plain(
+        *a, tile=PACK_TILE) for a in inputs], 16)
+    err, found = 0.0, 0
+    for i, a in enumerate(inputs):
+        got = csr_lookup_packed_kernel(*a, tile=PACK_TILE)
+        want = csr_lookup_packed_plain(*a, tile=PACK_TILE)
+        assert_equal(got, want, f"request {i} csr_lookup_packed")
+        err = max(err, (got - want).abs().max().item())
+        found += int((got != 0).reshape(got.shape[0], got.shape[1], -1)
+                     .any(-1).sum())
+    # bytes the data needs, per cell: the fence bisect over its term's own
+    # tiles and the in-tile bisect plus the hit check (one 4-byte fence or
+    # packed word per probe), the tile's (bits, base, word offset); the
+    # found rows at their storage width, every f32 row written, the
+    # candidates, the routing and the scales
+    n_probes = 0
+    for _, _, lo, hi, *_ in inputs:
+        for t_lo, t_hi in zip(lo.tolist(), hi.tolist()):
+            n_tiles = (max((t_hi - 1) // PACK_TILE, t_lo // PACK_TILE)
+                       - t_lo // PACK_TILE + 1)
+            n_probes += N_CAND * (n_tiles.bit_length() + 3
+                                  + min(PACK_TILE, t_hi - t_lo).bit_length()
+                                  + 1)
+    cells = N_CAND * Q_SLOTS
+    n_bytes = ((n_probes * 4 + found * row * val_bytes) / len(inputs)
+               + cells * row * 4 + N_CAND * 4 + Q_SLOTS * 16)
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+
+
+def time_packed_scan(pidx, queries, dev):
+    """retrieve_windows_packed: one launch per 1024-doc block over the
+    full scans of every retrieval query, on one codec's index; the blocks
+    the plain version is timed on are also held against it."""
+    row = N_B * len(ZIPF_FUNCTIONS)
+    val_bytes = pidx._serve_values.element_size()
+    args = (pidx._packed(), pidx.fences, pidx._serve_values)
+    bits = pidx.tile_bits.long()
+    calls, n_post, id_bits, n_tiles = [], 0, 0, 0
+    for q in queries:
+        lo, hi, scale = packed_lanes(pidx, torch.from_numpy(q).to(dev))
+        for l, (a, b) in enumerate(zip(lo.view(-1).tolist(),
+                                       hi.view(-1).tolist())):
+            if b > a:
+                k = l % pidx.n_shards
+                p = torch.arange(a, b, device=dev) - k * pidx.nmax
+                id_bits += int(bits[k, p // PACK_TILE].sum())
+                n_tiles += int((p[-1] // PACK_TILE - p[0] // PACK_TILE) + 1)
+                n_post += b - a
+        calls += [(scale, lo, hi, blo) for blo in range(0, N_DOCS, 1024)]
+    ms, how, call_ms = timed([lambda c=c: retrieve_windows_packed_kernel(
+        *args, *c, 1024, tile=PACK_TILE) for c in calls], len(calls),
+        "retrieve_block_packed_kernel")
+    plain_ms = events_ms([lambda c=c: scan_block_packed_ref(
+        *args, *c, 1024, tile=PACK_TILE) for c in calls[::16]],
+        len(calls[::16]))
+    err = 0.0
+    for c in calls[::16]:
+        got = retrieve_windows_packed_kernel(*args, *c, 1024, tile=PACK_TILE)
+        want = scan_block_packed_ref(*args, *c, 1024, tile=PACK_TILE)
+        assert_equal(got, want, f"retrieve_windows_packed blo={c[3]}")
+        err = max(err, (got - want).abs().max().item())
+    # per launch: its block's postings (packed id bits, the touched tiles'
+    # 12 bytes of metadata, the rows at their storage width) read and M
+    # written, plus the lanes and their scales
+    n_bytes = ((id_bits / 8 + n_tiles * 12 + n_post * row * val_bytes)
+               / len(calls) + 1024 * Q_SLOTS * row * 4
+               + Q_SLOTS * pidx.n_shards * 12)
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase4(index, packed, requests, queries, launches, p2, dev):
+    rows = [dict(time_lookup(index, requests, dev), path="none"),
+            dict(time_scan(index, queries, p2["scan_err"], dev), path="none"),
+            dict(time_knrm(index, requests, p2["knrm_err"], dev),
+                 path="none")]
+    for name, timer, inputs in (
+            ("csr_lookup_packed", time_packed_lookup, requests),
+            ("retrieve_windows_packed", time_packed_scan, queries)):
+        by_codec = {c: timer(packed[c], inputs, dev) for c in CODECS}
+        rows.append(dict(by_codec["packed"], name=name, path="packed",
+                         library_ms=None, q8=by_codec["packed-q8"]))
     out = []
     for r in rows:
         lib = "knrm_pool" if r["name"] == "knrm_pool" else "csr_lookup"
+        paths = ("none",) if r["path"] == "none" else CODECS
         out.append(dict(r, route="cuda",
                         source=KERNEL_SOURCE.format(lib, lib),
                         replaces=TPU_KERNELS[r["name"]],
-                        launches=launches[r["name"]]))
-        log(f"phase 4: {r['name']}: {r['ms']:.4f} ms ({r['timed_by']}; "
-            f"{r['call_ms']:.4f} ms with launch cost), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}), library {r['library_ms']}")
+                        launches=sum(launches[p][r["name"]] for p in paths),
+                        launches_by_path={p: launches[p][r["name"]]
+                                          for p in paths}))
+        for tag, m in (("", r), (" [packed-q8]", r.get("q8"))):
+            if m is None:
+                continue
+            log(f"phase 4: {r['name']}{tag}: {m['ms']:.4f} ms "
+                f"({m['timed_by']}; {m['call_ms']:.4f} ms with launch "
+                f"cost), plain {m['plain_ms']:.4f} ms, bound "
+                f"{m['bound_ms']:.5f} ms ({m['bound_by']}), library "
+                f"{r['library_ms']}")
     return out
 
 
@@ -560,9 +906,11 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     index, rng = build_index(args.seed, dev)
+    packed, _ = build_packed(index)
     p2 = phase2(index, rng, dev)
-    requests, queries, launches = phase3(index, rng, dev, args.seed)
-    kernels = phase4(index, requests, queries, launches, p2, dev)
+    phase2_packed(index, packed, p2)
+    requests, queries, launches = phase3(index, packed, rng, dev, args.seed)
+    kernels = phase4(index, packed, requests, queries, launches, p2, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

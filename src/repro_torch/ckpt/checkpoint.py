@@ -5,8 +5,9 @@ static fields, codec), one ``shard_<k>.npz`` per term-range shard
 (``term_offsets``, ``doc_ids``, ``values``; a single CSR is the K=1 case)
 and ``common.npz`` with the replicated arrays (routing table, range
 starts and ends, sub-shard tables, idf, per-doc stats).  This is how an
-index built by the JAX package reaches the port.  Packed codecs are not
-ported yet and raise.
+index built by the JAX package reaches the port.  A packed index
+(``codec`` in the manifest) stores its packed sidecars per shard and no
+fences; the fences are rebuilt from the packed tile metadata.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Dict
 import numpy as np
 
 from ..convert import index_from_arrays
+from ..core.codec import validate_codec
 from ..kernels.utils import resolve_device
 
 INDEX_MANIFEST = "index_manifest.json"
@@ -42,11 +44,7 @@ def load_index(index_dir: str, device=None):
             index_dir = max(stranded, key=os.path.getmtime)
     with open(os.path.join(index_dir, INDEX_MANIFEST)) as f:
         m = json.load(f)
-    codec = m.get("codec", "none")
-    if codec != "none":
-        raise NotImplementedError(
-            f"{index_dir}: codec {codec!r} is not ported yet; save the "
-            "index with codec='none'")
+    codec = validate_codec(m.get("codec"))     # legacy: uncompressed
     with np.load(os.path.join(index_dir, "common.npz")) as z:
         arrays = {n: z[n] for n in z.files}
     if m["kind"] == "segment":
@@ -60,4 +58,7 @@ def load_index(index_dir: str, device=None):
         raise ValueError(f"{index_dir}: unknown index kind {m['kind']!r}")
     return index_from_arrays(
         arrays, n_docs=m["n_docs"], vocab_size=m["vocab_size"],
-        n_b=m["n_b"], functions=m["functions"], device=dev)
+        n_b=m["n_b"], functions=m["functions"], device=dev, codec=codec,
+        codec_tile=m.get("codec_tile", 0),
+        max_tile_words=m.get("max_tile_words", 0),
+        codec_spans=m.get("codec_spans", (0, 0)))

@@ -15,6 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.codec import fences_from_packed, validate_codec
 from .core.index import SegmentInvertedIndex, build_fences
 from .dist.partition import PartitionedIndex
 from .kernels.utils import resolve_device
@@ -25,6 +26,8 @@ INDEX_ARRAYS = ("term_offsets", "doc_ids", "values", "idf", "doc_len",
                 "seg_len")
 PARTITION_ARRAYS = ("term_to_shard", "range_lo")
 OPTIONAL_ARRAYS = ("range_hi", "split_term", "split_doc")
+CODEC_ARRAYS = ("packed_words", "tile_bits", "tile_base", "tile_word_off",
+                "values_q", "value_scale")
 
 
 def _host(a) -> np.ndarray:
@@ -35,41 +38,62 @@ def _host(a) -> np.ndarray:
 
 
 def index_from_arrays(arrays: Dict[str, np.ndarray], *, n_docs: int,
-                      vocab_size: int, n_b: int, functions, device=None):
+                      vocab_size: int, n_b: int, functions, device=None,
+                      codec: str = "none", codec_tile: int = 0,
+                      max_tile_words: int = 0, codec_spans=(0, 0)):
     """The port's index from host arrays: a :class:`PartitionedIndex`
     when ``arrays`` holds the routing table, else a
-    :class:`SegmentInvertedIndex`.  Fences are rebuilt from the doc ids,
-    as the reference's loader does."""
+    :class:`SegmentInvertedIndex`.  Fences are rebuilt as the reference's
+    loader does: from the doc ids, or under a packed codec from the
+    packed tile metadata at ``codec_tile``."""
     dev = resolve_device(device)
+    codec = validate_codec(codec)
     t = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
          for n, a in arrays.items() if a is not None}
     static = dict(n_docs=int(n_docs), vocab_size=int(vocab_size),
                   n_b=int(n_b), functions=tuple(functions))
-    fences = build_fences(t["doc_ids"])
     if "term_to_shard" not in t:
-        return SegmentInvertedIndex(fences=fences, **static,
+        if codec != "none":
+            raise ValueError(f"codec {codec!r} needs a partitioned index")
+        return SegmentInvertedIndex(fences=build_fences(t["doc_ids"]),
+                                    **static,
                                     **{n: t[n] for n in INDEX_ARRAYS})
+    if codec == "none":
+        fences = build_fences(t["doc_ids"])
+        codec_kw = {}
+    else:
+        nmax = t["values" if codec == "packed" else "values_q"].shape[1]
+        fences = torch.from_numpy(fences_from_packed(
+            *(np.asarray(arrays[n]) for n in ("tile_bits", "tile_base",
+                                              "tile_word_off",
+                                              "packed_words")),
+            tile=int(codec_tile), n=int(nmax))).to(dev)
+        codec_kw = dict(codec=codec, codec_tile=int(codec_tile),
+                        max_tile_words=int(max_tile_words),
+                        codec_spans=tuple(int(s) for s in codec_spans),
+                        **{n: t.get(n) for n in CODEC_ARRAYS})
     return PartitionedIndex(
-        fences=fences, n_shards=int(t["doc_ids"].shape[0]),
-        **static, **{n: t[n] for n in INDEX_ARRAYS + PARTITION_ARRAYS},
-        **{n: t.get(n) for n in OPTIONAL_ARRAYS})
+        fences=fences, n_shards=int(t["term_offsets"].shape[0]), **static,
+        **{n: t.get(n) for n in INDEX_ARRAYS + PARTITION_ARRAYS
+           + OPTIONAL_ARRAYS}, **codec_kw)
 
 
 def index_to_device(index: Any, device=None):
-    """Move an uncompressed single-CSR or partitioned index — the JAX
+    """Move a single-CSR or partitioned index, raw or packed — the JAX
     package's or the port's — onto ``device`` as the port's index."""
-    codec = getattr(index, "codec", "none")
-    if codec != "none":
-        raise NotImplementedError(f"codec {codec!r} is not ported yet")
     if getattr(index, "is_live", False):
         raise NotImplementedError("a live index is not ported yet")
-    names = INDEX_ARRAYS + (PARTITION_ARRAYS + OPTIONAL_ARRAYS
+    names = INDEX_ARRAYS + (PARTITION_ARRAYS + OPTIONAL_ARRAYS + CODEC_ARRAYS
                             if hasattr(index, "term_to_shard") else ())
     arrays = {n: _host(getattr(index, n)) for n in names
               if getattr(index, n, None) is not None}
     return index_from_arrays(
         arrays, n_docs=index.n_docs, vocab_size=index.vocab_size,
-        n_b=index.n_b, functions=index.functions, device=device)
+        n_b=index.n_b, functions=index.functions, device=device,
+        codec=getattr(index, "codec", "none"),
+        codec_tile=getattr(index, "codec_tile", 0),
+        max_tile_words=getattr(index, "max_tile_words", 0),
+        codec_spans=getattr(index, "codec_spans", (0, 0)))
 
 
 def params_from_jax(retriever: str, tree: Any, device=None) -> ParamTree:

@@ -211,3 +211,30 @@ def build_from_rows(doc_ids: np.ndarray, term_ids: np.ndarray, values, *,
         idf=as_t(idf), doc_len=as_t(doc_len), seg_len=as_t(seg_len),
         n_docs=int(n_docs), vocab_size=int(vocab_size),
         n_b=int(vals.shape[1]), functions=tuple(functions))
+
+
+def merge_run_parts(parts: list, t_lo: int, t_hi: int, *, n_b: int,
+                    n_f: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Merge ``[(term_ids, doc_ids, values), ...]`` numpy slices, each
+    (term, doc)-sorted and restricted to ``[t_lo, t_hi)``, into one local
+    CSR: ``(term_offsets (span+1,) int32, doc_ids (n,) int32, values (n,
+    n_b, n_f) float32)``.  Rows lexsort by (term, doc) as
+    :func:`build_from_rows` orders them; a single part is already sorted
+    and skips the sort."""
+    span = t_hi - t_lo
+    if len(parts) == 1:
+        t = parts[0][0].astype(np.int64) - t_lo
+        d, v = parts[0][1], parts[0][2]
+    elif parts:
+        t = np.concatenate([p[0] for p in parts]).astype(np.int64)
+        d = np.concatenate([p[1] for p in parts])
+        v = np.concatenate([p[2] for p in parts])
+        order = np.lexsort((d, t))
+        t, d, v = t[order] - t_lo, d[order], v[order]
+    else:
+        t = np.zeros(0, np.int64)
+        d = np.zeros(0, np.int32)
+        v = np.zeros((0, n_b, n_f), np.float32)
+    counts = np.bincount(t, minlength=max(span, 1))[:max(span, 1)]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return offsets, np.asarray(d, np.int32), np.asarray(v, np.float32)

@@ -31,6 +31,21 @@
 // untouched cells keep the zeros of the memset that precedes the launch.
 // It is bound by the bytes of the block's postings and of M.
 //
+// csr_lookup_packed_kernel and retrieve_block_packed_kernel are the same
+// two kernels over tile-compressed doc ids (src/repro/core/codec.py): they
+// replace csr_lookup_packed_pallas and retrieve_windows_packed_pallas (the
+// latter fused, as above, with the decode and the merge that followed it).
+// Each posting tile stores a frame base, a width class c in {0,4,8,16,32}
+// and a word offset; the fence row stays raw.  The level-1 bisect is the
+// same fence bisect, one load then picks up the winning tile's (c, base,
+// word offset), and each level-2 probe decodes one packed word:
+// base + ((word >> (bit & 31)) & mask) with a logical (uint32_t) shift, the
+// raw word at c = 32.  A probe at r == tile reads into the row's trailing
+// max_tile_words pad and is never consulted; word reads are clamped to the
+// buffer all the same.  Under packed-q8 the values are int8 and each found
+// row is dequantised as __fmul_rn(float(v), scale) -- one rounding, as the
+// reference's single f32 multiply, never contracted into an FMA.
+//
 // Positions and offsets are int32 inside a shard (K * Nmax < 2^31, as in
 // the reference); every values address is formed in 64 bits, since
 // pos * n_b * n_f passes 2^31 at ~11.9M postings.
@@ -174,6 +189,184 @@ __global__ void retrieve_block_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// packed codec
+// ---------------------------------------------------------------------------
+
+// One shard's packed layout: the fence row and the tile metadata rows of
+// shard k, and its words row as a flat offset into the whole buffer.
+struct PackedShard {
+  const int* frow;    // (F,) raw fences
+  const int* bits;    // (F,) width classes
+  const int* base;    // (F,) frame bases
+  const int* woff;    // (F + 1,) word offsets into the shard's words row
+  int64_t word0;      // k * W
+};
+
+__device__ __forceinline__ PackedShard packed_shard(
+    const int* fences, const int* bits, const int* base, const int* woff,
+    int n_fence, int n_words, int k) {
+  PackedShard s;
+  s.frow = fences + (int64_t)k * n_fence;
+  s.bits = bits + (int64_t)k * n_fence;
+  s.base = base + (int64_t)k * n_fence;
+  s.woff = woff + (int64_t)k * (n_fence + 1);
+  s.word0 = (int64_t)k * n_words;
+  return s;
+}
+
+// element at in-tile position r of a tile of width c and frame tb whose
+// first word sits at flat index w0; reads clamp to the words buffer
+__device__ __forceinline__ int decode_packed(const int* __restrict__ words,
+                                             int64_t n_total, int64_t w0,
+                                             int r, int c, int tb) {
+  if (c == 0) return tb;
+  const int bp = r * c;
+  int64_t wi = w0 + (bp >> 5);
+  wi = wi < 0 ? 0 : (wi >= n_total ? n_total - 1 : wi);
+  const uint32_t wv = (uint32_t)__ldg(words + wi);
+  if (c == 32) return (int)wv;
+  const uint32_t mask = (1u << min(c, 16)) - 1u;
+  return (int)((uint32_t)tb + ((wv >> (bp & 31)) & mask));
+}
+
+// first shard-local position p in [lo, hi) whose decoded id is >= target:
+// the fence bisect over the raw fence row, then the in-tile bisect over
+// decoded words; *v_at (when given) gets the decoded id at p, or the next
+// raw fence when p is on the tile's right boundary
+__device__ int packed_bisect(const PackedShard& s,
+                             const int* __restrict__ words, int64_t n_total,
+                             int n_fence, int lo, int hi, int target,
+                             int tile, int fence_iter, int tile_iter,
+                             int* v_at) {
+  const int j_lo = floordiv(lo, tile);
+  const int j_hi = max(floordiv(hi - 1, tile), j_lo);
+  int flo = j_lo + 1, fhi = j_hi + 1;
+  for (int i = 0; i < fence_iter && flo < fhi; ++i) {
+    const int mid = midpoint(flo, fhi);
+    const bool go = __ldg(s.frow + clampi(mid, 0, n_fence - 1)) < target;
+    flo = go ? mid + 1 : flo;
+    fhi = go ? fhi : mid;
+  }
+  const int jt = clampi(flo - 1, 0, n_fence - 1);
+  const int base = jt * tile;
+  const int c = __ldg(s.bits + jt);
+  const int tb = __ldg(s.base + jt);
+  const int64_t w0 = s.word0 + __ldg(s.woff + jt);
+  int plo = max(base, lo), phi = min(base + tile, hi);
+  for (int i = 0; i < tile_iter && plo < phi; ++i) {
+    const int mid = midpoint(plo, phi);
+    const bool go =
+        decode_packed(words, n_total, w0, mid - base, c, tb) < target;
+    plo = go ? mid + 1 : plo;
+    phi = go ? phi : mid;
+  }
+  if (v_at != nullptr) {
+    *v_at = plo - base < tile
+                ? decode_packed(words, n_total, w0, plo - base, c, tb)
+                : __ldg(s.frow + clampi(jt + 1, 0, n_fence - 1));
+  }
+  return plo;
+}
+
+template <bool kQuantized>
+__device__ __forceinline__ float stored(const void* __restrict__ values,
+                                        int64_t at, float scale) {
+  if (kQuantized)
+    return __fmul_rn((float)__ldg((const signed char*)values + at), scale);
+  return __ldg((const float*)values + at);
+}
+
+template <bool kQuantized>
+__global__ void csr_lookup_packed_kernel(
+    const int* __restrict__ shard, const int* __restrict__ lo,
+    const int* __restrict__ hi, int pair_routed,
+    const int* __restrict__ docs, const int* __restrict__ words,
+    int n_words, const int* __restrict__ bits,
+    const int* __restrict__ tbase, const int* __restrict__ woff,
+    const int* __restrict__ fences, int n_fence,
+    const void* __restrict__ values, int n_max,
+    const float* __restrict__ scale, int row_len, float* __restrict__ out,
+    int n_q, int n_cand, int n_shards, int tile, int fence_iter,
+    int tile_iter) {
+  const int lane = threadIdx.x & 31;
+  const int64_t cell =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (cell >= (int64_t)n_q * n_cand) return;
+  const int b = (int)(cell / n_q);
+  const int q = (int)(cell % n_q);
+  const int r = pair_routed ? q * n_cand + b : q;
+  const int k = clampi(__ldg(shard + r), 0, n_shards - 1);
+  const int hi0 = __ldg(hi + r), d = __ldg(docs + b);
+  const PackedShard s =
+      packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
+  int v_at;
+  const int pos = packed_bisect(s, words, (int64_t)n_shards * n_words,
+                                n_fence, __ldg(lo + r), hi0, d, tile,
+                                fence_iter, tile_iter, &v_at);
+  const bool found = (pos < hi0) && (v_at == d);
+
+  float* dst = out + cell * row_len;
+  if (found) {
+    const float sc = kQuantized ? __ldg(scale + r) : 1.0f;
+    const int64_t src =
+        ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len;
+    for (int j = lane; j < row_len; j += 32)
+      dst[j] = stored<kQuantized>(values, src + j, sc);
+  } else {
+    for (int j = lane; j < row_len; j += 32) dst[j] = 0.0f;
+  }
+}
+
+// Block (lane l = (query slot q, shard k), window w): both packed bisects
+// of the lane, then each live position of the w-th window decodes its id
+// (unpack_at: its own tile's metadata and one word) and stores
+// 0.0f + value into its M row.
+template <bool kQuantized>
+__global__ void retrieve_block_packed_kernel(
+    const int* __restrict__ lane_lo, const int* __restrict__ lane_hi,
+    const int* __restrict__ words, int n_words,
+    const int* __restrict__ bits, const int* __restrict__ tbase,
+    const int* __restrict__ woff, const int* __restrict__ fences,
+    int n_fence, const void* __restrict__ values, int n_max,
+    const float* __restrict__ lane_scale, int row_len,
+    float* __restrict__ out, int n_q, int n_shards, int blo, int block,
+    int tile, int fence_iter, int tile_iter) {
+  const int l = blockIdx.x;
+  const int q = l / n_shards, k = l % n_shards;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int64_t n_total = (int64_t)n_shards * n_words;
+  const PackedShard s =
+      packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
+  const int shard0 = k * n_max;
+  const int lo0 = __ldg(lane_lo + l) - shard0;
+  const int hi0 = __ldg(lane_hi + l) - shard0;
+  const int s_lo = packed_bisect(s, words, n_total, n_fence, lo0, hi0, blo,
+                                 tile, fence_iter, tile_iter, nullptr);
+  const int s_hi = packed_bisect(s, words, n_total, n_fence, lo0, hi0,
+                                 blo + block, tile, fence_iter, tile_iter,
+                                 nullptr);
+  const float sc = kQuantized ? __ldg(lane_scale + l) : 1.0f;
+  const int first = blockIdx.y * tile;
+  const int last = min(first + tile, s_hi - s_lo);
+  for (int i = first + warp; i < last; i += n_warps) {
+    const int p = s_lo + i;
+    const int jt = clampi(p / tile, 0, n_fence - 1);
+    const int doc = decode_packed(
+        words, n_total, s.word0 + __ldg(s.woff + jt),
+        clampi(p - jt * tile, 0, tile - 1), __ldg(s.bits + jt),
+        __ldg(s.base + jt));
+    const int seg = doc - blo;
+    if (seg < 0 || seg >= block) continue;
+    const int64_t src = ((int64_t)shard0 + p) * row_len;
+    float* dst = out + ((int64_t)seg * n_q + q) * row_len;
+    for (int j = lane; j < row_len; j += 32)
+      dst[j] = __fadd_rn(0.0f, stored<kQuantized>(values, src + j, sc));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +402,56 @@ int retrieve_block_launch(const int* lane_lo, const int* lane_hi,
   retrieve_block_kernel<<<grid, 256, 0, stream>>>(
       lane_lo, lane_hi, doc_ids, n_total, bisect_iter, values, row_len, out,
       n_q, n_shards, blo, block, window);
+  return (int)cudaGetLastError();
+}
+
+int csr_lookup_packed_launch(
+    const int* shard, const int* lo, const int* hi, int pair_routed,
+    const int* docs, const int* words, int n_words, const int* bits,
+    const int* tbase, const int* woff, const int* fences, int n_fence,
+    const void* values, int quantized, int n_max, const float* scale,
+    int row_len, float* out, int n_q, int n_cand, int n_shards, int tile,
+    int fence_iter, int tile_iter, cudaStream_t stream) {
+  const int64_t cells = (int64_t)n_q * n_cand;
+  if (cells == 0) return 0;
+  const int threads = 256, warps = threads / 32;
+  const unsigned blocks = (unsigned)((cells + warps - 1) / warps);
+  if (quantized)
+    csr_lookup_packed_kernel<true><<<blocks, threads, 0, stream>>>(
+        shard, lo, hi, pair_routed, docs, words, n_words, bits, tbase, woff,
+        fences, n_fence, values, n_max, scale, row_len, out, n_q, n_cand,
+        n_shards, tile, fence_iter, tile_iter);
+  else
+    csr_lookup_packed_kernel<false><<<blocks, threads, 0, stream>>>(
+        shard, lo, hi, pair_routed, docs, words, n_words, bits, tbase, woff,
+        fences, n_fence, values, n_max, scale, row_len, out, n_q, n_cand,
+        n_shards, tile, fence_iter, tile_iter);
+  return (int)cudaGetLastError();
+}
+
+int retrieve_block_packed_launch(
+    const int* lane_lo, const int* lane_hi, const int* words, int n_words,
+    const int* bits, const int* tbase, const int* woff, const int* fences,
+    int n_fence, const void* values, int quantized, int n_max,
+    const float* lane_scale, int row_len, float* out, int n_q, int n_shards,
+    int blo, int block, int tile, int fence_iter, int tile_iter,
+    cudaStream_t stream) {
+  const size_t out_bytes = (size_t)block * n_q * row_len * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int lanes = n_q * n_shards;
+  if (lanes == 0 || n_max == 0) return (int)cudaGetLastError();
+  dim3 grid((unsigned)lanes, (unsigned)((block + tile - 1) / tile));
+  if (quantized)
+    retrieve_block_packed_kernel<true><<<grid, 256, 0, stream>>>(
+        lane_lo, lane_hi, words, n_words, bits, tbase, woff, fences,
+        n_fence, values, n_max, lane_scale, row_len, out, n_q, n_shards,
+        blo, block, tile, fence_iter, tile_iter);
+  else
+    retrieve_block_packed_kernel<false><<<grid, 256, 0, stream>>>(
+        lane_lo, lane_hi, words, n_words, bits, tbase, woff, fences,
+        n_fence, values, n_max, lane_scale, row_len, out, n_q, n_shards,
+        blo, block, tile, fence_iter, tile_iter);
   return (int)cudaGetLastError();
 }
 

@@ -2,16 +2,22 @@
 
 ``csr_lookup_kernel`` replaces ``repro/kernels/csr_lookup/kernel.py::
 csr_lookup_pallas`` and ``retrieve_windows_kernel`` replaces
-``retrieve_windows_pallas`` fused with the window merge; the source file
-says what bounds each on the H100 and what the design does about it.
+``retrieve_windows_pallas`` fused with the window merge;
+``csr_lookup_packed_kernel`` and ``retrieve_windows_packed_kernel`` are
+the same two over tile-packed doc ids (``csr_lookup_packed_pallas``,
+``retrieve_windows_packed_pallas``).  The source file says what bounds
+each on the H100 and what the design does about it.
 
 A wrapper given CUDA tensors validates them, allocates its output with
 ``torch.empty``, launches on PyTorch's current stream, raises on a
 nonzero ``cudaGetLastError`` and adds one to its ``launches`` count.
-Given CPU tensors it runs its plain PyTorch version instead:
-:func:`csr_lookup_plain`, which repeats the kernel's per-cell algorithm
-(fence bisect, ``jt`` clamp, in-tile bisect, fence-edge case) so the CPU
-tests check the tile-edge logic, and ``ref.scan_block_ref``.
+Given CPU tensors it runs its plain PyTorch version instead, which
+repeats the kernel's per-cell algorithm so the CPU tests check the
+tile-edge and decode logic: :func:`csr_lookup_plain` (fence bisect,
+``jt`` clamp, in-tile bisect, fence-edge case),
+:func:`csr_lookup_packed_plain` (the same with packed probes, through
+``ref.packed_bisect``), ``ref.scan_block_ref`` and
+``ref.scan_block_packed_ref``.
 """
 from __future__ import annotations
 
@@ -19,10 +25,11 @@ import ctypes
 
 import torch
 
-from ...core.index import INT32_MAX
+from ...core.index import INT32_MAX, fence_count
 from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
                      stream_handle)
-from .ref import bisect_steps, scan_block_ref
+from .ref import (bisect_steps, packed_rows, scan_block_packed_ref,
+                  scan_block_ref)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -30,6 +37,12 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _P],
     "retrieve_block_launch": [_P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _I,
                               _I, _I, _P],
+    "csr_lookup_packed_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                                 _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I,
+                                 _I, _I, _P],
+    "retrieve_block_packed_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                                     _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _P],
 }
 
 
@@ -178,3 +191,150 @@ def retrieve_windows_kernel(doc_ids, values, lane_lo, lane_hi, blo: int,
 
 
 retrieve_windows_kernel.launches = 0
+
+
+def _check_packed(packed, fences, values, dev, tile: int):
+    """Validate the packed layout a packed kernel reads; -> (K, W, F)."""
+    words, bits, base, woff = packed
+    check_cuda_tensor("packed_words", words, torch.int32, dev, 2)
+    for name, a in (("tile_bits", bits), ("tile_base", base),
+                    ("tile_word_off", woff), ("fences", fences)):
+        check_cuda_tensor(name, a, torch.int32, dev, 2)
+    if values.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"values have dtype {values.dtype}, expected "
+                        "float32 or int8")
+    check_cuda_tensor("values", values, values.dtype, dev, 4)
+    n_k, n_fence = fences.shape
+    if (words.shape[0] != n_k or values.shape[0] != n_k
+            or bits.shape != (n_k, n_fence) or base.shape != bits.shape
+            or woff.shape != (n_k, n_fence + 1)):
+        raise ValueError("packed words, tile metadata, fences and values "
+                         "disagree on (K, F)")
+    if n_fence != fence_count(values.shape[1], tile):
+        raise ValueError(f"{n_fence} packed tiles do not match "
+                         f"{values.shape[1]} postings at tile {tile}")
+    return n_k, words.shape[1], n_fence
+
+
+def _check_scale(scale, values, dev, shape):
+    if values.dtype != torch.int8:
+        return None
+    if scale is None:
+        raise ValueError("int8 values need their dequant scales")
+    check_cuda_tensor("scale", scale, torch.float32, dev, len(shape))
+    if tuple(scale.shape) != tuple(shape):
+        raise ValueError(f"scale shape {tuple(scale.shape)} != "
+                         f"{tuple(shape)}")
+    return scale
+
+
+def csr_lookup_packed_plain(shard, lo, hi, doc_targets, packed, fences,
+                            values, scale, *, tile: int) -> torch.Tensor:
+    """The packed kernel's per-cell algorithm over all (b, q) cells at
+    once, in plain PyTorch: routing as ``csr_lookup_plain`` takes it, then
+    ``ref.packed_rows`` (fence bisect, the winning tile's metadata,
+    in-tile bisect over decoded words, fence-edge case, dequant, select).
+    Same inputs and output as :func:`csr_lookup_packed_kernel`."""
+    shape = (doc_targets.shape[0], shard.shape[0])          # (B, Q)
+    if shard.ndim == 2:                         # per-pair routing (Q, B)
+        k, lo0, hi0 = shard.T, lo.T, hi.T
+        sc = None if scale is None else scale.T
+    else:
+        k, lo0, hi0 = (shard[None].expand(shape), lo[None].expand(shape),
+                       hi[None].expand(shape))
+        sc = None if scale is None else scale[None].expand(shape)
+    d = doc_targets[:, None].expand(shape)
+    return packed_rows(packed, fences, values, k.long(), lo0, hi0, d,
+                       sc if values.dtype == torch.int8 else None,
+                       tile=tile)
+
+
+def csr_lookup_packed_kernel(shard, lo, hi, doc_targets, packed, fences,
+                             values, scale=None, *, tile: int
+                             ) -> torch.Tensor:
+    """shard/lo/hi (Q,) or (Q, B) int32 routing as in
+    :func:`csr_lookup_kernel`; ``packed = (packed_words (K, W), tile_bits
+    (K, F), tile_base (K, F), tile_word_off (K, F+1))`` int32 at codec
+    tile ``tile``; fences (K, F) int32 raw; values (K, Nmax, n_b, n_f)
+    f32, or int8 with ``scale`` f32 shaped like the routing (the pair's
+    per-term dequant scale) -> M (B, Q, n_b, n_f) f32."""
+    if values.device.type != "cuda":
+        return csr_lookup_packed_plain(shard, lo, hi, doc_targets, packed,
+                                       fences, values, scale, tile=tile)
+    dev = values.device
+    n_q, n_cand = shard.shape[0], doc_targets.shape[0]
+    route_ndim = shard.ndim
+    if route_ndim not in (1, 2) or (route_ndim == 2
+                                    and shard.shape[1] != n_cand):
+        raise ValueError(f"routing must be (Q,) or (Q, B={n_cand}), got "
+                         f"{tuple(shard.shape)}")
+    for name, t in (("shard", shard), ("lo", lo), ("hi", hi)):
+        check_cuda_tensor(name, t, torch.int32, dev, route_ndim)
+        if t.shape != shard.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != shard "
+                             f"shape {tuple(shard.shape)}")
+    check_cuda_tensor("doc_targets", doc_targets, torch.int32, dev, 1)
+    n_k, n_words, n_fence = _check_packed(packed, fences, values, dev, tile)
+    scale = _check_scale(scale, values, dev, shard.shape)
+    words, bits, base, woff = packed
+    out = torch.empty((n_cand, n_q) + tuple(values.shape[2:]),
+                      dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.csr_lookup_packed_launch(
+        ptr(shard), ptr(lo), ptr(hi), int(route_ndim == 2),
+        ptr(doc_targets), ptr(words), n_words, ptr(bits), ptr(base),
+        ptr(woff), ptr(fences), n_fence, ptr(values),
+        int(values.dtype == torch.int8), values.shape[1],
+        None if scale is None else ptr(scale),
+        values.shape[2] * values.shape[3], ptr(out), n_q, n_cand, n_k,
+        int(tile), bisect_steps(n_fence), bisect_steps(tile),
+        stream_handle())
+    check_launch(lib, rc, "csr_lookup_packed_kernel")
+    csr_lookup_packed_kernel.launches += 1
+    return out
+
+
+csr_lookup_packed_kernel.launches = 0
+
+
+def retrieve_windows_packed_kernel(packed, fences, values, lane_scale,
+                                   lane_lo, lane_hi, blo: int, block: int,
+                                   *, tile: int) -> torch.Tensor:
+    """First-stage scan of one doc block over packed ids: ``packed``,
+    fences and values as in :func:`csr_lookup_packed_kernel`;
+    ``lane_scale`` (Q, K) f32 for int8 values (else None); lane_lo /
+    lane_hi (Q, K) int32 flat posting ranges -> M (block, Q, n_b, n_f)
+    f32 for docs ``[blo, blo + block)``."""
+    if values.device.type != "cuda":
+        return scan_block_packed_ref(packed, fences, values, lane_scale,
+                                     lane_lo, lane_hi, blo, block,
+                                     tile=tile)
+    dev = values.device
+    n_k, n_words, n_fence = _check_packed(packed, fences, values, dev, tile)
+    check_cuda_tensor("lane_lo", lane_lo, torch.int32, dev, 2)
+    check_cuda_tensor("lane_hi", lane_hi, torch.int32, dev, 2)
+    n_q = lane_lo.shape[0]
+    if lane_lo.shape != (n_q, n_k) or lane_hi.shape != (n_q, n_k):
+        raise ValueError(f"lanes must be (Q, K={n_k}), got "
+                         f"{tuple(lane_lo.shape)} / {tuple(lane_hi.shape)}")
+    if block <= 0:
+        raise ValueError(f"block must be > 0, got {block}")
+    lane_scale = _check_scale(lane_scale, values, dev, (n_q, n_k))
+    words, bits, base, woff = packed
+    out = torch.empty((block, n_q) + tuple(values.shape[2:]),
+                      dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.retrieve_block_packed_launch(
+        ptr(lane_lo), ptr(lane_hi), ptr(words), n_words, ptr(bits),
+        ptr(base), ptr(woff), ptr(fences), n_fence, ptr(values),
+        int(values.dtype == torch.int8), values.shape[1],
+        None if lane_scale is None else ptr(lane_scale),
+        values.shape[2] * values.shape[3], ptr(out), n_q, n_k, int(blo),
+        int(block), int(tile), bisect_steps(n_fence), bisect_steps(tile),
+        stream_handle())
+    check_launch(lib, rc, "retrieve_windows_packed_kernel")
+    retrieve_windows_packed_kernel.launches += 1
+    return out
+
+
+retrieve_windows_packed_kernel.launches = 0

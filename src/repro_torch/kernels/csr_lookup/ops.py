@@ -1,8 +1,8 @@
 """Public entry points of the serving lookup and the first-stage scan.
 
-Port of ``repro.kernels.csr_lookup.ops`` for codec ``"none"``.  The JAX
-op dispatches by backend (the Pallas kernel on TPU, the jnp ref
-elsewhere); this one dispatches by the tensors' device:
+Port of ``repro.kernels.csr_lookup.ops``.  The JAX op dispatches by
+backend (the Pallas kernel on TPU, the jnp ref elsewhere); this one
+dispatches by the tensors' device:
 
 * a CUDA tensor goes to the hand-written CUDA kernel (``kernel.py``);
 * a CPU tensor goes to the routed torch ref lowering (``ref.py``).
@@ -12,6 +12,12 @@ either device (the reference a run on the card is checked against), and
 ``"kernel"`` forces the kernel's dataflow — routing, fences, kernel
 wrapper — which on the CPU runs the kernel's plain version (the parity
 tests).  A CUDA tensor never falls back to the ref on its own.
+
+``codec="packed"``/``"packed-q8"`` serves tile-compressed postings
+(``core.codec``): ``doc_ids`` is None and ``packed`` carries
+``(packed_words, tile_bits, tile_base, tile_word_off)``; under q8
+``values`` is int8 with ``value_scale (K, Vmax)`` per-term scales.  A
+packed layout serves only at its build-time codec ``tile``.
 """
 from __future__ import annotations
 
@@ -19,24 +25,66 @@ from typing import Optional
 
 import torch
 
+from ...core.codec import validate_codec
 from ...core.index import POSTING_TILE, build_fences, fence_count
-from .kernel import csr_lookup_kernel, retrieve_windows_kernel
-from .ref import (_alive_at, csr_lookup_ref, retrieve_lanes, route_pairs,
-                  route_terms, scan_block_ref)
+from .kernel import (csr_lookup_kernel, csr_lookup_packed_kernel,
+                     retrieve_windows_kernel, retrieve_windows_packed_kernel)
+from .ref import (_alive_at, _lane_scale, csr_lookup_packed_ref,
+                  csr_lookup_ref, lane_scales, retrieve_lanes, route_pairs,
+                  route_terms, scan_block_packed_ref, scan_block_ref)
 
 IMPLS = (None, "ref", "kernel")
 
 
-def _use_kernel(impl: Optional[str], like: torch.Tensor, codec: str) -> bool:
-    if codec != "none":
-        raise NotImplementedError(
-            f"codec {codec!r} is not ported yet; the port serves "
-            "uncompressed postings (codec='none') only")
+def _use_kernel(impl: Optional[str], like: torch.Tensor) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; supported: {IMPLS}")
     if impl is None:
         return like.device.type == "cuda"
     return impl == "kernel"
+
+
+def _check_packed_args(codec, packed, fences, values, tile, t):
+    """The codec's tile width is baked into the packed layout (word
+    offsets, fence spacing), so a mismatched ``tile`` cannot be re-tiled
+    on the fly the way raw fences are rebuilt: refuse it."""
+    if packed is None:
+        raise ValueError(f"codec {codec!r} needs the packed posting "
+                         "arrays (packed_words, tile_bits, tile_base, "
+                         "tile_word_off)")
+    if fences is None:
+        raise ValueError(f"codec {codec!r} needs the build-time fence "
+                         "rows (the codec keeps them uncompressed as "
+                         "tile anchors; they cannot be rebuilt from "
+                         "packed tiles at lookup time)")
+    n_fence = fence_count(values.shape[1], t)
+    if packed[1].shape[1] != n_fence or fences.shape[1] != n_fence:
+        raise ValueError(
+            f"tile={tile} does not match the packed tile layout "
+            f"({packed[1].shape[1]} packed tiles / {fences.shape[1]} "
+            f"fences vs {n_fence} expected); packed indexes serve only "
+            "at their build-time codec tile")
+    if codec == "packed-q8" and values.dtype != torch.int8:
+        raise ValueError("codec 'packed-q8' expects int8 values")
+
+
+def _route_cells(query_terms, doc_targets, term_offsets, term_to_shard,
+                 range_lo, split_term, split_doc):
+    """The kernels' routing: ``(k, lo, hi)`` per term (Q,), or per pair
+    (Q, B) when hot terms are split by doc range; plus the term ids of
+    the same shape (for the q8 scales)."""
+    if split_term is None:
+        return route_terms(query_terms, term_offsets, term_to_shard,
+                           range_lo) + (query_terms,)
+    shape = (query_terms.shape[0], doc_targets.shape[0])     # (Q, B)
+    w = query_terms[:, None].expand(shape)
+    return route_pairs(w, doc_targets[None].expand(shape), term_offsets,
+                       term_to_shard, range_lo, split_term,
+                       split_doc) + (w,)
+
+
+def _as_i32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.int32).contiguous()
 
 
 def _mask_dead_rows(out: torch.Tensor, alive, doc_targets: torch.Tensor
@@ -50,14 +98,16 @@ def _mask_dead_rows(out: torch.Tensor, alive, doc_targets: torch.Tensor
     return torch.where(keep, out, 0.0)
 
 
-def csr_lookup(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
+def csr_lookup(term_offsets: torch.Tensor, doc_ids: Optional[torch.Tensor],
                values: torch.Tensor, term_to_shard, range_lo,
                query_terms: torch.Tensor, doc_targets: torch.Tensor, *,
                fences: Optional[torch.Tensor] = None,
                split_term: Optional[torch.Tensor] = None,
                split_doc: Optional[torch.Tensor] = None,
                tile: Optional[int] = None, impl: Optional[str] = None,
-               codec: str = "none",
+               codec: str = "none", packed=None,
+               value_scale: Optional[torch.Tensor] = None,
+               codec_spans: tuple = (0, 0),
                alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused lookup–merge: query_terms (Q,) x doc_targets (B,) over a
     K-stacked shard CSR -> M_{q,d} (B, Q, n_b, n_f); +0.0 for absent
@@ -68,47 +118,81 @@ def csr_lookup(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
     ``K == 1`` with ``term_to_shard=None``.  ``split_term``/``split_doc``
     are the doc-range sub-shard tables (routing is then per pair);
     ``fences``/``tile`` configure the kernel's two-level bisect; ``alive``
-    (n_docs,) bool zeroes the pairs of deleted docs.
+    (n_docs,) bool zeroes the pairs of deleted docs.  Packed codecs as in
+    the module doc; ``codec_spans`` is the pack-time loop-bound hint of
+    the ref's bisects (``(0, 0)``: worst case).
     """
-    if not _use_kernel(impl, doc_ids, codec):
+    codec = validate_codec(codec)
+    t = int(tile or POSTING_TILE)
+    use_kernel = _use_kernel(impl, values)
+    if codec != "none":
+        _check_packed_args(codec, packed, fences, values, tile, t)
+        if not use_kernel:
+            return csr_lookup_packed_ref(
+                term_offsets, packed, fences, values, value_scale,
+                term_to_shard, range_lo, query_terms, doc_targets,
+                split_term, split_doc, tile=t, spans=tuple(codec_spans),
+                alive=alive)
+        k, lo, hi, w = _route_cells(query_terms, doc_targets, term_offsets,
+                                    term_to_shard, range_lo, split_term,
+                                    split_doc)
+        scale = (None if value_scale is None else
+                 _lane_scale(value_scale, range_lo, k, w).contiguous())
+        out = csr_lookup_packed_kernel(
+            _as_i32(k), _as_i32(lo), _as_i32(hi), _as_i32(doc_targets),
+            packed, fences, values, scale, tile=t)
+        return _mask_dead_rows(out, alive, doc_targets)
+    if not use_kernel:
         return csr_lookup_ref(term_offsets, doc_ids, values, term_to_shard,
                               range_lo, query_terms, doc_targets,
                               split_term, split_doc, alive=alive)
-    t = int(tile or POSTING_TILE)
-    if split_term is None:
-        k, lo, hi = route_terms(query_terms, term_offsets, term_to_shard,
-                                range_lo)
-    else:
-        shape = (query_terms.shape[0], doc_targets.shape[0])     # (Q, B)
-        k, lo, hi = route_pairs(
-            query_terms[:, None].expand(shape),
-            doc_targets[None].expand(shape), term_offsets, term_to_shard,
-            range_lo, split_term, split_doc)
+    k, lo, hi, _ = _route_cells(query_terms, doc_targets, term_offsets,
+                                term_to_shard, range_lo, split_term,
+                                split_doc)
     # stored fences are spaced at the build-time POSTING_TILE: rebuild
     # them whenever the requested tile disagrees
     if (fences is None or t != POSTING_TILE
             or fences.shape[1] != fence_count(doc_ids.shape[1], t)):
         fences = build_fences(doc_ids, t)
-    as_i32 = lambda a: a.to(torch.int32).contiguous()
-    out = csr_lookup_kernel(as_i32(k), as_i32(lo), as_i32(hi),
-                            as_i32(doc_targets), doc_ids, fences,
+    out = csr_lookup_kernel(_as_i32(k), _as_i32(lo), _as_i32(hi),
+                            _as_i32(doc_targets), doc_ids, fences,
                             values.to(torch.float32), tile=t)
     return _mask_dead_rows(out, alive, doc_targets)
 
 
 def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
-                   range_hi, query_terms, block, tile, use_kernel, alive):
-    """``blo -> M (block, Q, n_b, n_f)`` with the lanes computed once for
-    every block of the scan."""
+                   range_hi, query_terms, block, tile, impl, alive, codec,
+                   packed, value_scale, codec_spans, fences):
+    """``blo -> M (block, Q, n_b, n_f)`` with the lanes (and, under q8,
+    their scales) computed once for every block of the scan."""
+    codec = validate_codec(codec)
+    t = int(tile or POSTING_TILE)
+    use_kernel = _use_kernel(impl, values)
     lo_f, hi_f = retrieve_lanes(query_terms, term_offsets, term_to_shard,
-                                range_lo, range_hi, doc_ids.shape[1])
+                                range_lo, range_hi, values.shape[1])
+    arange = torch.arange(block, dtype=torch.int32, device=values.device)
+    if codec != "none":
+        _check_packed_args(codec, packed, fences, values, tile, t)
+        scale = (None if value_scale is None
+                 else lane_scales(value_scale, range_lo, query_terms))
+        if not use_kernel:
+            return lambda blo: scan_block_packed_ref(
+                packed, fences, values, scale, lo_f, hi_f, blo, block,
+                tile=t, spans=tuple(codec_spans), alive=alive)
+        lo_f, hi_f = _as_i32(lo_f), _as_i32(hi_f)
+        scale = None if scale is None else scale.contiguous()
+
+        def packed_block(blo):
+            m = retrieve_windows_packed_kernel(packed, fences, values, scale,
+                                               lo_f, hi_f, blo, block,
+                                               tile=t)
+            return _mask_dead_rows(m, alive, blo + arange)
+        return packed_block
     if not use_kernel:
         return lambda blo: scan_block_ref(doc_ids, values, lo_f, hi_f, blo,
                                           block, alive=alive)
-    t = int(tile or POSTING_TILE)
     lo_f, hi_f = lo_f.contiguous(), hi_f.contiguous()
     vals = values.to(torch.float32)
-    arange = torch.arange(block, dtype=torch.int32, device=doc_ids.device)
 
     def block_m(blo):
         m = retrieve_windows_kernel(doc_ids, vals, lo_f, hi_f, blo, block,
@@ -117,30 +201,40 @@ def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
     return block_m
 
 
-def csr_retrieve_block(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
+def csr_retrieve_block(term_offsets: torch.Tensor,
+                       doc_ids: Optional[torch.Tensor],
                        values: torch.Tensor, term_to_shard, range_lo,
                        range_hi, query_terms: torch.Tensor, blo: int, *,
                        block: int, tile: Optional[int] = None,
                        impl: Optional[str] = None, codec: str = "none",
+                       packed=None,
+                       value_scale: Optional[torch.Tensor] = None,
+                       codec_spans: tuple = (0, 0),
+                       fences: Optional[torch.Tensor] = None,
                        alive: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """M rows for docs ``[blo, blo + block)`` x query_terms (Q,) over a
     K-stacked shard CSR -> (block, Q, n_b, n_f), built by walking the
     query's posting lists.  Exact vs the per-pair lookup: exclusive
-    shard ownership writes each cell at most once, zeros elsewhere."""
-    use_kernel = _use_kernel(impl, doc_ids, codec)
+    shard ownership writes each cell at most once, zeros elsewhere.
+    Packed codecs as in :func:`csr_lookup`."""
     return _block_scanner(term_offsets, doc_ids, values, term_to_shard,
                           range_lo, range_hi, query_terms, int(block), tile,
-                          use_kernel, alive)(int(blo))
+                          impl, alive, codec, packed, value_scale,
+                          codec_spans, fences)(int(blo))
 
 
-def csr_retrieve_topk(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
+def csr_retrieve_topk(term_offsets: torch.Tensor,
+                      doc_ids: Optional[torch.Tensor],
                       values: torch.Tensor, term_to_shard, range_lo,
                       range_hi, query_terms: torch.Tensor, *, n_docs: int,
                       k: int, score_block_fn,
                       doc_block: Optional[int] = None,
                       tile: Optional[int] = None, impl: Optional[str] = None,
-                      codec: str = "none",
+                      codec: str = "none", packed=None,
+                      value_scale: Optional[torch.Tensor] = None,
+                      codec_spans: tuple = (0, 0),
+                      fences: Optional[torch.Tensor] = None,
                       alive: Optional[torch.Tensor] = None):
     """First-stage top-k: scan the corpus in doc blocks, score each with
     ``score_block_fn(M_block, doc_ids_block) -> (block,)`` and keep a
@@ -160,8 +254,9 @@ def csr_retrieve_topk(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
     n_blocks = -(-max(n_docs, 1) // block)
     block_m = _block_scanner(term_offsets, doc_ids, values, term_to_shard,
                              range_lo, range_hi, query_terms, block, tile,
-                             _use_kernel(impl, doc_ids, codec), alive)
-    dev = doc_ids.device
+                             impl, alive, codec, packed, value_scale,
+                             codec_spans, fences)
+    dev = values.device
     run_v = torch.full((k,), -torch.inf, dtype=torch.float32, device=dev)
     run_i = torch.full((k,), -1, dtype=torch.int32, device=dev)
     arange = torch.arange(block, dtype=torch.int32, device=dev)
@@ -178,5 +273,5 @@ def csr_retrieve_topk(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
     return run_v, run_i
 
 
-__all__ = ["csr_lookup", "csr_lookup_ref", "csr_retrieve_block",
-           "csr_retrieve_topk"]
+__all__ = ["csr_lookup", "csr_lookup_packed_ref", "csr_lookup_ref",
+           "csr_retrieve_block", "csr_retrieve_topk"]

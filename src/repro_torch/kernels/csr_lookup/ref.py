@@ -1,8 +1,8 @@
 """Routed CSR lookup–merge in plain PyTorch — the CPU lowering of the ops.
 
-Port of the uncompressed half of ``repro.kernels.csr_lookup.ref``: one
-vectorised pass over the stacked shard CSR ``(K, ...)`` with no K-axis
-loop.
+Port of ``repro.kernels.csr_lookup.ref``: one vectorised pass over the
+stacked shard CSR ``(K, ...)`` with no K-axis loop, over raw doc ids or
+over tile-packed ones (``core.codec``; the ``packed_*`` functions below).
 
   route    k  = term_to_shard[w]            each query term to its owner
   gather   lo = term_offsets[k, w - range_lo[k]], hi likewise
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.codec import decode_word, gather_clip2, unpack_at
 from ...core.index import _bisect, gather_clip
 
 
@@ -232,3 +233,206 @@ def retrieve_block_ref(term_offsets, doc_ids, values, term_to_shard,
                                 range_lo, range_hi, doc_ids.shape[1])
     return scan_block_ref(doc_ids, values, lo_f, hi_f, blo, block,
                           alive=alive)
+
+
+# ---------------------------------------------------------------------------
+# packed-codec lowerings (core.codec tile-compressed postings)
+# ---------------------------------------------------------------------------
+
+def _floordiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def packed_bisect(packed, fences, k, lo, hi, target, *, tile: int,
+                  spans=(0, 0), with_value: bool = False):
+    """First shard-local position p in [lo, hi) with decode(k, p) >=
+    target, in two levels, as the kernels run it: a bisect over the RAW
+    fence row (the codec keeps fences uncompressed as tile anchors), one
+    gather of the winning tile's (bits, base, word offset), then a bisect
+    inside that tile whose probes each decode one packed word.  Every
+    tile left of the winning fence is wholly < target, so positions equal
+    ``core.index._bisect`` over the unpacked row.
+
+    ``packed`` is ``(packed_words (K, W), tile_bits (K, F), tile_base (K,
+    F), tile_word_off (K, F+1))``; k/lo/hi/target broadcastable, in
+    shard-LOCAL positions.  ``spans = (max_span, max_len)`` bounds the
+    iterations (no routed range spans more tiles or postings; ``(0, 0)``
+    means the worst case; extra iterations are no-ops).
+
+    ``with_value=True`` also returns the decoded id at ``pos``: one word
+    probe inside the tile, or, on the tile's right boundary, the next raw
+    fence, which is that element verbatim.  Past ``hi`` it may be
+    garbage; callers mask on ``pos < hi``.  Positions are int64.
+    """
+    words, bits, base_t, woff = packed
+    k_n, f = fences.shape
+    k, lo, hi, target = torch.broadcast_tensors(
+        torch.as_tensor(k).long(), lo.long(), hi.long(),
+        torch.as_tensor(target, device=lo.device).long())
+    fflat = fences.reshape(-1)
+    k = k.clamp(0, k_n - 1)
+    kf = k * f
+    j_lo = _floordiv(lo, tile)
+    j_hi = torch.maximum(_floordiv(hi - 1, tile), j_lo)
+    max_span, max_len = spans
+    f_steps = bisect_steps(min(max_span - 1, f) if max_span else f)
+    t_steps = bisect_steps(min(max_len, tile) if max_len else tile)
+    flo, fhi = j_lo + 1, j_hi + 1
+    for _ in range(f_steps):
+        mid = _floordiv(flo + fhi, 2)
+        v = gather_clip(fflat, kf + mid.clamp(0, f - 1))
+        go = (v < target) & (flo < fhi)
+        flo, fhi = torch.where(go, mid + 1, flo), torch.where(go, fhi, mid)
+    jt = (flo - 1).clamp(0, f - 1)
+    base = jt * tile
+    c = bits.reshape(-1)[kf + jt]
+    tb = base_t.reshape(-1)[kf + jt]
+    # flat offset of the tile's first word; a probe at r == tile reads the
+    # row's trailing max_tile_words pad and is never consulted
+    kwo = k * words.shape[1] + woff.reshape(-1)[k * (f + 1) + jt]
+    wflat = words.reshape(-1)
+
+    def decode(r):
+        bp = r * c
+        return decode_word(gather_clip(wflat, kwo + _floordiv(bp, 32)), bp,
+                           c, tb)
+
+    plo = torch.maximum(base, lo)
+    phi = torch.minimum(base + tile, hi)
+    for _ in range(t_steps):
+        mid = _floordiv(plo + phi, 2)
+        go = (decode(mid - base) < target) & (plo < phi)
+        plo, phi = torch.where(go, mid + 1, plo), torch.where(go, phi, mid)
+    pos = plo
+    if not with_value:
+        return pos
+    v_next = gather_clip(fflat, kf + (jt + 1).clamp(0, f - 1))
+    in_tile = pos - base < tile
+    v_at = torch.where(in_tile, decode(torch.where(in_tile, pos - base, 0)),
+                       v_next)
+    return pos, v_at
+
+
+def _lane_scale(value_scale, range_lo, k, term_ids):
+    """Per-pair (or per-lane) dequant scale: the owning shard's row for
+    the term.  Only applied where a pair is found or a lane owns
+    postings, so clipped rows elsewhere never matter."""
+    vmax = value_scale.shape[1]
+    w = term_ids.clamp(min=0)
+    if range_lo is None:
+        row = w.clamp(0, vmax - 1)
+    else:
+        row = (w - gather_clip(range_lo, k)).clamp(0, vmax - 1)
+    return gather_clip2(value_scale, k, row)
+
+
+def lane_scales(value_scale, range_lo, query_terms):
+    """The first-stage scan's per-(query slot, shard) scales, (Q, K)."""
+    ks = torch.arange(value_scale.shape[0], dtype=torch.int32,
+                      device=query_terms.device)[None, :]
+    return _lane_scale(value_scale, range_lo, ks, query_terms[:, None])
+
+
+def packed_rows(packed, fences, values, k, lo, hi, d, scale, *, tile: int,
+                spans=(0, 0), alive=None) -> torch.Tensor:
+    """M rows of routed pairs ``(k, lo, hi)`` x doc ``d`` (one shape)
+    over packed ids: the two-level packed bisect, the found check against
+    the decoded id, the values gather and, for int8 ``values``, the
+    dequant by ``scale`` (one f32 multiply); +0.0 by select where a pair
+    is absent or its doc is dead."""
+    pos, v_at = packed_bisect(packed, fences, k, lo, hi, d, tile=tile,
+                              spans=spans, with_value=True)
+    found = (pos < hi) & (v_at == d)
+    if alive is not None:
+        found = found & _alive_at(alive, d)
+    vals = gather_clip(_flat_rows(values), k.long() * values.shape[1] + pos)
+    if scale is not None:
+        vals = vals.to(torch.float32) * scale[..., None, None]
+    return torch.where(found[..., None, None], vals, 0.0)
+
+
+def _lookup_packed(term_offsets, packed, fences, values, value_scale,
+                   term_to_shard, range_lo, split_term, split_doc,
+                   term_ids, d, *, tile: int, spans=(0, 0), alive=None):
+    """Route, then :func:`packed_rows`; ``term_ids``/``d`` already share
+    the pair shape."""
+    k, lo, hi = _route(term_ids, d, term_offsets, term_to_shard, range_lo,
+                       split_term, split_doc)
+    scale = (None if value_scale is None
+             else _lane_scale(value_scale, range_lo, k, term_ids))
+    return packed_rows(packed, fences, values, k, lo, hi, d, scale,
+                       tile=tile, spans=spans, alive=alive)
+
+
+def lookup_pairs_packed_ref(term_offsets, packed, fences, values,
+                            value_scale, term_to_shard, range_lo,
+                            term_ids, doc_targets, split_term=None,
+                            split_doc=None, *, tile: int, spans=(0, 0),
+                            alive=None) -> torch.Tensor:
+    """Packed-codec :func:`lookup_pairs_ref`: term_ids (..., Q) x
+    doc_targets broadcastable (...,) -> (..., Q, n_b, n_f)."""
+    d = doc_targets[..., None].expand(term_ids.shape)
+    return _lookup_packed(term_offsets, packed, fences, values,
+                          value_scale, term_to_shard, range_lo, split_term,
+                          split_doc, term_ids, d, tile=tile, spans=spans,
+                          alive=alive)
+
+
+def csr_lookup_packed_ref(term_offsets, packed, fences, values,
+                          value_scale, term_to_shard, range_lo,
+                          query_terms, doc_targets, split_term=None,
+                          split_doc=None, *, tile: int, spans=(0, 0),
+                          alive=None) -> torch.Tensor:
+    """Packed-codec :func:`csr_lookup_ref`: query_terms (Q,) x
+    doc_targets (B,) -> M (B, Q, n_b, n_f)."""
+    shape = (doc_targets.shape[0], query_terms.shape[0])    # (B, Q)
+    return _lookup_packed(term_offsets, packed, fences, values,
+                          value_scale, term_to_shard, range_lo, split_term,
+                          split_doc, query_terms[None].expand(shape),
+                          doc_targets[:, None].expand(shape), tile=tile,
+                          spans=spans, alive=alive)
+
+
+def scan_block_packed_ref(packed, fences, values, lane_scale, lane_lo,
+                          lane_hi, blo: int, block: int, *, tile: int,
+                          spans=(0, 0), alive=None) -> torch.Tensor:
+    """Packed-codec :func:`scan_block_ref`: from the lanes' flat posting
+    ranges (Q, K), two packed bisects per lane locate the block's
+    postings, the id window decodes through ``core.codec.unpack_at``,
+    int8 values dequantise by ``lane_scale`` (Q, K), and
+    :func:`merge_windows` scatters the live entries into M (block, Q,
+    n_b, n_f)."""
+    k_n, nmax = values.shape[:2]
+    ks = torch.arange(k_n, dtype=torch.int64,
+                      device=lane_lo.device)[None, :].expand(lane_lo.shape)
+    base = ks * nmax
+    lo_l, hi_l = lane_lo.long() - base, lane_hi.long() - base
+    s_lo = packed_bisect(packed, fences, ks, lo_l, hi_l, blo, tile=tile,
+                         spans=spans)
+    s_hi = packed_bisect(packed, fences, ks, lo_l, hi_l, blo + block,
+                         tile=tile, spans=spans)
+    p = s_lo[..., None] + torch.arange(block, device=s_lo.device)
+    doc_win = unpack_at(*packed, ks[..., None], p, tile=tile)
+    flat_p = (base[..., None] + p).clamp(0, k_n * nmax - 1)
+    val_win = _flat_rows(values)[flat_p]
+    if lane_scale is not None:
+        val_win = (val_win.to(torch.float32)
+                   * lane_scale[..., None, None, None])
+    return merge_windows(doc_win, val_win, s_hi - s_lo, blo, block,
+                         alive=alive)
+
+
+def retrieve_block_packed_ref(term_offsets, packed, fences, values,
+                              value_scale, term_to_shard, range_lo,
+                              range_hi, query_terms, blo: int, block: int,
+                              *, tile: int, spans=(0, 0),
+                              alive=None) -> torch.Tensor:
+    """Packed-codec :func:`retrieve_block_ref`: the same lanes, scanned
+    by :func:`scan_block_packed_ref`."""
+    lo_f, hi_f = retrieve_lanes(query_terms, term_offsets, term_to_shard,
+                                range_lo, range_hi, values.shape[1])
+    scale = (None if value_scale is None
+             else lane_scales(value_scale, range_lo, query_terms))
+    return scan_block_packed_ref(packed, fences, values, scale, lo_f, hi_f,
+                                 blo, block, tile=tile, spans=spans,
+                                 alive=alive)

@@ -1,10 +1,11 @@
 """Query-time retrieval engine (the paper's retrieval phase, Fig. 1).
 
-Port of ``repro.serving.engine`` without a mesh, codecs, a live index or
-the ``obs`` instrumentation, each of which raises until its slice lands.
-``SeineEngine`` looks M_{q,d} up from the segment inverted index and
-scores it with a registered retriever; on CUDA tensors the lookup, the
-first-stage scan and KNRM's kernel bank run the hand-written kernels.
+Port of ``repro.serving.engine`` without a mesh, a live index or the
+``obs`` instrumentation, each of which raises until its slice lands.
+``SeineEngine`` looks M_{q,d} up from the segment inverted index (raw or
+with packed postings) and scores it with a registered retriever; on CUDA
+tensors the lookup, the first-stage scan and KNRM's kernel bank run the
+hand-written kernels.
 ``serve_batches`` / ``serve_retrieval`` are the serving loops.
 """
 from __future__ import annotations
@@ -46,39 +47,67 @@ def _sync(t: torch.Tensor) -> None:
 
 class SeineEngine:
     """Indexed scorer over a :class:`~repro_torch.core.index.
-    SegmentInvertedIndex` or a pre-built :class:`~repro_torch.dist.
-    partition.PartitionedIndex`, on the index's device.
+    SegmentInvertedIndex` or a :class:`~repro_torch.dist.partition.
+    PartitionedIndex`, on the index's device.
 
-    ``lookup_tile`` overrides the lookup kernel's posting-tile width
-    (default ``core.index.POSTING_TILE``); every width gives the same M.
-    ``mesh=``, ``codec != "none"``, ``partition="term"`` on a single-CSR
-    index (it needs ``partition_index``) and a live index are not ported
-    yet and raise ``NotImplementedError``.
+    ``partition="term"`` splits a single-CSR index into ``n_shards``
+    (default 1) term-range shards with ``dist.sharding.partition_index``;
+    a pre-built PartitionedIndex is served as it is.  ``codec="packed"``
+    (FOR-packed doc ids, lossless: results equal the raw index bit for
+    bit) or ``"packed-q8"`` (plus int8 values with per-term scales) needs
+    ``partition="term"`` or a pre-built index of that codec, and packs at
+    ``codec_tile`` (default ``POSTING_TILE``).  ``lookup_tile`` overrides
+    the lookup kernel's posting-tile width (every width gives the same
+    M); a packed index serves only at its codec tile.  ``mesh=`` and a
+    live index are not ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(self, index, retriever: str, params: Any, *,
                  mesh: Optional[Any] = None,
                  partition: Optional[str] = None,
+                 n_shards: Optional[int] = None,
                  lookup_tile: Optional[int] = None,
-                 codec: str = "none"):
+                 codec: str = "none",
+                 codec_tile: Optional[int] = None):
+        from ..core.codec import validate_codec
         from ..dist.partition import PartitionedIndex
+        codec = validate_codec(codec)
         if partition not in (None, "term"):
             raise ValueError(f"unknown partition scheme {partition!r}; "
                              "supported: 'term'")
+        if (codec != "none" and partition != "term"
+                and not isinstance(index, PartitionedIndex)):
+            raise ValueError(
+                f"codec {codec!r} requires partition='term': the packed "
+                "posting layout is the stacked-shard PartitionedIndex")
+        if n_shards is not None and int(n_shards) <= 0:
+            raise ValueError(f"n_shards must be positive, got {n_shards}; "
+                             "pass None for one shard")
         if lookup_tile is not None and int(lookup_tile) <= 0:
             raise ValueError(
                 f"lookup_tile must be positive, got {lookup_tile}; "
                 "pass None for the default POSTING_TILE")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
-        if codec != "none" or getattr(index, "codec", "none") != "none":
-            raise NotImplementedError("packed codecs are not ported yet")
         if getattr(index, "is_live", False):
             raise NotImplementedError("a live index is not ported yet")
-        if partition == "term" and not isinstance(index, PartitionedIndex):
-            raise NotImplementedError(
-                "partition='term' needs partition_index, which is not "
-                "ported yet; load a partitioned index instead")
+        if isinstance(index, PartitionedIndex):
+            if codec != "none" and codec != index.codec:
+                raise ValueError(
+                    f"engine codec {codec!r} conflicts with the pre-built "
+                    f"index's codec {index.codec!r}; pack it with "
+                    "pack_index or pass codec='none'")
+        elif partition == "term":
+            from ..dist.sharding import partition_index
+            index = partition_index(index, int(n_shards or 1), codec=codec,
+                                    codec_tile=codec_tile)
+        if (getattr(index, "codec", "none") != "none"
+                and lookup_tile is not None
+                and int(lookup_tile) != int(index.codec_tile)):
+            raise ValueError(
+                f"lookup_tile {lookup_tile} does not match the packed "
+                f"index's codec tile {index.codec_tile}; packed layouts "
+                "serve only at their build-time tile")
         self.index = index
         self.device = index.device
         self.spec = get_retriever(retriever)

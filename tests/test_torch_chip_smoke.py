@@ -56,29 +56,40 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
                             TOP_K=50).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "events_ms", _host_ms)
-    monkeypatch.setattr(cs, "device_ms", lambda fns, iters, kernel: None)
-    monkeypatch.setattr(cs, "device_busy", lambda run, n: (1.0, 1.0))
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(cs, "device_busy", lambda run, n: (1.0, 1.0, ""))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(lookup_ops, "_use_kernel",
-                        lambda impl, like, codec: impl in (None, "kernel"))
+                        lambda impl, like: impl in (None, "kernel"))
     for mod, name in ((lookup_ops, "csr_lookup_kernel"),
                       (lookup_ops, "retrieve_windows_kernel"),
+                      (lookup_ops, "csr_lookup_packed_kernel"),
+                      (lookup_ops, "retrieve_windows_packed_kernel"),
                       (knrm_ops, "knrm_pool_kernel")):
         monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
 
     dev = torch.device("cpu")
     index, rng = cs.build_index(seed, dev)
+    packed, _ = cs.build_packed(index)
+    assert packed["none"].n_shards == cs.K_SHARDS
+    assert packed["packed-q8"].values_q.dtype == torch.int8
     p2 = cs.phase2(index, rng, dev)
-    requests, queries, launches = cs.phase3(index, rng, dev, seed)
-    kernels = cs.phase4(index, requests, queries, launches, p2, dev)
+    cs.phase2_packed(index, packed, p2)
+    requests, queries, launches = cs.phase3(index, packed, rng, dev, seed)
+    kernels = cs.phase4(index, packed, requests, queries, launches, p2, dev)
 
-    assert [k["name"] for k in kernels] == ["csr_lookup", "retrieve_windows",
-                                            "knrm_pool"]
+    assert [k["name"] for k in kernels] == [
+        "csr_lookup", "retrieve_windows", "knrm_pool", "csr_lookup_packed",
+        "retrieve_windows_packed"]
     for k in kernels:
         assert set(k) >= KEYS
         assert k["launches"] > 0
-        assert k["max_abs_err"] == 0.0     # the plain version vs itself
-        assert k["bound_ms"] > 0 and k["bound_by"] == "bytes"
+        assert all(n > 0 for n in k["launches_by_path"].values())
+        for m in (k, k.get("q8", k)):
+            assert m["max_abs_err"] == 0.0     # the plain version vs itself
+            assert m["bound_ms"] > 0 and m["bound_by"] == "bytes"
+    assert set(kernels[3]["launches_by_path"]) == {"packed", "packed-q8"}
 
 
 def test_refuses_to_run_without_cuda():

@@ -240,7 +240,7 @@ def test_plain_kernel_version_matches_ref_per_term_and_per_pair(
 def test_unported_options_raise(hot_layouts):
     _, port = hot_layouts[4]
     args = _stacked(port) + (t([1]), t([0]))
-    with pytest.raises(NotImplementedError, match="codec"):
+    with pytest.raises(ValueError, match="needs the packed"):
         csr_lookup(*args, codec="packed")
     with pytest.raises(ValueError, match="unknown impl"):
         csr_lookup(*args, impl="interpret")

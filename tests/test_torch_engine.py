@@ -158,9 +158,10 @@ def test_unported_engine_options_raise(small):
     _, eng = _engines("knrm", small["single"], port)
     params = eng.params
     for kw, exc in ((dict(mesh=object()), NotImplementedError),
-                    (dict(codec="packed"), NotImplementedError),
-                    (dict(partition="term"), NotImplementedError),
+                    (dict(codec="packed"), ValueError),
+                    (dict(codec="zstd"), ValueError),
                     (dict(partition="doc"), ValueError),
+                    (dict(partition="term", n_shards=0), ValueError),
                     (dict(lookup_tile=0), ValueError)):
         with pytest.raises(exc):
             SeineEngine(port, "knrm", params, **kw)
@@ -171,11 +172,16 @@ def test_unported_engine_options_raise(small):
         SeineEngine(Live(), "knrm", params)
     with pytest.raises(ValueError, match="k must be positive"):
         eng.retrieve(np.zeros(6, np.int32), 0)
-    # a partitioned index is served as it is, at any lookup tile
+    # a partitioned index is served as it is, at any lookup tile, and a
+    # raw one is partitioned on request
     hot = SeineEngine(index_to_device(small["hot_k4"], device="cpu"),
                       "knrm", params, partition="term", lookup_tile=4)
     q, d = np.asarray((0, 3, -1), np.int32), np.arange(64, dtype=np.int32)
     np.testing.assert_array_equal(hot.score(q, d).numpy(),
+                                  eng.score(q, d).numpy())
+    split = SeineEngine(port, "knrm", params, partition="term", n_shards=4)
+    assert split.index.n_shards == 4
+    np.testing.assert_array_equal(split.score(q, d).numpy(),
                                   eng.score(q, d).numpy())
 
 

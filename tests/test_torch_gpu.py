@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, each held against its plain
-PyTorch version on the same inputs (bitwise for the lookup and the scan,
-rtol 1e-5 / atol 1e-6 for the KNRM bank), and the engine on CUDA against
-the engine on the CPU.
+PyTorch version on the same inputs (bitwise for the lookups and the
+scans, raw and packed, rtol 1e-5 / atol 1e-6 for the KNRM bank), and the
+engine on CUDA, raw and packed, against the engine on the CPU.
 
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
@@ -15,13 +15,19 @@ import pytest
 import torch
 
 from repro_torch.ckpt import load_index
+from repro_torch.core.codec import quantize_values, quantize_values_torch
 from repro_torch.data.synth_corpus import build_zipfian_index
+from repro_torch.dist.partition import pack_index
+from repro_torch.dist.sharding import partition_index
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
-                                            retrieve_lanes,
-                                            retrieve_windows_kernel)
+                                            csr_lookup_packed_kernel,
+                                            lane_scales, retrieve_lanes,
+                                            retrieve_windows_kernel,
+                                            retrieve_windows_packed_kernel)
 from repro_torch.kernels.knrm_pool import knrm_pool_kernel, knrm_pool_ref
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import SeineEngine
+from torch_codec_rows import adversarial_index, adversarial_queries
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +112,97 @@ def test_engine_on_cuda_matches_cpu(layout):
         s_c, d_c = e_cpu.retrieve(q, 10, doc_block=doc_block)
         assert torch.equal(d_g.cpu(), d_c)
         torch.testing.assert_close(s_g.cpu(), s_c, **TOL)
+
+
+def _packed_layout(layout, device):
+    if layout == "adversarial":
+        return adversarial_index(device=device)
+    if layout == "k1":
+        return partition_index(_index("k1", device), 1)
+    return _index("k4", device)
+
+
+def _scan_packed(p, q, blo, block):
+    lo, hi = retrieve_lanes(q, p.term_offsets, p.term_to_shard, p.range_lo,
+                            p.range_hi, p.nmax)
+    scale = (None if p.value_scale is None
+             else lane_scales(p.value_scale, p.range_lo, q).contiguous())
+    return retrieve_windows_packed_kernel(
+        p._packed(), p.fences, p._serve_values, scale,
+        lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous(),
+        blo, block, tile=p.codec_tile)
+
+
+@pytest.mark.parametrize("codec", ["packed", "packed-q8"])
+@pytest.mark.parametrize("layout", ["k1", "k4", "adversarial"])
+def test_packed_kernels_match_plain(layout, codec):
+    """Both packed kernels == their plain versions on the same packed
+    index, at three codec tiles; per-term routing (k1), per-pair routing
+    of a split hot term (k4), and 32-bit tiles of words with the top bit
+    set (adversarial)."""
+    _require_cuda()
+    cpu_raw, gpu_raw = _packed_layout(layout, "cpu"), _packed_layout(
+        layout, "cuda")
+    if layout == "adversarial":
+        q, docs = adversarial_queries(cpu_raw)
+        blocks = ((256, -(1 << 31)), (64, -8), (256, 1000),
+                  (256, (1 << 31) - 300))
+    else:
+        q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32)
+        docs = torch.arange(-2, cpu_raw.n_docs + 3, dtype=torch.int32)
+        blocks = ((64, 0), (16, 48), (7, 3), (1024, 0))
+    before = csr_lookup_packed_kernel.launches
+    for tile in (8, 64, 256):
+        cpu, gpu = (pack_index(cpu_raw, codec, tile=tile),
+                    pack_index(gpu_raw, codec, tile=tile))
+        want = cpu.qd_matrix(q, docs, impl="kernel")
+        got = gpu.qd_matrix(q.cuda(), docs.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), f"tile={tile}"
+        if codec == "packed":
+            assert torch.equal(want, cpu_raw.qd_matrix(q, docs))
+        for block, blo in blocks:
+            got = _scan_packed(gpu, q.cuda(), blo, block)
+            want = _scan_packed(cpu, q, blo, block)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (tile, block, blo)
+    assert csr_lookup_packed_kernel.launches == before + 3
+
+
+@pytest.mark.parametrize("codec", ["packed", "packed-q8"])
+def test_packed_engine_on_cuda_matches_cpu(codec):
+    _require_cuda()
+    cpu, gpu = _index("k1", "cpu"), _index("k1", "cuda")
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(0),
+                                        cpu.n_b, cpu.functions, device="cpu")
+    kw = dict(partition="term", n_shards=2, codec=codec, codec_tile=64)
+    e_cpu = SeineEngine(cpu, "knrm", params, **kw)
+    e_gpu = SeineEngine(gpu, "knrm", copy.deepcopy(params), **kw)
+    q = np.array([0, 3, 7, -1, 12, 1000], np.int32)
+    docs = np.arange(-1, cpu.n_docs + 2, dtype=np.int32)
+    torch.testing.assert_close(e_gpu.score(q, docs).cpu(),
+                               e_cpu.score(q, docs), **TOL)
+    for doc_block in (None, 16):
+        s_g, d_g = e_gpu.retrieve(q, 10, doc_block=doc_block)
+        s_c, d_c = e_cpu.retrieve(q, 10, doc_block=doc_block)
+        assert torch.equal(d_g.cpu(), d_c)
+        torch.testing.assert_close(s_g.cpu(), s_c, **TOL)
+
+
+def test_quantize_values_on_cuda_matches_numpy():
+    """The card's quantiser gives the numpy copy's int8 values and scales
+    bit for bit (division, max and rounding, ties included)."""
+    _require_cuda()
+    rng = np.random.RandomState(0)
+    values = (rng.randn(3, 500, 4, 5) * rng.rand(3, 500, 1, 1) * 10
+              ).astype(np.float32)
+    values[0, :7] = np.float32(127.0 / 2)        # halves round to even
+    offs = np.stack([np.r_[0, np.sort(rng.choice(np.arange(1, 480), 40,
+                                                  replace=False)), 480 + i]
+                     for i in range(3)]).astype(np.int32)
+    values[np.arange(500)[None, :] >= offs[:, -1:]] = 0.0   # padding rows
+    q, scale = quantize_values(values, offs)
+    tq, tscale = quantize_values_torch(torch.from_numpy(values).cuda(),
+                                       torch.from_numpy(offs).cuda())
+    assert np.array_equal(tq.cpu().numpy(), q)
+    assert np.array_equal(tscale.cpu().numpy(), scale)

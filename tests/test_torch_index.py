@@ -110,19 +110,26 @@ def test_load_index_matches_jax(seine_world, hot_term_index, tmp_path,
 
 
 def test_load_index_recovers_old_and_rejects_packed(tmp_path):
+    """The ``.old`` recovery; a packed index loads (its codec tests are in
+    tests/test_torch_codec.py) and an unknown codec is rejected."""
     idx = jax_zipfian()
     export(idx, tmp_path / "idx")
     # a writer preempted mid-overwrite leaves only <dir>.old<pid>
     os.replace(tmp_path / "idx", tmp_path / "idx.old4242")
     assert_same_index(load_index(str(tmp_path / "idx"), device="cpu"), idx)
     from repro.ckpt import save_index
-    save_index(str(tmp_path / "packed"),
-               partition_index(idx, 2, codec="packed"))
-    with pytest.raises(NotImplementedError, match="codec 'packed'"):
+    packed = partition_index(idx, 2, codec="packed")
+    save_index(str(tmp_path / "packed"), packed)
+    got = load_index(str(tmp_path / "packed"), device="cpu")
+    assert got.codec == "packed" and got.doc_ids is None
+    np.testing.assert_array_equal(got.packed_words.numpy(),
+                                  np.asarray(packed.packed_words))
+    assert index_to_device(packed, device="cpu").codec == "packed"
+    manifest = tmp_path / "packed" / "index_manifest.json"
+    m = json.loads(manifest.read_text())
+    manifest.write_text(json.dumps(dict(m, codec="zstd")))
+    with pytest.raises(ValueError, match="unknown codec 'zstd'"):
         load_index(str(tmp_path / "packed"), device="cpu")
-    with pytest.raises(NotImplementedError, match="codec"):
-        index_to_device(partition_index(idx, 2, codec="packed"),
-                        device="cpu")
 
 
 def test_committed_card_fixture_is_fresh(tmp_path):

@@ -53,3 +53,29 @@ def adversarial(world, seed, n_tail=3):
                     np.int32)
     docs = np.concatenate([core, np.full(n_tail, core[0], np.int32)])
     return q, docs
+
+
+PARTITION_FIELDS = ("term_offsets", "doc_ids", "values", "fences",
+                    "term_to_shard", "range_lo", "range_hi", "split_term",
+                    "split_doc", "idf", "doc_len", "seg_len", "packed_words",
+                    "tile_bits", "tile_base", "tile_word_off", "values_q",
+                    "value_scale")
+PARTITION_STATIC = ("n_docs", "vocab_size", "n_b", "n_shards", "functions",
+                    "codec", "codec_tile", "max_tile_words", "codec_spans")
+
+
+def assert_same_partition(port, ref):
+    """Every array (dtype included) and static field of a port
+    PartitionedIndex equals the JAX one's."""
+    for n in PARTITION_FIELDS:
+        want = getattr(ref, n)
+        got = getattr(port, n)
+        if want is None:
+            assert got is None, n
+            continue
+        want = np.asarray(want)
+        assert got.numpy().dtype == want.dtype, n
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=n)
+    for n in PARTITION_STATIC:
+        assert tuple(np.atleast_1d(getattr(port, n))) == tuple(
+            np.atleast_1d(getattr(ref, n))), n

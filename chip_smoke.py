@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SEINE's query phase on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of SEINE (query phase and offline build)
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -47,14 +48,36 @@ Phases (any failed check raises, and the script exits non-zero):
    under both codecs (``packed`` in the row's own keys, ``packed-q8``
    under ``q8``).
 
+5. The offline build at full width and scale: SEINE_LETOR
+   (``configs/seine_letor.py``) at its full 65,323 docs, n_b = 20,
+   De = 128 and the nine atomic functions; corpus, middle-80% vocabulary
+   and TextTiling (``max_len`` 512) on the host, a ``HashProvider`` table
+   and interaction parameters from ``torch.Generator``s seeded by
+   ``--seed``.  ``IndexBuilder.build_partitioned`` (K = 4, batches of 32
+   docs, up to 512 unique terms each) streams every batch through the
+   card once, with the launch counts zeroed just before and read just
+   after (``seg_interact`` once per batch).  Then ``seg_interact``
+   against its plain version (a full build batch, bitwise run to run;
+   the JAX-signature sweep of tests/test_kernels.py with an empty
+   segment), the card's build of the first 64 docs against the same
+   build on the CPU (ids bitwise, values at rtol 1e-4 / atol 1e-5),
+   indexed M against No-Index M for the stored pairs of 8 docs (atol
+   1e-5), the built index served by a KNRM ``SeineEngine`` (16 requests
+   of 6 slots x 1,000 candidates) and a ``NoIndexEngine`` (4 of them;
+   scores at rtol 1e-4 / atol 1e-5, p50/p95 of both), a ``save_index`` /
+   ``load_index`` round trip, and ``seg_interact``'s timing against its
+   plain version and its bound.
+
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
 of the ``repro`` package is imported.
 """
 import argparse
 import copy
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,8 +88,20 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch.ckpt import load_index  # noqa: E402
+from repro_torch.ckpt import load_index, save_index  # noqa: E402
+from repro_torch.configs import SEINE_LETOR  # noqa: E402
+from repro_torch.core.build_pipeline import (  # noqa: E402
+    make_unique_terms_fn)
+from repro_torch.core.builder import IndexBuilder  # noqa: E402
 from repro_torch.core.index import build_from_rows  # noqa: E402
+from repro_torch.core.interactions import (  # noqa: E402
+    init_interaction_params, seg_interact_inputs)
+from repro_torch.core.providers import HashProvider  # noqa: E402
+from repro_torch.core.segment import segment_corpus  # noqa: E402
+from repro_torch.core.vocab import build_vocabulary  # noqa: E402
+from repro_torch.data.batching import (candidates_for_query,  # noqa: E402
+                                       pad_queries)
+from repro_torch.data.synth_corpus import generate  # noqa: E402
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
 from repro_torch.dist.partition import pack_index  # noqa: E402
@@ -80,9 +115,11 @@ from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
 from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
 from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
                                            knrm_pool_ref)
+from repro_torch.kernels.seg_interact import (  # noqa: E402
+    flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
 from repro_torch.retrievers import get_retriever  # noqa: E402
-from repro_torch.serving import (SeineEngine, make_qmeta,  # noqa: E402
-                                 serve_batches, serve_retrieval)
+from repro_torch.serving import (NoIndexEngine, SeineEngine,  # noqa: E402
+                                 make_qmeta, serve_batches, serve_retrieval)
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
 N_B = 20                 # configs/base.py n_segments (Fig. 2 best)
@@ -106,6 +143,7 @@ TPU_KERNELS = {
     "knrm_pool": "src/repro/kernels/knrm_pool/kernel.py:34",
     "csr_lookup_packed": "src/repro/kernels/csr_lookup/kernel.py:359",
     "retrieve_windows_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
+    "seg_interact": "src/repro/kernels/seg_interact/kernel.py:50",
 }
 # the launch counter of each kernel, and the kernels each serving path
 # (codec) must launch
@@ -113,13 +151,30 @@ COUNTERS = {"csr_lookup": csr_lookup_kernel,
             "retrieve_windows": retrieve_windows_kernel,
             "knrm_pool": knrm_pool_kernel,
             "csr_lookup_packed": csr_lookup_packed_kernel,
-            "retrieve_windows_packed": retrieve_windows_packed_kernel}
+            "retrieve_windows_packed": retrieve_windows_packed_kernel,
+            "seg_interact": seg_interact_kernel}
 PATH_KERNELS = {"none": ("csr_lookup", "retrieve_windows", "knrm_pool"),
                 "packed": ("csr_lookup_packed", "retrieve_windows_packed",
                            "knrm_pool"),
                 "packed-q8": ("csr_lookup_packed", "retrieve_windows_packed",
                               "knrm_pool")}
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_hot_term_k4")
+# phase 5, the offline build: SEINE_LETOR at the full MQ2007 size
+BUILD_DOCS = 65_323
+BUILD_N_B = 20           # configs/seine_letor.py
+BUILD_DE = 128           # configs/seine_letor.py embed_dim
+BUILD_MAX_LEN = 512      # segment_corpus max_len
+BUILD_MAX_UNIQ = 512
+BUILD_BATCH = 32
+BUILD_K = 4              # build_partitioned shards
+BUILD_CHECK_DOCS = 64    # the card's build against the plain CPU build
+BUILD_PAIR_DOCS = 8      # indexed == on-the-fly
+NOINDEX_REQUESTS = 4
+SEG_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py's bar
+# the JAX-signature shapes of tests/test_kernels.py::TestSegInteract
+SEG_SWEEP = ((64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
+             (128, 2, 128, 200))
+INDEX_DIR = os.path.join(REPO, "build", "chip_smoke_index")
 
 
 def log(*a):
@@ -878,6 +933,317 @@ def phase4(index, packed, requests, queries, launches, p2, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the offline build
+# ---------------------------------------------------------------------------
+
+def build_corpus(seed: int):
+    """SEINE_LETOR's synthetic corpus at BUILD_DOCS docs, its middle-80%
+    vocabulary and TextTiling segments, on the host (numpy)."""
+    cfg = dataclasses.replace(SEINE_LETOR, n_docs=BUILD_DOCS,
+                              n_segments=BUILD_N_B, embed_dim=BUILD_DE)
+    t0 = time.perf_counter()
+    ds = generate(cfg, seed=seed)
+    t_gen = time.perf_counter() - t0
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
+                             keep_frac=cfg.vocab_keep_frac)
+    slot = [vocab.map_tokens(d) for d in ds.docs]
+    t_vocab = time.perf_counter() - t0 - t_gen
+    toks, segs = segment_corpus(slot, cfg.n_segments, max_len=BUILD_MAX_LEN,
+                                window=cfg.tile_window,
+                                smooth=cfg.tile_smooth)
+    secs = time.perf_counter() - t0
+    raw_len = np.array([d.size for d in slot])
+    in_vocab = np.array([int((d >= 0).sum()) for d in slot])
+    kept = (toks >= 0).sum(1)
+    uniq = np.array([np.unique(r[r >= 0]).size for r in toks[:2000]])
+    log(f"phase 5: corpus {BUILD_DOCS} docs, |v| = {vocab.size}, host "
+        f"{secs:.2f}s (generate {t_gen:.2f}s, vocabulary {t_vocab:.2f}s, "
+        f"TextTiling {secs - t_gen - t_vocab:.2f}s); docs longer than "
+        f"max_len={BUILD_MAX_LEN}: {(raw_len > BUILD_MAX_LEN).mean():.4f} "
+        f"(raw length mean {raw_len.mean():.1f}), in-vocabulary tokens "
+        f"kept {kept.sum() / max(in_vocab.sum(), 1):.4f} (mean "
+        f"{kept.mean():.1f}, max {kept.max()} per doc), unique terms per "
+        f"doc in the first 2,000: mean {uniq.mean():.1f}, max {uniq.max()}")
+    return cfg, ds, vocab, toks, segs, secs
+
+
+def batch_inputs(builder, toks, segs, start: int, dev):
+    """The seg_interact kernel's arguments for the build batch at
+    ``start``, made as the build makes them (stage 1, then
+    ``seg_interact_inputs``)."""
+    tb = torch.from_numpy(toks[start:start + BUILD_BATCH]).to(dev)
+    sb = torch.from_numpy(segs[start:start + BUILD_BATCH]).to(dev)
+    ub = make_unique_terms_fn(BUILD_MAX_UNIQ)(tb)
+    return seg_interact_inputs(tb, sb, ub, builder.provider.table(),
+                               builder.cfg.n_segments)
+
+
+def check_seg_interact(builder, toks, segs, seed, dev):
+    """The kernel against its plain version on the card: a full build
+    batch (twice, bitwise: it is deterministic), the JAX-signature sweep
+    with an empty last segment, which must give zeros."""
+    n_b = builder.cfg.n_segments
+    args = batch_inputs(builder, toks, segs, 0, dev)
+    got = seg_interact_kernel(*args, n_b)
+    again = seg_interact_kernel(*args, n_b)
+    want = seg_interact_plain(*args, n_b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **SEG_TOL)
+    if not torch.equal(got, again):
+        raise AssertionError("seg_interact is not deterministic")
+    if bool((got[args[3] < 0] != 0).any()):
+        raise AssertionError("seg_interact wrote a pad term's row")
+    err = (got - want).abs().max().item()
+    log(f"phase 5: seg_interact == plain at rtol 1e-4/atol 1e-5 on a build "
+        f"batch {tuple(args[0].shape[:2])} x {tuple(args[1].shape[1:])}, "
+        f"S={n_b} (max |diff| {err:.3g}); bitwise run to run")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for v, n_seg, ls, de in SEG_SWEEP:
+        ev = torch.randn(v, de, generator=g, device=dev) / de ** 0.5
+        st = torch.randn(n_seg, ls, de, generator=g, device=dev) / de ** 0.5
+        lens = torch.randint(0, ls + 1, (n_seg,), generator=g, device=dev)
+        lens[-1] = 0
+        mask = (torch.arange(ls, device=dev)[None] < lens[:, None]).float()
+        got = seg_interact(ev, st, mask)
+        want = seg_interact_plain(*flatten_segments(ev, st, mask), n_seg)[0]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **SEG_TOL)
+        if bool((got[:, -1] != 0).any()):
+            raise AssertionError("an empty segment gave nonzero values")
+        err = max(err, (got - want).abs().max().item())
+    log(f"phase 5: seg_interact == plain over the JAX-signature sweep "
+        f"{SEG_SWEEP}; empty segments give zeros")
+    return err
+
+
+def check_cpu_build(builder, toks, segs):
+    """The first BUILD_CHECK_DOCS docs built on the card against the
+    same build on the CPU (same vocabulary, table and parameters): run
+    term ids, doc ids and boundaries bitwise, values at rtol 1e-4 /
+    atol 1e-5."""
+    cpu = IndexBuilder(
+        builder.cfg, builder.vocab,
+        HashProvider(builder.vocab.size, builder.cfg.embed_dim,
+                     table=builder.provider.table().cpu(), device="cpu"),
+        ip=builder.ip, device="cpu")
+    n = BUILD_CHECK_DOCS
+    kw = dict(batch_size=BUILD_BATCH, max_uniq=BUILD_MAX_UNIQ)
+    got, _ = builder._pipeline().stream_runs(toks[:n], segs[:n], **kw)
+    want, _ = cpu._pipeline().stream_runs(toks[:n], segs[:n], **kw)
+    if [r.n_rows for r in got.runs] != [r.n_rows for r in want.runs]:
+        raise AssertionError("run boundaries differ from the CPU build")
+    err = 0.0
+    for r, w in zip(got.runs, want.runs):
+        (t, d, v), (wt, wd, wv) = r.load(), w.load()
+        if not (np.array_equal(t, wt) and np.array_equal(d, wd)):
+            raise AssertionError("run ids differ from the CPU build")
+        np.testing.assert_allclose(v, wv, **SEG_TOL)
+        err = max(err, float(np.abs(v - wv).max()))
+    log(f"phase 5: the card's build of {n} docs == the CPU build: "
+        f"{len(got.runs)} runs, {sum(r.n_rows for r in got.runs)} rows, "
+        f"ids and boundaries bitwise, values within rtol 1e-4/atol 1e-5 "
+        f"(max |diff| {err:.3g})")
+
+
+def check_on_the_fly(pidx, noindex, toks, rng, dev):
+    """Indexed == on-the-fly: for stored pairs of BUILD_PAIR_DOCS docs, M
+    looked up in the built index equals M recomputed by the No-Index
+    engine at atol 1e-5 (tests/test_seine_core.py's bar)."""
+    err = 0.0
+    for d in rng.choice(toks.shape[0], BUILD_PAIR_DOCS, replace=False):
+        present = np.unique(toks[d][toks[d] >= 0])
+        q = np.full(Q_SLOTS, -1, np.int32)
+        sel = rng.choice(present, size=min(Q_SLOTS - 1, present.size),
+                         replace=False)
+        q[:sel.size] = sel
+        qt = torch.from_numpy(q).to(dev)
+        dt = torch.tensor([int(d)], dtype=torch.int32, device=dev)
+        looked = pidx.qd_matrix(qt, dt)
+        on_fly = noindex.qd_matrix(qt, dt)
+        torch.cuda.synchronize()
+        err = max(err, (looked - on_fly).abs().max().item())
+        if err > 1e-5:
+            raise AssertionError(f"indexed != on-the-fly for doc {d}: "
+                                 f"{err}")
+        if not bool(looked.flatten(2).ne(0).any(-1)[0, :sel.size].all()):
+            raise AssertionError(f"a stored pair of doc {d} is missing")
+    log(f"phase 5: indexed == on-the-fly for the stored pairs of "
+        f"{BUILD_PAIR_DOCS} docs (max |diff| {err:.3g}, bar 1e-5)")
+
+
+def serve_built(pidx, noindex, engine, ds, vocab, seed):
+    """The built index served: SeineEngine (KNRM) answers N_REQUESTS
+    re-rank requests, the No-Index engine NOINDEX_REQUESTS of them; each
+    path's launch counts are zeroed just before and read just after."""
+    queries = pad_queries(ds.queries, vocab.map_tokens, q_len=Q_SLOTS)
+    crng = np.random.RandomState(seed)
+    requests = [(queries[i], candidates_for_query(ds.qrels[i], crng, N_CAND)
+                 .astype(np.int32)) for i in range(N_REQUESTS)]
+    serve_batches(engine, requests[:1])        # warm-up, uncounted
+    serve_batches(noindex, requests[:1])
+    counts = {}
+    out = {}
+    for path, eng, reqs, need in (
+            ("indexed", engine, requests, ("csr_lookup", "knrm_pool")),
+            ("noindex", noindex, requests[:NOINDEX_REQUESTS],
+             ("seg_interact", "knrm_pool"))):
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        out[path] = serve_batches(eng, reqs)
+        counts[path] = {n: fn.launches for n, fn in COUNTERS.items()}
+        log(f"phase 5 [{path}]: launches {counts[path]}")
+        for name in need:
+            if counts[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched serving "
+                                     f"the built index ({path})")
+        st = out[path][1]
+        log(f"phase 5 [{path}]: serve_batches {len(reqs)} x ({Q_SLOTS} "
+            f"slots, {N_CAND} candidates): p50 {st.p50_ms:.3f} ms p95 "
+            f"{st.p95_ms:.3f} ms")
+    scores, noindex_scores = out["indexed"][0], out["noindex"][0]
+    err = 0.0
+    for s, n in zip(scores, noindex_scores):
+        assert s.shape == (N_CAND,) and np.isfinite(s).all()
+        np.testing.assert_allclose(n, s, **SEG_TOL)
+        err = max(err, float(np.abs(n - s).max()))
+    log(f"phase 5: No-Index scores == indexed scores at rtol 1e-4/atol "
+        f"1e-5 on {NOINDEX_REQUESTS} requests (max |diff| {err:.3g})")
+    return counts
+
+
+def round_trip(pidx):
+    """save_index of the built partition, then load_index: every array
+    equal."""
+    t0 = time.perf_counter()
+    save_index(INDEX_DIR, pidx)
+    t_save = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(INDEX_DIR, f))
+                  for f in os.listdir(INDEX_DIR))
+    t0 = time.perf_counter()
+    back = load_index(INDEX_DIR, device=pidx.device)
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(INDEX_DIR)
+    for n in ("term_offsets", "doc_ids", "values", "fences", "term_to_shard",
+              "range_lo", "range_hi", "split_term", "split_doc", "idf",
+              "doc_len", "seg_len"):
+        a, b = getattr(back, n), getattr(pidx, n)
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"save_index/load_index changed {n}")
+    log(f"phase 5: save_index -> load_index round trip equal, {on_disk} "
+        f"bytes on disk, save {t_save:.2f}s, load {t_load:.2f}s")
+
+
+def time_seg_interact(builder, toks, segs, launches, err, dev):
+    """seg_interact at the build shape over 16 batches of fresh docs, its
+    plain version, and torch.bmm of the score product alone (context,
+    not a yardstick: it skips the epilogues).  The bound counts each
+    input and output once, and 2 * U_b * L_b * De flops per doc for its
+    valid terms and tokens."""
+    n_b = builder.cfg.n_segments
+    n_batches = max(1, min(16, toks.shape[0] // BUILD_BATCH))
+    inputs = [batch_inputs(builder, toks, segs, i * BUILD_BATCH, dev)
+              for i in range(n_batches)]
+    flops = n_bytes = 0
+    for a in inputs:
+        u = (a[3] >= 0).sum(1).double()
+        length = (a[2] >= 0).sum(1).double()
+        flops += 2 * float((u * length).sum()) * a[0].shape[2]
+        n_bytes += sum(x.numel() * x.element_size() for x in a)
+        n_bytes += a[0].shape[0] * a[0].shape[1] * n_b * 3 * 4
+    fns = [lambda a=a: seg_interact_kernel(*a, n_b) for a in inputs]
+    ms, how, call_ms = timed(fns, 160, "seg_interact_kernel")
+    plain_ms = events_ms([lambda a=a: seg_interact_plain(*a, n_b)
+                          for a in inputs], len(inputs))
+    bmm_ms = events_ms([lambda a=a: torch.bmm(a[0], a[1].transpose(1, 2))
+                        for a in inputs], 160)
+    for a in inputs:
+        got, want = seg_interact_kernel(*a, n_b), seg_interact_plain(*a, n_b)
+        torch.testing.assert_close(got, want, **SEG_TOL)
+        err = max(err, (got - want).abs().max().item())
+    b_ms, b_by = bound(n_bytes / len(inputs), flops / len(inputs))
+    # diagnostic: the first batch with every term slot and token live, so
+    # every block of the grid multiplies whole tiles
+    a = inputs[0]
+    n_l = a[1].shape[1]
+    live_seg = (torch.arange(n_l, device=dev) * n_b // n_l).to(torch.int32)
+    live = (a[0], a[1], live_seg.expand(a[2].shape).contiguous(),
+            torch.zeros_like(a[3]))
+    live_ms = timed([lambda: seg_interact_kernel(*live, n_b)], 50,
+                    "seg_interact_kernel")[0]
+    live_flops = 2.0 * a[0].shape[0] * a[0].shape[1] * n_l * a[0].shape[2]
+    log(f"phase 5: seg_interact {ms:.4f} ms per build batch ({how}; "
+        f"{call_ms:.4f} ms with launch cost) = "
+        f"{flops / len(inputs) / ms / 1e9:.2f} TFLOP/s on the valid "
+        f"(term, token) pairs; plain {plain_ms:.4f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}); torch.bmm of the scores alone "
+        f"{bmm_ms:.4f} ms; the same batch with all {a[0].shape[1]} term "
+        f"slots and {n_l} tokens live {live_ms:.4f} ms = "
+        f"{live_flops / live_ms / 1e9:.2f} TFLOP/s")
+    return dict(name="seg_interact", ms=ms, timed_by=how, call_ms=call_ms,
+                plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, route="cuda",
+                source=KERNEL_SOURCE.format("seg_interact", "seg_interact"),
+                replaces=TPU_KERNELS["seg_interact"],
+                launches=launches["build"],
+                launches_by_path=launches, bmm_ms=bmm_ms,
+                all_live_ms=live_ms)
+
+
+def phase5(seed: int, dev):
+    """The offline build at full width and MQ2007 scale (module doc)."""
+    cfg, ds, vocab, toks, segs, _ = build_corpus(seed)
+    provider = HashProvider(vocab.size, cfg.embed_dim,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=dev)
+    ip = init_interaction_params(torch.Generator().manual_seed(seed + 1),
+                                 cfg.embed_dim, device=dev)
+    builder = IndexBuilder(cfg, vocab, provider, ip=ip, device=dev)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pidx = builder.build_partitioned(toks, segs, BUILD_K,
+                                     batch_size=BUILD_BATCH,
+                                     max_uniq=BUILD_MAX_UNIQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    built = {n: fn.launches for n, fn in COUNTERS.items()}
+    st = builder.last_build_stats
+    log(f"phase 5: build launches {built}")
+    if built["seg_interact"] != st.n_batches:
+        raise AssertionError(f"seg_interact launched {built['seg_interact']}"
+                             f" times for {st.n_batches} batches")
+    stage = ", ".join(f"{k} {v:.2f}s" for k, v in st.stage_s.items())
+    dev_ms = ", ".join(f"{k} {v / 1e3:.2f}s"
+                       for k, v in st.stage_device_ms.items())
+    log(f"phase 5: build_partitioned K={pidx.n_shards}: {st.n_docs} docs in "
+        f"{wall:.2f}s ({st.n_docs / wall:.1f} docs/s end to end; stages "
+        f"1-3 {st.build_s:.2f}s = {st.docs_per_s:.1f} docs/s), "
+        f"{st.n_batches} batches; host seconds per stage: {stage}; device "
+        f"time per stage: {dev_ms or 'not measured'}")
+    log(f"phase 5: nnz {pidx.nnz}, posting_nbytes {pidx.posting_nbytes}, "
+        f"nmax {pidx.nmax}, split_term {pidx.split_term is not None}, peak "
+        f"run {max(st.run_bytes)} bytes, {st.total_nnz / st.n_docs:.1f} "
+        f"postings per doc")
+    err = check_seg_interact(builder, toks, segs, seed, dev)
+    check_cpu_build(builder, toks, segs)
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
+                                        cfg.n_segments, builder.functions,
+                                        device=dev)
+    engine = SeineEngine(pidx, "knrm", params)
+    noindex = NoIndexEngine(builder, pidx, toks, segs, "knrm", params)
+    check_on_the_fly(pidx, noindex, toks, np.random.RandomState(seed), dev)
+    served = serve_built(pidx, noindex, engine, ds, vocab, seed)
+    round_trip(pidx)
+    return time_seg_interact(
+        builder, toks, segs,
+        {"build": built["seg_interact"],
+         "noindex": served["noindex"]["seg_interact"]}, err, dev)
+
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -911,6 +1277,9 @@ def main() -> int:
     phase2_packed(index, packed, p2)
     requests, queries, launches = phase3(index, packed, rng, dev, args.seed)
     kernels = phase4(index, packed, requests, queries, launches, p2, dev)
+    del index, packed, p2
+    torch.cuda.empty_cache()
+    kernels.append(phase5(args.seed, dev))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

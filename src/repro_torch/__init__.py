@@ -1,4 +1,6 @@
-"""SEINE's query phase in PyTorch, with hand-written CUDA kernels for Hopper.
+"""SEINE in PyTorch, with hand-written CUDA kernels for Hopper: the query
+phase (lookup, first-stage retrieval, the retrievers) and the offline
+build (corpus to segment inverted index).
 
 The port of ``repro`` (JAX, Pallas on TPU) to PyTorch on one NVIDIA H100.
 It mirrors ``repro``'s layout module for module and imports neither

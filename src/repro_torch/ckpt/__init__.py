@@ -1,3 +1,3 @@
-from .checkpoint import load_index, load_index_shard
+from .checkpoint import load_index, load_index_shard, save_index
 
-__all__ = ["load_index", "load_index_shard"]
+__all__ = ["load_index", "load_index_shard", "save_index"]

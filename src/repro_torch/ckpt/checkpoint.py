@@ -1,11 +1,12 @@
-"""Read the on-disk index format of ``repro.ckpt.save_index``.
+"""Write and read the on-disk index format of ``repro.ckpt.save_index``.
 
 One directory per index: ``index_manifest.json`` (kind, shard count,
 static fields, codec), one ``shard_<k>.npz`` per term-range shard
 (``term_offsets``, ``doc_ids``, ``values``; a single CSR is the K=1 case)
 and ``common.npz`` with the replicated arrays (routing table, range
 starts and ends, sub-shard tables, idf, per-doc stats).  This is how an
-index built by the JAX package reaches the port.  A packed index
+index crosses between the JAX package and the port, both ways.  A packed
+index
 (``codec`` in the manifest) stores its packed sidecars per shard and no
 fences; the fences are rebuilt from the packed tile metadata.
 """
@@ -14,7 +15,9 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Dict
+import shutil
+import time
+from typing import Any, Dict
 
 import numpy as np
 
@@ -23,6 +26,78 @@ from ..core.codec import validate_codec
 from ..kernels.utils import resolve_device
 
 INDEX_MANIFEST = "index_manifest.json"
+
+
+def save_index(index_dir: str, index: Any) -> str:
+    """Persist a port index (single CSR or partitioned, raw or packed) in
+    the reference's layout, so ``repro.ckpt.load_index`` reads it: one
+    ``shard_<k>.npz`` per term-range shard, ``common.npz`` and the
+    manifest; fences are not stored (the loaders rebuild them).
+
+    Published through a temporary directory and ``os.replace``.  An
+    existing ``index_dir`` is first moved aside to ``<dir>.old<pid>``, so
+    a writer stopped mid-overwrite leaves the previous index recoverable
+    (:func:`load_index` falls back to it); a successful publish removes
+    every stranded ``.old*`` / ``.tmp*`` sibling.  Returns
+    ``index_dir``."""
+    from ..core.index import SegmentInvertedIndex
+    from ..dist.partition import PartitionedIndex, _host
+
+    os.makedirs(os.path.dirname(index_dir) or ".", exist_ok=True)
+    if isinstance(index, PartitionedIndex):
+        kind, n_shards = "partitioned", index.n_shards
+        common = {"term_to_shard": index.term_to_shard,
+                  "range_lo": index.range_lo}
+        for name in ("range_hi", "split_term", "split_doc"):
+            if getattr(index, name) is not None:
+                common[name] = getattr(index, name)
+        posting = {n: getattr(index, n) for n in (
+            "doc_ids", "values", "packed_words", "tile_bits", "tile_base",
+            "tile_word_off", "values_q", "value_scale")}
+        shards = [dict({"term_offsets": _host(index.term_offsets[k])},
+                       **{n: _host(a[k]) for n, a in posting.items()
+                          if a is not None})
+                  for k in range(n_shards)]
+    elif isinstance(index, SegmentInvertedIndex):
+        kind, n_shards = "segment", 1
+        common = {}
+        shards = [{n: _host(getattr(index, n))
+                   for n in ("term_offsets", "doc_ids", "values")}]
+    else:
+        raise TypeError(f"cannot save index of type {type(index).__name__}")
+    common.update(idf=index.idf, doc_len=index.doc_len,
+                  seg_len=index.seg_len)
+    manifest = {
+        "kind": kind, "n_shards": int(n_shards),
+        "n_docs": int(index.n_docs), "vocab_size": int(index.vocab_size),
+        "n_b": int(index.n_b), "functions": list(index.functions),
+        "time": time.time(),
+    }
+    codec = getattr(index, "codec", "none")
+    if codec != "none":
+        manifest.update(codec=codec, codec_tile=int(index.codec_tile),
+                        max_tile_words=int(index.max_tile_words),
+                        codec_spans=[int(s) for s in index.codec_spans])
+    tmp = index_dir.rstrip("/") + f".tmp{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    for k, arrays in enumerate(shards):
+        np.savez(os.path.join(tmp, f"shard_{k:05d}.npz"), **arrays)
+    np.savez(os.path.join(tmp, "common.npz"),
+             **{n: _host(a) for n, a in common.items()})
+    with open(os.path.join(tmp, INDEX_MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(index_dir):
+        old = index_dir.rstrip("/") + f".old{os.getpid()}"
+        if os.path.exists(old):
+            shutil.rmtree(old)
+        os.replace(index_dir, old)
+        os.replace(tmp, index_dir)
+        for stale in (glob.glob(index_dir.rstrip("/") + ".old*")
+                      + glob.glob(index_dir.rstrip("/") + ".tmp*")):
+            shutil.rmtree(stale, ignore_errors=True)
+    else:
+        os.replace(tmp, index_dir)
+    return index_dir
 
 
 def load_index_shard(index_dir: str, k: int) -> Dict[str, np.ndarray]:

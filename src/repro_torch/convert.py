@@ -3,7 +3,10 @@ arrays come from) into the port.
 
 ``jax.random`` streams cannot be reproduced with a ``torch.Generator``,
 so a parity test feeds the reference's own parameters through
-:func:`params_from_jax`; :func:`index_to_device` turns any object with
+:func:`params_from_jax` (a retriever's), :func:`interaction_params_from_jax`
+(the atomic functions' ``a``, ``b`` and MLP) and
+:func:`provider_from_numpy` (an embedding table);
+:func:`index_to_device` turns any object with
 the index's array fields (a ``repro`` index, a port index on another
 device) into the port's index on ``device``.  Nothing here imports jax:
 ``np.asarray`` reads a jax array through the array protocol.
@@ -17,6 +20,8 @@ import torch
 
 from .core.codec import fences_from_packed, validate_codec
 from .core.index import SegmentInvertedIndex, build_fences
+from .core.interactions import params_to
+from .core.providers import HashProvider, LearnedProvider
 from .dist.partition import PartitionedIndex
 from .kernels.utils import resolve_device
 from .models.layers import ParamTree
@@ -118,3 +123,27 @@ def params_from_jax(retriever: str, tree: Any, device=None) -> ParamTree:
         raise ValueError(f"{retriever} parameters do not match the port's "
                          f"layout: expected {want}, got {got}")
     return params.to(resolve_device(device))
+
+
+def interaction_params_from_jax(ip: Any, device=None) -> Dict[str, Any]:
+    """The interaction parameters of ``repro.core.interactions.
+    init_interaction_params`` (``a`` (De,), ``b`` (), ``mlp.{w, b}``
+    lists), read as numpy, as the port's float32 tensors on ``device``."""
+    host = {"a": _host(ip["a"]), "b": _host(ip["b"]),
+            "mlp": {"w": [_host(w) for w in ip["mlp"]["w"]],
+                    "b": [_host(b) for b in ip["mlp"]["b"]]}}
+    return params_to(host, resolve_device(device))
+
+
+def provider_from_numpy(table, *, kind: str = "hash", alpha: float = 0.25,
+                        device=None):
+    """A provider over a given (|v|, De) embedding table (e.g. the JAX
+    provider's ``table()``): ``kind`` "hash" (fixed) or "learned"."""
+    t = torch.from_numpy(np.array(_host(table), np.float32))
+    dev = resolve_device(device)
+    if kind == "hash":
+        return HashProvider(t.shape[0], t.shape[1], alpha=alpha, table=t,
+                            device=dev)
+    if kind == "learned":
+        return LearnedProvider(t.to(dev), alpha=alpha)
+    raise ValueError(f"unknown provider kind {kind!r}")

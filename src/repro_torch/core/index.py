@@ -238,3 +238,46 @@ def merge_run_parts(parts: list, t_lo: int, t_hi: int, *, n_b: int,
     counts = np.bincount(t, minlength=max(span, 1))[:max(span, 1)]
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return offsets, np.asarray(d, np.int32), np.asarray(v, np.float32)
+
+
+def shard_csr_from_runs(runs, t_lo: int, t_hi: int, *, n_b: int, n_f: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One term range's local CSR from term-sorted runs (one pass over
+    the runs): each contributes the searchsorted slice of ``[t_lo,
+    t_hi)``, copied for a spilled run, so host memory is O(range nnz)
+    plus one loaded run."""
+    parts = []
+    for run in runs:
+        spilled = getattr(run, "term_ids", None) is None
+        t, d, v = run.load()
+        lo = int(np.searchsorted(t, t_lo, side="left"))
+        hi = int(np.searchsorted(t, t_hi, side="left"))
+        if hi > lo:
+            sl = (t[lo:hi], d[lo:hi], v[lo:hi])
+            parts.append(tuple(a.copy() for a in sl) if spilled else sl)
+    return merge_run_parts(parts, t_lo, t_hi, n_b=n_b, n_f=n_f)
+
+
+def build_shard_from_runs(runs, t_lo: int, t_hi: int, *, idf: np.ndarray,
+                          doc_len: np.ndarray, seg_len: np.ndarray,
+                          n_docs: int, vocab_size: int, n_b: int,
+                          functions: Tuple[str, ...], device=None
+                          ) -> SegmentInvertedIndex:
+    """ONE term-range shard's local CSR from term-sorted runs
+    (``build_pipeline.PostingRun``), on ``device`` (default CUDA): its
+    ``term_offsets`` has ``t_hi - t_lo + 1`` rows, ``idf`` is sliced and
+    ``vocab_size`` is the span.  With ``(0, |v|)`` this is the global
+    index, rows in the (term, doc) order of :func:`build_from_rows`."""
+    dev = resolve_device(device)
+    offsets, d, v = shard_csr_from_runs(runs, t_lo, t_hi, n_b=n_b,
+                                        n_f=len(functions))
+    as_t = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a, dt))).to(dev)
+    doc_ids = as_t(d, np.int32)
+    return SegmentInvertedIndex(
+        term_offsets=as_t(offsets, np.int32), doc_ids=doc_ids,
+        values=as_t(v, np.float32), fences=build_fences(doc_ids),
+        idf=as_t(np.asarray(idf)[t_lo:t_hi], np.float32),
+        doc_len=as_t(doc_len, np.float32), seg_len=as_t(seg_len, np.float32),
+        n_docs=int(n_docs), vocab_size=int(t_hi - t_lo), n_b=int(n_b),
+        functions=tuple(functions))

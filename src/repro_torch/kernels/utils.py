@@ -30,6 +30,8 @@ SOURCES: Dict[str, Path] = {
     / "csr_lookup.cu",
     "knrm_pool": Path(__file__).parent / "knrm_pool" / "csrc"
     / "knrm_pool.cu",
+    "seg_interact": Path(__file__).parent / "seg_interact" / "csrc"
+    / "seg_interact.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-from .engine import (SeineEngine, ServeStats, make_qmeta, serve_batches,
-                     serve_retrieval)
+from .engine import (NoIndexEngine, SeineEngine, ServeStats, make_qmeta,
+                     serve_batches, serve_retrieval)
 
-__all__ = ["SeineEngine", "ServeStats", "make_qmeta", "serve_batches",
-           "serve_retrieval"]
+__all__ = ["NoIndexEngine", "SeineEngine", "ServeStats", "make_qmeta",
+           "serve_batches", "serve_retrieval"]

@@ -5,7 +5,9 @@ Port of ``repro.serving.engine`` without a mesh, a live index or the
 ``SeineEngine`` looks M_{q,d} up from the segment inverted index (raw or
 with packed postings) and scores it with a registered retriever; on CUDA
 tensors the lookup, the first-stage scan and KNRM's kernel bank run the
-hand-written kernels.
+hand-written kernels.  ``NoIndexEngine`` recomputes M at query time
+from the docs' tokens (the paper's "No Index" row), through the
+``seg_interact`` kernel on CUDA.
 ``serve_batches`` / ``serve_retrieval`` are the serving loops.
 """
 from __future__ import annotations
@@ -37,6 +39,13 @@ def make_qmeta(index, query_terms: torch.Tensor, doc_ids: torch.Tensor
         seg_len=gather_clip(index.seg_len, doc_ids),
         avg_dl=index.avg_doc_len,
     )
+
+
+def _as_ids(x, device: torch.device) -> torch.Tensor:
+    """Ids from numpy, a list or a tensor as int32 on ``device``."""
+    if isinstance(x, np.ndarray):       # torch refuses negative strides
+        x = np.ascontiguousarray(x)
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -115,9 +124,7 @@ class SeineEngine:
         self._lookup_tile = lookup_tile
 
     def _ids(self, x) -> torch.Tensor:
-        if isinstance(x, np.ndarray):       # torch refuses negative strides
-            x = np.ascontiguousarray(x)
-        return torch.as_tensor(x, dtype=torch.int32, device=self.device)
+        return _as_ids(x, self.device)
 
     @torch.inference_mode()
     def score(self, query_terms, doc_ids) -> torch.Tensor:
@@ -152,6 +159,47 @@ class SeineEngine:
         return index.retrieve_topk(query_terms, min(int(k), n_docs),
                                    score_block, doc_block=doc_block,
                                    tile=self._lookup_tile)
+
+
+class NoIndexEngine:
+    """Recomputes the q-d interaction matrix at query time (the No-Index
+    baseline) with ``builder.make_qd_fn()``, tf > sigma mask included.
+    ``index`` is used only for doc statistics and idf (the same
+    ``make_qmeta``), never for interaction values.  ``tokens`` / ``segs``
+    (n_docs, Lp) live on the builder's device; a candidate id gathers its
+    doc's row as the reference's clipping gather does (negative ids wrap,
+    then clamp)."""
+
+    def __init__(self, builder, index, tokens: np.ndarray, segs: np.ndarray,
+                 retriever: str, params: Any):
+        self.builder = builder
+        self.index = index
+        self.device = builder.device
+        as_dev = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(self.device)
+        self.tokens, self.segs = as_dev(tokens), as_dev(segs)
+        self.spec = get_retriever(retriever)
+        self.params = params.to(self.device)
+        self._qd_fn = builder.make_qd_fn()
+
+    def _ids(self, x) -> torch.Tensor:
+        return _as_ids(x, self.device)
+
+    @torch.inference_mode()
+    def qd_matrix(self, query_terms, doc_ids) -> torch.Tensor:
+        """M_{q,d} (B, Q, n_b, n_f) recomputed for query_terms (Q,) and
+        doc_ids (B,)."""
+        query_terms, doc_ids = self._ids(query_terms), self._ids(doc_ids)
+        return self._qd_fn(query_terms, gather_clip(self.tokens, doc_ids),
+                           gather_clip(self.segs, doc_ids))
+
+    @torch.inference_mode()
+    def score(self, query_terms, doc_ids) -> torch.Tensor:
+        """query_terms (Q,), doc_ids (B,) -> scores (B,) on the device."""
+        query_terms, doc_ids = self._ids(query_terms), self._ids(doc_ids)
+        m = self.qd_matrix(query_terms, doc_ids)
+        meta = make_qmeta(self.index, query_terms, doc_ids)
+        return self.spec.score(self.params, m, meta, self.index.functions)
 
 
 @dataclass

@@ -16,8 +16,10 @@ import time
 import pytest
 import torch
 
+from repro_torch.core import interactions
 from repro_torch.kernels.csr_lookup import ops as lookup_ops
 from repro_torch.kernels.knrm_pool import ops as knrm_ops
+from repro_torch.kernels.seg_interact import ops as seg_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -90,6 +92,41 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
             assert m["max_abs_err"] == 0.0     # the plain version vs itself
             assert m["bound_ms"] > 0 and m["bound_by"] == "bytes"
     assert set(kernels[3]["launches_by_path"]) == {"packed", "packed-q8"}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_build_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
+    """Phase 5 (the offline build) at a hundred-odd docs, n_b 5, De 32:
+    the build, its checks, both engines over the built index and the
+    save/load round trip."""
+    cs = _load_script()
+    for name, value in dict(BUILD_DOCS=130, BUILD_N_B=5, BUILD_DE=32,
+                            BUILD_MAX_LEN=160, BUILD_MAX_UNIQ=128,
+                            N_CAND=60, N_REQUESTS=3, NOINDEX_REQUESTS=2,
+                            INDEX_DIR=str(tmp_path / "idx")).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "retrieve_windows_kernel"),
+                      (knrm_ops, "knrm_pool_kernel"),
+                      (interactions, "seg_interact_kernel"),
+                      (seg_ops, "seg_interact_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+
+    row = cs.phase5(seed, torch.device("cpu"))
+    assert set(row) >= KEYS
+    assert row["name"] == "seg_interact" and row["route"] == "cuda"
+    assert row["replaces"] == "src/repro/kernels/seg_interact/kernel.py:50"
+    assert row["launches"] == -(-130 // 32)       # one per build batch
+    assert row["launches_by_path"]["noindex"] > 0
+    assert row["max_abs_err"] == 0.0           # the plain version vs itself
+    assert row["bound_ms"] > 0 and row["library_ms"] is None
+    assert not os.path.exists(tmp_path / "idx")
 
 
 def test_refuses_to_run_without_cuda():

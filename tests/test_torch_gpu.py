@@ -1,13 +1,17 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (bitwise for the lookups and the
-scans, raw and packed, rtol 1e-5 / atol 1e-6 for the KNRM bank), and the
-engine on CUDA, raw and packed, against the engine on the CPU.
+scans, raw and packed, rtol 1e-5 / atol 1e-6 for the KNRM bank, rtol
+1e-4 / atol 1e-5 for seg_interact, whose plain version sums in another
+order), the engine on CUDA, raw and packed, against the engine on the
+CPU, and the offline build on the card against the same build on the
+CPU.
 
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Without a CUDA device every test skips.
 """
 import copy
+import dataclasses
 import os
 
 import numpy as np
@@ -15,8 +19,14 @@ import pytest
 import torch
 
 from repro_torch.ckpt import load_index
+from repro_torch.configs import seine_smoke
+from repro_torch.core.builder import IndexBuilder
 from repro_torch.core.codec import quantize_values, quantize_values_torch
-from repro_torch.data.synth_corpus import build_zipfian_index
+from repro_torch.core.interactions import init_interaction_params
+from repro_torch.core.providers import HashProvider
+from repro_torch.core.segment import segment_corpus
+from repro_torch.core.vocab import build_vocabulary
+from repro_torch.data.synth_corpus import build_zipfian_index, generate
 from repro_torch.dist.partition import pack_index
 from repro_torch.dist.sharding import partition_index
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
@@ -25,8 +35,11 @@ from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             retrieve_windows_kernel,
                                             retrieve_windows_packed_kernel)
 from repro_torch.kernels.knrm_pool import knrm_pool_kernel, knrm_pool_ref
+from repro_torch.kernels.seg_interact import (seg_interact,
+                                              seg_interact_kernel,
+                                              seg_interact_plain)
 from repro_torch.retrievers import get_retriever
-from repro_torch.serving import SeineEngine
+from repro_torch.serving import NoIndexEngine, SeineEngine
 from torch_codec_rows import adversarial_index, adversarial_queries
 
 pytestmark = pytest.mark.gpu
@@ -206,3 +219,107 @@ def test_quantize_values_on_cuda_matches_numpy():
                                        torch.from_numpy(offs).cuda())
     assert np.array_equal(tq.cpu().numpy(), q)
     assert np.array_equal(tscale.cpu().numpy(), scale)
+
+
+SEG_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,u,length,de,n_seg", [
+    (32, 512, 512, 128, 20),     # a build batch
+    (3, 70, 130, 200, 64),       # S = 64, De not a multiple of 32
+    (2, 5, 9, 37, 3),            # fewer terms and tokens than one tile
+    (1000, 6, 160, 32, 5),       # the No-Index shape
+])
+def test_seg_interact_kernel_matches_plain(b, u, length, de, n_seg):
+    """Pad terms, tokens outside [0, S), an empty segment; every (term,
+    segment) cell within the bar of the plain version, zeros for pad
+    terms and the empty segment, and the same bits run to run."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(b + u + de)
+    e_term = torch.randn(b, u, de, generator=g) / de ** 0.5
+    e_tok = torch.randn(b, length, de, generator=g) / de ** 0.5
+    seg = torch.sort(torch.randint(-1, n_seg + 1, (b, length), generator=g),
+                     dim=1).values.to(torch.int32)
+    seg[:, ::7] = -1
+    if n_seg > 1:
+        seg[seg == 1] = 0                      # segment 1 is empty
+    term_ids = torch.randint(0, 1000, (b, u), generator=g,
+                             dtype=torch.int32)
+    term_ids[torch.rand(b, u, generator=g) < 0.3] = -1
+    args = [x.cuda().contiguous() for x in (e_term, e_tok, seg, term_ids)]
+    before = seg_interact_kernel.launches
+    got = seg_interact_kernel(*args, n_seg)
+    again = seg_interact_kernel(*args, n_seg)
+    torch.cuda.synchronize()
+    assert seg_interact_kernel.launches == before + 2
+    want = seg_interact_plain(e_term, e_tok, seg, term_ids, n_seg)
+    torch.testing.assert_close(got.cpu(), want, **SEG_TOL)
+    assert torch.equal(got, again)
+    assert (got[term_ids.cuda() < 0] == 0).all()
+    if n_seg > 1:
+        assert (got[:, :, 1] == 0).all()
+
+
+def test_seg_interact_jax_signature_on_cuda():
+    _require_cuda()
+    g = torch.Generator().manual_seed(0)
+    for v, n_seg, ls, de in ((64, 4, 128, 32), (128, 2, 128, 200)):
+        ev = torch.randn(v, de, generator=g) / de ** 0.5
+        st = torch.randn(n_seg, ls, de, generator=g) / de ** 0.5
+        mask = torch.ones(n_seg, ls)
+        mask[-1] = 0.0
+        got = seg_interact(ev.cuda(), st.cuda(), mask.cuda())
+        torch.testing.assert_close(got.cpu(), seg_interact(ev, st, mask),
+                                   **SEG_TOL)
+        assert (got[:, -1] == 0).all()
+
+
+def _small_build(device, n_docs=64):
+    cfg = dataclasses.replace(seine_smoke(), n_docs=n_docs)
+    ds = generate(cfg, seed=0)
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
+                             keep_frac=cfg.vocab_keep_frac)
+    toks, segs = segment_corpus([vocab.map_tokens(d) for d in ds.docs],
+                                cfg.n_segments, max_len=160)
+    provider = HashProvider(vocab.size, cfg.embed_dim, seed=0,
+                            device=device)
+    builder = IndexBuilder(cfg, vocab, provider,
+                           ip=init_interaction_params(None, cfg.embed_dim),
+                           device=device)
+    return builder, toks, segs
+
+
+def test_build_on_cuda_matches_cpu():
+    """A 64-doc build on the card against the same build on the CPU: ids
+    bitwise, values within the bar; then indexed == No-Index on the
+    card, and the No-Index engine against the CPU's."""
+    _require_cuda()
+    b_cpu, toks, segs = _small_build("cpu")
+    b_gpu, _, _ = _small_build("cuda")
+    before = seg_interact_kernel.launches
+    for k in (1, 2):
+        cpu = b_cpu.build_partitioned(toks, segs, k, batch_size=16)
+        gpu = b_gpu.build_partitioned(toks, segs, k, batch_size=16)
+        for n in ("term_offsets", "doc_ids", "fences", "term_to_shard",
+                  "range_lo", "range_hi", "idf", "doc_len", "seg_len"):
+            assert torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n)), n
+        torch.testing.assert_close(gpu.values.cpu(), cpu.values, **SEG_TOL)
+    assert seg_interact_kernel.launches == before + 2 * 4
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(0),
+                                        cpu.n_b, cpu.functions, device="cpu")
+    n_cpu = NoIndexEngine(b_cpu, cpu, toks, segs, "knrm", params)
+    n_gpu = NoIndexEngine(b_gpu, gpu, toks, segs, "knrm",
+                          copy.deepcopy(params))
+    idx_gpu = SeineEngine(gpu, "knrm", copy.deepcopy(params))
+    q = np.array([int(toks[3][toks[3] >= 0][0]), 5, -1, 40, 1000, 7],
+                 np.int32)
+    docs = np.arange(-1, 66, dtype=np.int32)
+    torch.testing.assert_close(n_gpu.score(q, docs).cpu(),
+                               n_cpu.score(q, docs), **SEG_TOL)
+    ok = slice(1, 65)
+    torch.testing.assert_close(n_gpu.score(q, docs)[ok],
+                               idx_gpu.score(q, docs)[ok], **SEG_TOL)
+    on_fly = n_gpu.qd_matrix(q, docs[ok])
+    looked = gpu.qd_matrix(torch.from_numpy(q).cuda(),
+                           torch.from_numpy(docs[ok]).cuda())
+    assert (on_fly - looked).abs().max().item() <= 1e-5

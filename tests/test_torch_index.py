@@ -45,20 +45,29 @@ def assert_same_index(port, ref):
 
 def test_port_imports_neither_jax_nor_repro():
     """The port, and the script that drives it on the card, must run on
-    a host without JAX: importing them loads no jax and no repro."""
+    a host without JAX: importing every module of repro_torch (walked,
+    so a module added later is covered) and chip_smoke loads no jax and
+    no repro."""
     code = (
-        "import sys; sys.path[:0] = ['src', '.']\n"
-        "import repro_torch, repro_torch.ckpt, repro_torch.convert\n"
-        "import repro_torch.serving, repro_torch.kernels.csr_lookup\n"
-        "import repro_torch.kernels.knrm_pool, repro_torch.retrievers\n"
-        "import repro_torch.data.synth_corpus, chip_smoke\n"
+        "import importlib, pkgutil, sys; sys.path[:0] = ['src', '.']\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    expected = {os.path.relpath(os.path.join(d, f), os.path.join(
+        REPO, "src"))[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for d, _, fs in os.walk(os.path.join(REPO, "src", "repro_torch"))
+        for f in fs if f.endswith(".py")} - {"repro_torch"}
+    assert int(r.stdout.split()[-1]) == len(expected)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,

@@ -171,6 +171,8 @@ BUILD_CHECK_DOCS = 64    # the card's build against the plain CPU build
 BUILD_PAIR_DOCS = 8      # indexed == on-the-fly
 NOINDEX_REQUESTS = 4
 SEG_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py's bar
+# its kernel-vs-index bar, for the sweep at the reference's unit scale
+SEG_UNIT_TOL = dict(rtol=1e-3, atol=1e-4)
 # the JAX-signature shapes of tests/test_kernels.py::TestSegInteract
 SEG_SWEEP = ((64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
              (128, 2, 128, 200))
@@ -982,7 +984,9 @@ def batch_inputs(builder, toks, segs, start: int, dev):
 def check_seg_interact(builder, toks, segs, seed, dev):
     """The kernel against its plain version on the card: a full build
     batch (twice, bitwise: it is deterministic), the JAX-signature sweep
-    with an empty last segment, which must give zeros."""
+    with an empty last segment, which must give zeros, at the table's
+    N(0, 1/De) scale and at the reference test's unit scale.  Returns the
+    largest |diff| at each scale."""
     n_b = builder.cfg.n_segments
     args = batch_inputs(builder, toks, segs, 0, dev)
     got = seg_interact_kernel(*args, n_b)
@@ -999,22 +1003,34 @@ def check_seg_interact(builder, toks, segs, seed, dev):
         f"batch {tuple(args[0].shape[:2])} x {tuple(args[1].shape[1:])}, "
         f"S={n_b} (max |diff| {err:.3g}); bitwise run to run")
     g = torch.Generator(device=dev).manual_seed(seed)
-    for v, n_seg, ls, de in SEG_SWEEP:
-        ev = torch.randn(v, de, generator=g, device=dev) / de ** 0.5
-        st = torch.randn(n_seg, ls, de, generator=g, device=dev) / de ** 0.5
-        lens = torch.randint(0, ls + 1, (n_seg,), generator=g, device=dev)
-        lens[-1] = 0
-        mask = (torch.arange(ls, device=dev)[None] < lens[:, None]).float()
-        got = seg_interact(ev, st, mask)
-        want = seg_interact_plain(*flatten_segments(ev, st, mask), n_seg)[0]
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **SEG_TOL)
-        if bool((got[:, -1] != 0).any()):
-            raise AssertionError("an empty segment gave nonzero values")
-        err = max(err, (got - want).abs().max().item())
+    unit_err = 0.0
+    for unit, tol in ((False, SEG_TOL), (True, SEG_UNIT_TOL)):
+        for v, n_seg, ls, de in SEG_SWEEP:
+            scale = 1.0 if unit else de ** -0.5
+            ev = torch.randn(v, de, generator=g, device=dev) * scale
+            st = torch.randn(n_seg, ls, de, generator=g, device=dev) * scale
+            lens = torch.randint(0, ls + 1, (n_seg,), generator=g,
+                                 device=dev)
+            lens[-1] = 0
+            mask = (torch.arange(ls, device=dev)[None]
+                    < lens[:, None]).float()
+            got = seg_interact(ev, st, mask)
+            want = seg_interact_plain(*flatten_segments(ev, st, mask),
+                                      n_seg)[0]
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            if bool((got[:, -1] != 0).any()):
+                raise AssertionError("an empty segment gave nonzero values")
+            diff = (got - want).abs().max().item()
+            if unit:
+                unit_err = max(unit_err, diff)
+            else:
+                err = max(err, diff)
     log(f"phase 5: seg_interact == plain over the JAX-signature sweep "
-        f"{SEG_SWEEP}; empty segments give zeros")
-    return err
+        f"{SEG_SWEEP}; empty segments give zeros; N(0, 1/De) rows at rtol "
+        f"1e-4/atol 1e-5 (max |diff| {err:.3g}), unit-scale rows at rtol "
+        f"1e-3/atol 1e-4 (max |diff| {unit_err:.3g})")
+    return err, unit_err
 
 
 def check_cpu_build(builder, toks, segs):
@@ -1029,8 +1045,8 @@ def check_cpu_build(builder, toks, segs):
         ip=builder.ip, device="cpu")
     n = BUILD_CHECK_DOCS
     kw = dict(batch_size=BUILD_BATCH, max_uniq=BUILD_MAX_UNIQ)
-    got, _ = builder._pipeline().stream_runs(toks[:n], segs[:n], **kw)
-    want, _ = cpu._pipeline().stream_runs(toks[:n], segs[:n], **kw)
+    got, _ = builder.pipeline.stream_runs(toks[:n], segs[:n], **kw)
+    want, _ = cpu.pipeline.stream_runs(toks[:n], segs[:n], **kw)
     if [r.n_rows for r in got.runs] != [r.n_rows for r in want.runs]:
         raise AssertionError("run boundaries differ from the CPU build")
     err = 0.0
@@ -1135,23 +1151,27 @@ def round_trip(pidx):
         f"bytes on disk, save {t_save:.2f}s, load {t_load:.2f}s")
 
 
-def time_seg_interact(builder, toks, segs, launches, err, dev):
+def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
     """seg_interact at the build shape over 16 batches of fresh docs, its
     plain version, and torch.bmm of the score product alone (context,
-    not a yardstick: it skips the epilogues).  The bound counts each
-    input and output once, and 2 * U_b * L_b * De flops per doc for its
-    valid terms and tokens."""
+    not a yardstick: it skips the epilogues).  The bound counts what the
+    function needs once: the embedding rows of valid terms (id >= 0) and
+    of kept tokens (segment in [0, S)), the whole seg and term-id arrays
+    and the whole output; and 2 * U_b * L_b * De flops per doc for its
+    valid terms and kept tokens."""
     n_b = builder.cfg.n_segments
     n_batches = max(1, min(16, toks.shape[0] // BUILD_BATCH))
     inputs = [batch_inputs(builder, toks, segs, i * BUILD_BATCH, dev)
               for i in range(n_batches)]
     flops = n_bytes = 0
-    for a in inputs:
-        u = (a[3] >= 0).sum(1).double()
-        length = (a[2] >= 0).sum(1).double()
-        flops += 2 * float((u * length).sum()) * a[0].shape[2]
-        n_bytes += sum(x.numel() * x.element_size() for x in a)
-        n_bytes += a[0].shape[0] * a[0].shape[1] * n_b * 3 * 4
+    for e_term, e_tok, seg, term_ids in inputs:
+        u = (term_ids >= 0).sum(1).double()
+        length = ((seg >= 0) & (seg < n_b)).sum(1).double()
+        de = e_term.shape[2]
+        flops += 2 * float((u * length).sum()) * de
+        n_bytes += float(u.sum() + length.sum()) * de * e_term.element_size()
+        n_bytes += seg.numel() * 4 + term_ids.numel() * 4
+        n_bytes += e_term.shape[0] * e_term.shape[1] * n_b * 3 * 4
     fns = [lambda a=a: seg_interact_kernel(*a, n_b) for a in inputs]
     ms, how, call_ms = timed(fns, 160, "seg_interact_kernel")
     plain_ms = events_ms([lambda a=a: seg_interact_plain(*a, n_b)
@@ -1188,7 +1208,7 @@ def time_seg_interact(builder, toks, segs, launches, err, dev):
                 replaces=TPU_KERNELS["seg_interact"],
                 launches=launches["build"],
                 launches_by_path=launches, bmm_ms=bmm_ms,
-                all_live_ms=live_ms)
+                all_live_ms=live_ms, **extra)
 
 
 def phase5(seed: int, dev):
@@ -1226,7 +1246,7 @@ def phase5(seed: int, dev):
         f"nmax {pidx.nmax}, split_term {pidx.split_term is not None}, peak "
         f"run {max(st.run_bytes)} bytes, {st.total_nnz / st.n_docs:.1f} "
         f"postings per doc")
-    err = check_seg_interact(builder, toks, segs, seed, dev)
+    err, unit_err = check_seg_interact(builder, toks, segs, seed, dev)
     check_cpu_build(builder, toks, segs)
     params = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
                                         cfg.n_segments, builder.functions,
@@ -1239,7 +1259,8 @@ def phase5(seed: int, dev):
     return time_seg_interact(
         builder, toks, segs,
         {"build": built["seg_interact"],
-         "noindex": served["noindex"]["seg_interact"]}, err, dev)
+         "noindex": served["noindex"]["seg_interact"]}, err, dev,
+        unit_scale_max_abs_err=unit_err)
 
 
 

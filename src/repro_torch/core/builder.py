@@ -19,9 +19,9 @@ import torch
 
 from ..configs.base import SeineConfig
 from ..kernels.utils import resolve_device
+from .build_pipeline import BuildPipeline, compute_doc_seg_lengths
 from .index import SegmentInvertedIndex, build_from_rows
-from .interactions import doc_interactions, init_interaction_params, \
-    params_to
+from .interactions import doc_interactions, params_to
 from .providers import EmbeddingProvider
 from .vocab import Vocabulary
 
@@ -91,21 +91,13 @@ class IndexBuilder:
         self.cfg = cfg
         self.vocab = vocab
         self.provider = provider
-        self.device = resolve_device(device)
-        self.functions = tuple(functions or cfg.functions)
-        self.ip = params_to(ip if ip is not None else
-                            init_interaction_params(None,
-                                                    provider.embed_dim),
-                            self.device)
-        self._idf = torch.from_numpy(
-            np.asarray(vocab.idf, np.float32).copy()).to(self.device)
+        self.pipeline = BuildPipeline(cfg, vocab, provider, ip=ip,
+                                      functions=functions, device=device)
+        self.device = self.pipeline.device
+        self.functions = self.pipeline.functions
+        self.ip = self.pipeline.ip
+        self._idf = self.pipeline._idf
         self.last_build_stats = None
-
-    def _pipeline(self):
-        from .build_pipeline import BuildPipeline
-        return BuildPipeline(self.cfg, self.vocab, self.provider,
-                             ip=self.ip, functions=self.functions,
-                             device=self.device)
 
     def build(self, tokens: np.ndarray, seg_ids: np.ndarray, *,
               batch_size: int = 32, max_uniq: Optional[int] = None,
@@ -113,7 +105,7 @@ class IndexBuilder:
               spill_dir: Optional[str] = None) -> SegmentInvertedIndex:
         """tokens/seg_ids: (n_docs, Lp) from ``segment.segment_corpus``.
         ``spill_dir`` bounds resident host bytes by one per-batch run."""
-        index, stats = self._pipeline().build_index(
+        index, stats = self.pipeline.build_index(
             tokens, seg_ids, batch_size=batch_size, max_uniq=max_uniq,
             spill_dir=spill_dir, verbose=verbose)
         self.last_build_stats = stats
@@ -129,7 +121,7 @@ class IndexBuilder:
         """K term-range shards straight from the streamed runs (the
         global CSR is never materialised), packed at merge time under
         ``codec``.  Returns a PartitionedIndex.  ``mesh`` raises."""
-        pidx, stats = self._pipeline().build_partitioned(
+        pidx, stats = self.pipeline.build_partitioned(
             tokens, seg_ids, k, batch_size=batch_size, max_uniq=max_uniq,
             spill_dir=spill_dir, verbose=verbose, mesh=mesh, codec=codec,
             codec_tile=codec_tile)
@@ -174,7 +166,6 @@ class IndexBuilder:
                 rows_d.append(np.full(idxs.size, s + i, np.int32))
                 rows_t.append(ub[i, idxs])
                 rows_v.append(vals[i, idxs])
-        from .build_pipeline import compute_doc_seg_lengths
         doc_len, seg_len = compute_doc_seg_lengths(tokens, seg_ids, n_b)
         return build_from_rows(
             np.concatenate(rows_d), np.concatenate(rows_t),

@@ -38,10 +38,11 @@
 // bits.  Float32 FMA only: no TF32 or bf16 tensor cores.
 //
 // What bounds it on the H100.  A build batch (B = 32, U = 512, L = 512,
-// De = 128) reads 17 MB of embeddings and writes 4 MB; only ~180 terms
-// and ~200 tokens per doc are live, so the products it needs are ~0.3
-// GFLOP: the bytes bound it, at ~6 us, with the operations close behind.
-// This first version is latency-bound instead: the products run on the
+// De = 128) holds 17 MB of embeddings, but only ~180 terms and ~200
+// tokens per doc are live: the function needs ~6 MB of their rows, the
+// seg and id arrays, and writes 4 MB, ~3 us at 3.35 TB/s.  The products
+// on the live pairs are ~0.3 GFLOP, ~4.5 us at the FP32 peak of 67
+// TFLOP/s, so the operations bound it.  This first version is latency-bound instead: the products run on the
 // FP32 pipes through a plain shared-memory tiling, a doc's live terms
 // fill only ~3 blocks of 2 warps (about one block per SM at B = 32), and
 // the OOV positions inside a token tile are multiplied too.  wgmma, TMA

@@ -176,7 +176,7 @@ def test_stream_runs_match_jax(seine_world, port, batch_size):
     w = seine_world
     spiller, stats = w["builder"]._pipeline().stream_runs(
         w["toks"], w["segs"], batch_size=batch_size)
-    mine, st = port["builder"]._pipeline().stream_runs(
+    mine, st = port["builder"].pipeline.stream_runs(
         port["toks"], port["segs"], batch_size=batch_size, doc_start=100)
     assert [r.n_rows for r in mine.runs] == [r.n_rows for r in spiller.runs]
     assert st.n_batches == stats.n_batches == len(spiller.runs)
@@ -194,7 +194,7 @@ def test_stream_runs_match_jax(seine_world, port, batch_size):
 
 
 def test_spilled_runs_equal_resident(port, tmp_path):
-    pipe = port["builder"]._pipeline()
+    pipe = port["builder"].pipeline
     res, _ = pipe.stream_runs(port["toks"], port["segs"], batch_size=16)
     spill, stats = pipe.stream_runs(port["toks"], port["segs"],
                                     batch_size=16, spill_dir=str(tmp_path))

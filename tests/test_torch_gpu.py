@@ -274,6 +274,27 @@ def test_seg_interact_jax_signature_on_cuda():
         assert (got[:, -1] == 0).all()
 
 
+@pytest.mark.parametrize("v,n_seg,ls,de", [
+    (64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
+    (128, 2, 128, 200)])
+def test_seg_interact_unit_scale_on_cuda(v, n_seg, ls, de):
+    """The reference test's unit-scale rows over its shape sweep, at its
+    kernel-vs-index bar (rtol 1e-3 / atol 1e-4): the segment sums reach
+    hundreds, and the kernel's FMA order and the plain bmm's part by more
+    than rtol 1e-4 there."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(v * n_seg + de)
+    ev = torch.randn(v, de, generator=g)
+    st = torch.randn(n_seg, ls, de, generator=g)
+    lens = torch.randint(0, ls + 1, (n_seg,), generator=g)
+    lens[-1] = 0
+    mask = (torch.arange(ls)[None] < lens[:, None]).float()
+    got = seg_interact(ev.cuda(), st.cuda(), mask.cuda())
+    torch.testing.assert_close(got.cpu(), seg_interact(ev, st, mask),
+                               rtol=1e-3, atol=1e-4)
+    assert (got[:, -1] == 0).all()
+
+
 def _small_build(device, n_docs=64):
     cfg = dataclasses.replace(seine_smoke(), n_docs=n_docs)
     ds = generate(cfg, seed=0)

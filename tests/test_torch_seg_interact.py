@@ -33,18 +33,20 @@ from repro_torch.kernels.seg_interact import (MAX_SEGMENTS,
                                               seg_interact_ref)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+UNIT_TOL = dict(rtol=1e-3, atol=1e-4)
 # tests/test_kernels.py::TestSegInteract's sweep, De = 200 included
 SWEEP = [(64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
          (128, 2, 128, 200)]
 
 
-def _padded(v, s, ls, de, seed, empty=()):
-    """(e_vocab, seg_tokens, mask) as the reference's test draws them,
-    at the table's scale: N(0, 1/De) rows, segment lengths uniform in
-    [0, Ls], 0/1 masks."""
+def _padded(v, s, ls, de, seed, empty=(), unit=False):
+    """(e_vocab, seg_tokens, mask) as the reference's test draws them:
+    segment lengths uniform in [0, Ls], 0/1 masks, rows at the table's
+    N(0, 1/De) scale or, with ``unit``, at the reference test's N(0, 1)."""
     rng = np.random.RandomState(seed)
-    ev = (rng.randn(v, de) / np.sqrt(de)).astype(np.float32)
-    st = (rng.randn(s, ls, de) / np.sqrt(de)).astype(np.float32)
+    scale = 1.0 if unit else 1.0 / np.sqrt(de)
+    ev = (rng.randn(v, de) * scale).astype(np.float32)
+    st = (rng.randn(s, ls, de) * scale).astype(np.float32)
     lens = rng.randint(0, ls + 1, size=s)
     lens[list(empty)] = 0
     mask = (np.arange(ls)[None] < lens[:, None]).astype(np.float32)
@@ -69,6 +71,25 @@ def test_matches_jax_ref_over_the_kernel_sweep(v, s, ls, de):
                          args[2]).numpy(), want, **TOL)
     plain = seg_interact_plain(*flatten_segments(*args), s)[0]
     np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("v,s,ls,de", SWEEP)
+def test_matches_jax_ref_at_unit_scale(v, s, ls, de):
+    """The reference test's own unit-scale rows, at the reference's
+    kernel-vs-index bar (rtol 1e-3 / atol 1e-4, tests/test_kernels.py::
+    test_matches_index_builder_values): a segment's dot sum reaches
+    hundreds there, and the two summation orders part by more than rtol
+    1e-4 (largest |diff| over this sweep on the CPU: 2.1e-4, on values
+    up to 582)."""
+    ev, st, mask = _padded(v, s, ls, de, seed=v * s + de, unit=True)
+    want = _jax_want(ev, st, mask)
+    args = (torch.from_numpy(ev), torch.from_numpy(st),
+            torch.from_numpy(mask))
+    got = seg_interact(*args).numpy()
+    np.testing.assert_allclose(got, want, **UNIT_TOL)
+    plain = seg_interact_plain(*flatten_segments(*args), s)[0].numpy()
+    np.testing.assert_array_equal(plain, got)
+    assert (got[:, mask.sum(1) == 0] == 0).all()
 
 
 def test_matches_the_jax_kernel_in_interpret_mode():

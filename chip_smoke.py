@@ -68,6 +68,32 @@ Phases (any failed check raises, and the script exits non-zero):
    ``load_index`` round trip, and ``seg_interact``'s timing against its
    plain version and its bound.
 
+6. The LM bridge: the same corpus embedded by minitron-4b
+   (``configs/lm_archs.py``: 32 layers, d_model 3,072, 24 query heads
+   over 8 KV heads, head_dim 128, d_ff 9,216, vocab 256,000, bf16) at its
+   full published width and depth, with random weights drawn on the card
+   from ``--seed`` at the reference init's scales, through
+   ``LMProvider(embed_dim=128)``.  The ``flash_attn`` kernel against its
+   plain version at the build's shape (32 docs x 512 positions, causal;
+   bf16 at 2e-2, float32 at rtol 1e-4 / atol 1e-5) and over the shapes of
+   tests/test_kernels.py::TestFlashAttention, a non-causal one and S =
+   160 with a group of 3; one build batch's ``contextualize`` through the
+   kernel against the plain attention (2e-2, with the weights cast to
+   float32; the bf16 difference is printed).  Then
+   ``build_partitioned(K=4)`` over the first 1,024 docs (32 batches of
+   32), counts zeroed just before and read just after: ``flash_attn``
+   must launch n_layers x batches times and ``seg_interact`` once per
+   batch.  The device time of a build batch is split into GEMMs,
+   ``flash_attn``, ``seg_interact`` and the rest (CUPTI).  Indexed M
+   equals No-Index M (``make_qd_fn`` over the first batch's docs in build
+   order) for every stored pair at atol 1e-5; a KNRM ``SeineEngine``
+   serves 8 requests of 6 slots x 256 built docs and a ``NoIndexEngine``
+   over the same LM answers 2 of them over 32 candidates (scores at the
+   bf16 bar, 2e-2).  Last ``flash_attn``'s timing at the build's shape
+   against its plain version, ``F.scaled_dot_product_attention`` and its
+   bound (bytes over 3.35 TB/s or causal flops over the bf16 989
+   TFLOP/s), and the phase's peak device memory.
+
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
 of the ``repro`` package is imported.
@@ -89,14 +115,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch.ckpt import load_index, save_index  # noqa: E402
-from repro_torch.configs import SEINE_LETOR  # noqa: E402
+from repro_torch.configs import SEINE_LETOR, get_lm_config  # noqa: E402
 from repro_torch.core.build_pipeline import (  # noqa: E402
     make_unique_terms_fn)
 from repro_torch.core.builder import IndexBuilder  # noqa: E402
 from repro_torch.core.index import build_from_rows  # noqa: E402
 from repro_torch.core.interactions import (  # noqa: E402
     init_interaction_params, seg_interact_inputs)
-from repro_torch.core.providers import HashProvider  # noqa: E402
+from repro_torch.core.providers import (HashProvider,  # noqa: E402
+                                        LMProvider)
 from repro_torch.core.segment import segment_corpus  # noqa: E402
 from repro_torch.core.vocab import build_vocabulary  # noqa: E402
 from repro_torch.data.batching import (candidates_for_query,  # noqa: E402
@@ -113,10 +140,13 @@ from repro_torch.kernels.csr_lookup import (  # noqa: E402
     scan_block_packed_ref, scan_block_ref)
 from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
 from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
+from repro_torch.kernels.flash_attn import (flash_attn_kernel,  # noqa: E402
+                                            flash_attn_plain)
 from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
                                            knrm_pool_ref)
 from repro_torch.kernels.seg_interact import (  # noqa: E402
     flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.retrievers import get_retriever  # noqa: E402
 from repro_torch.serving import (NoIndexEngine, SeineEngine,  # noqa: E402
                                  make_qmeta, serve_batches, serve_retrieval)
@@ -144,6 +174,7 @@ TPU_KERNELS = {
     "csr_lookup_packed": "src/repro/kernels/csr_lookup/kernel.py:359",
     "retrieve_windows_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
     "seg_interact": "src/repro/kernels/seg_interact/kernel.py:50",
+    "flash_attn": "src/repro/kernels/flash_attn/kernel.py:63",
 }
 # the launch counter of each kernel, and the kernels each serving path
 # (codec) must launch
@@ -152,7 +183,8 @@ COUNTERS = {"csr_lookup": csr_lookup_kernel,
             "knrm_pool": knrm_pool_kernel,
             "csr_lookup_packed": csr_lookup_packed_kernel,
             "retrieve_windows_packed": retrieve_windows_packed_kernel,
-            "seg_interact": seg_interact_kernel}
+            "seg_interact": seg_interact_kernel,
+            "flash_attn": flash_attn_kernel}
 PATH_KERNELS = {"none": ("csr_lookup", "retrieve_windows", "knrm_pool"),
                 "packed": ("csr_lookup_packed", "retrieve_windows_packed",
                            "knrm_pool"),
@@ -177,6 +209,24 @@ SEG_UNIT_TOL = dict(rtol=1e-3, atol=1e-4)
 SEG_SWEEP = ((64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
              (128, 2, 128, 200))
 INDEX_DIR = os.path.join(REPO, "build", "chip_smoke_index")
+# phase 6, the LM bridge: phase 5's corpus embedded by minitron-4b
+LM_ARCH = "minitron-4b"
+LM_DOCS = 1024           # of phase 5's 65,323 docs: cut for the run's time
+LM_BATCH = 32
+LM_K = 4
+LM_REQUESTS = 8
+LM_CAND = 256
+LM_NOINDEX_REQUESTS = 2
+LM_NOINDEX_CAND = 32
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+FA_F32_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py's bar
+# (B, S, Hq, Hkv, hd, causal): tests/test_kernels.py::TestFlashAttention's
+# causal shapes and its non-causal one, and S = 160 with a group of 3
+FA_SWEEP = ((2, 128, 4, 2, 32, True), (1, 256, 8, 8, 64, True),
+            (2, 64, 4, 1, 16, True), (1, 96, 2, 2, 32, True),
+            (1, 64, 4, 2, 32, False), (2, 160, 6, 2, 32, True))
+BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 tensor cores
+GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "splitk")
 
 
 def log(*a):
@@ -672,12 +722,17 @@ def events_ms(fns, iters: int) -> float:
 
 
 def device_ms(fns, iters: int, kernel: str, cold: bool = False):
-    """Mean device time per call of the kernels whose name contains
-    ``kernel`` (CUPTI, through torch.profiler), or None when the profiler
-    records no device time for them.  With ``cold``, 64 MB (more than
-    the card's 50 MB L2) are overwritten before every call, so each
-    launch finds its inputs in device memory as a fresh request would;
-    the overwrite is another kernel, which the sum leaves out."""
+    """(mean device ms per launch, launches recorded) of the kernels whose
+    name contains ``kernel``, over ``iters`` calls that launch one each
+    (CUPTI, through torch.profiler), or None when the profiler records
+    none.  The mean is over the launches CUPTI recorded: late in this
+    long script it was seen to drop kernel records on an H100 (a
+    flash_attn window summed to 80% of what CUDA events measured for the
+    same launches), so dividing by the calls made would undercount.  With
+    ``cold``, 64 MB (more than the card's 50 MB L2) are overwritten
+    before every call, so each launch finds its inputs in device memory
+    as a fresh request would; the overwrite is another kernel, which the
+    sum leaves out."""
     if cold:
         buf = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
         fns = [lambda f=f: (buf.zero_(), f()) for f in fns]
@@ -689,24 +744,27 @@ def device_ms(fns, iters: int, kernel: str, cold: bool = False):
         for i in range(iters):
             fns[i % len(fns)]()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 / iters if us > 0 else None
+    ev = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(e.self_device_time_total for e in ev)
+    n = sum(e.count for e in ev)
+    return (us / 1e3 / n, n) if us > 0 and n > 0 else None
 
 
 def timed(fns, iters: int, kernel: str, cold: bool = False):
     """(device ms, how it was timed, ms with host launch cost)."""
     call = events_ms(fns, iters)
     dev = device_ms(fns, iters, kernel, cold=cold)
-    return (dev, "cupti", call) if dev is not None else (call, "events",
-                                                         call)
+    if dev is None:
+        return call, "events", call
+    return dev[0], f"cupti, {dev[1]} of {iters} launches recorded", call
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_FLOPS_PER_S):
     """The least time for the work: bytes over the HBM rate or flops
-    over the fp32 rate, whichever is larger."""
+    over the peak rate of their type (fp32 unless given), whichever is
+    larger."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -1211,9 +1269,10 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
                 all_live_ms=live_ms, **extra)
 
 
-def phase5(seed: int, dev):
-    """The offline build at full width and MQ2007 scale (module doc)."""
-    cfg, ds, vocab, toks, segs, _ = build_corpus(seed)
+def phase5(seed: int, dev, corpus=None):
+    """The offline build at full width and MQ2007 scale (module doc), over
+    ``corpus`` (``build_corpus``'s result; made here when not given)."""
+    cfg, ds, vocab, toks, segs, _ = corpus or build_corpus(seed)
     provider = HashProvider(vocab.size, cfg.embed_dim,
                             generator=torch.Generator().manual_seed(seed),
                             device=dev)
@@ -1265,6 +1324,330 @@ def phase5(seed: int, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the LM bridge
+# ---------------------------------------------------------------------------
+
+def lm_config():
+    return get_lm_config(LM_ARCH)
+
+
+def fa_build_shape(lm):
+    """(B, S, Hq, Hkv, hd) of the attention in one build batch."""
+    return (LM_BATCH, BUILD_MAX_LEN, lm.n_heads, lm.n_kv_heads, lm.head_dim)
+
+
+def qkv(shape, dtype, gen, dev):
+    b, s, hq, hkv, hd = shape
+    return [torch.randn(n, s, h, hd, generator=gen, device=dev).to(dtype)
+            for n, h in ((b, hq), (b, hkv), (b, hkv))]
+
+
+def check_flash_attn(lm, seed, dev):
+    """The kernel against its plain version on the card: the build's
+    shape in bf16 (2e-2) and float32 (rtol 1e-4 / atol 1e-5), then the
+    sweep FA_SWEEP in both types.  Returns the largest |diff| at the
+    build's shape in bf16 and in float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = fa_build_shape(lm)
+    cases = [(shape, True, torch.bfloat16), (shape, True, torch.float32)]
+    cases += [(c[:5], c[5], dt) for c in FA_SWEEP
+              for dt in (torch.float32, torch.bfloat16)]
+    errs = []
+    for shp, causal, dt in cases:
+        q, k, v = qkv(shp, dt, g, dev)
+        got = flash_attn_kernel(q, k, v, causal=causal)
+        want = flash_attn_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dt == torch.bfloat16 else FA_F32_TOL
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attn gave non-finite values at "
+                                 f"{shp}")
+        errs.append((got.float() - want.float()).abs().max().item())
+    log(f"phase 6: flash_attn == plain at the build shape {shape} causal: "
+        f"bf16 max |diff| {errs[0]:.3g} (bar 2e-2), float32 {errs[1]:.3g} "
+        f"(bar rtol 1e-4/atol 1e-5); over {len(FA_SWEEP)} sweep shapes in "
+        f"both types, largest |diff| {max(errs[2:]):.3g}")
+    return errs[0], errs[1]
+
+
+def check_lm_wiring(provider, toks, segs, dev):
+    """The forward's wiring: one build batch's ``contextualize`` through
+    the kernel against the same provider with the plain attention, on
+    the card, at 2e-2, with the weights cast to float32 (a second copy),
+    where the two attentions agree to ~1e-6, so the bar sees the layout,
+    head grouping and mask alone.  In the working bf16 one-ulp
+    differences of the attention output grow through the layers; that
+    comparison is printed (largest |diff|, share of values past 2e-2),
+    and the kernel's bf16 parity is held at the build shape by
+    ``check_flash_attn``."""
+    tb = torch.from_numpy(toks[:LM_BATCH]).to(dev)
+    sb = torch.from_numpy(segs[:LM_BATCH]).to(dev)
+
+    def both(cfg, params):
+        with torch.inference_mode():
+            return [LMProvider(cfg, params, provider.embed_dim,
+                               proj=provider._proj, device=dev,
+                               attention=attention).contextualize(tb, sb)
+                    for attention in (None, flash_attn_plain)]
+
+    got, want = both(provider.cfg, provider.params)
+    bf_err = (got - want).abs()
+    bf_share = (bf_err > BF16_TOL["atol"]
+                + BF16_TOL["rtol"] * want.abs()).float().mean().item()
+    del got, want
+    params32 = {k: ({n: t.float() for n, t in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in provider.params.items()}
+    got, want = both(dataclasses.replace(provider.cfg, dtype="float32"),
+                     params32)
+    del params32
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    err = (got - want).abs().max().item()
+    log(f"phase 6: contextualize {tuple(tb.shape)} through flash_attn == "
+        f"through the plain attention at 2e-2 in float32 (max |diff| "
+        f"{err:.3g}, values up to {want.abs().max().item():.3g}); in bf16 "
+        f"max |diff| {bf_err.max().item():.3g}, {bf_share:.4%} of the "
+        f"values past 2e-2")
+    return dict(f32=err, bf16=bf_err.max().item(), bf16_share=bf_share)
+
+
+def kernel_split(run, n: int):
+    """Device ms per batch of ``run`` (``n`` batches), CUPTI kernel time
+    summed into GEMMs, flash_attn, seg_interact and the rest; and the
+    rest's largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    split = dict(gemm=0.0, flash_attn=0.0, seg_interact=0.0, rest=0.0)
+    rest = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        key = e.key.lower()
+        if "flash_attn" in key:
+            split["flash_attn"] += us
+        elif "seg_interact" in key:
+            split["seg_interact"] += us
+        elif any(g in key for g in GEMM_KERNELS):
+            split["gemm"] += us
+        else:
+            split["rest"] += us
+            rest[e.key[:60]] = us
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:4]
+    return ({k: v / 1e3 / n for k, v in split.items()},
+            ", ".join(f"{k} {v / 1e3 / n:.2f} ms" for k, v in top))
+
+
+def check_lm_on_the_fly(pidx, builder, toks, segs, dev):
+    """Indexed == No-Index for every stored pair of the first build
+    batch: ``make_qd_fn`` over its LM_BATCH docs in build order (the same
+    LM batch as the build's) for the union of their terms, against the
+    index's M, at atol 1e-5."""
+    tb = toks[:LM_BATCH]
+    union = np.unique(tb[tb >= 0]).astype(np.int32)
+    q = torch.from_numpy(union).to(dev)
+    docs = torch.arange(LM_BATCH, dtype=torch.int32, device=dev)
+    qd_fn = builder.make_qd_fn()
+    with torch.inference_mode():
+        fly = qd_fn(q, torch.from_numpy(tb).to(dev),
+                    torch.from_numpy(segs[:LM_BATCH]).to(dev))
+        looked = pidx.qd_matrix(q, docs)
+    torch.cuda.synchronize()
+    present = torch.from_numpy(
+        (union[None, :, None] == tb[:, None, :]).any(-1)).to(dev)
+    stored = looked.flatten(2).ne(0).any(-1)
+    if not bool((stored == present).all()):
+        raise AssertionError("the stored pairs of the first build batch "
+                             "are not its docs' terms")
+    err = (looked - fly).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"indexed != on-the-fly: {err}")
+    log(f"phase 6: indexed == on-the-fly for all {int(present.sum())} "
+        f"stored pairs of the first build batch ({union.size} terms x "
+        f"{LM_BATCH} docs; max |diff| {err:.3g}, bar 1e-5)")
+
+
+def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
+    """The LM-built index served: a KNRM SeineEngine answers LM_REQUESTS
+    requests over built docs, a NoIndexEngine over the same LM the first
+    LM_NOINDEX_REQUESTS of them over LM_NOINDEX_CAND candidates; launch
+    counts zeroed just before each path and read just after."""
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
+                                        pidx.n_b, builder.functions,
+                                        device=dev)
+    engine = SeineEngine(pidx, "knrm", params)
+    noindex = NoIndexEngine(builder, pidx, toks, segs, "knrm", params)
+    queries = pad_queries(ds.queries, vocab.map_tokens, q_len=Q_SLOTS)
+    crng = np.random.RandomState(seed)
+    requests = [(queries[i], crng.choice(toks.shape[0], LM_CAND,
+                                         replace=False).astype(np.int32))
+                for i in range(LM_REQUESTS)]
+    short = [(q, c[:LM_NOINDEX_CAND])
+             for q, c in requests[:LM_NOINDEX_REQUESTS]]
+    out, counts = {}, {}
+    for path, eng, reqs, need in (
+            ("indexed", engine, requests, ("csr_lookup", "knrm_pool")),
+            ("noindex", noindex, short,
+             ("flash_attn", "seg_interact", "knrm_pool"))):
+        serve_batches(eng, reqs[:1])           # warm-up, uncounted
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        out[path] = serve_batches(eng, reqs)
+        counts[path] = {n: fn.launches for n, fn in COUNTERS.items()}
+        for name in need:
+            if counts[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched serving the "
+                                     f"LM-built index ({path})")
+        st = out[path][1]
+        log(f"phase 6 [{path}]: launches {counts[path]}; serve_batches "
+            f"{len(reqs)} x ({Q_SLOTS} slots, {len(reqs[0][1])} "
+            f"candidates): p50 {st.p50_ms:.3f} ms p95 {st.p95_ms:.3f} ms")
+    err = 0.0
+    for s, n in zip(out["indexed"][0], out["noindex"][0]):
+        assert s.shape == (LM_CAND,) and np.isfinite(s).all()
+        np.testing.assert_allclose(n, s[:LM_NOINDEX_CAND], **BF16_TOL)
+        err = max(err, float(np.abs(n - s[:LM_NOINDEX_CAND]).max()))
+    log(f"phase 6: No-Index scores == indexed scores at 2e-2 on "
+        f"{LM_NOINDEX_REQUESTS} requests (largest |diff| {err:.3g})")
+    return counts
+
+
+def time_flash_attn(lm, launches, errs, dev):
+    """flash_attn at the build's shape in bf16: the kernel (CUPTI), its
+    plain version and ``F.scaled_dot_product_attention`` (the library
+    yardstick, never used by the port; K and V repeated first when it
+    lacks ``enable_gqa``).  The bound: q, k, v read once and o written
+    once over 3.35 TB/s, or the causal flops (2 products x 2 hd per
+    (query, key) pair at or below the diagonal) over 989 TFLOP/s."""
+    shape = fa_build_shape(lm)
+    b, s, hq, hkv, hd = shape
+    q, k, v = qkv(shape, torch.bfloat16, torch.Generator(device=dev)
+                  .manual_seed(1), dev)
+    ms, how, call_ms = timed([lambda: flash_attn_kernel(q, k, v)], 50,
+                             "flash_attn_kernel")
+    plain_ms = events_ms([lambda: flash_attn_plain(q, k, v)], 5)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = timed([lambda: flash_attn_kernel(qf, kf, vf)], 20,
+                   "flash_attn_kernel")[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    except TypeError:                        # no enable_gqa: repeat K, V
+        kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+        lib = lambda: sdpa(qt, kr, vr, is_causal=True)
+    library_ms = events_ms([lib], 50)
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    flops = 4.0 * b * hq * hd * (s * (s + 1) / 2)
+    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+    log(f"phase 6: flash_attn at {shape} causal bf16: {ms:.4f} ms ({how}; "
+        f"{call_ms:.4f} ms with launch cost) = {flops / ms / 1e9:.2f} "
+        f"TFLOP/s; float32 inputs {f32_ms:.4f} ms; plain {plain_ms:.4f} ms;"
+        f" scaled_dot_product_attention {library_ms:.4f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP)")
+    return dict(name="flash_attn", route="cuda",
+                source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
+                replaces=TPU_KERNELS["flash_attn"],
+                launches=launches["build"], launches_by_path=launches,
+                max_abs_err=errs[0], f32_max_abs_err=errs[1], ms=ms,
+                timed_by=how, call_ms=call_ms, f32_ms=f32_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def phase6(seed: int, dev, corpus):
+    """The LM bridge at minitron-4b's full width and depth (module doc),
+    over phase 5's corpus."""
+    cfg, ds, vocab, toks, segs, _ = corpus
+    toks, segs = toks[:LM_DOCS], segs[:LM_DOCS]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    lm = lm_config()
+    t0 = time.perf_counter()
+    params = T.init_params(lm, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    provider = LMProvider(lm, params, cfg.embed_dim, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(seed + 7))
+    table = provider.table()
+    torch.cuda.synchronize()
+    tensors = [t for v in params.values()
+               for t in (v.values() if isinstance(v, dict) else [v])]
+    n_params = sum(t.numel() for t in tensors)
+    if n_params != lm.n_params:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{lm.n_params}")
+    log(f"phase 6: {lm.name} ({lm.n_layers} layers, d_model {lm.d_model}, "
+        f"{lm.n_heads}/{lm.n_kv_heads} heads of {lm.head_dim}, d_ff "
+        f"{lm.d_ff}, vocab {lm.vocab_size}, {lm.dtype}): {n_params} "
+        f"parameters, {sum(t.numel() * t.element_size() for t in tensors)}"
+        f" bytes, drawn in {time.perf_counter() - t0:.2f}s; table() "
+        f"{tuple(table.shape)} {table.dtype}")
+    fa_errs = check_flash_attn(lm, seed, dev)
+    wiring = check_lm_wiring(provider, toks, segs, dev)
+
+    ip = init_interaction_params(torch.Generator().manual_seed(seed + 1),
+                                 cfg.embed_dim, device=dev)
+    builder = IndexBuilder(cfg, vocab, provider, ip=ip, device=dev)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pidx = builder.build_partitioned(toks, segs, LM_K, batch_size=LM_BATCH,
+                                     max_uniq=BUILD_MAX_UNIQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    built = {n: fn.launches for n, fn in COUNTERS.items()}
+    st = builder.last_build_stats
+    log(f"phase 6: build launches {built}")
+    if built["flash_attn"] != lm.n_layers * st.n_batches:
+        raise AssertionError(f"flash_attn launched {built['flash_attn']} "
+                             f"times for {lm.n_layers} layers x "
+                             f"{st.n_batches} batches")
+    if built["seg_interact"] != st.n_batches:
+        raise AssertionError(f"seg_interact launched {built['seg_interact']}"
+                             f" times for {st.n_batches} batches")
+    stage = ", ".join(f"{k} {v:.2f}s" for k, v in st.stage_s.items())
+    dev_s = ", ".join(f"{k} {v / 1e3:.2f}s"
+                      for k, v in st.stage_device_ms.items())
+    log(f"phase 6: build_partitioned K={pidx.n_shards}: {st.n_docs} docs in "
+        f"{wall:.2f}s ({st.n_docs / wall:.1f} docs/s end to end; stages "
+        f"1-3 {st.build_s:.2f}s = {st.docs_per_s:.1f} docs/s), "
+        f"{st.n_batches} batches; host seconds per stage: {stage}; device "
+        f"time per stage: {dev_s or 'not measured'}; nnz {pidx.nnz}, "
+        f"posting_nbytes {pidx.posting_nbytes}")
+    n_split = min(2, st.n_batches)
+    split = kernel_split(lambda: builder.pipeline.stream_runs(
+        toks[:n_split * LM_BATCH], segs[:n_split * LM_BATCH],
+        batch_size=LM_BATCH, max_uniq=BUILD_MAX_UNIQ), n_split)
+    if split is not None:
+        parts, rest = split
+        log(f"phase 6: device ms per build batch (CUPTI, {n_split} "
+            f"batches): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      parts.items())
+            + f"; total {sum(parts.values()):.2f}; largest of the rest: "
+            f"{rest}")
+    check_lm_on_the_fly(pidx, builder, toks, segs, dev)
+    served = serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev)
+    row = time_flash_attn(lm, {"build": built["flash_attn"],
+                               "noindex": served["noindex"]["flash_attn"]},
+                          fa_errs, dev)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    log(f"phase 6: peak device memory "
+        f"{peak if peak is not None else 'not measured'} bytes")
+    row["peak_bytes"] = peak
+    row["contextualize_diff"] = wiring
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1300,7 +1683,10 @@ def main() -> int:
     kernels = phase4(index, packed, requests, queries, launches, p2, dev)
     del index, packed, p2
     torch.cuda.empty_cache()
-    kernels.append(phase5(args.seed, dev))
+    corpus = build_corpus(args.seed)
+    kernels.append(phase5(args.seed, dev, corpus))
+    torch.cuda.empty_cache()        # phase 5's index and partition are gone
+    kernels.append(phase6(args.seed, dev, corpus))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ arrays come from) into the port.
 ``jax.random`` streams cannot be reproduced with a ``torch.Generator``,
 so a parity test feeds the reference's own parameters through
 :func:`params_from_jax` (a retriever's), :func:`interaction_params_from_jax`
-(the atomic functions' ``a``, ``b`` and MLP) and
-:func:`provider_from_numpy` (an embedding table);
+(the atomic functions' ``a``, ``b`` and MLP),
+:func:`provider_from_numpy` (an embedding table) and
+:func:`lm_params_from_numpy` / :func:`lm_provider_from_numpy` (an LM's
+parameter tree and ``LMProvider``'s projection);
 :func:`index_to_device` turns any object with
 the index's array fields (a ``repro`` index, a port index on another
 device) into the port's index on ``device``.  Nothing here imports jax:
@@ -21,9 +23,10 @@ import torch
 from .core.codec import fences_from_packed, validate_codec
 from .core.index import SegmentInvertedIndex, build_fences
 from .core.interactions import params_to
-from .core.providers import HashProvider, LearnedProvider
+from .core.providers import HashProvider, LearnedProvider, LMProvider
 from .dist.partition import PartitionedIndex
 from .kernels.utils import resolve_device
+from .models import transformer as T
 from .models.layers import ParamTree
 from .retrievers import get_retriever
 
@@ -147,3 +150,52 @@ def provider_from_numpy(table, *, kind: str = "hash", alpha: float = 0.25,
     if kind == "learned":
         return LearnedProvider(t.to(dev), alpha=alpha)
     raise ValueError(f"unknown provider kind {kind!r}")
+
+
+def _f32(a) -> np.ndarray:
+    """A float32 host copy.  ``np.asarray`` of a JAX bf16 array is an
+    ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses;
+    bf16 -> float32 -> bf16 is exact, so the value survives the trip."""
+    return np.array(_host(a), np.float32)
+
+
+def lm_params_from_numpy(tree: Any, cfg, device=None) -> Dict[str, Any]:
+    """An LM parameter tree (the reference's ``T.init_params`` pytree:
+    ``embed``, ``layers.{ln1, ln2, wq, wk, wv, wo, w_gate, w_up,
+    w_down}`` stacked over L, ``final_norm``, ``unembed``; JAX or numpy
+    arrays) as the port's tree on ``device`` in the config's dtype.
+    Every name and shape is checked against the port's own
+    ``T.param_specs``."""
+    flat = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            flat.update({f"{name}.{k}": v for k, v in value.items()})
+        else:
+            flat[name] = value
+    want = {n: tuple(shape) for n, (shape, _) in T.param_specs(cfg).items()}
+    got = {n: tuple(np.shape(v)) for n, v in flat.items()}
+    if want != got:
+        raise ValueError(f"{cfg.name} parameters do not match the port's "
+                         f"layout: expected {want}, got {got}")
+    dev, dt = resolve_device(device), T._dt(cfg)
+    params: Dict[str, Any] = {"layers": {}}
+    for name, value in flat.items():
+        t = torch.from_numpy(_f32(value)).to(dev, dt)
+        if name.startswith("layers."):
+            params["layers"][name[len("layers."):]] = t
+        else:
+            params[name] = t
+    return params
+
+
+def lm_provider_from_numpy(cfg, params: Any, proj=None,
+                           device=None) -> LMProvider:
+    """An ``LMProvider`` over a reference LM tree and the reference
+    provider's projection ``_proj`` (``(d_model, embed_dim)``, or None
+    when the hidden states are used unprojected)."""
+    dev = resolve_device(device)
+    tp = lm_params_from_numpy(params, cfg, dev)
+    if proj is None:
+        return LMProvider(cfg, tp, cfg.d_model, device=dev)
+    p = torch.from_numpy(_f32(proj))
+    return LMProvider(cfg, tp, p.shape[1], proj=p, device=dev)

@@ -1,17 +1,20 @@
 """Embedding providers for SEINE's atomic interaction functions (port of
-``repro.core.providers``, without ``LMProvider``, which comes with the
-language-model substrate).
+``repro.core.providers``).
 
 The paper uses word2vec (KNRM/HiNT/DeepTileBars) and BERT (DeepCT /
 functions 6-9).  No pretrained weights exist here; providers are
 pluggable:
 
 * ``HashProvider``    — a fixed random table (word2vec stand-in);
-* ``LearnedProvider`` — a trainable table.
+* ``LearnedProvider`` — a trainable table;
+* ``LMProvider``      — contextual embeddings from a decoder-only LM
+  (``models.transformer``): the bridge from the LM architectures to
+  SEINE's index.
 
-The table is drawn from an explicit ``torch.Generator`` or passed in:
-``jax.random`` streams cannot be reproduced, so a parity test carries the
-reference's table across as numpy (``convert.provider_from_numpy``).
+Tables and projections are drawn from an explicit ``torch.Generator`` or
+passed in: ``jax.random`` streams cannot be reproduced, so a parity test
+carries the reference's arrays across as numpy
+(``convert.provider_from_numpy``, ``convert.lm_provider_from_numpy``).
 
 Invariant: the same provider instance is used by the index builder and by
 the No-Index on-the-fly path, so `indexed lookup == on-the-fly` holds for
@@ -25,6 +28,7 @@ from typing import Optional, Protocol
 import torch
 
 from ..kernels.utils import resolve_device
+from ..models import transformer as T
 
 # upper bound on segments per doc in the contextual mix (static, as in
 # the reference)
@@ -112,6 +116,80 @@ class LearnedProvider(HashProvider):
         return LearnedProvider(table, alpha=self.alpha)
 
 
+class LMProvider:
+    """Contextual embeddings from a transformer LM backbone (the SEINE <-
+    LM-architecture bridge).
+
+    The static table is the LM's input embedding projected to
+    ``embed_dim``; :meth:`contextualize` runs the LM over a batch of
+    documents and projects the hidden states.  ``params`` is the tree of
+    ``models.transformer.init_params`` (moved to ``device``, default
+    CUDA).  The projection ``(d_model, embed_dim)`` is used as given, or
+    drawn as N(0, 1/d_model) from ``generator`` (default: seeded with
+    ``seed + 7`` on ``device``, the reference's key); none when
+    ``embed_dim == d_model``.  ``attention`` is the forward's attention
+    (default ``kernels.flash_attn.flash_attention``)."""
+
+    def __init__(self, cfg, params, embed_dim: Optional[int] = None, *,
+                 seed: int = 0, generator: Optional[torch.Generator] = None,
+                 proj: Optional[torch.Tensor] = None, device=None,
+                 attention=None):
+        dev = resolve_device(device)
+        d = cfg.d_model
+        self.cfg = cfg
+        self.embed_dim = embed_dim or d
+        self.params = _tree_to(params, dev)
+        self.attention = attention or T.flash_attention
+        if proj is None and self.embed_dim != d:
+            gen = generator or torch.Generator(device=dev).manual_seed(
+                seed + 7)
+            proj = torch.randn(d, self.embed_dim, generator=gen,
+                               device=gen.device) / math.sqrt(d)
+        if proj is not None and tuple(proj.shape) != (d, self.embed_dim):
+            raise ValueError(f"proj must be ({d}, {self.embed_dim}), got "
+                             f"{tuple(proj.shape)}")
+        self._proj = None if proj is None else proj.to(dev, torch.float32)
+        self._table: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        return x if self._proj is None else x @ self._proj
+
+    def table(self) -> torch.Tensor:
+        """(LM vocab, embed_dim) float32, projected once and kept.  SEINE
+        vocab slots index it directly; a slot past the LM's vocabulary
+        reads the last row (the interactions' clipping gather)."""
+        if self._table is None:
+            with torch.inference_mode():
+                self._table = self._project(self.params["embed"])
+        return self._table
+
+    def contextualize(self, tokens: torch.Tensor,
+                      seg_ids: torch.Tensor) -> torch.Tensor:
+        """tokens (..., n) vocab slots (-1 pad) -> (..., n, embed_dim).
+        Every doc of the batch runs through the LM at once; causal
+        attention never mixes docs, so each row equals the reference's
+        one-doc forward.  Pad and OOV positions enter the LM as token 0
+        and are attended (there is no padding mask, as in the
+        reference); only their output rows are zeroed."""
+        n = tokens.shape[-1]
+        valid = tokens >= 0
+        hidden, _ = T.forward(self.params, tokens.reshape(-1, n).clamp(min=0),
+                              self.cfg, attention=self.attention)
+        out = self._project(hidden).reshape(*tokens.shape, -1)
+        return out * valid[..., None]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def make_provider(name: str, vocab_size: int, embed_dim: int, *,
                   seed: int = 0, generator: Optional[torch.Generator] = None,
                   device=None) -> EmbeddingProvider:
@@ -125,5 +203,5 @@ def make_provider(name: str, vocab_size: int, embed_dim: int, *,
     if name == "learned":
         return LearnedProvider(_normal_table(vocab_size, embed_dim, gen),
                                device=resolve_device(device))
-    raise ValueError(f"unknown provider {name!r} (the LM provider is not "
-                     "ported yet)")
+    raise ValueError(f"unknown provider {name!r} (LMProvider is built "
+                     "explicitly)")

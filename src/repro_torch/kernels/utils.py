@@ -32,6 +32,8 @@ SOURCES: Dict[str, Path] = {
     / "knrm_pool.cu",
     "seg_interact": Path(__file__).parent / "seg_interact" / "csrc"
     / "seg_interact.cu",
+    "flash_attn": Path(__file__).parent / "flash_attn" / "csrc"
+    / "flash_attn.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

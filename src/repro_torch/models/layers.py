@@ -1,18 +1,21 @@
-"""The layer helpers the retrievers use (port of the init helpers and
-``mlp_apply`` of ``repro.models.layers``).
+"""The layer helpers of the retrievers and the LM (port of the init
+helpers, ``mlp_apply``, ``rms_norm``, RoPE and the attention functions of
+``repro.models.layers``; the mesh helpers ``maybe_constrain`` and
+``maybe_replicate`` are not ported).
 
-Parameters live in :class:`ParamTree`, an ``nn.Module`` holding the same
-nested dict/list structure as the reference's parameter pytrees and
-indexed like it (``params["mlp"]["w"][0]``), so each scorer reads like
-its JAX original and ``convert.params_from_jax`` maps a JAX tree onto it
-name for name.  Inits draw from an explicit ``torch.Generator`` on the
-CPU and move the result to the device: ``jax.random`` streams cannot be
+A scorer's parameters live in :class:`ParamTree`, an ``nn.Module``
+holding the same nested dict/list structure as the reference's parameter
+pytrees and indexed like it (``params["mlp"]["w"][0]``), so each scorer
+reads like its JAX original and ``convert.params_from_jax`` maps a JAX
+tree onto it name for name; the LM keeps a plain dict of tensors
+(``models.transformer``).  Inits draw from an explicit
+``torch.Generator`` on its own device: ``jax.random`` streams cannot be
 reproduced in torch, so parity tests carry the JAX parameters across.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,9 +42,19 @@ class ParamTree(nn.Module):
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               scale: float | None = None) -> torch.Tensor:
+               scale: float | None = None, *,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, scale^2) with scale 1/sqrt(d_in) by default, drawn in float32
+    on the generator's device, then cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return torch.randn(d_in, d_out, generator=gen) * scale
+    return (torch.randn(d_in, d_out, generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, n: int, d: int, *,
+               dtype: torch.dtype = torch.float32,
+               scale: float = 0.02) -> torch.Tensor:
+    return dense_init(gen, n, d, scale, dtype=dtype)
 
 
 def mlp_init(gen: torch.Generator, dims: Tuple[int, ...]) -> dict:
@@ -63,3 +76,107 @@ def mlp_apply(p, x: torch.Tensor, act=torch.relu, final_act=None
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+# -- norms -----------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """In float32, cast back to x's dtype (a bf16 rounding point)."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+# -- RoPE ------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates
+    the two halves of head_dim against each other (``jnp.split``), not
+    interleaved pairs; in float32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    ang = positions[..., :, None].float() * freqs       # (..., seq, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- attention -------------------------------------------------------------
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, q_offset: int = 0, chunk: int = 1024,
+                  kv_valid_len: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Grouped-query attention as a chunked online softmax over KV (the
+    reference's jnp stand-in for the flash_attn kernel).
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
+    q_offset: absolute position of q[0] (causal masking of a prefill
+    chunk or a decode step).  kv_valid_len: (B,) optional valid kv
+    length.  Returns (B, Sq, Hq, D) in q's dtype.
+    """
+    n_b, n_q, n_hq, d = q.shape
+    n_kv, n_hkv = k.shape[1], k.shape[2]
+    g = n_hq // n_hkv
+    qg = q.reshape(n_b, n_q, n_hkv, g, d).float()
+    scale = 1.0 / math.sqrt(d)
+    n_chunks = max(1, -(-n_kv // chunk))
+    pad = n_chunks * chunk - n_kv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    q_pos = q_offset + torch.arange(n_q, device=q.device)
+    m = torch.full((n_b, n_q, n_hkv, g), float("-inf"), device=q.device)
+    l = torch.zeros((n_b, n_q, n_hkv, g), device=q.device)
+    acc = torch.zeros((n_b, n_q, n_hkv, g, d), device=q.device)
+    for c in range(n_chunks):
+        kb = kf[:, c * chunk:(c + 1) * chunk]
+        vb = vf[:, c * chunk:(c + 1) * chunk]
+        kv_pos = c * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb) * scale
+        mask = (kv_pos < n_kv)[None, :].expand(n_q, chunk)
+        if causal:
+            mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+        mask = mask[None, :, None, None, :]
+        if kv_valid_len is not None:
+            mask = mask & (kv_pos[None, :] < kv_valid_len[:, None]
+                           )[:, None, None, None, :]
+        s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        # guard fully masked rows
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe,
+                                     float("-inf")))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p,
+                                                   vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(n_b, n_q, n_hq, d).to(q.dtype)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """O(S^2)-memory reference attention (the oracle of the tests)."""
+    n_b, n_q, n_hq, d = q.shape
+    n_kv, n_hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(n_b, n_q, n_hkv, n_hq // n_hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) / math.sqrt(d)
+    if causal:
+        qp = q_offset + torch.arange(n_q, device=q.device)
+        kp = torch.arange(n_kv, device=q.device)
+        s = torch.where((qp[:, None] >= kp[None, :])[None, :, None, None, :],
+                        s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return o.reshape(n_b, n_q, n_hq, d).to(q.dtype)

@@ -7,6 +7,7 @@ find it bitwise equal.  The wrappers count launches only on the card, so
 the names the ops import are wrapped in counters here.  The timing
 helpers, which need the card, are replaced by host-clock stand-ins.
 """
+import dataclasses
 import importlib.util
 import os
 import subprocess
@@ -16,8 +17,10 @@ import time
 import pytest
 import torch
 
+from repro_torch.configs import smoke
 from repro_torch.core import interactions
 from repro_torch.kernels.csr_lookup import ops as lookup_ops
+from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.knrm_pool import ops as knrm_ops
 from repro_torch.kernels.seg_interact import ops as seg_ops
 
@@ -128,6 +131,47 @@ def test_build_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
     assert row["bound_ms"] > 0 and row["library_ms"] is None
     assert not os.path.exists(tmp_path / "idx")
 
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lm_phase_runs_on_the_cpu(seed, monkeypatch):
+    """Phase 6 (the LM bridge) at smoke("minitron-4b") in bf16 over 48
+    docs in batches of 16: weights, the kernel checks, the wiring check,
+    the LM build with flash_attn counted per layer and batch, indexed ==
+    No-Index, both engines and the timing row."""
+    cs = _load_script()
+    for name, value in dict(BUILD_DOCS=80, BUILD_N_B=5, BUILD_DE=32,
+                            BUILD_MAX_LEN=160, BUILD_MAX_UNIQ=128,
+                            LM_DOCS=48, LM_BATCH=16, LM_CAND=40,
+                            LM_NOINDEX_CAND=16).items():
+        monkeypatch.setattr(cs, name, value)
+    lm = dataclasses.replace(smoke("minitron-4b"), dtype="bfloat16")
+    monkeypatch.setattr(cs, "lm_config", lambda: lm)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(cs, "kernel_split", lambda run, n: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "retrieve_windows_kernel"),
+                      (knrm_ops, "knrm_pool_kernel"),
+                      (interactions, "seg_interact_kernel"),
+                      (seg_ops, "seg_interact_kernel"),
+                      (fa_ops, "flash_attn_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+
+    row = cs.phase6(seed, torch.device("cpu"), cs.build_corpus(seed))
+    assert set(row) >= KEYS
+    assert row["name"] == "flash_attn" and row["route"] == "cuda"
+    assert row["replaces"] == "src/repro/kernels/flash_attn/kernel.py:63"
+    assert row["source"] == \
+        "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu"
+    assert row["launches"] == lm.n_layers * -(-48 // 16)
+    assert row["launches_by_path"]["noindex"] > 0
+    assert row["max_abs_err"] == row["f32_max_abs_err"] == 0.0
+    assert row["bound_ms"] > 0 and row["library_ms"] > 0
+    assert row["peak_bytes"] is None
 
 def test_refuses_to_run_without_cuda():
     """No card: a non-zero exit and no result line."""

@@ -1,0 +1,156 @@
+"""PyTorch port of ``flash_attn`` and the attention helpers of
+``models.layers``, held against the JAX package on the CPU.
+
+The same numpy inputs go through JAX ``flash_attn_ref`` (the kernel's
+oracle, ``naive_attention``) and ``gqa_attention`` (the chunked jnp
+online softmax the JAX model runs) and through the port's
+``flash_attn_plain`` (the CUDA kernel's tiling in torch) and
+``ops.flash_attention`` (which, given CPU tensors, runs it).  Shapes are
+those of tests/test_kernels.py::TestFlashAttention, its non-causal case,
+the LM build's grouping at S = 160 (Hq 6 over Hkv 2), and sequence
+lengths around the 64-row tile.  Bars: rtol 1e-4 / atol 1e-5 in float32
+(tests/test_kernels.py's), 2e-2 for bf16 inputs.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn.ref import flash_attn_ref as jax_ref
+from repro.models.layers import gqa_attention as jax_gqa
+from repro.models.layers import naive_attention as jax_naive
+from repro_torch.kernels.flash_attn import (BLOCK_K, BLOCK_Q,
+                                            flash_attention,
+                                            flash_attn_kernel,
+                                            flash_attn_plain)
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.models.layers import gqa_attention, naive_attention
+
+F32 = dict(rtol=1e-4, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+# (B, S, Hq, Hkv, hd, causal): TestFlashAttention's four causal shapes,
+# its non-causal one, and the LM build's group of 3 at S = 160
+SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 64, True),
+          (2, 64, 4, 1, 16, True), (1, 96, 2, 2, 32, True),
+          (1, 64, 4, 2, 32, False), (2, 160, 6, 2, 32, True)]
+
+
+def _qkv(b, sq, hq, hkv, hd, seed, skv=None):
+    rng = np.random.RandomState(seed)
+    skv = sq if skv is None else skv
+    return (rng.randn(b, sq, hq, hd).astype(np.float32),
+            rng.randn(b, skv, hkv, hd).astype(np.float32),
+            rng.randn(b, skv, hkv, hd).astype(np.float32))
+
+
+def _jax(arrays, dtype=jnp.float32):
+    return [jnp.asarray(a).astype(dtype) for a in arrays]
+
+
+def _torch(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal", SHAPES)
+def test_matches_jax_in_float32(b, s, hq, hkv, hd, causal):
+    arrays = _qkv(b, s, hq, hkv, hd, seed=s + hq)
+    q, k, v = _jax(arrays)
+    want = _np(jax_ref(q, k, v, causal=causal))
+    chunked = _np(jax_gqa(q, k, v, causal=causal, chunk=48))
+    tq, tk, tv = _torch(arrays)
+    for got in (flash_attn_plain(tq, tk, tv, causal=causal),
+                flash_attention(tq, tk, tv, causal=causal)):
+        assert got.dtype == torch.float32 and got.shape == tq.shape
+        np.testing.assert_allclose(_np(got), want, **F32)
+        np.testing.assert_allclose(_np(got), chunked, **F32)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal", SHAPES)
+def test_matches_jax_in_bf16(b, s, hq, hkv, hd, causal):
+    arrays = _qkv(b, s, hq, hkv, hd, seed=s + hq + 1)
+    q, k, v = _jax(arrays, jnp.bfloat16)
+    want = _np(jax_ref(q, k, v, causal=causal))
+    chunked = _np(jax_gqa(q, k, v, causal=causal, chunk=64))
+    got = flash_attention(*_torch(arrays, torch.bfloat16), causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), want, **BF16)
+    np.testing.assert_allclose(_np(got), chunked, **BF16)
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 1), (63, 63), (64, 64), (65, 65),
+                                    (127, 127), (129, 129), (70, 130),
+                                    (130, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_edges_match_jax_oracle(sq, skv, causal):
+    """Sequence lengths at and around the tile: the tail tile is masked
+    (no halving of the tile), the diagonal skip drops exactly the tiles
+    above it; Sq != Skv counts both positions from 0, as the TPU
+    kernel does."""
+    arrays = _qkv(2, sq, 6, 2, 16, seed=sq * 7 + skv, skv=skv)
+    want = _np(jax_naive(*_jax(arrays), causal=causal))
+    got = flash_attn_plain(*_torch(arrays), causal=causal)
+    np.testing.assert_allclose(_np(got), want, **F32)
+    assert BLOCK_Q == BLOCK_K == 64
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,q_offset,chunk,valid", [(8, 0, 16, None),
+                                                    (8, 32, 12, None),
+                                                    (1, 32, 12, (35, 40)),
+                                                    (1, 39, 7, (1, 40))])
+def test_gqa_attention_matches_jax(causal, sq, q_offset, chunk, valid):
+    """The port's chunked jnp stand-in: q_offset (a prefill chunk or a
+    decode step), a chunk that does not divide Skv, kv_valid_len (a
+    decode step: the reference broadcasts that mask for Sq = 1)."""
+    arrays = _qkv(2, sq, 4, 2, 16, seed=q_offset + chunk, skv=40)
+    kv_len = None if valid is None else np.asarray(valid, np.int32)
+    want = jax_gqa(*_jax(arrays), causal=causal, q_offset=q_offset,
+                   chunk=chunk, kv_valid_len=None if kv_len is None
+                   else jnp.asarray(kv_len))
+    got = gqa_attention(*_torch(arrays), causal=causal, q_offset=q_offset,
+                        chunk=chunk, kv_valid_len=None if kv_len is None
+                        else torch.from_numpy(kv_len))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_offset", [0, 5])
+def test_naive_attention_matches_jax(causal, q_offset):
+    arrays = _qkv(2, 12, 6, 3, 32, seed=q_offset, skv=17)
+    want = jax_naive(*_jax(arrays), causal=causal, q_offset=q_offset)
+    got = naive_attention(*_torch(arrays), causal=causal, q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    bf = naive_attention(*_torch(arrays, torch.bfloat16), causal=causal,
+                         q_offset=q_offset)
+    assert bf.dtype == torch.bfloat16
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    """On the CPU the wrapper runs the plain version and counts nothing;
+    ops hands it contiguous tensors in the model layout."""
+    calls = []
+    monkeypatch.setattr(fa_ops, "flash_attn_kernel",
+                        lambda *a, **k: calls.append(a) or
+                        flash_attn_kernel(*a, **k))
+    arrays = _qkv(1, 40, 4, 2, 16, seed=3)
+    tq, tk, tv = _torch(arrays)
+    before = flash_attn_kernel.launches
+    got = flash_attention(tq.transpose(1, 2).contiguous().transpose(1, 2),
+                          tk, tv)
+    assert flash_attn_kernel.launches == before
+    assert all(t.is_contiguous() for t in calls[0])
+    assert torch.equal(got, flash_attn_plain(tq, tk, tv))
+
+
+@pytest.mark.parametrize("q,k", [((1, 8, 4, 16), (1, 8, 3, 16)),
+                                 ((1, 8, 4, 16), (2, 8, 2, 16)),
+                                 ((1, 8, 4, 16), (1, 8, 2, 32)),
+                                 ((8, 4, 16), (8, 2, 16))])
+def test_rejects_mismatched_shapes(q, k):
+    with pytest.raises(ValueError):
+        flash_attn_plain(torch.zeros(q), torch.zeros(k), torch.zeros(k))

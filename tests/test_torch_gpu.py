@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs (bitwise for the lookups and the
 scans, raw and packed, rtol 1e-5 / atol 1e-6 for the KNRM bank, rtol
-1e-4 / atol 1e-5 for seg_interact, whose plain version sums in another
-order), the engine on CUDA, raw and packed, against the engine on the
-CPU, and the offline build on the card against the same build on the
-CPU.
+1e-4 / atol 1e-5 for seg_interact and float32 flash_attn, whose plain
+versions sum in another order, 2e-2 for bf16 flash_attn), the engine on
+CUDA, raw and packed, against the engine on the CPU, and the offline
+build on the card against the same build on the CPU, with a HashProvider
+and with an LMProvider.
 
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
@@ -19,11 +20,11 @@ import pytest
 import torch
 
 from repro_torch.ckpt import load_index
-from repro_torch.configs import seine_smoke
+from repro_torch.configs import seine_smoke, smoke
 from repro_torch.core.builder import IndexBuilder
 from repro_torch.core.codec import quantize_values, quantize_values_torch
 from repro_torch.core.interactions import init_interaction_params
-from repro_torch.core.providers import HashProvider
+from repro_torch.core.providers import HashProvider, LMProvider
 from repro_torch.core.segment import segment_corpus
 from repro_torch.core.vocab import build_vocabulary
 from repro_torch.data.synth_corpus import build_zipfian_index, generate
@@ -34,10 +35,14 @@ from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             lane_scales, retrieve_lanes,
                                             retrieve_windows_kernel,
                                             retrieve_windows_packed_kernel)
+from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attn_kernel,
+                                            flash_attn_plain)
 from repro_torch.kernels.knrm_pool import knrm_pool_kernel, knrm_pool_ref
 from repro_torch.kernels.seg_interact import (seg_interact,
                                               seg_interact_kernel,
                                               seg_interact_plain)
+from repro_torch.models import transformer as T
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import NoIndexEngine, SeineEngine
 from torch_codec_rows import adversarial_index, adversarial_queries
@@ -344,3 +349,81 @@ def test_build_on_cuda_matches_cpu():
     looked = gpu.qd_matrix(torch.from_numpy(q).cuda(),
                            torch.from_numpy(docs[ok]).cuda())
     assert (on_fly - looked).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attn_kernel_matches_plain(hd, dtype, causal):
+    """Every head width and type the kernel takes, at sequence lengths
+    that are not multiples of the 64-row tile (the tail is masked), one
+    query, Sq != Skv and a group of 3."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-5)
+    g = torch.Generator().manual_seed(hd)
+    for b, sq, skv, hq, hkv in ((2, 100, 100, 6, 2), (3, 1, 1, 4, 4),
+                                (1, 70, 130, 3, 1), (2, 129, 129, 8, 8)):
+        q = torch.randn(b, sq, hq, hd, generator=g).to(dt)
+        k = torch.randn(b, skv, hkv, hd, generator=g).to(dt)
+        v = torch.randn(b, skv, hkv, hd, generator=g).to(dt)
+        before = flash_attn_kernel.launches
+        got = flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attn_kernel.launches == before + 1
+        assert got.dtype == dt and got.shape == q.shape
+        want = flash_attn_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+def test_flash_attn_kernel_refuses_what_it_does_not_take():
+    _require_cuda()
+    q = torch.zeros(1, 8, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn_kernel(q, q, q)
+    h = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attn_kernel(h, h, h)
+    f = torch.zeros(1, 8, 2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        flash_attn_kernel(f, f.bfloat16(), f.bfloat16())
+
+
+def _lm_build(device, n_docs=24):
+    cfg = dataclasses.replace(seine_smoke(), n_docs=n_docs)
+    ds = generate(cfg, seed=0)
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
+                             keep_frac=cfg.vocab_keep_frac)
+    toks, segs = segment_corpus([vocab.map_tokens(d) for d in ds.docs],
+                                cfg.n_segments, max_len=160)
+    lm = smoke("minitron-4b")
+    params = T.init_params(lm, torch.Generator().manual_seed(0),
+                           device=device)
+    proj = torch.randn(lm.d_model, cfg.embed_dim,
+                       generator=torch.Generator().manual_seed(7))
+    provider = LMProvider(lm, params, cfg.embed_dim, proj=proj,
+                          device=device)
+    builder = IndexBuilder(cfg, vocab, provider,
+                           ip=init_interaction_params(None, cfg.embed_dim),
+                           device=device)
+    return builder, toks, segs
+
+
+def test_lm_build_on_cuda_matches_cpu(monkeypatch):
+    """A smoke-size minitron build (float32, TF32 off) on the card
+    through flash_attn against the same build on the CPU: ids bitwise,
+    values within rtol 1e-4 / atol 1e-5; flash_attn launched once per
+    layer and batch."""
+    _require_cuda()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b_cpu, toks, segs = _lm_build("cpu")
+    b_gpu, _, _ = _lm_build("cuda")
+    before = flash_attn_kernel.launches
+    gpu = b_gpu.build_partitioned(toks, segs, 2, batch_size=8)
+    assert flash_attn_kernel.launches == before + 2 * 3
+    cpu = b_cpu.build_partitioned(toks, segs, 2, batch_size=8)
+    for n in ("term_offsets", "doc_ids", "fences", "term_to_shard",
+              "range_lo", "range_hi", "idf", "doc_len", "seg_len"):
+        assert torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n)), n
+    torch.testing.assert_close(gpu.values.cpu(), cpu.values, **SEG_TOL)

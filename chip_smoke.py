@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SEINE (query phase and offline build)
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
+front end, LM bridge) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -66,7 +66,29 @@ Phases (any failed check raises, and the script exits non-zero):
    of 6 slots x 1,000 candidates) and a ``NoIndexEngine`` (4 of them;
    scores at rtol 1e-4 / atol 1e-5, p50/p95 of both), a ``save_index`` /
    ``load_index`` round trip, and ``seg_interact``'s timing against its
-   plain version and its bound.
+   plain version and its bound.  ``embed_bag`` (the provider's and
+   ``log_cond_prob``'s segment sums) must launch twice per batch; it is
+   held against its plain version on the build's own calls (captured by
+   running 16 batches again) and over tests/test_kernels.py's sweep with
+   empty bags, -1 and past-table ids in float32 and bf16 (rtol 1e-5 /
+   atol 1e-6; bitwise is printed), and timed at both build shapes
+   beside ``F.embedding_bag`` and its bound.
+
+7. The serving front end over phase 5's K = 4 index with KNRM: the
+   closed-loop rate R of 64 LETOR requests (6 slots x 1,000 candidates)
+   through ``serve_batches``, then 256 such requests through
+   ``run_open_loop`` at R and at R / 2 (``max_batch`` 8,
+   ``batch_timeout_ms`` 2, ``slo_ms`` 50) naive, coalesced, and
+   coalesced with a 4,096-tile cache; every served score must equal
+   ``engine.score`` bitwise.  Per run: p50 / p95, queue ms, goodput,
+   batches, the dedupe ratio and the cache counters from ``obs``,
+   launches per kernel, and the busy share.  Then one ``swap_engine``
+   to a ``packed`` copy of the partition: the scores after it must equal
+   the packed engine's and the cache's epoch must rise.  (Phase 7 runs
+   before phase 6, while phase 5's index is still on the card.)
+
+Every busy share is printed with how many of the port's kernel
+launches CUPTI recorded over the replay ("k of n").
 
 6. The LM bridge: the same corpus embedded by minitron-4b
    (``configs/lm_archs.py``: 32 layers, d_model 3,072, 24 query heads
@@ -101,6 +123,7 @@ of the ``repro`` package is imported.
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -114,6 +137,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.ckpt import load_index, save_index  # noqa: E402
 from repro_torch.configs import SEINE_LETOR, get_lm_config  # noqa: E402
 from repro_torch.core.build_pipeline import (  # noqa: E402
@@ -139,6 +163,9 @@ from repro_torch.kernels.csr_lookup import (  # noqa: E402
     retrieve_windows_packed_kernel, route_pairs, route_terms,
     scan_block_packed_ref, scan_block_ref)
 from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
+from repro_torch.kernels.embed_bag import (  # noqa: E402
+    bag_ptr_from_offsets, embed_bag_kernel, embed_bag_plain)
+from repro_torch.kernels.embed_bag import ops as embed_bag_ops  # noqa: E402
 from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
 from repro_torch.kernels.flash_attn import (flash_attn_kernel,  # noqa: E402
                                             flash_attn_plain)
@@ -148,8 +175,9 @@ from repro_torch.kernels.seg_interact import (  # noqa: E402
     flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.retrievers import get_retriever  # noqa: E402
-from repro_torch.serving import (NoIndexEngine, SeineEngine,  # noqa: E402
-                                 make_qmeta, serve_batches, serve_retrieval)
+from repro_torch.serving import (  # noqa: E402
+    DeadlineExceeded, NoIndexEngine, SeineEngine, ServingFrontend,
+    make_qmeta, run_open_loop, serve_batches, serve_retrieval)
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
 N_B = 20                 # configs/base.py n_segments (Fig. 2 best)
@@ -175,6 +203,7 @@ TPU_KERNELS = {
     "retrieve_windows_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
     "seg_interact": "src/repro/kernels/seg_interact/kernel.py:50",
     "flash_attn": "src/repro/kernels/flash_attn/kernel.py:63",
+    "embed_bag": "src/repro/kernels/embed_bag/kernel.py:40",
 }
 # the launch counter of each kernel, and the kernels each serving path
 # (codec) must launch
@@ -184,7 +213,17 @@ COUNTERS = {"csr_lookup": csr_lookup_kernel,
             "csr_lookup_packed": csr_lookup_packed_kernel,
             "retrieve_windows_packed": retrieve_windows_packed_kernel,
             "seg_interact": seg_interact_kernel,
-            "flash_attn": flash_attn_kernel}
+            "flash_attn": flash_attn_kernel,
+            "embed_bag": embed_bag_kernel}
+# a piece of each kernel's CUDA function name, as CUPTI records it
+KERNEL_NAMES = {"csr_lookup": "csr_lookup_kernel",
+                "retrieve_windows": "retrieve_block_kernel",
+                "knrm_pool": "knrm_pool_kernel",
+                "csr_lookup_packed": "csr_lookup_packed_kernel",
+                "retrieve_windows_packed": "retrieve_block_packed_kernel",
+                "seg_interact": "seg_interact_kernel",
+                "flash_attn": "flash_attn_kernel",
+                "embed_bag": "embed_bag_"}
 PATH_KERNELS = {"none": ("csr_lookup", "retrieve_windows", "knrm_pool"),
                 "packed": ("csr_lookup_packed", "retrieve_windows_packed",
                            "knrm_pool"),
@@ -209,6 +248,23 @@ SEG_UNIT_TOL = dict(rtol=1e-3, atol=1e-4)
 SEG_SWEEP = ((64, 4, 128, 32), (300, 7, 256, 128), (256, 3, 128, 64),
              (128, 2, 128, 200))
 INDEX_DIR = os.path.join(REPO, "build", "chip_smoke_index")
+EB_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_kernels.py's bar
+# (V, D, B, maxbag): tests/test_kernels.py::TestEmbedBag's sweep
+EB_SWEEP = ((100, 32, 8, 10), (50, 16, 4, 6), (200, 128, 16, 20),
+            (30, 8, 5, 3))
+# phase 7, the serving front end over phase 5's index
+FE_CLOSED = 64           # closed-loop requests that set the offered rate
+FE_REQUESTS = 256
+FE_MAX_BATCH = 8
+FE_TIMEOUT_MS = 2.0
+FE_SLO_MS = 50.0
+FE_CACHE_TILES = 4096    # 4,096 x 256 postings x 20 x 9 f32 = 755 MB
+FE_SWAP_REQUESTS = 8
+FE_RATES = (1.0, 0.5)    # offered load as fractions of R
+FE_MODES = (("naive", dict(coalesce=False)),
+            ("coalesce", dict(coalesce=True)),
+            ("coalesce+cache", dict(coalesce=True,
+                                    cache_tiles=FE_CACHE_TILES)))
 # phase 6, the LM bridge: phase 5's corpus embedded by minitron-4b
 LM_ARCH = "minitron-4b"
 LM_DOCS = 1024           # of phase 5's 65,323 docs: cut for the run's time
@@ -545,16 +601,25 @@ def reference_scores(engine, q, docs):
 
 
 def device_busy(run, n: int):
-    """(device ms, device ops, host summary) per request of two profiled
-    replays of a serving loop: kernel, memcpy and memset time summed by
-    CUPTI, then (profiling the host alone, so no device time is counted
-    twice) the host calls that took the most self time."""
+    """Device time of profiled replays of a serving loop of ``n``
+    requests: kernel, memcpy and memset time summed by CUPTI, per
+    request; then (profiling the host alone, so no device time is
+    counted twice) the host calls that took the most self time.  CUPTI
+    was seen to drop kernel records late in this script, so the port's
+    kernel records it kept are counted against the launch counters over
+    the same replay (``recorded`` of ``launched``); a share over fewer
+    records than launches is printed unscaled and flagged."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    launched = sum(fn.launches for fn in COUNTERS.values())
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    recorded = sum(e.count for e in prof.key_averages()
+                   if any(k in e.key for k in KERNEL_NAMES.values()))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run()
         torch.cuda.synchronize()
@@ -562,8 +627,19 @@ def device_busy(run, n: int):
                   reverse=True)[:6]
     summary = ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / n:.3f} ms"
                         f" x{e.count / n:g}" for e in host)
-    return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
-            sum(e.count for e in ev) / n, summary)
+    return dict(ms=sum(e.self_device_time_total for e in ev) / 1e3 / n,
+                ops=sum(e.count for e in ev) / n, host=summary,
+                recorded=recorded, launched=launched)
+
+
+def busy_share(busy, wall_ms: float) -> str:
+    """The busy share of ``wall_ms`` per request, with how many of the
+    port's kernel launches CUPTI recorded."""
+    text = (f"busy share {busy['ms'] / wall_ms:.3f} ({busy['recorded']} of "
+            f"{busy['launched']} kernel launches recorded")
+    if busy["recorded"] < busy["launched"]:
+        text += "; records dropped: the share is unscaled"
+    return text + ")"
 
 
 def serve_path(path, engine, requests, queries):
@@ -594,11 +670,11 @@ def serve_path(path, engine, requests, queries):
             ("serve_retrieval", lambda: serve_retrieval(engine, queries,
                                                         TOP_K),
              N_RETRIEVE, rstats.ms_per_request)):
-        dev_ms, ops, host = device_busy(run, n)
-        log(f"phase 3 [{path}]: {what}: device busy {dev_ms:.4f} ms per "
-            f"request of {wall:.4f} ms wall (busy share "
-            f"{dev_ms / wall:.3f}), {ops:.1f} device ops per request; "
-            f"most host self time per request (profiled): {host}")
+        busy = device_busy(run, n)
+        log(f"phase 3 [{path}]: {what}: device busy {busy['ms']:.4f} ms "
+            f"per request of {wall:.4f} ms wall, {busy_share(busy, wall)}, "
+            f"{busy['ops']:.1f} device ops per request; most host self "
+            f"time per request (profiled): {busy['host']}")
     return scores, hits, launches
 
 
@@ -1161,7 +1237,7 @@ def serve_built(pidx, noindex, engine, ds, vocab, seed):
     for path, eng, reqs, need in (
             ("indexed", engine, requests, ("csr_lookup", "knrm_pool")),
             ("noindex", noindex, requests[:NOINDEX_REQUESTS],
-             ("seg_interact", "knrm_pool"))):
+             ("seg_interact", "embed_bag", "knrm_pool"))):
         for fn in COUNTERS.values():
             fn.launches = 0
         out[path] = serve_batches(eng, reqs)
@@ -1269,6 +1345,144 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
                 all_live_ms=live_ms, **extra)
 
 
+def build_embed_bag_calls(builder, toks, segs, n_docs: int):
+    """The embed_bag kernel's arguments in the build's own calls over the
+    first ``n_docs`` docs: stages 1-3 run once more with the kernel's
+    wrapper recording them (and still launching).  Returns ``(mix,
+    lcp)``: the provider mix's calls and log_cond_prob's, in batch
+    order."""
+    calls = []
+    wrapped = embed_bag_ops.embed_bag_kernel
+
+    def record(table, idx, ptr):
+        calls.append((table, idx, ptr))
+        return wrapped(table, idx, ptr)
+
+    embed_bag_ops.embed_bag_kernel = record
+    try:
+        builder.pipeline.stream_runs(toks[:n_docs], segs[:n_docs],
+                                     batch_size=BUILD_BATCH,
+                                     max_uniq=BUILD_MAX_UNIQ)
+    finally:
+        embed_bag_ops.embed_bag_kernel = wrapped
+    table = builder.provider.table()
+    mix = [c for c in calls if c[0] is table]
+    lcp = [c for c in calls if c[0] is not table]
+    if len(mix) != len(lcp):
+        raise AssertionError(f"{len(mix)} provider-mix calls and "
+                             f"{len(lcp)} log_cond_prob calls")
+    return mix, lcp
+
+
+def check_embed_bag(mix, lcp, seed, dev):
+    """The kernel against its plain version on the card: one build
+    batch's two calls (bitwise run to run), then the JAX-signature sweep
+    of tests/test_kernels.py with empty bags, -1 entries and ids past
+    the table, in float32 and bf16, at rtol 1e-5 / atol 1e-6.  Returns
+    the largest |diff| and whether every output was bitwise equal."""
+    err, bitwise = 0.0, True
+    for what, (table, idx, ptr) in (("provider mix", mix[0]),
+                                    ("log_cond_prob", lcp[0])):
+        got = embed_bag_kernel(table, idx, ptr)
+        again = embed_bag_kernel(table, idx, ptr)
+        want = embed_bag_plain(table, idx, ptr)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **EB_TOL)
+        if not torch.equal(got, again):
+            raise AssertionError("embed_bag is not deterministic")
+        bitwise &= torch.equal(got, want)
+        err = max(err, (got - want).abs().max().item())
+        live = int((idx >= 0).sum())
+        log(f"phase 5: embed_bag == plain on the build's {what} call: "
+            f"table {tuple(table.shape)}, {idx.shape[0]} indices "
+            f"({live} live), {ptr.shape[0] - 1} bags (max |diff| "
+            f"{(got - want).abs().max().item():.3g})")
+    rng = np.random.RandomState(seed)
+    for v, d, b, maxbag in EB_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            lens = rng.randint(0, maxbag, b)
+            lens[-1] = 0                                   # an empty bag
+            nnz = max(int(lens.sum()), 1)
+            offsets = np.concatenate([[0], np.cumsum(lens)])[:-1]
+            idx = rng.randint(-1, v + 2, nnz).astype(np.int32)
+            table = torch.from_numpy(rng.standard_normal((v, d))
+                                     .astype(np.float32)).to(dev, dt)
+            idx_t = torch.from_numpy(idx).to(dev)
+            ptr = bag_ptr_from_offsets(torch.from_numpy(offsets).to(dev),
+                                       nnz, b)
+            got = embed_bag_kernel(table, idx_t, ptr)
+            want = embed_bag_plain(table, idx_t, ptr)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **EB_TOL)
+            if bool((got[-1] != 0).any()):
+                raise AssertionError("an empty bag gave nonzero values")
+            bitwise &= torch.equal(got, want)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    log(f"phase 5: embed_bag == plain over the JAX-signature sweep "
+        f"{EB_SWEEP} in float32 and bf16 (empty bags, -1 and past-table "
+        f"ids): max |diff| {err:.3g}, bitwise {bitwise}")
+    return err, bitwise
+
+
+def embed_bag_cost(table, idx, ptr):
+    """Bytes the call must move: the distinct live rows read once, the
+    indices and bounds, and the bags written."""
+    live = idx[idx >= 0].long().clamp(max=table.shape[0] - 1)
+    rows = int(torch.unique(live).numel())
+    n_bags = ptr.shape[0] - 1
+    return ((rows + n_bags) * table.shape[1] * table.element_size()
+            + idx.numel() * 4 + ptr.numel() * 4)
+
+
+def library_embedding_bag(table, idx, ptr):
+    """``F.embedding_bag(mode="sum")`` over the same bags, with the
+    skipped entries dropped first (it has no skip id): the library call
+    that computes the same function."""
+    n_bags = ptr.shape[0] - 1
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    bag = torch.searchsorted(ptr[1:].long(), pos, right=True)
+    keep = idx >= 0
+    counts = torch.bincount(bag[keep], minlength=n_bags)[:n_bags]
+    offsets = torch.cumsum(counts, 0) - counts
+    rows = idx[keep].long().clamp(max=table.shape[0] - 1)
+    return lambda: torch.nn.functional.embedding_bag(
+        rows, table, offsets, mode="sum")
+
+
+def time_embed_bag(mix, lcp, launches, err, bitwise, dev):
+    """embed_bag at the build's two shapes over up to 16 batches each
+    (CUPTI); its plain version; ``F.embedding_bag`` (the library
+    yardstick, never used by the port); the bound: bytes over 3.35
+    TB/s (one add per value read is far below the float32 rate)."""
+    out = {}
+    for what, calls in (("mix", mix), ("lcp", lcp)):
+        ms, how, call_ms = timed([lambda c=c: embed_bag_kernel(*c)
+                                  for c in calls], 160, "embed_bag_")
+        plain_ms = events_ms([lambda c=c: embed_bag_plain(*c)
+                              for c in calls[:4]], 4)
+        libs = [library_embedding_bag(*c) for c in calls]
+        for c, lib in zip(calls, libs):
+            torch.testing.assert_close(lib(), embed_bag_kernel(*c), **EB_TOL)
+        lib_ms = timed(libs, 160, "EmbeddingBag")[0]
+        n_bytes = sum(embed_bag_cost(*c) for c in calls) / len(calls)
+        b_ms, b_by = bound(n_bytes, 0)
+        out[what] = dict(ms=ms, timed_by=how, call_ms=call_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        t, idx, ptr = calls[0]
+        log(f"phase 5: embed_bag ({what}: table {tuple(t.shape)}, "
+            f"{idx.shape[0]} indices, {ptr.shape[0] - 1} bags): {ms:.4f} "
+            f"ms ({how}; {call_ms:.4f} ms with launch cost); plain "
+            f"{plain_ms:.4f} ms; F.embedding_bag {lib_ms:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
+    row = dict(out["mix"], name="embed_bag", route="cuda",
+               source=KERNEL_SOURCE.format("embed_bag", "embed_bag"),
+               replaces=TPU_KERNELS["embed_bag"], launches=launches["build"],
+               launches_by_path=launches, max_abs_err=err,
+               bitwise=bitwise, log_cond_prob=out["lcp"])
+    return row
+
+
 def phase5(seed: int, dev, corpus=None):
     """The offline build at full width and MQ2007 scale (module doc), over
     ``corpus`` (``build_corpus``'s result; made here when not given)."""
@@ -1293,6 +1507,9 @@ def phase5(seed: int, dev, corpus=None):
     if built["seg_interact"] != st.n_batches:
         raise AssertionError(f"seg_interact launched {built['seg_interact']}"
                              f" times for {st.n_batches} batches")
+    if built["embed_bag"] < 2 * st.n_batches:
+        raise AssertionError(f"embed_bag launched {built['embed_bag']} "
+                             f"times for {st.n_batches} batches (2 each)")
     stage = ", ".join(f"{k} {v:.2f}s" for k, v in st.stage_s.items())
     dev_ms = ", ".join(f"{k} {v / 1e3:.2f}s"
                        for k, v in st.stage_device_ms.items())
@@ -1306,6 +1523,9 @@ def phase5(seed: int, dev, corpus=None):
         f"run {max(st.run_bytes)} bytes, {st.total_nnz / st.n_docs:.1f} "
         f"postings per doc")
     err, unit_err = check_seg_interact(builder, toks, segs, seed, dev)
+    mix, lcp = build_embed_bag_calls(
+        builder, toks, segs, min(16 * BUILD_BATCH, toks.shape[0]))
+    eb_err, eb_bitwise = check_embed_bag(mix, lcp, seed, dev)
     check_cpu_build(builder, toks, segs)
     params = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
                                         cfg.n_segments, builder.functions,
@@ -1315,13 +1535,203 @@ def phase5(seed: int, dev, corpus=None):
     check_on_the_fly(pidx, noindex, toks, np.random.RandomState(seed), dev)
     served = serve_built(pidx, noindex, engine, ds, vocab, seed)
     round_trip(pidx)
-    return time_seg_interact(
+    rows = [time_seg_interact(
         builder, toks, segs,
         {"build": built["seg_interact"],
          "noindex": served["noindex"]["seg_interact"]}, err, dev,
-        unit_scale_max_abs_err=unit_err)
+        unit_scale_max_abs_err=unit_err),
+        time_embed_bag(mix, lcp, {"build": built["embed_bag"],
+                                  "noindex": served["noindex"]["embed_bag"]},
+                       eb_err, eb_bitwise, dev)]
+    return rows, dict(pidx=pidx, engine=engine, ds=ds, vocab=vocab)
 
 
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving front end over phase 5's index
+# ---------------------------------------------------------------------------
+
+def letor_requests(ds, vocab, seed: int, n: int):
+    """``n`` LETOR re-rank requests of Q_SLOTS query slots x N_CAND
+    candidates (``candidates_for_query``), cycling over the queries."""
+    queries = pad_queries(ds.queries, vocab.map_tokens, q_len=Q_SLOTS)
+    crng = np.random.RandomState(seed)
+    return [(queries[i % len(queries)],
+             candidates_for_query(ds.qrels[i % len(queries)], crng, N_CAND)
+             .astype(np.int32)) for i in range(n)]
+
+
+def metric(name: str) -> float:
+    m = obs.REGISTRY.get(name)
+    return m.get() if m is not None else 0.0
+
+
+FE_METRICS = ("seine_frontend_batches_total",
+              "seine_coalesce_pair_slots_total",
+              "seine_coalesce_distinct_pairs_total",
+              "seine_tile_cache_hits_total", "seine_tile_cache_misses_total",
+              "seine_tile_cache_evictions_total",
+              "seine_tile_cache_overflow_pairs_total",
+              "seine_serve_slo_misses_total")
+
+
+def open_loop(engine, requests, qps: float, seed: int, **kw):
+    """One open-loop run of ``requests`` at ``qps`` through a fresh
+    front end, closed when the run ends.  The front end first serves
+    FE_MAX_BATCH requests, uncounted (its worker thread's first CUDA
+    calls are slow), with its stats then reset.  Returns (result, the
+    futures in submission order, wall seconds from the first submission
+    to the last result, the obs counters' and the launch counts' rise
+    over the run)."""
+    fe = ServingFrontend(engine, max_batch=FE_MAX_BATCH,
+                         batch_timeout_ms=FE_TIMEOUT_MS, slo_ms=FE_SLO_MS,
+                         **kw)
+    try:
+        for f in [fe.submit(q, d) for q, d in requests[:FE_MAX_BATCH]]:
+            f.result(timeout=120)
+        fe.stats = type(fe.stats)()
+        futures = []
+        submit = fe.submit
+
+        def keep(q, d):
+            futures.append(submit(q, d))
+            return futures[-1]
+
+        fe.submit = keep
+        before = {n: metric(n) for n in FE_METRICS}
+        launched = {n: fn.launches for n, fn in COUNTERS.items()}
+        t0 = time.perf_counter()
+        res = run_open_loop(fe, requests, target_qps=qps, seed=seed,
+                            timeout=120)
+        wall = time.perf_counter() - t0
+        delta = {n: metric(n) - before[n] for n in FE_METRICS}
+        launched = {n: fn.launches - launched[n]
+                    for n, fn in COUNTERS.items()}
+    finally:
+        fe.close(timeout=120)
+    return res, futures, wall, delta, launched
+
+
+def check_served(futures, want, what: str) -> int:
+    """Every served future equals ``engine.score`` for its request,
+    bitwise; returns how many were served."""
+    served = 0
+    for i, (f, w) in enumerate(zip(futures, want)):
+        try:
+            got = f.result(timeout=120)
+        except DeadlineExceeded:
+            continue
+        if not np.array_equal(got, w):
+            raise AssertionError(f"{what}: request {i} scores != "
+                                 f"engine.score (max |diff| "
+                                 f"{np.abs(got - w).max()})")
+        served += 1
+    return served
+
+
+def phase7(ctx, seed: int, dev):
+    """The front end over phase 5's K = 4 partition with KNRM: the
+    closed-loop rate R of serve_batches, then FE_REQUESTS requests
+    through run_open_loop at R and at R / 2 in each of FE_MODES, every
+    served score
+    bitwise equal to engine.score, with p50/p95, queue ms, goodput,
+    batches, the dedupe ratio, the cache counters, launches per kernel
+    and the busy share; then one swap_engine to a packed copy."""
+    engine, pidx = ctx["engine"], ctx["pidx"]
+    requests = letor_requests(ctx["ds"], ctx["vocab"], seed + 3,
+                              FE_REQUESTS)
+    want = []
+    with torch.inference_mode():
+        for q, d in requests:
+            want.append(engine.score(q, d).cpu().numpy())
+    _, closed = serve_batches(engine, requests[:FE_CLOSED])
+    qps = 1e3 / closed.ms_per_request
+    log(f"phase 7: closed loop serve_batches {FE_CLOSED} x ({Q_SLOTS} "
+        f"slots, {N_CAND} candidates): {closed.ms_per_request:.4f} ms per "
+        f"request (p50 {closed.p50_ms:.3f}, p95 {closed.p95_ms:.3f}) -> "
+        f"offered rate R = {qps:.1f} requests/s")
+    results = {}
+    for frac in FE_RATES:
+        for mode, kw in FE_MODES:
+            key = f"{mode} @ {frac:g} R"
+            res, futures, wall, delta, launches = open_loop(
+                engine, requests, qps * frac, seed, **kw)
+            served = check_served(futures, want, f"phase 7 [{key}]")
+            if served != res.n_served or served == 0:
+                raise AssertionError(f"phase 7 [{key}]: {served} served, "
+                                     f"the run counted {res.n_served}")
+            need = ["knrm_pool"] + (["csr_lookup"]
+                                    if "cache_tiles" not in kw else [])
+            for name in need:
+                if launches[name] <= 0:
+                    raise AssertionError(f"phase 7 [{key}]: {name} was not "
+                                         "launched")
+            if "cache_tiles" in kw and delta[
+                    "seine_tile_cache_misses_total"] + delta[
+                    "seine_tile_cache_hits_total"] <= 0:
+                raise AssertionError(f"phase 7 [{key}]: the tile cache was "
+                                     "not used")
+            busy = device_busy(lambda: open_loop(engine, requests,
+                                                 qps * frac, seed, **kw),
+                               len(requests))
+            wall_ms = wall * 1e3 / len(requests)
+            st = res.stats
+            slots = delta["seine_coalesce_pair_slots_total"]
+            dedupe = (delta["seine_coalesce_distinct_pairs_total"] / slots
+                      if slots else None)
+            results[key] = dict(p50=st.p50_ms, p95=st.p95_ms,
+                                queue_ms=st.queue_ms_per_request,
+                                goodput=res.goodput, served=res.n_served,
+                                rejected=res.n_rejected, dedupe=dedupe,
+                                batches=delta["seine_frontend_batches_total"])
+            log(f"phase 7 [{key}]: {res.n_submitted} requests at "
+                f"{qps * frac:.1f}/s: served {res.n_served}, rejected "
+                f"{res.n_rejected}, goodput {res.goodput:.4f}; p50 "
+                f"{st.p50_ms:.3f} ms, p95 {st.p95_ms:.3f} ms, queue "
+                f"{st.queue_ms_per_request:.3f} ms per request, queue depth "
+                f"high water {st.max_queue_depth}; "
+                f"{delta['seine_frontend_batches_total']:g} batches, dedupe "
+                f"ratio {'n/a' if dedupe is None else f'{dedupe:.4f}'} "
+                f"({delta['seine_coalesce_distinct_pairs_total']:g} "
+                f"distinct of {slots:g} pair slots); tile cache hits "
+                f"{delta['seine_tile_cache_hits_total']:g} misses "
+                f"{delta['seine_tile_cache_misses_total']:g} evictions "
+                f"{delta['seine_tile_cache_evictions_total']:g} overflow "
+                f"pairs {delta['seine_tile_cache_overflow_pairs_total']:g};"
+                f" launches {launches}; wall {wall:.3f}s, device busy "
+                f"{busy['ms']:.4f} ms per request, "
+                f"{busy_share(busy, wall_ms)}; all {served} served scores "
+                f"== engine.score (bitwise)")
+    # the epoch swap: the same partition packed, behind a cached front end
+    packed = pack_index(pidx, "packed")
+    p_engine = SeineEngine(packed, "knrm", engine.params, codec="packed")
+    swaps = metric("seine_frontend_epoch_swaps_total")
+    reqs = requests[:FE_SWAP_REQUESTS]
+    with ServingFrontend(engine, max_batch=FE_MAX_BATCH,
+                         batch_timeout_ms=FE_TIMEOUT_MS,
+                         cache_tiles=FE_CACHE_TILES) as fe:
+        check_served([fe.submit(q, d) for q, d in reqs],
+                     want[:FE_SWAP_REQUESTS], "phase 7 [before the swap]")
+        epoch = fe.cache.epoch
+        fe.swap_engine(p_engine)
+        futures = [fe.submit(q, d) for q, d in reqs]
+        with torch.inference_mode():
+            p_want = [p_engine.score(q, d).cpu().numpy() for q, d in reqs]
+        n = check_served(futures, p_want, "phase 7 [after the swap]")
+        if fe.cache.epoch != epoch + 1 or n != len(reqs):
+            raise AssertionError(f"phase 7: after the swap the cache epoch "
+                                 f"is {fe.cache.epoch} (was {epoch}), "
+                                 f"{n} of {len(reqs)} served")
+    if metric("seine_frontend_epoch_swaps_total") != swaps + 1:
+        raise AssertionError("phase 7: the swap was not counted")
+    same = all(np.array_equal(a, b) for a, b in
+               zip(p_want, want[:FE_SWAP_REQUESTS]))
+    log(f"phase 7: swap_engine to the packed copy: {len(reqs)} requests "
+        f"after it == the packed engine's scores (bitwise; == the raw "
+        f"scores too: {same}), cache epoch {epoch} -> {fe.cache.epoch}, "
+        f"one swap counted")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1684,8 +2094,14 @@ def main() -> int:
     del index, packed, p2
     torch.cuda.empty_cache()
     corpus = build_corpus(args.seed)
-    kernels.append(phase5(args.seed, dev, corpus))
-    torch.cuda.empty_cache()        # phase 5's index and partition are gone
+    rows, built = phase5(args.seed, dev, corpus)
+    kernels += rows
+    phase7(built, args.seed, dev)
+    del built
+    # the closed front ends' reference cycles still hold phase 5's
+    # engine: collect them, so its index leaves the card before phase 6
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.append(phase6(args.seed, dev, corpus))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,6 +145,17 @@ class SegmentInvertedIndex:
         vals = gather_clip(self.values, pos)
         return vals * found[..., None, None]
 
+    def lookup_pair_rows(self, terms: torch.Tensor, docs: torch.Tensor
+                         ) -> torch.Tensor:
+        """Distinct pairs ``terms (P,)`` x ``docs (P,)`` -> (P, n_b, n_f)
+        through ``kernels.csr_lookup.csr_lookup_pairs`` (the lookup
+        kernel on CUDA, routed per pair)."""
+        from ..kernels.csr_lookup import csr_lookup_pairs
+        return csr_lookup_pairs(
+            self.term_offsets[None], self.doc_ids[None], self.values[None],
+            None, None, terms, docs,
+            fences=None if self.fences is None else self.fences[None])
+
     def qd_matrix(self, query_terms: torch.Tensor, doc_ids: torch.Tensor,
                   *, impl: Optional[str] = None, tile: Optional[int] = None
                   ) -> torch.Tensor:

@@ -9,9 +9,11 @@ which is what makes `indexed == on-the-fly` hold for stored pairs.
 
 ``dot``, ``cosine`` and ``gauss_max`` come from one ``seg_interact`` call
 per batch: the CUDA kernel for CUDA tensors, its plain version on the
-CPU.  The other six are plain torch; their segment reductions are GEMMs
-against a one-hot segment matrix, as in the reference.  Pad token = -1;
-pad segment = n_b (a trash bin, sliced off).
+CPU.  ``log_cond_prob``'s segment sums of the contextual embeddings go
+through the ``embed_bag`` kernel the same way.  The other segment
+reductions are GEMMs against a one-hot segment matrix, as in the
+reference.  Pad token = -1; pad segment = n_b (a trash bin, sliced
+off).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.embed_bag import segment_bag_sums
 from ..kernels.seg_interact import seg_interact_kernel
 from ..models.layers import mlp_init
 
@@ -175,11 +178,19 @@ def doc_interactions(doc_tokens: torch.Tensor, seg_ids: torch.Tensor,
         elif fn == "log_cond_prob":
             # segment LM head: log P(w | S) = log softmax(ctx_mean(S) @
             # table.T)[w]
+            # each segment's contextual rows summed by the embed_bag
+            # kernel (its plain version on the CPU): the table is the
+            # batch's ctx rows, an index a flat token position
             ones = tok_valid.float()
-            seg_sum = onehot.transpose(1, 2) @ (ctx_emb * ones[..., None])
-            cnt = (onehot * ones[..., None]).sum(1)              # (B, nseg)
+            pos = torch.arange(n_docs * n_l, device=ctx_emb.device)
+            live = tok_valid & (seg < n_b)
+            seg_sum = segment_bag_sums(
+                ctx_emb.reshape(n_docs * n_l, -1),
+                torch.where(live, pos.reshape(n_docs, n_l), -1),
+                seg.clamp(max=n_b - 1), n_b)               # (B, n_b, De)
+            cnt = (onehot * ones[..., None]).sum(1)[:, :n_b]     # (B, n_b)
             ctx_mean = seg_sum / torch.clamp(cnt, min=1.0)[..., None]
-            logits = ctx_mean[:, :n_b] @ table.T            # (B, n_b, |v|)
+            logits = ctx_mean @ table.T                     # (B, n_b, |v|)
             logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
             at = uniq_terms.long().clamp(0, table.shape[0] - 1)
             gathered = torch.gather(

@@ -27,6 +27,7 @@ from typing import Optional, Protocol
 
 import torch
 
+from ..kernels.embed_bag import segment_bag_sums
 from ..kernels.utils import resolve_device
 from ..models import transformer as T
 
@@ -86,16 +87,23 @@ class HashProvider:
         """tokens (..., n) vocab ids (-1 pad), seg_ids (..., n) ->
         contextual embeddings (..., n, De).  Segment ids outside
         [0, 64) add nothing to a segment mean; they read the mean of the
-        edge segment, as the reference's clipping gather does."""
+        edge segment, as the reference's clipping gather does.  The
+        segment sums go through the ``embed_bag`` kernel for CUDA
+        tensors, which has no backward: a table that needs a gradient
+        is refused there."""
         valid = tokens >= 0
         n_v = self._table.shape[0]
         e = self._table[tokens.long().clamp(0, n_v - 1)] * valid[..., None]
         seg = torch.where(valid, seg_ids.long(), N_SEG_CTX - 1)
         in_range = (seg >= 0) & (seg < N_SEG_CTX)
-        onehot = (torch.nn.functional.one_hot(seg.clamp(0, N_SEG_CTX - 1),
-                                              N_SEG_CTX)
+        bins = seg.clamp(0, N_SEG_CTX - 1)
+        # EmbeddingBag(sum) of each (doc, segment)'s table rows: the
+        # embed_bag kernel on CUDA, its plain version on the CPU
+        seg_sum = segment_bag_sums(
+            self._table, torch.where(valid & in_range, tokens.long(), -1),
+            bins, N_SEG_CTX)                               # (..., 64, De)
+        onehot = (torch.nn.functional.one_hot(bins, N_SEG_CTX)
                   * in_range[..., None]).to(e.dtype)       # (..., n, 64)
-        seg_sum = onehot.transpose(-1, -2) @ e             # (..., 64, De)
         seg_cnt = (onehot * valid[..., None]).sum(-2)      # (..., 64)
         seg_mean = seg_sum / torch.clamp(seg_cnt, min=1.0)[..., None]
         at = torch.where(seg < 0, seg + N_SEG_CTX, seg).clamp(

@@ -188,6 +188,19 @@ class PartitionedIndex:
             self.term_to_shard, self.range_lo, term_ids, doc_ids,
             self.split_term, self.split_doc, alive=alive)
 
+    def lookup_pair_rows(self, terms: torch.Tensor, docs: torch.Tensor
+                         ) -> torch.Tensor:
+        """Distinct pairs ``terms (P,)`` x ``docs (P,)`` -> (P, n_b, n_f)
+        through ``kernels.csr_lookup.csr_lookup_pairs`` (the lookup
+        kernel on CUDA, routed per pair)."""
+        from ..kernels.csr_lookup import csr_lookup_pairs
+        return csr_lookup_pairs(
+            self.term_offsets, self.doc_ids, self._serve_values,
+            self.term_to_shard, self.range_lo, terms, docs,
+            fences=self.fences, split_term=self.split_term,
+            split_doc=self.split_doc, tile=self._tile(None),
+            **self._codec_kwargs())
+
     def qd_matrix(self, query_terms: torch.Tensor, doc_ids: torch.Tensor,
                   *, impl: Optional[str] = None, tile: Optional[int] = None,
                   alive=None) -> torch.Tensor:

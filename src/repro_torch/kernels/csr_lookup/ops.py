@@ -29,8 +29,9 @@ from ...core.codec import validate_codec
 from ...core.index import POSTING_TILE, build_fences, fence_count
 from .kernel import (csr_lookup_kernel, csr_lookup_packed_kernel,
                      retrieve_windows_kernel, retrieve_windows_packed_kernel)
-from .ref import (_alive_at, _lane_scale, csr_lookup_packed_ref,
-                  csr_lookup_ref, lane_scales, retrieve_lanes, route_pairs,
+from .ref import (_alive_at, _lane_scale, _route, csr_lookup_packed_ref,
+                  csr_lookup_ref, lane_scales, lookup_pairs_packed_ref,
+                  lookup_pairs_ref, retrieve_lanes, route_pairs,
                   route_terms, scan_block_packed_ref, scan_block_ref)
 
 IMPLS = (None, "ref", "kernel")
@@ -160,6 +161,54 @@ def csr_lookup(term_offsets: torch.Tensor, doc_ids: Optional[torch.Tensor],
     return _mask_dead_rows(out, alive, doc_targets)
 
 
+def csr_lookup_pairs(term_offsets: torch.Tensor,
+                     doc_ids: Optional[torch.Tensor], values: torch.Tensor,
+                     term_to_shard, range_lo, terms: torch.Tensor,
+                     docs: torch.Tensor, *,
+                     fences: Optional[torch.Tensor] = None,
+                     split_term: Optional[torch.Tensor] = None,
+                     split_doc: Optional[torch.Tensor] = None,
+                     tile: Optional[int] = None, codec: str = "none",
+                     packed=None, value_scale: Optional[torch.Tensor] = None,
+                     codec_spans: tuple = (0, 0)) -> torch.Tensor:
+    """Distinct pairs ``terms (P,)`` x ``docs (P,)`` -> value rows (P,
+    n_b, n_f), over the layout of :func:`csr_lookup` (the coalescer's
+    lookup).  On CUDA every pair is routed on its own and the lookup
+    kernel runs with that per-pair routing as a (1, P) grid, so a pair's
+    row is bitwise the one ``csr_lookup`` gives its (term, doc) cell; on
+    the CPU the routed ref ``lookup_pairs_ref`` (packed:
+    ``lookup_pairs_packed_ref``)."""
+    codec = validate_codec(codec)
+    t = int(tile or POSTING_TILE)
+    if not _use_kernel(None, values):
+        if codec != "none":
+            return lookup_pairs_packed_ref(
+                term_offsets, packed, fences, values, value_scale,
+                term_to_shard, range_lo, terms[:, None], docs, split_term,
+                split_doc, tile=t, spans=tuple(codec_spans))[:, 0]
+        return lookup_pairs_ref(term_offsets, doc_ids, values,
+                                term_to_shard, range_lo, terms[:, None],
+                                docs, split_term, split_doc)[:, 0]
+    k, lo, hi = _route(terms[None], docs[None], term_offsets, term_to_shard,
+                       range_lo, split_term, split_doc)       # (1, P)
+    if codec != "none":
+        _check_packed_args(codec, packed, fences, values, tile, t)
+        scale = (None if value_scale is None else
+                 _lane_scale(value_scale, range_lo, k, terms[None])
+                 .contiguous())
+        out = csr_lookup_packed_kernel(
+            _as_i32(k), _as_i32(lo), _as_i32(hi), _as_i32(docs), packed,
+            fences, values, scale, tile=t)
+        return out[:, 0]
+    if (fences is None or t != POSTING_TILE
+            or fences.shape[1] != fence_count(doc_ids.shape[1], t)):
+        fences = build_fences(doc_ids, t)
+    out = csr_lookup_kernel(_as_i32(k), _as_i32(lo), _as_i32(hi),
+                            _as_i32(docs), doc_ids, fences,
+                            values.to(torch.float32), tile=t)
+    return out[:, 0]
+
+
 def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
                    range_hi, query_terms, block, tile, impl, alive, codec,
                    packed, value_scale, codec_spans, fences):
@@ -275,3 +324,50 @@ def csr_retrieve_topk(term_offsets: torch.Tensor,
 
 __all__ = ["csr_lookup", "csr_lookup_packed_ref", "csr_lookup_ref",
            "csr_retrieve_block", "csr_retrieve_topk"]
+
+
+# ---------------------------------------------------------------------------
+# posting-tile cache fetch and fill (serving.tile_cache.PostingTileCache);
+# plain torch, as the reference's are jnp
+# ---------------------------------------------------------------------------
+
+def gather_tiles(doc_ids: torch.Tensor, values: torch.Tensor,
+                 rows: torch.Tensor, starts: torch.Tensor, *, tile: int):
+    """Fetch raw posting tiles: ``rows`` (M,) shard indices x ``starts``
+    (M,) tile-aligned shard-local positions -> ``((M, tile) doc ids, (M,
+    tile, n_b, n_f) values)``.  Positions past the row tail clip to the
+    row's last (pad) element, so a fetched tile stays sorted."""
+    n = doc_ids.shape[1]
+    pos = (starts.long()[:, None] + torch.arange(
+        tile, device=starts.device)[None, :]).clamp(0, n - 1)
+    r = rows.long()[:, None]
+    return doc_ids[r, pos], values[r, pos]
+
+
+def gather_tiles_packed(packed, values: torch.Tensor, rows: torch.Tensor,
+                        starts: torch.Tensor, *, tile: int):
+    """Packed-codec :func:`gather_tiles`: the tile's doc ids decode
+    through ``core.codec.unpack_at`` (positions past a short tail decode
+    the pack-time pad, keeping the tile sorted), values gather at their
+    storage dtype (f32, or int8 under packed-q8)."""
+    from ...core.codec import unpack_at
+    n = values.shape[1]
+    pos = starts.long()[:, None] + torch.arange(
+        tile, device=starts.device)[None, :]
+    ids = unpack_at(*packed, rows[:, None], pos, tile=tile)
+    r = rows.long()[:, None]
+    return ids.to(torch.int32), values[r, pos.clamp(0, n - 1)]
+
+
+def fill_tile_cache(cache_ids: torch.Tensor, cache_vals: torch.Tensor,
+                    new_ids: torch.Tensor, new_vals: torch.Tensor,
+                    slots: torch.Tensor):
+    """Write fetched tiles into cache slots, in place (the reference
+    returns updated copies; the port updates the cache's own buffers to
+    keep one copy resident).  Slot ``C`` (the capacity) or beyond is
+    dropped, as the reference's ``mode="drop"``."""
+    keep = slots < cache_ids.shape[0]
+    s = slots[keep].long()
+    cache_ids[s] = new_ids[keep].to(cache_ids.dtype)
+    cache_vals[s] = new_vals[keep].to(cache_vals.dtype)
+    return cache_ids, cache_vals

@@ -436,3 +436,42 @@ def retrieve_block_packed_ref(term_offsets, packed, fences, values,
     return scan_block_packed_ref(packed, fences, values, scale, lo_f, hi_f,
                                  blo, block, tile=tile, spans=spans,
                                  alive=alive)
+
+
+# ---------------------------------------------------------------------------
+# posting-tile cache (serving.tile_cache.PostingTileCache)
+# ---------------------------------------------------------------------------
+
+def cached_tile_lookup(cache_ids, cache_vals, slots, win_lo, win_hi,
+                       doc_targets, scale=None) -> torch.Tensor:
+    """Resolve (term, doc) pairs against cached posting tiles.
+
+    The tile cache routes each pair on the host to the one cached tile
+    that can hold its doc, so here every pair is an in-tile bisect:
+
+    * ``cache_ids`` (C, T) int32 and ``cache_vals`` (C, T, n_b, n_f) —
+      the resident tiles' decoded doc ids and value rows (f32, or int8
+      under packed-q8);
+    * ``slots`` / ``win_lo`` / ``win_hi`` (...,) int32 — the pair's slot
+      and its routed range clipped to the tile; a pair with no postings
+      passes ``win_lo == win_hi`` and gets the exact-zero row;
+    * ``scale`` (...,) f32 — per-pair dequant scale (packed-q8 only).
+
+    The bisect is ``core.index._bisect`` over the flattened cache from
+    base ``slot * T``, the probe sequence of the uncompressed ref
+    restricted to one tile, so found masks and values are bitwise those
+    of the uncoalesced lookup.
+    """
+    c, t = cache_ids.shape
+    flat = cache_ids.reshape(-1)
+    base = slots.long() * t
+    lo = base + win_lo
+    hi = base + win_hi
+    d = doc_targets.long()
+    pos = _bisect(flat, lo, hi, d, n_iter=bisect_steps(t))
+    found = (pos < hi) & (gather_clip(flat, pos) == d)
+    vals = gather_clip(cache_vals.reshape((c * t,)
+                                          + tuple(cache_vals.shape[2:])), pos)
+    if scale is not None:
+        vals = vals.to(torch.float32) * scale[..., None, None]
+    return torch.where(found[..., None, None], vals, 0.0)

@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs import smoke
 from repro_torch.core import interactions
 from repro_torch.kernels.csr_lookup import ops as lookup_ops
+from repro_torch.kernels.embed_bag import ops as eb_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.knrm_pool import ops as knrm_ops
 from repro_torch.kernels.seg_interact import ops as seg_ops
@@ -53,6 +54,36 @@ def _host_ms(fns, iters):
     return (time.perf_counter() - t0) * 1e3 / len(fns)
 
 
+def _busy(run, n):
+    """``device_busy``'s stand-in: the card's profile is not replayed."""
+    return dict(ms=1.0, ops=1.0, host="", recorded=1, launched=1)
+
+
+def _patch_build(cs, monkeypatch, tmp_path, **sizes):
+    """Phase 5 at a hundred-odd docs, n_b 5, De 32, with the kernels'
+    names wrapped in launch counters and card-only timing stubbed."""
+    for name, value in dict(BUILD_DOCS=130, BUILD_N_B=5, BUILD_DE=32,
+                            BUILD_MAX_LEN=160, BUILD_MAX_UNIQ=128,
+                            N_CAND=60, N_REQUESTS=3, NOINDEX_REQUESTS=2,
+                            INDEX_DIR=str(tmp_path / "idx"),
+                            **sizes).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(cs, "device_busy", _busy)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "retrieve_windows_kernel"),
+                      (knrm_ops, "knrm_pool_kernel"),
+                      (interactions, "seg_interact_kernel"),
+                      (seg_ops, "seg_interact_kernel"),
+                      (eb_ops, "embed_bag_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_phases_run_on_the_cpu(seed, monkeypatch):
     cs = _load_script()
@@ -63,7 +94,7 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
     monkeypatch.setattr(cs, "events_ms", _host_ms)
     monkeypatch.setattr(cs, "device_ms",
                         lambda fns, iters, kernel, cold=False: None)
-    monkeypatch.setattr(cs, "device_busy", lambda run, n: (1.0, 1.0, ""))
+    monkeypatch.setattr(cs, "device_busy", _busy)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(lookup_ops, "_use_kernel",
                         lambda impl, like: impl in (None, "kernel"))
@@ -101,35 +132,49 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
 def test_build_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
     """Phase 5 (the offline build) at a hundred-odd docs, n_b 5, De 32:
     the build, its checks, both engines over the built index and the
-    save/load round trip."""
+    save/load round trip; embed_bag twice per build batch."""
     cs = _load_script()
-    for name, value in dict(BUILD_DOCS=130, BUILD_N_B=5, BUILD_DE=32,
-                            BUILD_MAX_LEN=160, BUILD_MAX_UNIQ=128,
-                            N_CAND=60, N_REQUESTS=3, NOINDEX_REQUESTS=2,
-                            INDEX_DIR=str(tmp_path / "idx")).items():
-        monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(cs, "events_ms", _host_ms)
-    monkeypatch.setattr(cs, "device_ms",
-                        lambda fns, iters, kernel, cold=False: None)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(lookup_ops, "_use_kernel",
-                        lambda impl, like: impl in (None, "kernel"))
-    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
-                      (lookup_ops, "retrieve_windows_kernel"),
-                      (knrm_ops, "knrm_pool_kernel"),
-                      (interactions, "seg_interact_kernel"),
-                      (seg_ops, "seg_interact_kernel")):
-        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
-
-    row = cs.phase5(seed, torch.device("cpu"))
-    assert set(row) >= KEYS
+    _patch_build(cs, monkeypatch, tmp_path)
+    rows, built = cs.phase5(seed, torch.device("cpu"))
+    row, eb = rows
+    assert set(row) >= KEYS and set(eb) >= KEYS
     assert row["name"] == "seg_interact" and row["route"] == "cuda"
     assert row["replaces"] == "src/repro/kernels/seg_interact/kernel.py:50"
     assert row["launches"] == -(-130 // 32)       # one per build batch
     assert row["launches_by_path"]["noindex"] > 0
     assert row["max_abs_err"] == 0.0           # the plain version vs itself
     assert row["bound_ms"] > 0 and row["library_ms"] is None
+    assert eb["name"] == "embed_bag" and eb["route"] == "cuda"
+    assert eb["replaces"] == "src/repro/kernels/embed_bag/kernel.py:40"
+    assert eb["source"] == \
+        "src/repro_torch/kernels/embed_bag/csrc/embed_bag.cu"
+    assert eb["launches"] == 2 * -(-130 // 32)    # provider mix + lcp
+    assert eb["launches_by_path"]["noindex"] > 0
+    assert eb["max_abs_err"] == 0.0 and eb["bitwise"]
+    assert eb["bound_ms"] > 0 and eb["bound_by"] == "bytes"
+    assert eb["library_ms"] > 0 and eb["log_cond_prob"]["bound_ms"] > 0
+    assert set(built) == {"pidx", "engine", "ds", "vocab"}
     assert not os.path.exists(tmp_path / "idx")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_frontend_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
+    """Phase 7 (the serving front end) over phase 5's index: the three
+    modes, every served score equal to engine.score, and the swap to a
+    packed copy."""
+    cs = _load_script()
+    _patch_build(cs, monkeypatch, tmp_path, FE_CLOSED=4, FE_REQUESTS=12,
+                 FE_CACHE_TILES=64, FE_SWAP_REQUESTS=3, FE_SLO_MS=60_000.0)
+    monkeypatch.setattr(lookup_ops, "csr_lookup_packed_kernel",
+                        _counting(cs.csr_lookup_packed_kernel))
+    _, built = cs.phase5(seed, torch.device("cpu"))
+    results = cs.phase7(built, seed, torch.device("cpu"))
+    assert list(results) == [f"{m} @ {f} R" for f in ("1", "0.5")
+                             for m in ("naive", "coalesce", "coalesce+cache")]
+    for mode, r in results.items():
+        assert r["served"] + r["rejected"] == 12 and r["served"] > 0
+        assert 0.0 <= r["goodput"] <= 1.0 and r["batches"] >= 2
+        assert (r["dedupe"] is None) == mode.startswith("naive")
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -7,6 +7,9 @@ CUDA, raw and packed, against the engine on the CPU, and the offline
 build on the card against the same build on the CPU, with a HashProvider
 and with an LMProvider.
 
+embed_bag, the provider's segment sums and the serving front end on the
+card are held bitwise against the plain versions and ``engine.score``.
+
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Without a CUDA device every test skips.
@@ -30,6 +33,8 @@ from repro_torch.core.vocab import build_vocabulary
 from repro_torch.data.synth_corpus import build_zipfian_index, generate
 from repro_torch.dist.partition import pack_index
 from repro_torch.dist.sharding import partition_index
+from repro_torch.kernels.embed_bag import (bag_ptr_from_offsets,
+                                           embed_bag_kernel, embed_bag_plain)
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             csr_lookup_packed_kernel,
                                             lane_scales, retrieve_lanes,
@@ -44,7 +49,8 @@ from repro_torch.kernels.seg_interact import (seg_interact,
                                               seg_interact_plain)
 from repro_torch.models import transformer as T
 from repro_torch.retrievers import get_retriever
-from repro_torch.serving import NoIndexEngine, SeineEngine
+from repro_torch.serving import (NoIndexEngine, SeineEngine,
+                                 ServingFrontend)
 from torch_codec_rows import adversarial_index, adversarial_queries
 
 pytestmark = pytest.mark.gpu
@@ -427,3 +433,90 @@ def test_lm_build_on_cuda_matches_cpu(monkeypatch):
               "range_lo", "range_hi", "idf", "doc_len", "seg_len"):
         assert torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n)), n
     torch.testing.assert_close(gpu.values.cpu(), cpu.values, **SEG_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,maxbag", [(100, 32, 8, 10), (50, 16, 4, 6),
+                                          (200, 128, 16, 20), (30, 8, 5, 3),
+                                          (9280, 128, 2048, 30)])
+def test_embed_bag_kernel_matches_plain(v, d, b, maxbag, dtype):
+    """Bitwise: both sum each bag in index order; -1 skipped, ids past
+    the table read its last row, empty bags are zeros."""
+    _require_cuda()
+    rng = np.random.RandomState(v + b)
+    lens = rng.randint(0, maxbag, b)
+    lens[-1] = 0
+    nnz = max(int(lens.sum()), 1)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])[:-1])
+    idx = torch.from_numpy(rng.randint(-1, v + 3, nnz).astype(np.int32))
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32))
+    ptr = bag_ptr_from_offsets(offsets, nnz, b)
+    args = (table.to(dtype).cuda(), idx.cuda(), ptr.cuda())
+    got = embed_bag_kernel(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, d)
+    assert torch.equal(got, embed_bag_plain(*args))
+    assert torch.equal(got.cpu(), embed_bag_plain(table.to(dtype), idx, ptr))
+    assert (got[-1] == 0).all()
+
+
+def test_embed_bag_kernel_refuses_what_it_does_not_take():
+    _require_cuda()
+    idx = torch.zeros(3, dtype=torch.int32, device="cuda")
+    ptr = torch.tensor([0, 3], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        embed_bag_kernel(torch.zeros(4, 2, dtype=torch.float16,
+                                     device="cuda"), idx, ptr)
+    with pytest.raises(TypeError, match="int32"):
+        embed_bag_kernel(torch.zeros(4, 2, device="cuda"), idx.long(), ptr)
+    table = torch.zeros(4, 2, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        embed_bag_kernel(table, idx, ptr)
+    with torch.no_grad():
+        assert embed_bag_kernel(table, idx, ptr).shape == (1, 2)
+
+
+def test_contextualize_on_cuda_matches_cpu():
+    """The provider's segment sums through the kernel on the card equal
+    the plain version's on the CPU."""
+    _require_cuda()
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(-1, 300, (6, 120)).astype(np.int32))
+    segs = torch.from_numpy(rng.randint(-2, 70, (6, 120)).astype(np.int32))
+    cpu = HashProvider(300, 32, seed=1, device="cpu")
+    gpu = HashProvider(300, 32, table=cpu.table(), device="cuda")
+    before = embed_bag_kernel.launches
+    got = gpu.contextualize(toks.cuda(), segs.cuda())
+    assert embed_bag_kernel.launches == before + 1
+    torch.testing.assert_close(got.cpu(), cpu.contextualize(toks, segs),
+                               **TOL)
+
+
+@pytest.mark.parametrize("mode", ["naive", "coalesce", "cache"])
+def test_frontend_on_cuda_equals_engine_score(mode):
+    """The front end on the card: coalesced distinct pairs through the
+    lookup kernel (per-pair routing), cached tiles, every future equal
+    to engine.score bitwise."""
+    _require_cuda()
+    idx = load_index(FIXTURE, device="cuda")
+    spec = get_retriever("knrm")
+    eng = SeineEngine(idx, "knrm", spec.init(
+        torch.Generator().manual_seed(0), idx.n_b, idx.functions,
+        device="cuda"))
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(-1, 40, 5).astype(np.int32),
+             rng.randint(0, idx.n_docs, 16).astype(np.int32))
+            for _ in range(10)]
+    kw = {"naive": dict(coalesce=False), "coalesce": {},
+          "cache": dict(cache_tiles=8)}[mode]
+    before = csr_lookup_kernel.launches
+    fe = ServingFrontend(eng, max_batch=4, batch_timeout_ms=2, **kw)
+    try:
+        futs = [fe.submit(q, d) for q, d in reqs]
+        for (q, d), f in zip(reqs, futs):
+            want = eng.score(q, d).cpu().numpy()
+            np.testing.assert_array_equal(f.result(timeout=120), want)
+    finally:
+        fe.close(timeout=120)
+    if mode == "coalesce":
+        assert csr_lookup_kernel.launches > before

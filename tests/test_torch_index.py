@@ -16,6 +16,12 @@ from repro_torch.ckpt import load_index
 from repro_torch.convert import index_to_device
 from repro_torch.core.index import build_fences, fence_count
 from repro_torch.data.synth_corpus import build_zipfian_index
+from repro_torch.dist.sharding import partition_index as \
+    partition_index_torch
+from repro_torch.kernels.embed_bag import embed_bag
+from repro_torch.models.embedding_bag import MultiTable
+from repro_torch.retrievers import get_retriever
+from repro_torch.serving import SeineEngine, ServingFrontend
 from torch_helpers import export, jax_layout
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,6 +87,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_index(str(tmp_path / "idx"))
     assert resolve_device("cpu") == torch.device("cpu")
+    # numpy inputs go to the default device; tensors keep their own
+    table = np.ones((4, 2), np.float32)
+    idx, offsets = np.array([0, 3], np.int32), np.array([0], np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        embed_bag(table, idx, offsets, n_bags=1)
+    np.testing.assert_array_equal(
+        embed_bag(torch.from_numpy(table), idx, offsets, n_bags=1).numpy(),
+        [[2.0, 2.0]])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiTable((3,), 2).init()
+    # the front end and the tile cache serve on their engine's device:
+    # over a CPU engine they never ask for CUDA
+    pidx = partition_index_torch(build_zipfian_index(device="cpu"), 2)
+    eng = SeineEngine(pidx, "bm25", get_retriever("bm25").init(
+        None, pidx.n_b, pidx.functions, device="cpu"))
+    q, d = np.array([1, 2], np.int32), np.array([0, 5], np.int32)
+    with ServingFrontend(eng, cache_tiles=4) as fe:
+        got = fe.submit(q, d).result(timeout=120)
+    np.testing.assert_array_equal(got, eng.score(q, d).numpy())
+    assert fe.cache._cache_ids.device.type == "cpu"
 
 
 @pytest.mark.parametrize("kw", [{}, dict(n_docs=300, vocab=50,

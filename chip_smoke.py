@@ -67,12 +67,14 @@ Phases (any failed check raises, and the script exits non-zero):
    scores at rtol 1e-4 / atol 1e-5, p50/p95 of both), a ``save_index`` /
    ``load_index`` round trip, and ``seg_interact``'s timing against its
    plain version and its bound.  ``embed_bag`` (the provider's and
-   ``log_cond_prob``'s segment sums) must launch twice per batch; it is
-   held against its plain version on the build's own calls (captured by
-   running 16 batches again) and over tests/test_kernels.py's sweep with
-   empty bags, -1 and past-table ids in float32 and bf16 (rtol 1e-5 /
-   atol 1e-6; bitwise is printed), and timed at both build shapes
-   beside ``F.embedding_bag`` and its bound.
+   ``log_cond_prob``'s segment sums, through its segment entry: one
+   launch that bags on the card) must launch twice per batch; both its
+   entries are held bitwise against their plain versions on the build's
+   own calls (captured by running 16 batches again), the CSR entry over
+   tests/test_kernels.py's sweep with empty bags, -1 and past-table ids
+   and the segment entry over SEGMENT_SWEEP, in float32 and bf16, and
+   both are timed at both build shapes beside the sort-based bagging,
+   ``F.embedding_bag`` and their bounds.
 
 7. The serving front end over phase 5's K = 4 index with KNRM: the
    closed-loop rate R of 64 LETOR requests (6 slots x 1,000 candidates)
@@ -97,11 +99,14 @@ launches CUPTI recorded over the replay ("k of n").
    from ``--seed`` at the reference init's scales, through
    ``LMProvider(embed_dim=128)``.  The ``flash_attn`` kernel against its
    plain version at the build's shape (32 docs x 512 positions, causal;
-   bf16 at 2e-2, float32 at rtol 1e-4 / atol 1e-5) and over the shapes of
-   tests/test_kernels.py::TestFlashAttention, a non-causal one and S =
-   160 with a group of 3; one build batch's ``contextualize`` through the
-   kernel against the plain attention (2e-2, with the weights cast to
-   float32; the bf16 difference is printed).  Then
+   bf16 at 2e-2 on three draws, float32 at rtol 1e-4 / atol 1e-5) and
+   over the shapes of tests/test_kernels.py::TestFlashAttention, a
+   non-causal one and S = 160 with a group of 3, and hd 128 at S = 200
+   causal and full (bf16 runs the ``wgmma`` kernel); one build batch's
+   ``contextualize`` through the kernel against the plain attention
+   (2e-2, with the weights cast to float32, and in bf16 through the
+   first 2 layers; the bf16 difference through all layers is printed).
+   Then
    ``build_partitioned(K=4)`` over the first 1,024 docs (32 batches of
    32), counts zeroed just before and read just after: ``flash_attn``
    must launch n_layers x batches times and ``seg_interact`` once per
@@ -123,7 +128,6 @@ of the ``repro`` package is imported.
 import argparse
 import copy
 import dataclasses
-import gc
 import json
 import os
 import shutil
@@ -164,7 +168,8 @@ from repro_torch.kernels.csr_lookup import (  # noqa: E402
     scan_block_packed_ref, scan_block_ref)
 from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
 from repro_torch.kernels.embed_bag import (  # noqa: E402
-    bag_ptr_from_offsets, embed_bag_kernel, embed_bag_plain)
+    bag_ptr_from_offsets, embed_bag_kernel, embed_bag_plain,
+    embed_bag_segment_kernel, segment_bag_sums_plain, segment_bags)
 from repro_torch.kernels.embed_bag import ops as embed_bag_ops  # noqa: E402
 from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
 from repro_torch.kernels.flash_attn import (flash_attn_kernel,  # noqa: E402
@@ -252,6 +257,10 @@ EB_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_kernels.py's bar
 # (V, D, B, maxbag): tests/test_kernels.py::TestEmbedBag's sweep
 EB_SWEEP = ((100, 32, 8, 10), (50, 16, 4, 6), (200, 128, 16, 20),
             (30, 8, 5, 3))
+# the segment entry's sweep at the provider mix's shape (docs of 512
+# tokens, 64 bins, a 9,280 x 128 table): empty bins and -1 rows, every
+# token in one bin (a 512-row bag), one token per bin, bins past both ends
+SEGMENT_SWEEP = ("random", "one_bin", "one_per_bin", "out_of_range")
 # phase 7, the serving front end over phase 5's index
 FE_CLOSED = 64           # closed-loop requests that set the offered rate
 FE_REQUESTS = 256
@@ -275,12 +284,21 @@ LM_CAND = 256
 LM_NOINDEX_REQUESTS = 2
 LM_NOINDEX_CAND = 32
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# check_lm_wiring's bf16 check: through the first LM_BF16_LAYERS layers
+# at most LM_BF16_PAST of the values past BF16_TOL.  An attention that
+# rounds p to bf16 before P . V reads ~0.4% there, the kernel < 0.01%
+# (scripts/flash_attn_precision.py; PERF.md section 6).
+LM_BF16_LAYERS = 2
+LM_BF16_PAST = 1e-3
 FA_F32_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py's bar
 # (B, S, Hq, Hkv, hd, causal): tests/test_kernels.py::TestFlashAttention's
-# causal shapes and its non-causal one, and S = 160 with a group of 3
+# causal shapes and its non-causal one, S = 160 with a group of 3, and the
+# build's head width at an S that is no multiple of the 64-key tile
 FA_SWEEP = ((2, 128, 4, 2, 32, True), (1, 256, 8, 8, 64, True),
             (2, 64, 4, 1, 16, True), (1, 96, 2, 2, 32, True),
-            (1, 64, 4, 2, 32, False), (2, 160, 6, 2, 32, True))
+            (1, 64, 4, 2, 32, False), (2, 160, 6, 2, 32, True),
+            (2, 200, 6, 2, 128, True), (2, 200, 6, 2, 128, False))
+FA_SEEDS = 3       # draws of the build-shape bf16 check
 BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 tensor cores
 GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "splitk")
 
@@ -1346,25 +1364,25 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
 
 
 def build_embed_bag_calls(builder, toks, segs, n_docs: int):
-    """The embed_bag kernel's arguments in the build's own calls over the
-    first ``n_docs`` docs: stages 1-3 run once more with the kernel's
-    wrapper recording them (and still launching).  Returns ``(mix,
-    lcp)``: the provider mix's calls and log_cond_prob's, in batch
-    order."""
+    """The segment entry's arguments ``(table, rows, bins, n_bins)`` in
+    the build's own calls over the first ``n_docs`` docs: stages 1-3 run
+    once more with the wrapper recording them (and still launching).
+    Returns ``(mix, lcp)``: the provider mix's calls and
+    log_cond_prob's, in batch order."""
     calls = []
-    wrapped = embed_bag_ops.embed_bag_kernel
+    wrapped = embed_bag_ops.embed_bag_segment_kernel
 
-    def record(table, idx, ptr):
-        calls.append((table, idx, ptr))
-        return wrapped(table, idx, ptr)
+    def record(*args):
+        calls.append(args)
+        return wrapped(*args)
 
-    embed_bag_ops.embed_bag_kernel = record
+    embed_bag_ops.embed_bag_segment_kernel = record
     try:
         builder.pipeline.stream_runs(toks[:n_docs], segs[:n_docs],
                                      batch_size=BUILD_BATCH,
                                      max_uniq=BUILD_MAX_UNIQ)
     finally:
-        embed_bag_ops.embed_bag_kernel = wrapped
+        embed_bag_ops.embed_bag_segment_kernel = wrapped
     table = builder.provider.table()
     mix = [c for c in calls if c[0] is table]
     lcp = [c for c in calls if c[0] is not table]
@@ -1374,29 +1392,61 @@ def build_embed_bag_calls(builder, toks, segs, n_docs: int):
     return mix, lcp
 
 
+def csr_call(table, rows, bins, n_bins):
+    """The same segment sums as the CSR entry's arguments (the plain
+    version's sort-based bags)."""
+    return (table, *segment_bags(rows, bins, n_bins))
+
+
+def segment_sweep_case(case, rng, dev, n_docs=6, n=512, n_bins=64,
+                       v=9280):
+    """rows and bins (n_docs, n) int64 of one SEGMENT_SWEEP case."""
+    rows = rng.randint(0, v + 3, (n_docs, n))
+    if case == "random":
+        bins = rng.randint(0, n_bins // 2, (n_docs, n))   # half empty
+        rows[rng.rand(n_docs, n) < 0.6] = -1
+    elif case == "one_bin":
+        bins = np.full((n_docs, n), 7)
+    elif case == "one_per_bin":
+        bins = np.tile(np.arange(n) % n_bins, (n_docs, 1))
+        rows[:, n_bins:] = -1
+    else:
+        bins = rng.randint(-5, n_bins + 5, (n_docs, n))
+        rows[rng.rand(n_docs, n) < 0.3] = -1
+    return (torch.from_numpy(rows).to(dev),
+            torch.from_numpy(bins).to(dev))
+
+
 def check_embed_bag(mix, lcp, seed, dev):
-    """The kernel against its plain version on the card: one build
-    batch's two calls (bitwise run to run), then the JAX-signature sweep
-    of tests/test_kernels.py with empty bags, -1 entries and ids past
-    the table, in float32 and bf16, at rtol 1e-5 / atol 1e-6.  Returns
-    the largest |diff| and whether every output was bitwise equal."""
-    err, bitwise = 0.0, True
-    for what, (table, idx, ptr) in (("provider mix", mix[0]),
-                                    ("log_cond_prob", lcp[0])):
-        got = embed_bag_kernel(table, idx, ptr)
-        again = embed_bag_kernel(table, idx, ptr)
-        want = embed_bag_plain(table, idx, ptr)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **EB_TOL)
-        if not torch.equal(got, again):
-            raise AssertionError("embed_bag is not deterministic")
-        bitwise &= torch.equal(got, want)
-        err = max(err, (got - want).abs().max().item())
-        live = int((idx >= 0).sum())
-        log(f"phase 5: embed_bag == plain on the build's {what} call: "
-            f"table {tuple(table.shape)}, {idx.shape[0]} indices "
-            f"({live} live), {ptr.shape[0] - 1} bags (max |diff| "
-            f"{(got - want).abs().max().item():.3g})")
+    """Both entries against their plain versions on the card, bitwise:
+    the segment entry (one launch that bags) against the sort-based
+    plain path, and the CSR entry over the same sorted bags, on every
+    captured build call (each launch twice: the same bits); then the CSR
+    entry over the JAX-signature sweep of tests/test_kernels.py with
+    empty bags, -1 entries and ids past the table, and the segment entry
+    over SEGMENT_SWEEP, in float32 and bf16.  Returns the largest |diff|
+    (0) and True."""
+    for what, calls in (("provider mix", mix), ("log_cond_prob", lcp)):
+        for c in calls:
+            got = embed_bag_segment_kernel(*c)
+            again = embed_bag_segment_kernel(*c)
+            want = segment_bag_sums_plain(*c)
+            csr = csr_call(*c)
+            got_csr = embed_bag_kernel(*csr)
+            want_csr = embed_bag_plain(*csr)
+            torch.cuda.synchronize()
+            assert_equal(got, want, f"embed_bag segment entry ({what})")
+            assert_equal(got, again, f"embed_bag segment entry ({what}) "
+                         "run to run")
+            assert_equal(got_csr, want_csr, f"embed_bag CSR entry ({what})")
+            assert_equal(got_csr.reshape(got.shape), got,
+                         f"embed_bag CSR vs segment entry ({what})")
+        table, rows, bins, n_bins = calls[0]
+        live = int((rows >= 0).sum())
+        log(f"phase 5: embed_bag == plain, both entries, bitwise, on the "
+            f"build's {len(calls)} {what} calls: table "
+            f"{tuple(table.shape)}, rows {tuple(rows.shape)} ({live} live "
+            f"in the first), {n_bins} bins per doc")
     rng = np.random.RandomState(seed)
     for v, d, b, maxbag in EB_SWEEP:
         for dt in (torch.float32, torch.bfloat16):
@@ -1413,20 +1463,30 @@ def check_embed_bag(mix, lcp, seed, dev):
             got = embed_bag_kernel(table, idx_t, ptr)
             want = embed_bag_plain(table, idx_t, ptr)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), **EB_TOL)
+            assert_equal(got, want, f"embed_bag CSR entry at {(v, d, b)}")
             if bool((got[-1] != 0).any()):
                 raise AssertionError("an empty bag gave nonzero values")
-            bitwise &= torch.equal(got, want)
-            err = max(err, (got.float() - want.float()).abs().max().item())
-    log(f"phase 5: embed_bag == plain over the JAX-signature sweep "
-        f"{EB_SWEEP} in float32 and bf16 (empty bags, -1 and past-table "
-        f"ids): max |diff| {err:.3g}, bitwise {bitwise}")
-    return err, bitwise
+    table32 = torch.from_numpy(rng.standard_normal((9280, 128))
+                               .astype(np.float32)).to(dev)
+    for case in SEGMENT_SWEEP:
+        rows, bins = segment_sweep_case(case, rng, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            c = (table32.to(dt), rows, bins, 64)
+            got = embed_bag_segment_kernel(*c)
+            want = segment_bag_sums_plain(*c)
+            torch.cuda.synchronize()
+            assert_equal(got, want, f"embed_bag segment entry [{case}, "
+                         f"{dt}]")
+    log(f"phase 5: embed_bag == plain, bitwise: the CSR entry over the "
+        f"JAX-signature sweep {EB_SWEEP} (empty bags, -1 and past-table "
+        f"ids), the segment entry over {SEGMENT_SWEEP} (6 docs x 512 "
+        f"tokens, 64 bins), each in float32 and bf16")
+    return 0.0, True
 
 
 def embed_bag_cost(table, idx, ptr):
-    """Bytes the call must move: the distinct live rows read once, the
-    indices and bounds, and the bags written."""
+    """Bytes the CSR entry must move: the distinct live rows read once,
+    the indices and bounds, and the bags written."""
     live = idx[idx >= 0].long().clamp(max=table.shape[0] - 1)
     rows = int(torch.unique(live).numel())
     n_bags = ptr.shape[0] - 1
@@ -1434,10 +1494,22 @@ def embed_bag_cost(table, idx, ptr):
             + idx.numel() * 4 + ptr.numel() * 4)
 
 
+def segment_cost(table, rows, bins, n_bins):
+    """Bytes the segment entry must move: the distinct live rows read
+    once, rows and bins read, the (doc, bin) sums written."""
+    live = rows[rows >= 0].long().clamp(max=table.shape[0] - 1)
+    n_live = int(torch.unique(live).numel())
+    n_docs = rows.numel() // rows.shape[-1]
+    return ((n_live + n_docs * n_bins) * table.shape[1]
+            * table.element_size() + rows.numel() * rows.element_size()
+            + bins.numel() * bins.element_size())
+
+
 def library_embedding_bag(table, idx, ptr):
     """``F.embedding_bag(mode="sum")`` over the same bags, with the
     skipped entries dropped first (it has no skip id): the library call
-    that computes the same function."""
+    that computes the same function.  Returns the call, its inputs
+    prepared."""
     n_bags = ptr.shape[0] - 1
     pos = torch.arange(idx.shape[0], device=idx.device)
     bag = torch.searchsorted(ptr[1:].long(), pos, right=True)
@@ -1450,31 +1522,54 @@ def library_embedding_bag(table, idx, ptr):
 
 
 def time_embed_bag(mix, lcp, launches, err, bitwise, dev):
-    """embed_bag at the build's two shapes over up to 16 batches each
-    (CUPTI); its plain version; ``F.embedding_bag`` (the library
-    yardstick, never used by the port); the bound: bytes over 3.35
-    TB/s (one add per value read is far below the float32 rate)."""
+    """embed_bag at the build's two shapes over up to 16 batches each:
+    the segment entry (the build's path) and the CSR entry over the same
+    bags (CUPTI), the plain version, ``F.embedding_bag`` on the prepared
+    bags (the library yardstick, never used by the port), and with the
+    launch cost of the whole call (CUDA events): the segment entry, the
+    sort-based bagging + the CSR entry (the build's earlier path) and the same
+    bagging + ``F.embedding_bag``.  Bounds: bytes over 3.35 TB/s (one add
+    per value read is far below the float32 rate)."""
     out = {}
     for what, calls in (("mix", mix), ("lcp", lcp)):
-        ms, how, call_ms = timed([lambda c=c: embed_bag_kernel(*c)
-                                  for c in calls], 160, "embed_bag_")
-        plain_ms = events_ms([lambda c=c: embed_bag_plain(*c)
+        csrs = [csr_call(*c) for c in calls]
+        ms, how, call_ms = timed([lambda c=c: embed_bag_segment_kernel(*c)
+                                  for c in calls], 160, "embed_bag_segment")
+        csr_ms, csr_how, csr_call_ms = timed(
+            [lambda c=c: embed_bag_kernel(*c) for c in csrs], 160,
+            "embed_bag_")
+        sorted_ms = events_ms([lambda c=c: embed_bag_kernel(*csr_call(*c))
+                               for c in calls], 160)
+        plain_ms = events_ms([lambda c=c: segment_bag_sums_plain(*c)
                               for c in calls[:4]], 4)
-        libs = [library_embedding_bag(*c) for c in calls]
-        for c, lib in zip(calls, libs):
+        libs = [library_embedding_bag(*c) for c in csrs]
+        for c, lib in zip(csrs, libs):
             torch.testing.assert_close(lib(), embed_bag_kernel(*c), **EB_TOL)
         lib_ms = timed(libs, 160, "EmbeddingBag")[0]
-        n_bytes = sum(embed_bag_cost(*c) for c in calls) / len(calls)
-        b_ms, b_by = bound(n_bytes, 0)
+        lib_call_ms = events_ms(
+            [lambda c=c: library_embedding_bag(*csr_call(*c))()
+             for c in calls], 160)
+        seg_bytes = sum(segment_cost(*c) for c in calls) / len(calls)
+        csr_bytes = sum(embed_bag_cost(*c) for c in csrs) / len(csrs)
+        b_ms, b_by = bound(seg_bytes, 0)
+        csr_b_ms, csr_b_by = bound(csr_bytes, 0)
         out[what] = dict(ms=ms, timed_by=how, call_ms=call_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
-        t, idx, ptr = calls[0]
-        log(f"phase 5: embed_bag ({what}: table {tuple(t.shape)}, "
-            f"{idx.shape[0]} indices, {ptr.shape[0] - 1} bags): {ms:.4f} "
-            f"ms ({how}; {call_ms:.4f} ms with launch cost); plain "
-            f"{plain_ms:.4f} ms; F.embedding_bag {lib_ms:.4f} ms; bound "
-            f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
+                         library_call_ms=lib_call_ms, sorted_call_ms=sorted_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         csr=dict(ms=csr_ms, timed_by=csr_how,
+                                  call_ms=csr_call_ms, bound_ms=csr_b_ms,
+                                  bound_by=csr_b_by))
+        t, rows, _, n_bins = calls[0]
+        log(f"phase 5: embed_bag ({what}: table {tuple(t.shape)}, rows "
+            f"{tuple(rows.shape)}, {n_bins} bins): segment entry {ms:.4f} "
+            f"ms ({how}; {call_ms:.4f} ms with launch cost), bound "
+            f"{b_ms:.5f} ms ({b_by}: {seg_bytes / 1e6:.2f} MB); CSR entry "
+            f"over the same bags {csr_ms:.4f} ms ({csr_how}; "
+            f"{csr_call_ms:.4f} ms with launch cost), bound {csr_b_ms:.5f} "
+            f"ms; F.embedding_bag {lib_ms:.4f} ms; with the sort-based "
+            f"bagging: + CSR entry {sorted_ms:.4f} ms, + F.embedding_bag "
+            f"{lib_call_ms:.4f} ms; plain {plain_ms:.4f} ms")
     row = dict(out["mix"], name="embed_bag", route="cuda",
                source=KERNEL_SOURCE.format("embed_bag", "embed_bag"),
                replaces=TPU_KERNELS["embed_bag"], launches=launches["build"],
@@ -1576,6 +1671,21 @@ FE_METRICS = ("seine_frontend_batches_total",
               "seine_serve_slo_misses_total")
 
 
+class _Recording:
+    """A front end seen through ``submit``: every future it returns is
+    also appended to ``futures``; everything else is the front end's."""
+
+    def __init__(self, fe, futures):
+        self._fe, self._futures = fe, futures
+
+    def submit(self, q, d):
+        self._futures.append(self._fe.submit(q, d))
+        return self._futures[-1]
+
+    def __getattr__(self, name):
+        return getattr(self._fe, name)
+
+
 def open_loop(engine, requests, qps: float, seed: int, **kw):
     """One open-loop run of ``requests`` at ``qps`` through a fresh
     front end, closed when the run ends.  The front end first serves
@@ -1591,19 +1701,15 @@ def open_loop(engine, requests, qps: float, seed: int, **kw):
         for f in [fe.submit(q, d) for q, d in requests[:FE_MAX_BATCH]]:
             f.result(timeout=120)
         fe.stats = type(fe.stats)()
+        # the run's futures, recorded by a wrapper that is not stored on
+        # fe: a closure over fe.submit kept on fe would be a reference
+        # cycle that holds the engine, and its index, on the card
         futures = []
-        submit = fe.submit
-
-        def keep(q, d):
-            futures.append(submit(q, d))
-            return futures[-1]
-
-        fe.submit = keep
         before = {n: metric(n) for n in FE_METRICS}
         launched = {n: fn.launches for n, fn in COUNTERS.items()}
         t0 = time.perf_counter()
-        res = run_open_loop(fe, requests, target_qps=qps, seed=seed,
-                            timeout=120)
+        res = run_open_loop(_Recording(fe, futures), requests,
+                            target_qps=qps, seed=seed, timeout=120)
         wall = time.perf_counter() - t0
         delta = {n: metric(n) - before[n] for n in FE_METRICS}
         launched = {n: fn.launches - launched[n]
@@ -1618,10 +1724,10 @@ def check_served(futures, want, what: str) -> int:
     bitwise; returns how many were served."""
     served = 0
     for i, (f, w) in enumerate(zip(futures, want)):
-        try:
-            got = f.result(timeout=120)
-        except DeadlineExceeded:
+        # a rejection read without raising it (see run_open_loop)
+        if isinstance(f.exception(timeout=120), DeadlineExceeded):
             continue
+        got = f.result(timeout=120)
         if not np.array_equal(got, w):
             raise AssertionError(f"{what}: request {i} scores != "
                                  f"engine.score (max |diff| "
@@ -1755,31 +1861,44 @@ def qkv(shape, dtype, gen, dev):
 
 def check_flash_attn(lm, seed, dev):
     """The kernel against its plain version on the card: the build's
-    shape in bf16 (2e-2) and float32 (rtol 1e-4 / atol 1e-5), then the
-    sweep FA_SWEEP in both types.  Returns the largest |diff| at the
-    build's shape in bf16 and in float32."""
+    shape in bf16 (2e-2) on FA_SEEDS draws and in float32 (rtol 1e-4 /
+    atol 1e-5), then the sweep FA_SWEEP in both types.  Returns the
+    largest |diff| at the build's shape in bf16 and in float32."""
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = fa_build_shape(lm)
-    cases = [(shape, True, torch.bfloat16), (shape, True, torch.float32)]
-    cases += [(c[:5], c[5], dt) for c in FA_SWEEP
+    cases = [(shape, True, torch.bfloat16, seed + i)
+             for i in range(FA_SEEDS)]
+    cases += [(shape, True, torch.float32, None)]
+    cases += [(c[:5], c[5], dt, None) for c in FA_SWEEP
               for dt in (torch.float32, torch.bfloat16)]
-    errs = []
-    for shp, causal, dt in cases:
+    errs, used = [], []
+    for shp, causal, dt, draw in cases:
+        if draw is not None:
+            g.manual_seed(draw)
         q, k, v = qkv(shp, dt, g, dev)
-        got = flash_attn_kernel(q, k, v, causal=causal)
-        want = flash_attn_plain(q, k, v, causal=causal)
+        got = flash_attn_kernel(q, k, v, causal=causal).float()
+        want = flash_attn_plain(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
         tol = BF16_TOL if dt == torch.bfloat16 else FA_F32_TOL
-        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(got, want, **tol)
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash_attn gave non-finite values at "
                                  f"{shp}")
-        errs.append((got.float() - want.float()).abs().max().item())
+        err = (got - want).abs()
+        errs.append(err.max().item())
+        # the share of its bar the worst value takes
+        used.append((err / (tol["atol"] + tol["rtol"] * want.abs()))
+                    .max().item())
+    bf, f32 = errs[:FA_SEEDS], errs[FA_SEEDS]
     log(f"phase 6: flash_attn == plain at the build shape {shape} causal: "
-        f"bf16 max |diff| {errs[0]:.3g} (bar 2e-2), float32 {errs[1]:.3g} "
-        f"(bar rtol 1e-4/atol 1e-5); over {len(FA_SWEEP)} sweep shapes in "
-        f"both types, largest |diff| {max(errs[2:]):.3g}")
-    return errs[0], errs[1]
+        f"bf16 max |diff| {', '.join(f'{e:.3g}' for e in bf)} on draws "
+        f"{seed}..{seed + FA_SEEDS - 1} (bar 2e-2 + 2e-2 |plain|; worst "
+        f"value at {', '.join(f'{u:.0%}' for u in used[:FA_SEEDS])} of "
+        f"its bar), float32 {f32:.3g} (bar rtol 1e-4/atol 1e-5, "
+        f"{used[FA_SEEDS]:.0%}); over {len(FA_SWEEP)} sweep shapes in "
+        f"both types, largest |diff| {max(errs[FA_SEEDS + 1:]):.3g}, "
+        f"worst value at {max(used[FA_SEEDS + 1:]):.0%} of its bar")
+    return max(bf), f32
 
 
 def check_lm_wiring(provider, toks, segs, dev):
@@ -1787,11 +1906,13 @@ def check_lm_wiring(provider, toks, segs, dev):
     the kernel against the same provider with the plain attention, on
     the card, at 2e-2, with the weights cast to float32 (a second copy),
     where the two attentions agree to ~1e-6, so the bar sees the layout,
-    head grouping and mask alone.  In the working bf16 one-ulp
-    differences of the attention output grow through the layers; that
-    comparison is printed (largest |diff|, share of values past 2e-2),
-    and the kernel's bf16 parity is held at the build shape by
-    ``check_flash_attn``."""
+    head grouping and mask alone.  In the working bf16, through the
+    model's first LM_BF16_LAYERS layers (the depth of the port's bf16
+    parity tests against the JAX model), at most LM_BF16_PAST of the
+    values may lie past 2e-2: one-ulp differences of the attention
+    output flip roundings downstream, and an attention that rounds p
+    before P . V moves many more.  Over all layers the comparison is
+    printed (largest |diff|, share of values past 2e-2)."""
     tb = torch.from_numpy(toks[:LM_BATCH]).to(dev)
     sb = torch.from_numpy(segs[:LM_BATCH]).to(dev)
 
@@ -1802,10 +1923,27 @@ def check_lm_wiring(provider, toks, segs, dev):
                                attention=attention).contextualize(tb, sb)
                     for attention in (None, flash_attn_plain)]
 
+    def past(err, want):
+        return (err > BF16_TOL["atol"]
+                + BF16_TOL["rtol"] * want.abs()).float().mean().item()
+
+    cut = {k: ({n: t[:LM_BF16_LAYERS] for n, t in v.items()}
+               if isinstance(v, dict) else v)
+           for k, v in provider.params.items()}
+    got, want = both(dataclasses.replace(provider.cfg,
+                                         n_layers=LM_BF16_LAYERS), cut)
+    torch.cuda.synchronize()
+    cut_err = (got - want).abs()
+    cut_share = past(cut_err, want)
+    if not bool(torch.isfinite(got).all()) or cut_share > LM_BF16_PAST:
+        raise AssertionError(
+            f"bf16 contextualize through {LM_BF16_LAYERS} layers: "
+            f"{cut_share:.4%} of the values past 2e-2 of the plain "
+            f"attention's (bar {LM_BF16_PAST:.1%})")
+    del got, want, cut
     got, want = both(provider.cfg, provider.params)
     bf_err = (got - want).abs()
-    bf_share = (bf_err > BF16_TOL["atol"]
-                + BF16_TOL["rtol"] * want.abs()).float().mean().item()
+    bf_share = past(bf_err, want)
     del got, want
     params32 = {k: ({n: t.float() for n, t in v.items()}
                     if isinstance(v, dict) else v.float())
@@ -1818,10 +1956,15 @@ def check_lm_wiring(provider, toks, segs, dev):
     err = (got - want).abs().max().item()
     log(f"phase 6: contextualize {tuple(tb.shape)} through flash_attn == "
         f"through the plain attention at 2e-2 in float32 (max |diff| "
-        f"{err:.3g}, values up to {want.abs().max().item():.3g}); in bf16 "
-        f"max |diff| {bf_err.max().item():.3g}, {bf_share:.4%} of the "
-        f"values past 2e-2")
-    return dict(f32=err, bf16=bf_err.max().item(), bf16_share=bf_share)
+        f"{err:.3g}, values up to {want.abs().max().item():.3g}) and in "
+        f"bf16 through {LM_BF16_LAYERS} layers (max |diff| "
+        f"{cut_err.max().item():.3g}, {cut_share:.4%} of the values past "
+        f"2e-2); in bf16 through all layers max |diff| "
+        f"{bf_err.max().item():.3g}, {bf_share:.4%} of the values past "
+        f"2e-2")
+    return dict(f32=err, bf16_cut=cut_err.max().item(),
+                bf16_cut_share=cut_share, bf16=bf_err.max().item(),
+                bf16_share=bf_share)
 
 
 def kernel_split(run, n: int):
@@ -1930,15 +2073,17 @@ def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
 
 def time_flash_attn(lm, launches, errs, dev):
     """flash_attn at the build's shape in bf16: the kernel (CUPTI), its
-    plain version and ``F.scaled_dot_product_attention`` (the library
-    yardstick, never used by the port; K and V repeated first when it
-    lacks ``enable_gqa``).  The bound: q, k, v read once and o written
-    once over 3.35 TB/s, or the causal flops (2 products x 2 hd per
-    (query, key) pair at or below the diagonal) over 989 TFLOP/s."""
+    float32 path, its plain version and
+    ``F.scaled_dot_product_attention`` (the library yardstick, never used
+    by the port; K and V repeated first when it lacks ``enable_gqa``).
+    The bound: q, k, v read once and o written once over 3.35 TB/s, or
+    the causal flops (2 products x 2 hd per (query, key) pair at or below
+    the diagonal) over 989 TFLOP/s."""
     shape = fa_build_shape(lm)
     b, s, hq, hkv, hd = shape
     q, k, v = qkv(shape, torch.bfloat16, torch.Generator(device=dev)
                   .manual_seed(1), dev)
+    flops = 4.0 * b * hq * hd * (s * (s + 1) / 2)
     ms, how, call_ms = timed([lambda: flash_attn_kernel(q, k, v)], 50,
                              "flash_attn_kernel")
     plain_ms = events_ms([lambda: flash_attn_plain(q, k, v)], 5)
@@ -1955,14 +2100,14 @@ def time_flash_attn(lm, launches, errs, dev):
         lib = lambda: sdpa(qt, kr, vr, is_causal=True)
     library_ms = events_ms([lib], 50)
     n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    flops = 4.0 * b * hq * hd * (s * (s + 1) / 2)
     b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S)
-    log(f"phase 6: flash_attn at {shape} causal bf16: {ms:.4f} ms ({how}; "
-        f"{call_ms:.4f} ms with launch cost) = {flops / ms / 1e9:.2f} "
-        f"TFLOP/s; float32 inputs {f32_ms:.4f} ms; plain {plain_ms:.4f} ms;"
-        f" scaled_dot_product_attention {library_ms:.4f} ms; bound "
-        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.1f} GFLOP)")
+    log(f"phase 6: flash_attn at {shape} causal bf16 (wgmma): {ms:.4f} ms "
+        f"({how}; {call_ms:.4f} ms with launch cost) = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s; float32 inputs (FMA) "
+        f"{f32_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} "
+        f"ms = {flops / library_ms / 1e9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
     return dict(name="flash_attn", route="cuda",
                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
                 replaces=TPU_KERNELS["flash_attn"],
@@ -2098,9 +2243,6 @@ def main() -> int:
     kernels += rows
     phase7(built, args.seed, dev)
     del built
-    # the closed front ends' reference cycles still hold phase 5's
-    # engine: collect them, so its index leaves the card before phase 6
-    gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase6(args.seed, dev, corpus))
     print(json.dumps({"kernels": kernels}))

@@ -9,15 +9,26 @@ the non-decreasing CSR bounds of the bags over ``indices``, and return
 ``(n_bags, D)`` in the table's dtype: each bag's rows summed in index
 order, zeros for an empty bag.
 
-Given CUDA tensors :func:`embed_bag_kernel` validates them, allocates its
-output with ``torch.empty``, launches on PyTorch's current stream,
-raises on a nonzero ``cudaGetLastError`` and adds one to its
-``launches`` count.  Given CPU tensors it runs :func:`embed_bag_plain`.
-The kernel has no backward: a table that needs a gradient is refused.
+The segment entry :func:`embed_bag_segment_kernel` takes ``table``,
+``rows (..., n)`` int64 table row ids (negative: skipped) and ``bins
+(..., n)`` int64, clamped into ``[0, n_bins)``, and returns ``(...,
+n_bins, D)``: per doc (the leading dims) each bin's rows summed in token
+order.  It bags on the card in the same launch; its plain version,
+:func:`segment_bag_sums_plain`, bags with a stable sort into CSR
+(:func:`segment_bags`) and sums with :func:`embed_bag_plain`, giving the
+same bits.
+
+Given CUDA tensors either wrapper validates them, allocates its output
+with ``torch.empty``, launches on PyTorch's current stream, raises on a
+nonzero ``cudaGetLastError`` and adds one to ``embed_bag_kernel``'s
+``launches`` count (one count for both entries).  Given CPU tensors they
+run their plain versions.  The kernels have no backward: a table that
+needs a gradient is refused.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -26,8 +37,11 @@ from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"embed_bag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _P]}
+                                    _P],
+               "embed_bag_segment_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                            _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SEGMENT_TOKENS = 6144   # the segment kernel stages 8 bytes per token
 
 
 def embed_bag_plain(table: torch.Tensor, indices: torch.Tensor,
@@ -58,28 +72,32 @@ def embed_bag_plain(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def _check_table(table: torch.Tensor) -> None:
+    if table.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "embed_bag_kernel has no backward yet: call it under "
+            "torch.no_grad() or with a table that needs no gradient")
+    if table.dtype not in _DTYPES:
+        raise TypeError(f"table has dtype {table.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    check_cuda_tensor("table", table, table.dtype, table.device, 2)
+    if table.shape[0] == 0:
+        raise ValueError("table has no rows")
+
+
 def embed_bag_kernel(table: torch.Tensor, indices: torch.Tensor,
                      bag_ptr: torch.Tensor) -> torch.Tensor:
     """table (V, D) float32 or bf16, indices (nnz,) int32, bag_ptr
     (n_bags + 1,) int32 -> (n_bags, D) in the table's dtype."""
     if table.device.type != "cuda":
         return embed_bag_plain(table, indices, bag_ptr)
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "embed_bag_kernel has no backward yet: call it under "
-            "torch.no_grad() or with a table that needs no gradient")
+    _check_table(table)
     dev = table.device
-    if table.dtype not in _DTYPES:
-        raise TypeError(f"table has dtype {table.dtype}; the kernel takes "
-                        "float32 or bfloat16")
-    check_cuda_tensor("table", table, table.dtype, dev, 2)
     check_cuda_tensor("indices", indices, torch.int32, dev, 1)
     check_cuda_tensor("bag_ptr", bag_ptr, torch.int32, dev, 1)
     if bag_ptr.shape[0] < 1:
         raise ValueError("bag_ptr needs n_bags + 1 >= 1 entries")
     n_rows, d = table.shape
-    if n_rows == 0:
-        raise ValueError("table has no rows")
     n_bags = bag_ptr.shape[0] - 1
     out = torch.empty((n_bags, d), dtype=table.dtype, device=dev)
     lib = load_library("embed_bag", _SIGNATURES)
@@ -92,3 +110,63 @@ def embed_bag_kernel(table: torch.Tensor, indices: torch.Tensor,
 
 
 embed_bag_kernel.launches = 0
+
+
+def segment_bags(rows: torch.Tensor, bins: torch.Tensor, n_bins: int):
+    """The segment sums as CSR bags: ``(indices (n_docs * n,) int32,
+    bag_ptr (n_docs * n_bins + 1,) int32)``, bag ``doc * n_bins + bin``.
+    The key ``doc * n_bins + bin`` (bins clamped into [0, n_bins)) is
+    sorted stably, so each bag keeps its rows in token order; nothing is
+    read back to the host."""
+    n = rows.shape[-1]
+    n_docs = math.prod(rows.shape[:-1])
+    doc = torch.arange(n_docs, device=rows.device)[:, None]
+    key = (doc * n_bins + bins.reshape(n_docs, n).long().clamp(
+        0, n_bins - 1)).reshape(-1)
+    key, order = torch.sort(key, stable=True)
+    idx = rows.reshape(-1)[order].to(torch.int32).contiguous()
+    bounds = torch.arange(n_docs * n_bins + 1, device=rows.device)
+    ptr = torch.searchsorted(key, bounds).to(torch.int32).contiguous()
+    return idx, ptr
+
+
+def segment_bag_sums_plain(table: torch.Tensor, rows: torch.Tensor,
+                           bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """The segment entry's function in plain PyTorch: the sort-based
+    bags of :func:`segment_bags` summed by :func:`embed_bag_plain`."""
+    out = embed_bag_plain(table, *segment_bags(rows, bins, n_bins))
+    return out.reshape(*rows.shape[:-1], n_bins, table.shape[1])
+
+
+def embed_bag_segment_kernel(table: torch.Tensor, rows: torch.Tensor,
+                             bins: torch.Tensor, n_bins: int
+                             ) -> torch.Tensor:
+    """table (V, D) float32 or bf16, rows and bins (..., n) int64 ->
+    (..., n_bins, D) in the table's dtype, in one launch."""
+    if table.device.type != "cuda":
+        return segment_bag_sums_plain(table, rows, bins, n_bins)
+    _check_table(table)
+    dev = table.device
+    if rows.ndim < 1 or bins.shape != rows.shape:
+        raise ValueError(f"rows {tuple(rows.shape)} and bins "
+                         f"{tuple(bins.shape)} must have one shape (..., n)")
+    check_cuda_tensor("rows", rows, torch.int64, dev, rows.ndim)
+    check_cuda_tensor("bins", bins, torch.int64, dev, rows.ndim)
+    n_bins = int(n_bins)
+    if n_bins < 1:
+        raise ValueError(f"n_bins must be >= 1, got {n_bins}")
+    n = rows.shape[-1]
+    if n > MAX_SEGMENT_TOKENS:
+        raise ValueError(f"{n} tokens per doc; the segment kernel takes up "
+                         f"to {MAX_SEGMENT_TOKENS}")
+    n_rows, d = table.shape
+    out = torch.empty((*rows.shape[:-1], n_bins, d), dtype=table.dtype,
+                      device=dev)
+    lib = load_library("embed_bag", _SIGNATURES)
+    rc = lib.embed_bag_segment_launch(
+        ptr(table), ptr(rows), ptr(bins), ptr(out), n_rows, d,
+        math.prod(rows.shape[:-1]), n, n_bins, _DTYPES[table.dtype],
+        stream_handle())
+    check_launch(lib, rc, "embed_bag_segment_kernel")
+    embed_bag_kernel.launches += 1
+    return out

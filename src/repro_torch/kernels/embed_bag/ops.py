@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
-from .kernel import embed_bag_kernel
+from .kernel import embed_bag_kernel, embed_bag_segment_kernel
 from .ref import embed_bag_ref
 
 
@@ -48,23 +48,15 @@ def embed_bag(table, indices, offsets, *, n_bags: int,
 
 def segment_bag_sums(table: torch.Tensor, rows: torch.Tensor,
                      bins: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Per-doc segment sums of table rows through the kernel: ``rows
-    (..., n)`` table row ids (negative: skipped) fall in bin ``bins
-    (..., n)`` in [0, n_bins) of their doc (the leading dims) ->
-    ``(..., n_bins, D)``.  The bag key is ``doc * n_bins + bin``; a
-    stable sort puts the keys in bag order and keeps each bag's rows in
-    position order, so a bag sums in token order whatever the batch.
-    Nothing is read back to the host."""
-    lead, n = rows.shape[:-1], rows.shape[-1]
-    n_docs = rows.numel() // max(n, 1)
-    doc = torch.arange(n_docs, device=rows.device)[:, None]
-    key = (doc * n_bins + bins.reshape(n_docs, n).long()).reshape(-1)
-    key, order = torch.sort(key, stable=True)
-    idx = rows.reshape(-1)[order].to(torch.int32).contiguous()
-    bounds = torch.arange(n_docs * n_bins + 1, device=rows.device)
-    ptr = torch.searchsorted(key, bounds).to(torch.int32).contiguous()
-    out = embed_bag_kernel(table.contiguous(), idx, ptr)
-    return out.reshape(*lead, n_bins, table.shape[1])
+    """Per-doc segment sums of table rows: ``rows (..., n)`` table row
+    ids (negative: skipped) fall in bin ``bins (..., n)`` of their doc
+    (the leading dims), clamped into [0, n_bins) -> ``(..., n_bins,
+    D)``, each bin's rows summed in token order, whatever the batch.
+    CUDA tensors take the segment kernel, one launch that bags on the
+    card; CPU tensors its plain version, a stable sort into CSR bags."""
+    return embed_bag_segment_kernel(table.contiguous(),
+                                    rows.long().contiguous(),
+                                    bins.long().contiguous(), n_bins)
 
 
 __all__ = ["bag_ptr_from_offsets", "embed_bag", "embed_bag_ref",

@@ -8,44 +8,83 @@
 //   o[b, s, h] = softmax(q[b, s, h] . k[b, :, h / G]^T / sqrt(hd)) . v[b, :, h / G]
 //
 // with G = Hq / Hkv, under a causal mask (query s sees keys t <= s, both
-// counted from 0) or none, in float32, and writes o (B, Sq, Hq, hd) in
-// q's type.  The online softmax never writes the (Sq, Skv) scores to
-// device memory.
-//
-// Layout.  One block per (b, h, 64-row query tile), 256 threads as a
-// 16 x 16 grid: thread (ty, tx) owns query rows 4 ty .. 4 ty + 3.  The
-// query tile, pre-scaled by 1/sqrt(hd) as the TPU kernel does, stays in
-// shared memory as float32; each 64-row KV tile is staged into one
-// shared buffer, K first, then V.  Per KV tile a thread computes the 4 x 4
-// scores of its rows against keys tx + 16 j (float4 reads along hd),
-// masks them (causal, and keys past Skv in the tail tile: no sequence
-// length needs to be a multiple of the tile), and the 16 threads of a
-// row reduce its max and sum with warp shuffles.  The probabilities go
-// through shared memory to the P . V product, where the thread owns the
-// output columns tx + 16 c of its 4 rows.  Running max, denominator and
-// the 4 x hd/16 accumulator stay in registers.  Rows that see no key yet
-// keep m = -inf: the exponent uses m_safe = 0 for them and their
-// correction factor is 0, as the TPU kernel guards them; the output
-// divides by max(l, 1e-30).  Under the causal mask the KV tiles wholly
-// above the diagonal are never loaded (the TPU kernel masks them
-// instead), and blocks are issued heaviest query tile first.
+// counted from 0) or none, and writes o (B, Sq, Hq, hd) in q's type.  The
+// online softmax never writes the (Sq, Skv) scores to device memory.
+// Rows that see no key yet keep m = -inf: the exponent uses m_safe = 0
+// for them and their correction factor is 0, as the TPU kernel guards
+// them; the output divides by max(l, 1e-30).  Under the causal mask the
+// KV tiles wholly above the diagonal are never loaded (the TPU kernel
+// masks them instead), and blocks are issued heaviest query tile first.
+// No sequence length needs to be a multiple of a tile: the tail is
+// zero-filled and masked.
 //
 // What bounds it on the H100.  At the LM build's shape (B 32, S 512,
-// Hq 24, Hkv 8, hd 128, bf16) one launch moves 268 MB of q, k, v and o,
-// 80 us at 3.35 TB/s, and does 5.2e10 causal flops, 52 us on the bf16
-// tensor cores: the bytes bound it.  This first version is bound by its
-// arithmetic instead: both products run as float32 FMAs fed from shared
-// memory (a 67 TFLOP/s ceiling, and shared-memory reads per FMA cap it
-// lower), each KV tile is read once per query tile (8 times at S 512),
-// and 85 KB of shared memory per block at hd 128 leave two blocks per
-// SM.  wgmma on bf16 tiles, TMA loads and a pipelined K/V ring are the
-// later steps.
+// Hq 24, Hkv 8, hd 128, bf16, causal) one launch moves 268 MB of q, k, v
+// and o, 0.080 ms at 3.35 TB/s, and does 5.2e10 flops, 0.052 ms on the
+// bf16 tensor cores: the bytes bound it.
+//
+// bfloat16 (the LM's path): flash_attn_kernel_bf16_wgmma, warp-
+// specialised.  One block per (b, h, 64 query rows); blocks that read one
+// KV head are numbered together so that its K and V come from L2 after
+// the first read.  One consumer warpgroup runs both products on the
+// tensor cores with wgmma, bf16 x bf16 into float32 registers:
+//   S = Q . K^T  as m64n64k16 over hd / 16 steps, Q and K read from shared
+//                memory, both K-major in the model layout;
+//   O += P . V   as m64n{hd}k16 over the tile's 4 key steps, P from
+//                registers (the S accumulator converted in place: its
+//                fragment layout is wgmma's register-A layout) and V
+//                from shared memory as it lands, MN-major, read through
+//                the descriptor's transpose bit.  P goes in as two bf16
+//                fragments, pa = bf16(p) and pb = bf16(p - pa), two
+//                wgmmas per key step: pa + pb holds p to 2^-16, so P . V
+//                keeps the TPU kernel's float32 arithmetic (p rounded to
+//                bf16 alone drifts a bf16 LM past the reference's 2e-2
+//                through its layers), for half again the tensor-core work.
+// Step t issues S_t beside P . V_{t-1}, so the softmax of t overlaps the
+// tensor cores' P . V of t - 1, and two blocks per SM overlap one's
+// softmax with the other's products (two warpgroups per block, taking
+// turns, measured no faster at the build's shape).  Scores are scaled by
+// 1/sqrt(hd) * log2(e) in float32 on the accumulator, fused into the
+// exponent's FMA (q is never rounded after scaling), and exponentiated
+// with ex2.approx; the causal mask runs only
+// on tiles that straddle the diagonal and the tail mask only on the last
+// KV tile; the row max and row sum are reduced over the 4 lanes that hold
+// a row with shuffles; l sums the float32 p.  One
+// producer warp issues every load with TMA (4-D tensor maps over (B, S,
+// H, hd), boxes of 64 rows into the 128-byte swizzle, 64-byte at hd 32,
+// 32-byte at hd 16, that the wgmma descriptors name; rows past the
+// sequence land as zeros): Q once, then K and V through two-stage rings
+// with a full and an empty mbarrier per stage, so no consumer waits on a
+// block-wide barrier.  Shared memory: 16 KB of Q and 64 KB for the K and
+// V rings at hd 128.  O stays in float32 registers; the epilogue stages
+// each warp's 16 rows through its Q rows in shared memory and writes bf16
+// with 16-byte stores.
+//
+// float32 (tests and the wiring check only; its bar, rtol 1e-4 / atol
+// 1e-5, rules out the bf16 and TF32 tensor cores): flash_attn_kernel, FMAs
+// fed from shared memory.  One block per (b, h, 64-row query tile), 256
+// threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4 ty .. 4 ty +
+// 3; the query tile, pre-scaled by 1/sqrt(hd) as the TPU kernel does,
+// stays in shared memory; each 64-row KV tile is staged into one shared
+// buffer, K first, then V; the probabilities go through shared memory to
+// the P . V product.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 6;
+// PERF.md section 6 keeps the numbers): at the build's shape the bf16
+// kernel takes 0.21 ms (243 TFLOP/s, 2.65x its bound, 1.53x
+// scaled_dot_product_attention; 0.20 ms with p rounded to bf16 alone);
+// the first version, float32 FMAs for both types, took 2.03 ms.
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: FMAs from shared memory
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBQ = 64;        // query rows per block
@@ -74,33 +113,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void load_tile(
-    const __nv_bfloat16* __restrict__ src, int64_t stride, int n_rows,
-    float s, float* dst) {
-  constexpr int V = HD / 8;
-  for (int i = threadIdx.x; i < 64 * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows)
-      raw = __ldg(reinterpret_cast<const uint4*>(src + r * stride + c));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 f0 = __bfloat1622float2(h[0]);
-    const float2 f1 = __bfloat1622float2(h[1]);
-    const float2 f2 = __bfloat1622float2(h[2]);
-    const float2 f3 = __bfloat1622float2(h[3]);
-    float* d = dst + r * (HD + 4) + c;
-    *reinterpret_cast<float4*>(d) =
-        scale4(make_float4(f0.x, f0.y, f1.x, f1.y), s);
-    *reinterpret_cast<float4*>(d + 4) =
-        scale4(make_float4(f2.x, f2.y, f3.x, f3.y), s);
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // max / sum over the 16 lanes of a half-warp (one query row)
 __device__ __forceinline__ float row_max(float x) {
@@ -241,12 +254,513 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;   // query rows per block: one consumer warpgroup
+constexpr int kThreadsBf16 = 160;   // the warpgroup and a producer warp
+constexpr int kBKV = 64;      // keys per KV tile
+constexpr int kStages = 2;    // stages of the K ring and of the V ring
+
+// Shared-memory tiles hold 64 rows of HD bf16 values as column blocks of
+// W bytes per row (W = 128, or 2 HD below hd 64), each block [64][W]
+// swizzled as wgmma's W-byte swizzle mode lays it out: 16-byte chunk c of
+// byte offset o moves to chunk c ^ ((o >> 7) & (W / 16 - 1)).  Every tile
+// starts on a 1024-byte boundary.
+template <int HD>
+struct Tile {
+  static constexpr int W = HD >= 64 ? 128 : 2 * HD;   // bytes per block row
+  static constexpr int CPB = W / 16;                  // chunks per block row
+  static constexpr int BYTES = kWgRows * HD * 2;
+  // descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t LAYOUT = W == 128 ? 1 : (W == 64 ? 2 : 3);
+
+  // byte offset of 16-byte chunk c (8 values) of row r
+  __device__ static __forceinline__ uint32_t off(int r, int c) {
+    const uint32_t o = (uint32_t)((c / CPB) * kWgRows * W + r * W +
+                                  (c % CPB) * 16);
+    return o ^ (((o >> 7) & (CPB - 1)) << 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// the barrier's phase completes when `bytes` have landed
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// one TMA box of the 4-D tensor (hd, H, S, B) at (c0, c1, c2, c3) into
+// shared memory, completing on `bar`; rows past S land as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from touching accumulators across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special function unit (ex2(-inf) = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// D (64 x 64, f32) (+)= A . B^T: A (64 x 16) and B (64 x 16) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 16, f32) += A . B: A (64 x 16) bf16 in registers, B (16 x 16)
+// MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A . B: A (64 x 16) bf16 in registers, B (16 x 32)
+// MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A . B: A (64 x 16) bf16 in registers, B (16 x 64)
+// MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A . B: A (64 x 16) bf16 in registers, B (16 x 128)
+// MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// the 64-row tile of rows row0 .. of head h, doc b, into the swizzled
+// tile at shared address dst: one TMA box per W-byte column block
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int row0,
+                                         int b) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int blk = 0; blk < HD * 2 / T::W; ++blk)
+    tma_load(dst + blk * kWgRows * T::W, map, bar, blk * (T::W / 2), h, row0,
+             b);
+}
+
+// the 4 lanes g * 4 .. g * 4 + 3 of a warp hold one row of a fragment
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One block's work: the 64 query rows q0 .. of query head h of doc b,
+// against n_kb KV tiles
+struct Item {
+  int b, h, hk, q0, n_kb;
+};
+
+// Blocks are numbered so that the blocks that read one KV head (its G
+// query heads x n_qt query tiles) are neighbours, heaviest query tile
+// first (the last tiles see the most keys): they run together and read
+// that head's K and V from device memory about once, then from L2.
+__device__ __forceinline__ Item item_at(int i, int Sq, int Skv, int Hq,
+                                        int Hkv, int n_qt, int causal) {
+  const int G = Hq / Hkv;
+  const int per_kv = G * n_qt;
+  const int bk = i / per_kv, in_kv = i % per_kv;
+  Item it;
+  it.b = bk / Hkv;
+  it.hk = bk % Hkv;
+  it.h = it.hk * G + in_kv % G;
+  it.q0 = (n_qt - 1 - in_kv / G) * kWgRows;
+  const int n_kb_all = (Skv + kBKV - 1) / kBKV;
+  const int last = min(it.q0 + kWgRows, Sq) - 1;
+  it.n_kb = causal ? min(n_kb_all, last / kBKV + 1) : n_kb_all;
+  return it;
+}
+
+// One consumer warpgroup (warps 0 .. 3) and one producer warp (warp 4).
+template <int HD>
+__global__ void __launch_bounds__(kThreadsBf16, 2)
+    flash_attn_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 __nv_bfloat16* __restrict__ o, int Sq,
+                                 int Skv, int Hq, int Hkv, int n_qt,
+                                 int causal, float scale_log2) {
+  using T = Tile<HD>;
+  constexpr int NO = HD / 2;     // O accumulator values per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int64_t q_stride = (int64_t)Hq * HD;
+
+  // layout: the Q tile, the K ring, the V ring, then the barriers: Q;
+  // K and V stages full; K and V stages empty
+  const uint32_t q_s = base;
+  const uint32_t k_ring = base + T::BYTES;
+  const uint32_t v_ring = k_ring + kStages * T::BYTES;
+  const uint32_t q_bar = v_ring + kStages * T::BYTES;
+  const uint32_t k_full = q_bar + 8, v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+  const Item it = item_at(blockIdx.x, Sq, Skv, Hq, Hkv, n_qt, causal);
+  const int n_kb = it.n_kb;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 1);
+      mbar_init(v_empty + 8 * i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // a stage's barriers complete once per use: use j = t / kStages of
+  // stage t % kStages has phase parity j & 1
+  auto wait_stage = [&](uint32_t bar, int t) {
+    mbar_wait(bar + 8 * (t % kStages), (t / kStages) & 1);
+  };
+  if (warp == 4) {            // the producer warp: one lane issues all TMA
+    if (lane == 0) {
+      mbar_expect(q_bar, T::BYTES);
+      tma_tile<HD>(q_s, &q_map, q_bar, it.h, it.q0, it.b);
+      for (int t = 0; t < n_kb; ++t) {
+        const uint32_t off = (t % kStages) * T::BYTES;
+        // K_t and V_t into the stages tile t - 2 left
+        if (t >= kStages) wait_stage(k_empty, t - kStages);
+        mbar_expect(k_full + 8 * (t % kStages), T::BYTES);
+        tma_tile<HD>(k_ring + off, &k_map, k_full + 8 * (t % kStages),
+                     it.hk, t * kBKV, it.b);
+        if (t >= kStages) wait_stage(v_empty, t - kStages);
+        mbar_expect(v_full + 8 * (t % kStages), T::BYTES);
+        tma_tile<HD>(v_ring + off, &v_map, v_full + 8 * (t % kStages),
+                     it.hk, t * kBKV, it.b);
+      }
+    }
+    return;
+  }
+  // one lane of the consumer warpgroup releases a stage once its wgmma
+  // reads are done
+  auto release = [&](uint32_t bar, int t) {
+    if (tid == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       bar + 8 * (t % kStages))
+                   : "memory");
+  };
+  float s[32];                   // S, then P in float32, of one KV tile
+  uint32_t pa[16], pb[16];       // P = pa + pb in bf16: the A fragments
+  float acc[NO];                 // O, unnormalised
+  float m[2], l[2], corr[2];
+  // this thread's fragment rows r0 and r0 + 8 of the block's 64
+  const int r0 = warp * 16 + g;
+  const int q0w = it.q0;
+  // S = Q . K_t^T, 64 x 64 in float32: hd / 16 steps of 16 values (32
+  // bytes) along K-major rows of W bytes
+  auto issue_s = [&](int t) {
+    const uint32_t k_t = k_ring + (t % kStages) * T::BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t o_kk = (kk * 32 / T::W) * kWgRows * T::W +
+                            (kk * 32) % T::W;
+      wgmma_ss_n64(s, make_desc(q_s + o_kk, 16, 8 * T::W, T::LAYOUT),
+                   make_desc(k_t + o_kk, 16, 8 * T::W, T::LAYOUT),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P . V_t as pa . V_t + pb . V_t: the 16 keys of step kk are two
+  // 8-row groups of W bytes
+  auto issue_pv = [&](int t) {
+    const uint32_t v_t = v_ring + (t % kStages) * T::BYTES;
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      const uint64_t dv = make_desc(v_t + kk * 16 * T::W, kWgRows * T::W,
+                                    8 * T::W, T::LAYOUT);
+      wgmma_rs<HD>(acc, pa + 4 * kk, dv);
+      wgmma_rs<HD>(acc, pb + 4 * kk, dv);
+    }
+    wgmma_commit();
+  };
+  // the online softmax of tile t on s: s[4 j + e] is (row r0 + 8 (e /
+  // 2), key 8 j + 2 tq + e % 2); leaves p in s, and the corrections.
+  // The row max is taken over the unscaled scores (the scale is > 0) and
+  // the scale goes into the exponent's FMA: p = 2^(s * scale_log2 - m).
+  auto softmax = [&](int t) {
+    const int kv0 = t * kBKV;
+    if (kv0 + kBKV > Skv || (causal && kv0 + kBKV - 1 > q0w)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = kv0 + 8 * (i / 4) + 2 * tq + (i & 1);
+        const int row = q0w + r0 + 8 * ((i >> 1) & 1);
+        if (col >= Skv || (causal && col > row)) s[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx) * scale_log2);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* x = s + 4 * j + 2 * hr;
+        x[0] = ex2(fmaf(x[0], scale_log2, -m_safe));
+        x[1] = ex2(fmaf(x[1], scale_log2, -m_safe));
+        rs += x[0] + x[1];
+      }
+      corr[hr] = m[hr] == -INFINITY ? 0.f : ex2(m[hr] - m_safe);
+      l[hr] = l[hr] * corr[hr] + quad_sum(rs);
+      m[hr] = m_new;
+    }
+  };
+  // O to the new max, and P to two bf16 fragments (step kk's is s[8 kk
+  // ..]): pa = bf16(p) and pb = bf16(p - pa), so pa + pb carries 16 of
+  // p's bits and P . V keeps the float32 arithmetic of the TPU kernel
+  // (rounding p to bf16 alone moves an LM's bf16 hidden states through
+  // its layers past the reference's 2e-2)
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const __nv_bfloat162 hi =
+          __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
+      const float2 f = __bfloat1622float2(hi);
+      pa[i] = *reinterpret_cast<const uint32_t*>(&hi);
+      pb[i] = pack_bf16(s[2 * i] - f.x, s[2 * i + 1] - f.y);
+    }
+  };
+
+  // Tile t's S runs in step t and its P . V in step t + 1, beside tile
+  // t + 1's S, so the softmax of t + 1 overlaps the tensor cores' P . V
+  // of t.  Step t waits for K_t and V_{t-1} and releases their stages
+  // when the products that read them are done.
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  mbar_wait(q_bar, 0);
+  wait_stage(k_full, 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs<32>(s);
+  release(k_empty, 0);
+  softmax(0);
+  rescale_and_pack();
+  for (int t = 1; t < n_kb; ++t) {
+    wait_stage(k_full, t);      // K_t and V_{t-1} have landed
+    wait_stage(v_full, t - 1);
+    wgmma_fence();
+    issue_s(t);
+    issue_pv(t - 1);
+    wgmma_wait<1>();            // S_t; P . V_{t-1} runs on
+    fence_regs<32>(s);
+    release(k_empty, t);
+    softmax(t);
+    wgmma_wait<0>();
+    fence_regs<NO>(acc);
+    release(v_empty, t - 1);
+    rescale_and_pack();
+  }
+  wait_stage(v_full, n_kb - 1);   // the last V
+  wgmma_fence();
+  issue_pv(n_kb - 1);
+  wgmma_wait<0>();
+  fence_regs<NO>(acc);
+
+  // epilogue: each warp writes its 16 rows as bf16 into its rows of
+  // the warpgroup's Q tile (no longer read), then stores them with
+  // 16-byte writes; acc[4 j + e] is (row r0 + 8 (e / 2), column 8 j +
+  // 2 tq + e % 2)
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  unsigned char* o_s = smem;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<uint32_t*>(o_s + T::off(r0 + 8 * hr, j) +
+                                   4 * tq) =
+          pack_bf16(acc[4 * j + 2 * hr] * inv[hr],
+                    acc[4 * j + 2 * hr + 1] * inv[hr]);
+  __syncwarp();
+  constexpr int C = HD / 8;
+  for (int i = lane; i < 16 * C; i += 32) {
+    const int r = warp * 16 + i / C, c = i % C;
+    const int row = q0w + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(o + ((int64_t)it.b * Sq + row) * q_stride +
+                                (int64_t)it.h * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + T::off(r, c));
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+               cudaStream_t stream) {
   const int smem = (2 * 64 * (HD + 4) + kBQ * kLdP) * (int)sizeof(float);
-  auto* fn = flash_attn_kernel<T, HD>;
+  auto* fn = flash_attn_kernel<float, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -254,32 +768,94 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int64_t blocks = (int64_t)B * Hq * n_qt;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   fn<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, n_qt,
-      causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv,
+      n_qt, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-              float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// The 4-D map of a (B, S, H, HD) bf16 tensor, innermost first, with boxes
+// of (W / 2 values, 1 head, 64 rows, 1 doc) in the tile's swizzle
+template <int HD>
+bool make_map(CUtensorMap* map, const void* x, int B, int S, int H) {
+  using T = Tile<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
+                                 (cuuint64_t)S * H * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(T::W / 2), 1, (cuuint32_t)kWgRows,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : (T::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+                cudaStream_t stream) {
+  // the Q tile, the K ring and the V ring, then 8 bytes per barrier
+  const int smem =
+      (1 + 2 * kStages) * Tile<HD>::BYTES + 8 * (1 + 4 * kStages) + 1024;
+  auto* fn = flash_attn_kernel_bf16_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (Sq + kWgRows - 1) / kWgRows;
+  const int64_t blocks = (int64_t)B * Hq * n_qt;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map<HD>(&q_map, q, B, Sq, Hq) ||
+      !make_map<HD>(&k_map, k, B, Skv, Hkv) ||
+      !make_map<HD>(&v_map, v, B, Skv, Hkv))
+    return (int)cudaErrorInvalidValue;
+  // exp(x / sqrt(hd)) = exp2(x * scale * log2(e)), in float32
+  const float scale_log2 = scale * 1.4426950408889634f;
+  fn<<<(unsigned)blocks, kThreadsBf16, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
+      n_qt, causal, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(int is_bf16, const void* q, const void* k, const void* v,
+              void* o, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+              float scale, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<HD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                                   scale, stream)
+                 : launch_f32<HD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                                  scale, stream);
 }
 
 }  // namespace
@@ -293,10 +869,22 @@ int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
                       cudaStream_t stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Skv < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, Hq,
-                                            Hkv, causal, scale, stream)
-                 : launch_hd<float>(hd, q, k, v, o, B, Sq, Skv, Hq, Hkv,
-                                    causal, scale, stream);
+  switch (hd) {
+    case 16:
+      return launch_hd<16>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                           scale, stream);
+    case 32:
+      return launch_hd<32>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                           scale, stream);
+    case 64:
+      return launch_hd<64>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                           scale, stream);
+    case 128:
+      return launch_hd<128>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                            scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* kernel_error_string(int err) {

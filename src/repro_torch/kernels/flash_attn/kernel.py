@@ -6,7 +6,11 @@ and its plain PyTorch version.
 Both take the model layout q ``(B, Sq, Hq, hd)``, k and v ``(B, Skv,
 Hkv, hd)`` (query head h reads KV head ``h // (Hq // Hkv)``), compute in
 float32 and return ``(B, Sq, Hq, hd)`` in q's dtype.  Positions count
-from 0 for queries and keys alike, as in the TPU kernel.
+from 0 for queries and keys alike, as in the TPU kernel.  bfloat16
+inputs run the tensor-core kernel (``wgmma``), which carries p through
+P . V as two bf16 parts, so that it keeps the float32 arithmetic of the
+plain version, the TPU kernel and the JAX model; float32 inputs run the
+FMA kernel.
 
 Given CUDA tensors :func:`flash_attn_kernel` validates them (float32 or
 bfloat16, contiguous, ``hd`` in {16, 32, 64, 128}), allocates its output

@@ -374,11 +374,16 @@ def run_open_loop(frontend: ServingFrontend,
         futures.append(frontend.submit(q, d))
     served = rejected = within = 0
     for f in futures:
-        try:
-            f.result(timeout=timeout)
+        # read a rejection without raising it: a raised exception keeps
+        # this frame, and with it the front end and its engine, in a
+        # reference cycle (frame -> futures -> exception -> traceback)
+        exc = f.exception(timeout=timeout)
+        if exc is None:
             served += 1
-        except DeadlineExceeded:
+        elif isinstance(exc, DeadlineExceeded):
             rejected += 1
+        else:
+            raise exc
     if frontend.slo_ms is None:
         goodput = served / max(len(futures), 1)
     else:

@@ -8,22 +8,30 @@ the names the ops import are wrapped in counters here.  The timing
 helpers, which need the card, are replaced by host-clock stand-ins.
 """
 import dataclasses
+import gc
 import importlib.util
 import os
 import subprocess
 import sys
 import time
+import weakref
+from concurrent.futures import Future
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import smoke
+from repro_torch.data.synth_corpus import build_zipfian_index
+from repro_torch.dist.sharding import partition_index
 from repro_torch.core import interactions
 from repro_torch.kernels.csr_lookup import ops as lookup_ops
 from repro_torch.kernels.embed_bag import ops as eb_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.knrm_pool import ops as knrm_ops
 from repro_torch.kernels.seg_interact import ops as seg_ops
+from repro_torch.retrievers import get_retriever
+from repro_torch.serving import SeineEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -41,6 +49,14 @@ def _load_script():
 def _counting(fn):
     def wrapper(*a, **k):
         fn.launches += 1
+        return fn(*a, **k)
+    return wrapper
+
+
+def _counting_segments(fn, counter):
+    """The segment entry counts on the CSR entry's counter."""
+    def wrapper(*a, **k):
+        counter.launches += 1
         return fn(*a, **k)
     return wrapper
 
@@ -82,6 +98,8 @@ def _patch_build(cs, monkeypatch, tmp_path, **sizes):
                       (seg_ops, "seg_interact_kernel"),
                       (eb_ops, "embed_bag_kernel")):
         monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+    monkeypatch.setattr(eb_ops, "embed_bag_segment_kernel", _counting_segments(
+        cs.embed_bag_segment_kernel, cs.embed_bag_kernel))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -175,6 +193,64 @@ def test_frontend_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
         assert r["served"] + r["rejected"] == 12 and r["served"] > 0
         assert 0.0 <= r["goodput"] <= 1.0 and r["batches"] >= 2
         assert (r["dedupe"] is None) == mode.startswith("naive")
+
+
+@pytest.mark.parametrize("mode", ["naive", "coalesce", "cache"])
+def test_open_loop_leaves_no_cycle(mode, monkeypatch):
+    """Phase 7's ``open_loop`` records the run's futures without storing
+    a wrapper on the front end, so the closed front end and its engine
+    are freed without a collection (phase 6 then finds phase 5's index
+    off the card)."""
+    cs = _load_script()
+    monkeypatch.setattr(cs, "FE_SLO_MS", 60_000.0)
+    seen, attrs = [], []
+
+    class Recorded(cs.ServingFrontend):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(weakref.ref(self))
+
+        def close(self, timeout=None):
+            attrs.append(set(vars(self)))
+            super().close(timeout)
+
+    monkeypatch.setattr(cs, "ServingFrontend", Recorded)
+    index = partition_index(build_zipfian_index(n_docs=200, vocab=40, n_b=4,
+                                                device="cpu"), 2)
+    spec = get_retriever("knrm")
+    eng = SeineEngine(index, "knrm", spec.init(
+        torch.Generator().manual_seed(0), index.n_b, index.functions,
+        device="cpu"))
+    alive = weakref.ref(eng)
+    rng = np.random.RandomState(2)
+    reqs = [(rng.randint(-1, 40, 4).astype(np.int32),
+             rng.randint(0, index.n_docs, 8).astype(np.int32))
+            for _ in range(12)]
+    kw = {"naive": dict(coalesce=False), "coalesce": {},
+          "cache": dict(cache_tiles=8)}[mode]
+    gc.disable()
+    try:
+        res, futures, _, _, _ = cs.open_loop(eng, reqs, 2000.0, 0, **kw)
+        assert len(futures) == res.n_submitted == len(reqs)
+        want = [eng.score(q, d).numpy() for q, d in reqs]
+        assert cs.check_served(futures, want, "test") == res.n_served
+        assert len(attrs) == 1 and "submit" not in attrs[0]
+        assert seen[0]() is None           # freed on return, no cycle
+        del eng, futures, res
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
+def test_check_served_reads_rejections_without_raising():
+    """A rejected future is skipped without raising its exception, so no
+    traceback ties the exception to the frames that read it."""
+    cs = _load_script()
+    done, rejected = Future(), Future()
+    done.set_result(np.arange(3.0))
+    rejected.set_exception(cs.DeadlineExceeded("late"))
+    assert cs.check_served([done, rejected], [np.arange(3.0)] * 2, "t") == 1
+    assert rejected.exception().__traceback__ is None
 
 
 @pytest.mark.parametrize("seed", [0, 1])

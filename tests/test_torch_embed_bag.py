@@ -219,3 +219,39 @@ def test_segment_bag_sums_are_batch_independent():
     onehot = torch.nn.functional.one_hot(bins, 6).float()
     rows_t = table[rows.clamp(min=0)] * (rows >= 0)[..., None]
     torch.testing.assert_close(both, onehot.transpose(1, 2) @ rows_t, **TOL)
+
+
+def test_segment_bag_sums_clamp_bins():
+    """Bins below 0 sum into bin 0 and bins past the end into the last
+    one, in token order; a -1 row is skipped whatever its bin."""
+    table = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    rows = torch.tensor([[0, 1, -1, 2, 3, 5]])
+    bins = torch.tensor([[-3, 0, -1, 9, 2, 2]])
+    got = segment_bag_sums(table, rows, bins, 3)
+    want = torch.stack([table[0] + table[1], torch.zeros(2),
+                        table[2] + table[3] + table[5]])[None]
+    assert torch.equal(got, want)
+    clamped = segment_bag_sums(table, rows, bins.clamp(0, 2), 3)
+    assert torch.equal(got, clamped)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_bag_sums_equal_explicit_csr_bags(dtype):
+    """Per (doc, bin) the rows in token order as explicit CSR bags,
+    summed by embed_bag_plain, give the segment sums' bits."""
+    rng = np.random.RandomState(9)
+    n_docs, n, n_bins = 3, 50, 5
+    table = _t(rng.standard_normal((40, 8)).astype(np.float32)).to(dtype)
+    rows = rng.randint(-1, 43, (n_docs, n))
+    bins = rng.randint(-2, n_bins + 2, (n_docs, n))
+    idx, ptr = [], [0]
+    for d in range(n_docs):
+        for b in range(n_bins):
+            idx += [int(r) for r, j in zip(rows[d], bins[d])
+                    if min(max(j, 0), n_bins - 1) == b]
+            ptr.append(len(idx))
+    want = embed_bag_plain(table, torch.tensor(idx, dtype=torch.int32),
+                           torch.tensor(ptr, dtype=torch.int32))
+    got = segment_bag_sums(table, _t(rows), _t(bins), n_bins)
+    assert got.shape == (n_docs, n_bins, 8)
+    assert torch.equal(got.reshape(-1, 8), want)

@@ -154,3 +154,21 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 def test_rejects_mismatched_shapes(q, k):
     with pytest.raises(ValueError):
         flash_attn_plain(torch.zeros(q), torch.zeros(k), torch.zeros(k))
+
+
+@pytest.mark.parametrize("s", [512, 160])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_at_the_build_width_matches_jax(s, causal):
+    """The plain version in bf16 (the kernel's yardstick on the card) at
+    hd 128, the LM build's head width, against the JAX oracle (jnp, not
+    the interpreter) at 2e-2, and against its own float32 run; S = 160
+    is not a multiple of the 64-key tile."""
+    arrays = _qkv(1, s, 3, 1, 128, seed=s + int(causal))
+    want = _np(jax_ref(*_jax(arrays, jnp.bfloat16), causal=causal))
+    tq, tk, tv = _torch(arrays, torch.bfloat16)
+    got = flash_attn_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), want, **BF16)
+    f32 = flash_attn_plain(tq.float(), tk.float(), tv.float(),
+                           causal=causal)
+    np.testing.assert_allclose(_np(got), _np(f32), **BF16)

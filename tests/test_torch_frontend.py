@@ -8,10 +8,12 @@ Zipfian corpus (the reference's own contract); the coalescing plan and
 the open-loop arrival schedule are held against the JAX package's.
 Every ``Future.result`` and ``close`` takes a timeout.
 """
+import gc
 import sys
 import threading
 import time
 import types
+import weakref
 from concurrent.futures import Future
 
 import numpy as np
@@ -518,3 +520,51 @@ class TestServeStatsConcurrency:
             stats.note_queue_depth(depth)
         assert stats.queue_depth == 1
         assert stats.max_queue_depth == 9
+
+
+@pytest.mark.parametrize("mode", ["naive", "coalesce", "cache"])
+def test_closed_frontend_frees_its_engine_without_a_collection(
+        hot_term_index, mode):
+    """A front end holds no reference cycle: once it has served and been
+    closed, dropping it frees its engine (and so the index it holds on
+    the card) with the cycle collector off."""
+    kw = {"naive": dict(coalesce=False), "coalesce": {},
+          "cache": dict(cache_tiles=8)}[mode]
+    index = (partition_index(hot_term_index, 2) if mode == "cache"
+             else hot_term_index)        # the tile cache keys on shards
+    eng = _engine(index)
+    alive = weakref.ref(eng)
+    reqs = _requests(index, 6, seed=11)
+    gc.disable()
+    try:
+        fe = ServingFrontend(eng, max_batch=4, batch_timeout_ms=2, **kw)
+        futs = [fe.submit(q, d) for q, d in reqs]
+        for (q, d), f in zip(reqs, futs):
+            np.testing.assert_array_equal(f.result(timeout=WAIT),
+                                          _score(eng, q, d))
+        fe.close(timeout=WAIT)
+        del fe, futs, eng, index
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
+def test_open_loop_rejections_leave_no_cycle(hot_term_index):
+    """run_open_loop reads rejected futures without raising them: a
+    raised DeadlineExceeded would keep the runner's frame, and with it
+    the front end and its engine, alive in a reference cycle."""
+    eng = _engine(hot_term_index)
+    alive = weakref.ref(eng)
+    reqs = _requests(hot_term_index, 8, seed=12)
+    gc.disable()
+    try:
+        fe = ServingFrontend(eng, max_batch=4, batch_timeout_ms=2,
+                             slo_ms=1e-6)
+        res = run_open_loop(fe, reqs, target_qps=4000.0, seed=0,
+                            timeout=WAIT)
+        assert res.n_rejected == len(reqs) and res.n_served == 0
+        fe.close(timeout=WAIT)
+        del fe, res, eng
+        assert alive() is None
+    finally:
+        gc.enable()

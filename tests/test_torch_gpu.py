@@ -7,8 +7,11 @@ CUDA, raw and packed, against the engine on the CPU, and the offline
 build on the card against the same build on the CPU, with a HashProvider
 and with an LMProvider.
 
-embed_bag, the provider's segment sums and the serving front end on the
-card are held bitwise against the plain versions and ``engine.score``.
+embed_bag (its CSR and its segment entry), the provider's segment sums
+and the serving front end on the card are held bitwise against the
+plain versions and ``engine.score``.  bf16 flash_attn runs on the tensor
+cores (``wgmma``, TMA loads), held against the plain version at every
+head width.
 
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
@@ -34,7 +37,10 @@ from repro_torch.data.synth_corpus import build_zipfian_index, generate
 from repro_torch.dist.partition import pack_index
 from repro_torch.dist.sharding import partition_index
 from repro_torch.kernels.embed_bag import (bag_ptr_from_offsets,
-                                           embed_bag_kernel, embed_bag_plain)
+                                           embed_bag_kernel, embed_bag_plain,
+                                           embed_bag_segment_kernel,
+                                           segment_bag_sums,
+                                           segment_bag_sums_plain)
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             csr_lookup_packed_kernel,
                                             lane_scales, retrieve_lanes,
@@ -383,6 +389,32 @@ def test_flash_attn_kernel_matches_plain(hd, dtype, causal):
         torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attn_wgmma_matches_plain(hd, causal):
+    """The bf16 wgmma kernel at lengths that are not multiples of the
+    64-key tile or the 64-row block (a tail of one row, Sq < Skv, Sq >
+    Skv), with a group of 3, at 2e-2; its rows do not depend on the rest
+    of the batch (bitwise run to run and against one doc alone)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(hd)
+    for b, sq, skv, hq, hkv in ((2, 160, 160, 6, 2), (1, 65, 65, 2, 2),
+                                (2, 129, 200, 3, 1), (1, 200, 96, 4, 4)):
+        q = torch.randn(b, sq, hq, hd, generator=g).bfloat16()
+        k = torch.randn(b, skv, hkv, hd, generator=g).bfloat16()
+        v = torch.randn(b, skv, hkv, hd, generator=g).bfloat16()
+        args = (q.cuda(), k.cuda(), v.cuda())
+        got = flash_attn_kernel(*args, causal=causal)
+        again = flash_attn_kernel(*args, causal=causal)
+        alone = flash_attn_kernel(*(x[-1:] for x in args), causal=causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, again) and torch.equal(got[-1:], alone)
+        want = flash_attn_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attn_kernel_refuses_what_it_does_not_take():
     _require_cuda()
     q = torch.zeros(1, 8, 2, 48, device="cuda")
@@ -394,6 +426,44 @@ def test_flash_attn_kernel_refuses_what_it_does_not_take():
     f = torch.zeros(1, 8, 2, 64, device="cuda")
     with pytest.raises(TypeError):
         flash_attn_kernel(f, f.bfloat16(), f.bfloat16())
+
+
+def _on(params, device):
+    return {k: ({n: t.to(device) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+@pytest.mark.parametrize("head_dim", [16, 128])
+@pytest.mark.parametrize("name", ["minitron-4b", "stablelm-1.6b"])
+def test_bf16_lm_forward_on_cuda_matches_cpu(name, head_dim, seed):
+    """The smoke LM in bf16 through the wgmma kernel on the card against
+    the same forward on the CPU through the plain attention: two layers,
+    300 tokens (four key tiles and a tail), at the smoke width's head_dim
+    16 and the build's 128.  At most 0.1% of the hidden values lie past
+    the port's bf16 bar against the JAX model, 2e-2
+    (tests/test_torch_transformer.py).  The plain attention on the card
+    reads up to ~0.05% there (the card's bf16 GEMMs round other values
+    than the CPU's), and an attention that rounds p to bf16 before
+    P . V 0.35-0.85% (scripts/flash_attn_precision.py)."""
+    _require_cuda()
+    c = dataclasses.replace(smoke(name), dtype="bfloat16",
+                            head_dim=head_dim)
+    params = T.init_params(c, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, c.vocab_size, (3, 300)).astype(np.int32))
+    want, _ = T.forward(params, toks, c)
+    before = flash_attn_kernel.launches
+    got, _ = T.forward(_on(params, "cuda"), toks.cuda(), c)
+    torch.cuda.synchronize()
+    assert flash_attn_kernel.launches == before + c.n_layers
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got, want = got.cpu().float(), want.float()
+    assert torch.isfinite(got).all()
+    past = (got - want).abs() > 2e-2 + 2e-2 * want.abs()
+    assert past.float().mean().item() <= 1e-3
 
 
 def _lm_build(device, n_docs=24):
@@ -474,6 +544,84 @@ def test_embed_bag_kernel_refuses_what_it_does_not_take():
         embed_bag_kernel(table, idx, ptr)
     with torch.no_grad():
         assert embed_bag_kernel(table, idx, ptr).shape == (1, 2)
+
+
+def test_embed_bag_kernel_bitwise_at_a_long_bag():
+    """One bag of 512 rows (a doc whose tokens share one segment) beside
+    short ones: the loads in flight keep the index order, bitwise."""
+    _require_cuda()
+    rng = np.random.RandomState(5)
+    lens = np.array([512, 3, 0, 40, 1])
+    nnz = int(lens.sum())
+    idx = torch.from_numpy(rng.randint(-1, 9280, nnz).astype(np.int32))
+    ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                           .astype(np.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.from_numpy(rng.standard_normal((9280, 128))
+                                 .astype(np.float32)).to(dtype)
+        got = embed_bag_kernel(table.cuda(), idx.cuda(), ptr.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), embed_bag_plain(table, idx, ptr))
+
+
+def _segment_case(case, rng, n_docs=6, n=512, n_bins=64, v=9280):
+    """rows and bins (n_docs, n) of one kind of doc: random, with empty
+    bins and -1 rows; every token in one bin (a 512-row bag); one token
+    per bin; bins past both ends (clamped)."""
+    rows = rng.randint(0, v + 3, (n_docs, n))
+    if case == "random":
+        bins = rng.randint(0, n_bins // 2, (n_docs, n))    # half empty
+        rows[rng.rand(n_docs, n) < 0.6] = -1
+    elif case == "one_bin":
+        bins = np.full((n_docs, n), 7)
+    elif case == "one_per_bin":
+        bins = np.tile(np.arange(n) % n_bins, (n_docs, 1))
+        rows[:, n_bins:] = -1
+    else:                                     # out of range
+        bins = rng.randint(-5, n_bins + 5, (n_docs, n))
+        rows[rng.rand(n_docs, n) < 0.3] = -1
+    return torch.from_numpy(rows), torch.from_numpy(bins)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "one_bin", "one_per_bin",
+                                  "out_of_range"])
+def test_embed_bag_segment_kernel_matches_plain(case, dtype):
+    """The segment entry bitwise against its plain version (the stable
+    sort into CSR bags, summed in token order), one launch per call."""
+    _require_cuda()
+    rng = np.random.RandomState(len(case))
+    rows, bins = _segment_case(case, rng)
+    table = torch.from_numpy(rng.standard_normal((9280, 128))
+                             .astype(np.float32)).to(dtype)
+    before = embed_bag_kernel.launches
+    got = segment_bag_sums(table.cuda(), rows.cuda(), bins.cuda(), 64)
+    torch.cuda.synchronize()
+    assert embed_bag_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == (6, 64, 128)
+    want = segment_bag_sums_plain(table, rows, bins, 64)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, segment_bag_sums_plain(
+        table.cuda(), rows.cuda(), bins.cuda(), 64))
+
+
+def test_embed_bag_segment_kernel_refuses_what_it_does_not_take():
+    _require_cuda()
+    table = torch.zeros(4, 2, device="cuda")
+    rows = torch.zeros(2, 3, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="int64"):
+        embed_bag_segment_kernel(table, rows.int(), rows.int(), 3)
+    with pytest.raises(ValueError, match="one shape"):
+        embed_bag_segment_kernel(table, rows, rows[:, :2].contiguous(), 3)
+    with pytest.raises(TypeError, match="int64"):
+        embed_bag_segment_kernel(table, rows, rows.int(), 3)
+    with pytest.raises(ValueError, match="n_bins"):
+        embed_bag_segment_kernel(table, rows, rows, 0)
+    long = torch.zeros(1, 7000, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="tokens per doc"):
+        embed_bag_segment_kernel(table, long, long, 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        embed_bag_segment_kernel(table.half(), rows, rows, 3)
 
 
 def test_contextualize_on_cuda_matches_cpu():

@@ -66,13 +66,15 @@ Phases (any failed check raises, and the script exits non-zero):
    of 6 slots x 1,000 candidates) and a ``NoIndexEngine`` (4 of them;
    scores at rtol 1e-4 / atol 1e-5, p50/p95 of both), a ``save_index`` /
    ``load_index`` round trip, and ``seg_interact``'s timing against its
-   plain version and its bound.  ``embed_bag`` (the provider's and
-   ``log_cond_prob``'s segment sums, through its segment entry: one
-   launch that bags on the card) must launch twice per batch; both its
-   entries are held bitwise against their plain versions on the build's
-   own calls (captured by running 16 batches again), the CSR entry over
-   tests/test_kernels.py's sweep with empty bags, -1 and past-table ids
-   and the segment entry over SEGMENT_SWEEP, in float32 and bf16, and
+   plain version and its bound at the build batch and at the No-Index
+   request's shape (the served requests' 1,000 candidates x 6 query
+   slots), with its share of the No-Index p50.  ``embed_bag`` (the
+   provider's and ``log_cond_prob``'s segment sums, through its segment
+   entry: one launch that bags on the card) must launch twice per batch;
+   both its entries are held bitwise against their plain versions on the
+   build's own calls (captured by running 16 batches again), the CSR entry
+   over tests/test_kernels.py's sweep with empty bags, -1 and past-table
+   ids and the segment entry over SEGMENT_SWEEP, in float32 and bf16, and
    both are timed at both build shapes beside the sort-based bagging,
    ``F.embedding_bag`` and their bounds.
 
@@ -119,7 +121,8 @@ launches CUPTI recorded over the replay ("k of n").
    bf16 bar, 2e-2).  Last ``flash_attn``'s timing at the build's shape
    against its plain version, ``F.scaled_dot_product_attention`` and its
    bound (bytes over 3.35 TB/s or causal flops over the bf16 989
-   TFLOP/s), and the phase's peak device memory.
+   TFLOP/s), the same on float32 inputs (TF32 off; flops over the FP32
+   67 TFLOP/s), and the phase's peak device memory.
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -1277,7 +1280,7 @@ def serve_built(pidx, noindex, engine, ds, vocab, seed):
         err = max(err, float(np.abs(n - s).max()))
     log(f"phase 5: No-Index scores == indexed scores at rtol 1e-4/atol "
         f"1e-5 on {NOINDEX_REQUESTS} requests (max |diff| {err:.3g})")
-    return counts
+    return counts, requests[:NOINDEX_REQUESTS], out["noindex"][1].p50_ms
 
 
 def round_trip(pidx):
@@ -1303,19 +1306,13 @@ def round_trip(pidx):
         f"bytes on disk, save {t_save:.2f}s, load {t_load:.2f}s")
 
 
-def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
-    """seg_interact at the build shape over 16 batches of fresh docs, its
-    plain version, and torch.bmm of the score product alone (context,
-    not a yardstick: it skips the epilogues).  The bound counts what the
-    function needs once: the embedding rows of valid terms (id >= 0) and
-    of kept tokens (segment in [0, S)), the whole seg and term-id arrays
-    and the whole output; and 2 * U_b * L_b * De flops per doc for its
-    valid terms and kept tokens."""
-    n_b = builder.cfg.n_segments
-    n_batches = max(1, min(16, toks.shape[0] // BUILD_BATCH))
-    inputs = [batch_inputs(builder, toks, segs, i * BUILD_BATCH, dev)
-              for i in range(n_batches)]
-    flops = n_bytes = 0
+def seg_work(inputs, n_b: int):
+    """(flops, bytes) per launch that the function needs for these
+    inputs, once each: the embedding rows of valid terms (id >= 0) and of
+    kept tokens (segment in [0, S)), the whole seg and term-id arrays and
+    the whole output; and 2 * U_b * L_b * De flops per doc for its valid
+    terms and kept tokens."""
+    flops = n_bytes = 0.0
     for e_term, e_tok, seg, term_ids in inputs:
         u = (term_ids >= 0).sum(1).double()
         length = ((seg >= 0) & (seg < n_b)).sum(1).double()
@@ -1324,6 +1321,38 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
         n_bytes += float(u.sum() + length.sum()) * de * e_term.element_size()
         n_bytes += seg.numel() * 4 + term_ids.numel() * 4
         n_bytes += e_term.shape[0] * e_term.shape[1] * n_b * 3 * 4
+    return flops / len(inputs), n_bytes / len(inputs)
+
+
+def noindex_inputs(builder, toks, segs, requests, dev):
+    """For each No-Index request, a function that makes the seg_interact
+    kernel's arguments as ``NoIndexEngine.qd_matrix`` makes them (the
+    candidates' real docs gathered on the card against the query's
+    slots), and its result."""
+    tok_d = torch.from_numpy(toks).to(dev)
+    seg_d = torch.from_numpy(segs).to(dev)
+    makers = []
+    for q, cand in requests:
+        c = torch.from_numpy(np.asarray(cand, np.int64)).to(dev)
+        qt = torch.from_numpy(np.asarray(q, np.int32)).to(dev)
+        makers.append(lambda c=c, qt=qt: seg_interact_inputs(
+            tok_d[c], seg_d[c], qt[None].expand(c.numel(), -1),
+            builder.provider.table(), builder.cfg.n_segments))
+    return makers, [make() for make in makers]
+
+
+def time_seg_interact(builder, toks, segs, launches, err, dev, requests,
+                      noindex_p50_ms, **extra):
+    """seg_interact at the build shape over 16 batches of fresh docs and
+    at the No-Index request's shape over the served requests, its plain
+    version at both, and torch.bmm of the build's score product alone
+    (context, not a yardstick: it skips the epilogues).  The bounds count
+    what this run's data needs (``seg_work``)."""
+    n_b = builder.cfg.n_segments
+    n_batches = max(1, min(16, toks.shape[0] // BUILD_BATCH))
+    inputs = [batch_inputs(builder, toks, segs, i * BUILD_BATCH, dev)
+              for i in range(n_batches)]
+    flops, n_bytes = seg_work(inputs, n_b)
     fns = [lambda a=a: seg_interact_kernel(*a, n_b) for a in inputs]
     ms, how, call_ms = timed(fns, 160, "seg_interact_kernel")
     plain_ms = events_ms([lambda a=a: seg_interact_plain(*a, n_b)
@@ -1334,7 +1363,7 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
         got, want = seg_interact_kernel(*a, n_b), seg_interact_plain(*a, n_b)
         torch.testing.assert_close(got, want, **SEG_TOL)
         err = max(err, (got - want).abs().max().item())
-    b_ms, b_by = bound(n_bytes / len(inputs), flops / len(inputs))
+    b_ms, b_by = bound(n_bytes, flops)
     # diagnostic: the first batch with every term slot and token live, so
     # every block of the grid multiplies whole tiles
     a = inputs[0]
@@ -1347,12 +1376,37 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
     live_flops = 2.0 * a[0].shape[0] * a[0].shape[1] * n_l * a[0].shape[2]
     log(f"phase 5: seg_interact {ms:.4f} ms per build batch ({how}; "
         f"{call_ms:.4f} ms with launch cost) = "
-        f"{flops / len(inputs) / ms / 1e9:.2f} TFLOP/s on the valid "
+        f"{flops / ms / 1e9:.2f} TFLOP/s on the valid "
         f"(term, token) pairs; plain {plain_ms:.4f} ms; bound "
-        f"{b_ms:.5f} ms ({b_by}); torch.bmm of the scores alone "
+        f"{b_ms:.5f} ms ({b_by}: {flops / 1e9:.4f} GFLOP, "
+        f"{n_bytes / 1e6:.2f} MB); torch.bmm of the scores alone "
         f"{bmm_ms:.4f} ms; the same batch with all {a[0].shape[1]} term "
         f"slots and {n_l} tokens live {live_ms:.4f} ms = "
         f"{live_flops / live_ms / 1e9:.2f} TFLOP/s")
+    # the No-Index request's shape: the served requests' candidates
+    makers, q_inputs = noindex_inputs(builder, toks, segs, requests, dev)
+    q_flops, q_bytes = seg_work(q_inputs, n_b)
+    inputs_ms = events_ms(makers, 2 * len(makers))
+    q_ms, q_how, q_call_ms = timed(
+        [lambda a=a: seg_interact_kernel(*a, n_b) for a in q_inputs], 80,
+        "seg_interact_kernel")
+    q_plain_ms = events_ms([lambda a=a: seg_interact_plain(*a, n_b)
+                            for a in q_inputs], len(q_inputs))
+    for a in q_inputs:
+        got, want = seg_interact_kernel(*a, n_b), seg_interact_plain(*a, n_b)
+        torch.testing.assert_close(got, want, **SEG_TOL)
+        err = max(err, (got - want).abs().max().item())
+    q_b_ms, q_b_by = bound(q_bytes, q_flops)
+    share = q_ms / noindex_p50_ms
+    log(f"phase 5: seg_interact at the No-Index request's shape "
+        f"{tuple(q_inputs[0][0].shape)} x {tuple(q_inputs[0][1].shape[1:])}"
+        f" over {len(q_inputs)} requests: {q_ms:.4f} ms per request "
+        f"({q_how}; {q_call_ms:.4f} ms with launch cost); plain "
+        f"{q_plain_ms:.4f} ms; bound {q_b_ms:.5f} ms ({q_b_by}: "
+        f"{q_flops / 1e9:.4f} GFLOP, {q_bytes / 1e6:.2f} MB); "
+        f"{share:.4f} of the No-Index p50 ({noindex_p50_ms:.3f} ms); "
+        f"making its dense inputs (seg_interact_inputs' gathers) "
+        f"{inputs_ms:.4f} ms")
     return dict(name="seg_interact", ms=ms, timed_by=how, call_ms=call_ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, route="cuda",
@@ -1360,7 +1414,11 @@ def time_seg_interact(builder, toks, segs, launches, err, dev, **extra):
                 replaces=TPU_KERNELS["seg_interact"],
                 launches=launches["build"],
                 launches_by_path=launches, bmm_ms=bmm_ms,
-                all_live_ms=live_ms, **extra)
+                all_live_ms=live_ms, noindex_ms=q_ms,
+                noindex_timed_by=q_how, noindex_call_ms=q_call_ms,
+                noindex_plain_ms=q_plain_ms, noindex_bound_ms=q_b_ms,
+                noindex_bound_by=q_b_by, noindex_share=share,
+                noindex_inputs_ms=inputs_ms, **extra)
 
 
 def build_embed_bag_calls(builder, toks, segs, n_docs: int):
@@ -1628,13 +1686,14 @@ def phase5(seed: int, dev, corpus=None):
     engine = SeineEngine(pidx, "knrm", params)
     noindex = NoIndexEngine(builder, pidx, toks, segs, "knrm", params)
     check_on_the_fly(pidx, noindex, toks, np.random.RandomState(seed), dev)
-    served = serve_built(pidx, noindex, engine, ds, vocab, seed)
+    served, requests, noindex_p50 = serve_built(pidx, noindex, engine, ds,
+                                                vocab, seed)
     round_trip(pidx)
     rows = [time_seg_interact(
         builder, toks, segs,
         {"build": built["seg_interact"],
          "noindex": served["noindex"]["seg_interact"]}, err, dev,
-        unit_scale_max_abs_err=unit_err),
+        requests, noindex_p50, unit_scale_max_abs_err=unit_err),
         time_embed_bag(mix, lcp, {"build": built["embed_bag"],
                                   "noindex": served["noindex"]["embed_bag"]},
                        eb_err, eb_bitwise, dev)]
@@ -2073,49 +2132,66 @@ def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
 
 def time_flash_attn(lm, launches, errs, dev):
     """flash_attn at the build's shape in bf16: the kernel (CUPTI), its
-    float32 path, its plain version and
-    ``F.scaled_dot_product_attention`` (the library yardstick, never used
-    by the port; K and V repeated first when it lacks ``enable_gqa``).
-    The bound: q, k, v read once and o written once over 3.35 TB/s, or
+    plain version and ``F.scaled_dot_product_attention`` (the library
+    yardstick, never used by the port; K and V repeated first when it
+    lacks ``enable_gqa``); then the same three on float32 inputs (the FMA
+    kernel; TF32 is off, so the library call computes in float32 too).
+    The bounds: q, k, v read once and o written once over 3.35 TB/s, or
     the causal flops (2 products x 2 hd per (query, key) pair at or below
-    the diagonal) over 989 TFLOP/s."""
+    the diagonal) over 989 TFLOP/s in bf16 and 67 TFLOP/s in float32."""
     shape = fa_build_shape(lm)
     b, s, hq, hkv, hd = shape
     q, k, v = qkv(shape, torch.bfloat16, torch.Generator(device=dev)
                   .manual_seed(1), dev)
     flops = 4.0 * b * hq * hd * (s * (s + 1) / 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        except TypeError:                    # no enable_gqa: repeat K, V
+            kr, vr = (x.repeat_interleave(hq // hkv, dim=1)
+                      for x in (kt, vt))
+            return lambda: sdpa(qt, kr, vr, is_causal=True)
+
     ms, how, call_ms = timed([lambda: flash_attn_kernel(q, k, v)], 50,
                              "flash_attn_kernel")
     plain_ms = events_ms([lambda: flash_attn_plain(q, k, v)], 5)
+    library_ms = events_ms([library(q, k, v)], 50)
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S)
     qf, kf, vf = q.float(), k.float(), v.float()
     f32_ms = timed([lambda: flash_attn_kernel(qf, kf, vf)], 20,
                    "flash_attn_kernel")[0]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    try:
-        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    except TypeError:                        # no enable_gqa: repeat K, V
-        kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
-        lib = lambda: sdpa(qt, kr, vr, is_causal=True)
-    library_ms = events_ms([lib], 50)
-    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+    f32_plain_ms = events_ms([lambda: flash_attn_plain(qf, kf, vf)], 5)
+    f32_library_ms = events_ms([library(qf, kf, vf)], 20)
+    f32_bytes = 2 * (qf.numel() + kf.numel()) * qf.element_size()
+    f32_b_ms, f32_b_by = bound(f32_bytes, flops)
     log(f"phase 6: flash_attn at {shape} causal bf16 (wgmma): {ms:.4f} ms "
         f"({how}; {call_ms:.4f} ms with launch cost) = "
-        f"{flops / ms / 1e9:.1f} TFLOP/s; float32 inputs (FMA) "
-        f"{f32_ms:.4f} ms; plain "
-        f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f} "
-        f"ms = {flops / library_ms / 1e9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
-        f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+        f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
+        f"scaled_dot_product_attention {library_ms:.4f} ms = "
+        f"{flops / library_ms / 1e9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over "
+        f"the bf16 peak)")
+    log(f"phase 6: flash_attn on float32 inputs (FMA): {f32_ms:.4f} ms = "
+        f"{flops / f32_ms / 1e9:.1f} TFLOP/s; plain {f32_plain_ms:.4f} ms; "
+        f"scaled_dot_product_attention (float32, TF32 off) "
+        f"{f32_library_ms:.4f} ms; bound {f32_b_ms:.5f} ms ({f32_b_by}: "
+        f"{f32_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over the FP32 "
+        f"peak)")
     return dict(name="flash_attn", route="cuda",
                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
                 replaces=TPU_KERNELS["flash_attn"],
                 launches=launches["build"], launches_by_path=launches,
                 max_abs_err=errs[0], f32_max_abs_err=errs[1], ms=ms,
-                timed_by=how, call_ms=call_ms, f32_ms=f32_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                f32_ms=f32_ms, f32_plain_ms=f32_plain_ms,
+                f32_library_ms=f32_library_ms, f32_bound_ms=f32_b_ms,
+                f32_bound_by=f32_b_by)
 
 
 def phase6(seed: int, dev, corpus):

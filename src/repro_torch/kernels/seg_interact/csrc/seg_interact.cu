@@ -13,197 +13,408 @@
 // out (B, U, S, 3) f32 from e_term (B, U, De), e_tok (B, L, De), seg
 // (B, L) int32 (a value outside [0, S) excludes the token) and term_ids
 // (B, U) int32 (a negative id is a pad term: its rows are written as
-// zeros and it costs nothing when a whole tile of terms is pad).
-//
-// Layout.  The TPU kernel padded every segment to one length Ls and ran a
-// (vocab tile x segment) grid.  A TextTiling segment can span a whole doc,
-// so padding each to the longest would multiply the work by up to S.
-// Here segments are ragged: a block owns one doc and a tile of 64 terms
-// and walks the doc's tokens in tiles of 64, in order.  Per token tile the
-// 64 x 64 score tile e_u . e_t is a small f32 GEMM (64 threads, 8 x 8
-// scores each, De staged through shared memory 16 at a time, sequential
-// FMAs over De), parked in shared memory; then thread u walks the tile's
-// tokens in order and folds each score into its term's (dot, cos, max)
-// for the token's segment.  Running sums for the current segment stay in
-// registers and are swapped with a per-(segment, term) table in shared
-// memory only when the segment changes (TextTiling segments are
-// contiguous, so that is about S times per doc).  Token tiles with no
-// token in [0, S) are skipped.
-//
-// Deterministic.  Every (u, s) cell is accumulated by one thread in token
-// order, every score by one thread in De order; no atomics.  A cell's
-// value depends only on e_u and the doc's tokens, not on U, B or the
-// tile the term lands in -- so the build's values (U = a doc's unique
-// terms) and the No-Index path's (U = the query's terms) are the same
-// bits.  Float32 FMA only: no TF32 or bf16 tensor cores.
+// zeros, and a tile of pad terms costs one write of zeros).
 //
 // What bounds it on the H100.  A build batch (B = 32, U = 512, L = 512,
-// De = 128) holds 17 MB of embeddings, but only ~180 terms and ~200
-// tokens per doc are live: the function needs ~6 MB of their rows, the
-// seg and id arrays, and writes 4 MB, ~3 us at 3.35 TB/s.  The products
-// on the live pairs are ~0.3 GFLOP, ~4.5 us at the FP32 peak of 67
-// TFLOP/s, so the operations bound it.  This first version is latency-bound instead: the products run on the
-// FP32 pipes through a plain shared-memory tiling, a doc's live terms
-// fill only ~3 blocks of 2 warps (about one block per SM at B = 32), and
-// the OOV positions inside a token tile are multiplied too.  wgmma, TMA
-// and compacting the live tokens are a later step.
+// De = 128, S = 20) holds ~180 live terms and ~200 live tokens per doc:
+// ~0.3 GFLOP on the live pairs, 4.5 us at the FP32 peak of 67 TFLOP/s,
+// against ~6 MB of live rows and output, ~2 us at 3.35 TB/s: operations
+// bound it.  A No-Index request (B = 1,000 candidates, U = 6 query
+// slots) does the same 0.3 GFLOP but reads ~1,000 x 200 live token rows,
+// ~0.1 GB, ~31 us: bytes bound it.  The first version (one block of 2
+// warps per doc and 64 terms, every token position multiplied) took
+// 0.5437 ms per build batch on an NVIDIA H100 80GB HBM3 at 700 W: fewer
+// live blocks than SMs, 2 warps each, 60% of each score tile spent on
+// excluded positions, and no load in flight while it multiplied.
+//
+// The design:
+//
+// - Compaction.  A block first lists its doc's live positions (seg in
+//   [0, S)) in token order, with a ballot and popc per warp, a window of
+//   512 positions at a time (one window at the build's L = 512).  Token
+//   tiles hold 64 live tokens, so only the last tile of a window carries
+//   dead rows.
+// - Term tiles sized to the launch.  A block owns one doc and TU = 8
+//   terms (U <= 8) or 16: a TU x 64 score tile, 2 x 4 scores per thread,
+//   so 64 or 128 threads.  The No-Index launch (U = 6) runs 1,000 blocks
+//   of 2 warps over 8 term rows; the build's 32 tiles of 16 terms per doc
+//   give ~380 live blocks of 4 warps, 3 per SM, all resident at once
+//   (tiles of 32 with 4 x 4 scores per thread, half as many warps, were
+//   slower at the build batch).  Live terms come first in every caller's
+//   term_ids, so the dead tiles are the grid's last blocks.
+// - Loads.  Each step stages a 32-deep slice (16 at TU = 8, to fit more
+//   blocks per SM) of the tile's term rows and of its 64 live token rows
+//   (gathered through the compacted list) with 16-byte cp.async (4-byte
+//   when De % 4 != 0 or a base is not 16-byte aligned; the depth past De
+//   is zero-filled) into a ring of 3 stages, so two steps are in flight
+//   while one is multiplied.
+// - Fold.  A tile's scores go through shared memory.  Thread (u, c) folds
+//   the tile's live tokens 16c .. 16c + 15 (class c of 4) in order into
+//   running (dot, cos, max) sums for the current segment, swapped with a
+//   per-(class, segment, term) table in shared memory only when the
+//   segment changes.  A cell is the 4 class partials added in class
+//   order (max: their max): 16 serial steps per thread and tile, not 64.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/seg_interact_ab.py;
+// PERF.md section 6 keeps the numbers): 0.041 ms per build batch (0.55
+// before), 9x its bound, 7.3 TFLOP/s on the live pairs, 11% of the FP32
+// peak, so latency bounds it, not the FP32 pipes, and the products stay
+// on FMAs; 0.099 ms per No-Index request (1.15 before), 3x its byte
+// bound: a 2-warp block waits on each 16-deep step's row slices.
+//
+// Deterministic, and the same bits at any U, B or term tile.  A score is
+// one FMA chain over k = 0 .. De - 1 (the zero-filled depth adds exact
+// zeros), |e_t|^2 and |e_u|^2 likewise; a cell's sum runs over its
+// tokens in the order (class, compacted position), which depends only on
+// the doc's seg row; no atomics.  So the build's cells (U = a doc's
+// unique terms, TU = 16) and the No-Index path's (U = the query's terms,
+// TU = 8) are the same bits.  Float32 FMA only: no TF32 or bf16 tensor
+// cores.
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;  // 2 warps; thread i owns term i's sums
-constexpr int kTU = 64;       // terms per block
-constexpr int kTT = 64;       // tokens per tile
-constexpr int kDK = 16;       // embedding depth staged per step
-constexpr int kMicro = 8;     // each thread computes 8 x 8 scores
+constexpr int kTT = 64;       // live tokens per tile
+constexpr int kSlice = 16;    // live tokens a fold thread walks per tile
+constexpr int kClasses = kTT / kSlice;
+constexpr int kLDS = kTT + 1; // score row stride (floats)
+constexpr int kStages = 3;
+constexpr int kWin = 512;     // positions compacted at a time
 constexpr int kMaxSeg = 64;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy `bytes` (0 .. VEC * 4) of global src to shared dst, zero-filling
+// the rest of the VEC floats
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes) {
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(bytes));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the shape of a block of TU terms: MI x 4 scores per thread, NT
+// threads, DK-deep steps staged in rows of LDK floats (16-byte aligned,
+// and 8 consecutive rows hit 8 different 16-byte bank groups), and its
+// dynamic shared memory, in floats then ints
+template <int TU>
+struct Cfg {
+  static constexpr int MI = 2;                 // term rows per thread
+  static constexpr int GI = TU / MI;           // term groups
+  static constexpr int NT = GI * 16;           // threads: 64 or 128
+  static constexpr int DK = TU == 8 ? 16 : 32; // embedding depth per step
+  static constexpr int LDK = DK + 4;
+  static constexpr int kFloatsFixed = kStages * (TU + kTT) * LDK  // ring
+                                      + TU * kLDS                // scores
+                                      + 2 * kTT + TU;  // t2, 1/|e_t|, v2
+  static constexpr int kIntsFixed = 2 * kWin + 4 + TU;  // list, warps, live
+  static int smem_bytes(int S) {
+    return (kFloatsFixed + kClasses * S * 3 * TU + kIntsFixed) * 4;
+  }
+};
+
+template <int TU, int VEC>
+__global__ void __launch_bounds__(Cfg<TU>::NT)
     seg_interact_kernel(const float* __restrict__ e_term,
                         const float* __restrict__ e_tok,
                         const int* __restrict__ seg,
                         const int* __restrict__ term_ids,
                         float* __restrict__ out, int U, int L, int De,
                         int S) {
-  __shared__ float a_s[kDK][kTU + 1];
-  __shared__ float b_s[kDK][kTT + 1];
-  __shared__ float score_s[kTU][kTT + 1];
-  __shared__ float tok_t2[kTT];
-  __shared__ float tok_inv[kTT];
-  __shared__ int tok_seg[kTT];
-  extern __shared__ float acc_s[];  // [S][3][kTU]: dot, cos, max
+  using C = Cfg<TU>;
+  constexpr int NT = C::NT, NW = NT / 32, MI = C::MI, GI = C::GI;
+  constexpr int DK = C::DK, LDK = C::LDK;
+  constexpr int CPR = DK / VEC;   // copies per staged row
+  extern __shared__ float4 smem4[];
+  float* a_st = reinterpret_cast<float*>(smem4);  // [kStages][TU][LDK]
+  float* b_st = a_st + kStages * TU * LDK;         // [kStages][kTT][LDK]
+  float* score_s = b_st + kStages * kTT * LDK;     // [TU][kLDS]
+  float* tok_t2 = score_s + TU * kLDS;             // [kTT]
+  float* tok_inv = tok_t2 + kTT;                   // [kTT]
+  float* term_v2 = tok_inv + kTT;                  // [TU]
+  float* acc_s = term_v2 + TU;  // [kClasses][S][3][TU]: dot, cos, max
+  int* list_pos = reinterpret_cast<int*>(acc_s + kClasses * S * 3 * TU);
+  int* list_seg = list_pos + kWin;                 // [kWin]
+  int* warp_cnt = list_seg + kWin;                 // [4]
+  int* term_live = warp_cnt + 4;                   // [TU]
 
-  const int b = blockIdx.x;
-  const int u0 = blockIdx.y * kTU;
   const int tid = threadIdx.x;
-  const int u = u0 + tid;
-  const int64_t row_u = (int64_t)b * U + u;
-  const bool live = u < U && __ldg(term_ids + row_u) >= 0;
-  float* out_u = out + row_u * S * 3;
+  const int b = blockIdx.x;
+  const int u0 = blockIdx.y * TU;
+  const int n_terms = min(TU, U - u0);
+  const int per_term = S * 3;
+  float* out_b = out + ((int64_t)b * U + u0) * per_term;
 
+  bool live = false;
+  if (tid < TU) {
+    live = tid < n_terms && __ldg(term_ids + (int64_t)b * U + u0 + tid) >= 0;
+    term_live[tid] = live;
+    term_v2[tid] = 0.0f;
+  }
   if (!__syncthreads_or(live)) {  // a tile of pad terms
-    if (u < U)
-      for (int i = 0; i < S * 3; ++i) out_u[i] = 0.0f;
+    for (int e = tid; e < n_terms * per_term; e += NT) out_b[e] = 0.0f;
     return;
   }
+  for (int i = tid; i < kClasses * per_term * TU; i += NT)
+    acc_s[i] = (i / TU) % 3 == 2 ? -INFINITY : 0.0f;
 
-  // the term's squared norm, sequential over De
-  float v2 = 0.0f;
-  if (u < U) {
-    const float* e = e_term + row_u * De;
-    for (int k = 0; k < De; ++k) v2 = fmaf(__ldg(e + k), __ldg(e + k), v2);
-  }
-  for (int s = 0; s < S; ++s) {
-    acc_s[(s * 3 + 0) * kTU + tid] = 0.0f;
-    acc_s[(s * 3 + 1) * kTU + tid] = 0.0f;
-    acc_s[(s * 3 + 2) * kTU + tid] = -INFINITY;
-  }
-
-  const int tx = tid % kMicro, ty = tid / kMicro;
-  const float* term_base = e_term + (int64_t)b * U * De;
+  const float* term_base = e_term + ((int64_t)b * U + u0) * De;
   const float* tok_base = e_tok + (int64_t)b * L * De;
+  const int* seg_b = seg + (int64_t)b * L;
+  const int n_kc = (De + DK - 1) / DK;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gi = tid / 16, gj = tid % 16;        // score tile
+  const int fu = tid % TU, fc = tid / TU;        // fold: term, class
+  const bool fold = fc < kClasses && fu < n_terms && term_live[fu];
   int cur = -1;
   float r_dot = 0.0f, r_cos = 0.0f, r_max = -INFINITY;
+  bool first_tile = true;
 
-  for (int t0 = 0; t0 < L; t0 += kTT) {
-    const int t = t0 + tid;
-    int sg = t < L ? __ldg(seg + (int64_t)b * L + t) : -1;
-    const bool tok_live = sg >= 0 && sg < S;
-    tok_seg[tid] = tok_live ? sg : -1;
-    if (!__syncthreads_or(tok_live)) continue;  // uniform: no token here
-
-    float acc[kMicro][kMicro];
+  for (int w0 = 0; w0 < L; w0 += kWin) {
+    // compaction: the window's live positions, in order
+    const int w_end = min(L, w0 + kWin);
+    int n_live = 0;
+    for (int p0 = w0; p0 < w_end; p0 += NT) {
+      const int p = p0 + tid;
+      const int s = p < w_end ? __ldg(seg_b + p) : -1;
+      const bool on = s >= 0 && s < S;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      int before = __popc(m & ((1u << lane) - 1u)), total = __popc(m);
+      if constexpr (NW > 1) {
+        if (lane == 0) warp_cnt[warp] = total;
+        __syncthreads();
+        total = 0;
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-    float t2 = 0.0f;
-
-    for (int k0 = 0; k0 < De; k0 += kDK) {
-#pragma unroll
-      for (int i = 0; i < kDK * kTU / kThreads; ++i) {
-        const int idx = i * kThreads + tid;
-        const int r = idx / kDK, kk = idx % kDK, k = k0 + kk;
-        a_s[kk][r] = (u0 + r < U && k < De)
-                         ? __ldg(term_base + (int64_t)(u0 + r) * De + k)
-                         : 0.0f;
-        b_s[kk][r] = (t0 + r < L && k < De)
-                         ? __ldg(tok_base + (int64_t)(t0 + r) * De + k)
-                         : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kDK; ++kk)
-        t2 = fmaf(b_s[kk][tid], b_s[kk][tid], t2);
-#pragma unroll
-      for (int kk = 0; kk < kDK; ++kk) {
-        float av[kMicro], bv[kMicro];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i) av[i] = a_s[kk][ty + kMicro * i];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) bv[j] = b_s[kk][tx + kMicro * j];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // zero-padded depth adds exact zeros, so every score is the plain
-    // sequential FMA chain over k = 0 .. De - 1
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j)
-        score_s[ty + kMicro * i][tx + kMicro * j] = acc[i][j];
-    tok_t2[tid] = t2;
-    tok_inv[tid] = 1.0f / fmaxf(sqrtf(t2), 1e-9f);
-    __syncthreads();
-
-    for (int j = 0; j < kTT; ++j) {
-      const int s = tok_seg[j];
-      if (s < 0) continue;
-      if (s != cur) {  // swap this thread's running sums
-        if (cur >= 0) {
-          acc_s[(cur * 3 + 0) * kTU + tid] = r_dot;
-          acc_s[(cur * 3 + 1) * kTU + tid] = r_cos;
-          acc_s[(cur * 3 + 2) * kTU + tid] = r_max;
+        for (int w = 0; w < NW; ++w) {
+          const int c = warp_cnt[w];
+          if (w < warp) before += c;
+          total += c;
         }
-        r_dot = acc_s[(s * 3 + 0) * kTU + tid];
-        r_cos = acc_s[(s * 3 + 1) * kTU + tid];
-        r_max = acc_s[(s * 3 + 2) * kTU + tid];
-        cur = s;
       }
-      const float sc = score_s[tid][j];
-      r_dot += sc;
-      r_cos = fmaf(sc, tok_inv[j], r_cos);
-      const float d2 = (v2 + tok_t2[j]) - 2.0f * sc;
-      r_max = fmaxf(r_max, -d2);
+      if (on) {
+        list_pos[n_live + before] = p;
+        list_seg[n_live + before] = s;
+      }
+      n_live += total;
+      __syncthreads();  // warp_cnt is reused; the list is complete
     }
-    __syncthreads();  // the next tile overwrites score_s and tok_*
+    if (n_live == 0) continue;
+
+    const int n_tiles = (n_live + kTT - 1) / kTT;
+    const int n_steps = n_tiles * n_kc;
+    // stage step i (tile i / n_kc, depth slice i % n_kc) into its slot
+    auto load_step = [&](int i) {
+      const int ti = i / n_kc, k0 = (i % n_kc) * DK;
+      float* a = a_st + (i % kStages) * TU * LDK;
+      float* bb = b_st + (i % kStages) * kTT * LDK;
+      for (int x = tid; x < TU * CPR; x += NT) {
+        const int r = x / CPR, k = (x % CPR) * VEC, kg = k0 + k;
+        const bool ok = r < n_terms && kg < De;
+        cp_async<VEC>(a + r * LDK + k,
+                      ok ? term_base + (int64_t)r * De + kg : e_term,
+                      ok ? min(VEC, De - kg) * 4 : 0);
+      }
+      for (int x = tid; x < kTT * CPR; x += NT) {
+        const int r = x / CPR, k = (x % CPR) * VEC, kg = k0 + k;
+        const int j = ti * kTT + r;
+        const bool ok = j < n_live && kg < De;
+        cp_async<VEC>(
+            bb + r * LDK + k,
+            ok ? tok_base + (int64_t)list_pos[j] * De + kg : e_tok,
+            ok ? min(VEC, De - kg) * 4 : 0);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < n_steps) load_step(i);
+      cp_async_commit();
+    }
+
+    float acc[MI][4];
+    for (int i = 0; i < n_steps; ++i) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // step i landed; step i - 1's slot is free
+      if (i + kStages - 1 < n_steps) load_step(i + kStages - 1);
+      cp_async_commit();
+
+      const int ti = i / n_kc, kc = i % n_kc;
+      const float* a = a_st + (i % kStages) * TU * LDK;
+      const float* bb = b_st + (i % kStages) * kTT * LDK;
+      if (kc == 0) {
+#pragma unroll
+        for (int x = 0; x < MI; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < DK; kk += 4) {
+        float4 av[MI], bv[4];
+#pragma unroll
+        for (int x = 0; x < MI; ++x)
+          av[x] = *reinterpret_cast<const float4*>(a + (gi + GI * x) * LDK +
+                                                   kk);
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          bv[y] = *reinterpret_cast<const float4*>(bb + (gj + 16 * y) * LDK +
+                                                   kk);
+#pragma unroll
+        for (int x = 0; x < MI; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) {
+            acc[x][y] = fmaf(av[x].x, bv[y].x, acc[x][y]);
+            acc[x][y] = fmaf(av[x].y, bv[y].y, acc[x][y]);
+            acc[x][y] = fmaf(av[x].z, bv[y].z, acc[x][y]);
+            acc[x][y] = fmaf(av[x].w, bv[y].w, acc[x][y]);
+          }
+      }
+      // squared norms, one FMA chain over k per row: the tile's tokens,
+      // and in the first tile the block's terms
+      const int n_rows = kTT + (first_tile ? TU : 0);
+      for (int r = tid; r < n_rows; r += NT) {
+        const bool is_tok = r < kTT;
+        const float* row = is_tok ? bb + r * LDK : a + (r - kTT) * LDK;
+        float* dst = is_tok ? tok_t2 + r : term_v2 + (r - kTT);
+        float x = kc == 0 ? 0.0f : *dst;
+#pragma unroll
+        for (int kk = 0; kk < DK; kk += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row + kk);
+          x = fmaf(v.x, v.x, x);
+          x = fmaf(v.y, v.y, x);
+          x = fmaf(v.z, v.z, x);
+          x = fmaf(v.w, v.w, x);
+        }
+        *dst = x;
+        if (is_tok && kc == n_kc - 1)
+          tok_inv[r] = 1.0f / fmaxf(sqrtf(x), 1e-9f);
+      }
+      if (kc != n_kc - 1) continue;
+
+      // the tile is scored: fold it
+#pragma unroll
+      for (int x = 0; x < MI; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          score_s[(gi + GI * x) * kLDS + gj + 16 * y] = acc[x][y];
+      __syncthreads();
+      first_tile = false;
+      if (fold) {
+        const float v2 = term_v2[fu];
+        const int j0 = fc * kSlice, n_here = min(kTT, n_live - ti * kTT);
+        for (int j = j0; j < min(j0 + kSlice, n_here); ++j) {
+          const int s = list_seg[ti * kTT + j];
+          if (s != cur) {  // swap this thread's running sums
+            if (cur >= 0) {
+              float* p = acc_s + (fc * per_term + cur * 3) * TU + fu;
+              p[0] = r_dot;
+              p[TU] = r_cos;
+              p[2 * TU] = r_max;
+            }
+            const float* p = acc_s + (fc * per_term + s * 3) * TU + fu;
+            r_dot = p[0];
+            r_cos = p[TU];
+            r_max = p[2 * TU];
+            cur = s;
+          }
+          const float sc = score_s[fu * kLDS + j];
+          r_dot += sc;
+          r_cos = fmaf(sc, tok_inv[j], r_cos);
+          const float d2 = (v2 + tok_t2[j]) - 2.0f * sc;
+          r_max = fmaxf(r_max, -d2);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next window overwrites the list
   }
-  if (u >= U) return;
+
   if (cur >= 0) {
-    acc_s[(cur * 3 + 0) * kTU + tid] = r_dot;
-    acc_s[(cur * 3 + 1) * kTU + tid] = r_cos;
-    acc_s[(cur * 3 + 2) * kTU + tid] = r_max;
+    float* p = acc_s + (fc * per_term + cur * 3) * TU + fu;
+    p[0] = r_dot;
+    p[TU] = r_cos;
+    p[2 * TU] = r_max;
   }
-  const float inv_u = 1.0f / fmaxf(sqrtf(v2), 1e-9f);
-  for (int s = 0; s < S; ++s) {
-    float dot = 0.0f, cos = 0.0f, gauss = 0.0f;
-    if (live) {
-      dot = acc_s[(s * 3 + 0) * kTU + tid];
-      cos = acc_s[(s * 3 + 1) * kTU + tid] * inv_u;
-      const float m = acc_s[(s * 3 + 2) * kTU + tid];
-      gauss = isfinite(m) ? expf(m) : 0.0f;
+  __syncthreads();
+  // the block's output rows are contiguous: (term, segment, value)
+  const int cls = per_term * TU;  // stride between class tables
+  for (int e = tid; e < n_terms * per_term; e += NT) {
+    const int u = e / per_term, rem = e % per_term, kind = rem % 3;
+    float v = 0.0f;
+    if (term_live[u]) {
+      const float* p = acc_s + rem * TU + u;
+      if (kind < 2) {
+        v = ((p[0] + p[cls]) + p[2 * cls]) + p[3 * cls];
+        if (kind == 1) v *= 1.0f / fmaxf(sqrtf(term_v2[u]), 1e-9f);
+      } else {
+        const float m =
+            fmaxf(fmaxf(p[0], p[cls]), fmaxf(p[2 * cls], p[3 * cls]));
+        v = isfinite(m) ? expf(m) : 0.0f;
+      }
     }
-    out_u[s * 3 + 0] = dot;
-    out_u[s * 3 + 1] = cos;
-    out_u[s * 3 + 2] = gauss;
+    out_b[e] = v;
   }
+}
+
+// the largest dynamic shared memory each kernel was allowed, per device:
+// cudaFuncSetAttribute runs once per kernel and device, not per launch
+template <int TU, int VEC>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<int> allowed[kMaxDevices];
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev].load() >= bytes) return cudaSuccess;
+  const int most = Cfg<TU>::smem_bytes(kMaxSeg);  // enough for every S
+  err = cudaFuncSetAttribute(seg_interact_kernel<TU, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev].store(most);
+  return err;
+}
+
+template <int TU, int VEC>
+int launch(const float* e_term, const float* e_tok, const int* seg,
+           const int* term_ids, float* out, int B, int U, int L, int De,
+           int S, cudaStream_t stream) {
+  const int smem = Cfg<TU>::smem_bytes(S);
+  cudaError_t err = allow_smem<TU, VEC>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (U + TU - 1) / TU;
+  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  seg_interact_kernel<TU, VEC>
+      <<<dim3((unsigned)B, (unsigned)tiles), Cfg<TU>::NT, smem, stream>>>(
+          e_term, e_tok, seg, term_ids, out, U, L, De, S);
+  return (int)cudaGetLastError();
+}
+
+template <int TU>
+int launch_tu(bool vec4, const float* e_term, const float* e_tok,
+              const int* seg, const int* term_ids, float* out, int B, int U,
+              int L, int De, int S, cudaStream_t stream) {
+  return vec4 ? launch<TU, 4>(e_term, e_tok, seg, term_ids, out, B, U, L, De,
+                              S, stream)
+              : launch<TU, 1>(e_term, e_tok, seg, term_ids, out, B, U, L, De,
+                              S, stream);
 }
 
 }  // namespace
@@ -215,15 +426,16 @@ int seg_interact_launch(const float* e_term, const float* e_tok,
                         int B, int U, int L, int De, int S,
                         cudaStream_t stream) {
   if (B == 0 || U == 0) return 0;
-  if (S < 1 || S > kMaxSeg || De < 1) return (int)cudaErrorInvalidValue;
-  const int dyn = S * 3 * kTU * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      seg_interact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)B, (unsigned)((U + kTU - 1) / kTU));
-  seg_interact_kernel<<<grid, kThreads, dyn, stream>>>(
-      e_term, e_tok, seg, term_ids, out, U, L, De, S);
-  return (int)cudaGetLastError();
+  if (S < 1 || S > kMaxSeg || De < 1 || L < 0)
+    return (int)cudaErrorInvalidValue;
+  const bool vec4 = De % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(e_term) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(e_tok) % 16 == 0;
+  // terms per block: 8 for a No-Index query's slots, else 16
+  return U <= 8 ? launch_tu<8>(vec4, e_term, e_tok, seg, term_ids, out, B,
+                               U, L, De, S, stream)
+                : launch_tu<16>(vec4, e_term, e_tok, seg, term_ids, out, B,
+                                U, L, De, S, stream);
 }
 
 const char* kernel_error_string(int err) {

@@ -14,20 +14,85 @@ Given CUDA tensors :func:`seg_interact_kernel` validates them, allocates
 its output with ``torch.empty``, launches on PyTorch's current stream,
 raises on a nonzero ``cudaGetLastError`` and adds one to its
 ``launches`` count.  Given CPU tensors it runs :func:`seg_interact_plain`.
+
+:func:`fold_events` mirrors the kernel's work partition in plain Python:
+the live-token compaction per window, the token tiles, the fold classes
+and the term tiles, so that the tests check here which (term, token)
+pairs each cell sums, and in what order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
                      stream_handle)
 
 MAX_SEGMENTS = 64
+TOKEN_TILE = 64      # live tokens per tile
+SLICE = 16           # live tokens one fold thread walks per tile
+N_CLASSES = TOKEN_TILE // SLICE
+WINDOW = 512         # positions compacted at a time
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"seg_interact_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _P]}
+
+
+def term_tile_for(n_u: int) -> int:
+    """The kernel's terms per block for a launch of ``n_u`` term slots: 8
+    when they fit (a No-Index query), else 16."""
+    return 8 if n_u <= 8 else 16
+
+
+def live_windows(seg_row, n_seg: int) -> List[np.ndarray]:
+    """One doc's live positions (seg in ``[0, n_seg)``) in token order, as
+    the kernel compacts them: one array per window of WINDOW positions,
+    empty windows left out."""
+    seg_row = np.asarray(seg_row)
+    out = []
+    for w0 in range(0, seg_row.shape[0], WINDOW):
+        s = seg_row[w0:w0 + WINDOW]
+        pos = w0 + np.flatnonzero((s >= 0) & (s < n_seg))
+        if pos.size:
+            out.append(pos)
+    return out
+
+
+def fold_events(seg, term_ids, n_seg: int
+                ) -> List[Tuple[int, int, int, int, int]]:
+    """The kernel's work partition for one launch, in the order its loops
+    run: blocks (doc b, a tile of :func:`term_tile_for` terms), then each
+    window's token tiles of TOKEN_TILE live tokens, then fold thread (term
+    u, class c) walking the tile's live tokens ``SLICE c .. SLICE (c + 1)
+    - 1``.  Returns
+    ``(b, u, position, segment, class)`` per (term, token) pair folded.
+
+    A cell (b, u, s) sums its events of each class in list order, then
+    adds the classes in order (gauss: their max).  A tile of pad terms
+    folds nothing (it writes zeros), nor does a pad term in a live tile
+    (its rows are zeroed) or a token outside ``[0, n_seg)``."""
+    seg = np.asarray(seg.cpu() if torch.is_tensor(seg) else seg)
+    ids = np.asarray(term_ids.cpu() if torch.is_tensor(term_ids)
+                     else term_ids)
+    n_b, n_u = ids.shape
+    tu = term_tile_for(n_u)
+    events = []
+    for b in range(n_b):
+        windows = live_windows(seg[b], n_seg)
+        for u0 in range(0, n_u, tu):
+            terms = [u for u in range(u0, min(u0 + tu, n_u)) if ids[b, u] >= 0]
+            for pos in windows:
+                for t0 in range(0, pos.size, TOKEN_TILE):
+                    tile = pos[t0:t0 + TOKEN_TILE]
+                    for c in range(N_CLASSES):
+                        for u in terms:
+                            for p in tile[c * SLICE:(c + 1) * SLICE]:
+                                events.append((b, u, int(p), int(seg[b, p]),
+                                               c))
+    return events
 
 
 def _inv_norm(x: torch.Tensor) -> torch.Tensor:

@@ -162,6 +162,8 @@ def test_build_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
     assert row["launches_by_path"]["noindex"] > 0
     assert row["max_abs_err"] == 0.0           # the plain version vs itself
     assert row["bound_ms"] > 0 and row["library_ms"] is None
+    assert row["noindex_bound_ms"] > 0 and row["noindex_plain_ms"] > 0
+    assert row["noindex_ms"] > 0 and row["noindex_share"] > 0
     assert eb["name"] == "embed_bag" and eb["route"] == "cuda"
     assert eb["replaces"] == "src/repro/kernels/embed_bag/kernel.py:40"
     assert eb["source"] == \
@@ -292,6 +294,8 @@ def test_lm_phase_runs_on_the_cpu(seed, monkeypatch):
     assert row["launches_by_path"]["noindex"] > 0
     assert row["max_abs_err"] == row["f32_max_abs_err"] == 0.0
     assert row["bound_ms"] > 0 and row["library_ms"] > 0
+    assert row["f32_bound_ms"] > 0 and row["f32_library_ms"] > 0
+    assert row["f32_plain_ms"] > 0
     assert row["peak_bytes"] is None
 
 def test_refuses_to_run_without_cuda():

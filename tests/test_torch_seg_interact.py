@@ -31,6 +31,11 @@ from repro_torch.kernels.seg_interact import (MAX_SEGMENTS,
                                               seg_interact_kernel,
                                               seg_interact_plain,
                                               seg_interact_ref)
+from repro_torch.kernels.seg_interact.kernel import (N_CLASSES, SLICE,
+                                                     TOKEN_TILE, WINDOW,
+                                                     fold_events,
+                                                     live_windows,
+                                                     term_tile_for)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 UNIT_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -144,6 +149,154 @@ def test_ragged_layout_pad_terms_and_excluded_tokens():
             want[term_ids[i] < 0] = 0.0
             np.testing.assert_allclose(got[i, :, s], want, **TOL,
                                        err_msg=f"doc {i} segment {s}")
+
+
+def _partition_case(case, seed=0):
+    """(seg (B, L), term_ids (B, U), n_seg) for the kernel's partition:
+    TextTiling-like runs with excluded positions, segments that come back
+    (not contiguous), one segment longer than a token tile, a doc with
+    every token excluded, and docs longer than a compaction window."""
+    rng = np.random.RandomState(seed)
+    b, u, length, n_seg = dict(
+        runs=(3, 40, 300, 20), noncontiguous=(2, 9, 200, 7),
+        long_segment=(2, 33, 400, 3), all_excluded=(2, 6, 100, 5),
+        windows=(2, 17, 2 * WINDOW + 300, 64), one_segment=(2, 1, 150, 1),
+    )[case]
+    seg = np.sort(rng.randint(0, n_seg, size=(b, length)), axis=1)
+    if case == "noncontiguous":
+        seg = rng.randint(-2, n_seg + 2, size=(b, length))
+    if case == "long_segment":
+        seg[:, 20:20 + 3 * TOKEN_TILE] = 1
+    seg[rng.rand(b, length) < 0.4] = -1            # OOV and pad positions
+    seg[:, ::11] = n_seg                           # out of range: excluded
+    if case == "all_excluded":
+        seg[0] = -1
+    ids = rng.randint(0, 500, size=(b, u)).astype(np.int32)
+    ids[rng.rand(b, u) < 0.25] = -1
+    return seg.astype(np.int32), ids, n_seg
+
+
+PARTITION_CASES = ["runs", "noncontiguous", "long_segment", "all_excluded",
+                   "windows", "one_segment"]
+
+
+def cell_orders(events) -> dict:
+    """``{(b, u, s): ((positions of class 0 in order), ..., (class
+    N_CLASSES - 1))}`` from ``fold_events``: the order in which the
+    kernel adds a cell's tokens."""
+    out = {}
+    for b, u, p, s, c in events:
+        out.setdefault((b, u, s), [[] for _ in range(N_CLASSES)])[c].append(p)
+    return {k: tuple(map(tuple, v)) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_partition_covers_every_live_pair_once(case):
+    """The kernel's partition (compaction, token tiles, fold classes,
+    term tiles of 8 or 16 by the case's U) folds every (live term, live
+    token) pair of a doc exactly once, into the token's own segment, and
+    nothing of a pad term or of a token outside [0, S)."""
+    seg, ids, n_seg = _partition_case(case)
+    events = fold_events(seg, ids, n_seg)
+    pairs = [(b, u, p) for b, u, p, _, _ in events]
+    assert len(pairs) == len(set(pairs))
+    want = {(b, u, p) for b in range(ids.shape[0])
+            for u in np.flatnonzero(ids[b] >= 0)
+            for p in np.flatnonzero((seg[b] >= 0) & (seg[b] < n_seg))}
+    assert set(pairs) == want
+    assert all(s == seg[b, p] for b, _, p, s, _ in events)
+    assert all(0 <= c < N_CLASSES for *_, c in events)
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_partition_compacts_in_token_order(case):
+    """Live positions come out in token order, window by window; a
+    token's class is its rank in its window's live list, in tiles of
+    TOKEN_TILE and slices of SLICE."""
+    seg, ids, n_seg = _partition_case(case)
+    for b in range(seg.shape[0]):
+        windows = live_windows(seg[b], n_seg)
+        flat = np.concatenate(windows) if windows else np.zeros(0, int)
+        live = np.flatnonzero((seg[b] >= 0) & (seg[b] < n_seg))
+        assert np.array_equal(flat, live)
+        assert all(np.unique(w // WINDOW).size == 1 for w in windows)
+        rank = {int(p): r for w in windows for r, p in enumerate(w)}
+        for eb, _, p, _, c in fold_events(seg[b:b + 1], ids[b:b + 1],
+                                          n_seg):
+            assert c == rank[p] % TOKEN_TILE // SLICE
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_partition_cell_order_depends_only_on_the_doc(case):
+    """A cell's summation order is the same whether its term sits among a
+    build batch's 512 term slots (tiles of 16) or in a No-Index query of 6
+    slots (tiles of 8) or of 12 (tiles of 16), at another doc index of
+    another batch: so the two paths give the same bits."""
+    seg, ids, n_seg = _partition_case(case)
+    n_b = seg.shape[0]
+    build_ids = np.full((n_b, 512), -1, np.int32)
+    build_ids[:, :ids.shape[1]] = ids
+    build = cell_orders(fold_events(seg, build_ids, n_seg))
+    assert term_tile_for(512) == 16 and term_tile_for(6) == 8
+    for b in range(n_b):
+        terms = np.flatnonzero(ids[b] >= 0)
+        for q0 in range(0, terms.size, 5):
+            q = np.full((1, 6), -1, np.int32)
+            q[0, 1:1 + terms[q0:q0 + 5].size] = terms[q0:q0 + 5]
+            other = (b + 1) % n_b                  # the doc at index 1
+            q_seg = np.stack([seg[other], seg[b]])
+            q_ids = np.concatenate([np.full((1, 6), 7, np.int32), q])
+            for width in (6, 12):                 # tiles of 8, of 16
+                wide = np.full((2, width), -1, np.int32)
+                wide[:, :6] = q_ids
+                got = cell_orders(fold_events(q_seg, wide, n_seg))
+                for slot in range(1, 6):
+                    u = q[0, slot]
+                    if u < 0:
+                        continue
+                    for s in range(n_seg):
+                        assert got.get((1, slot, s)) == \
+                            build.get((b, int(u), s))
+
+
+def test_partition_sums_match_jax_ref():
+    """Summing each cell as the partition orders it (float32 class
+    partials added in class order, gauss as their max) gives the JAX
+    ref's values for that segment alone."""
+    rng = np.random.RandomState(3)
+    seg, ids, n_seg = _partition_case("noncontiguous", seed=3)
+    n_b, n_u = ids.shape
+    de = 16
+    e_term = (rng.randn(n_b, n_u, de) / np.sqrt(de)).astype(np.float32)
+    e_tok = (rng.randn(n_b, seg.shape[1], de) / np.sqrt(de)).astype(
+        np.float32)
+    orders = cell_orders(fold_events(seg, ids, n_seg))
+    for (b, u, s), classes in orders.items():
+        eu = e_term[b, u]
+        dot, cos, mx = [], [], []
+        for pos in classes:
+            et = e_tok[b, list(pos)] if pos else np.zeros((0, de), np.float32)
+            sc = et @ eu
+            dot.append(np.float32(sc.sum(dtype=np.float32)))
+            inv_t = 1.0 / np.maximum(np.linalg.norm(et, axis=1), 1e-9)
+            cos.append(np.float32((sc * inv_t).sum(dtype=np.float32)))
+            d2 = (eu @ eu + (et * et).sum(1)) - 2.0 * sc
+            mx.append((-d2).max() if pos else -np.inf)
+        got = np.array([((dot[0] + dot[1]) + dot[2]) + dot[3],
+                        (((cos[0] + cos[1]) + cos[2]) + cos[3])
+                        / max(np.linalg.norm(eu), 1e-9),
+                        np.exp(max(mx))], np.float32)
+        toks = e_tok[b][seg[b] == s]
+        want = _jax_want(eu[None], toks[None], np.ones((1, len(toks)),
+                                                       np.float32))[0, 0]
+        np.testing.assert_allclose(got, want, **TOL,
+                                   err_msg=f"doc {b} term {u} segment {s}")
+
+
+@pytest.mark.parametrize("n_u,tile", [(1, 8), (6, 8), (8, 8), (9, 16),
+                                      (16, 16), (17, 16), (512, 16)])
+def test_term_tile_is_sized_to_the_launch(n_u, tile):
+    assert term_tile_for(n_u) == tile
 
 
 def test_function_names_match_jax():

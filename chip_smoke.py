@@ -22,11 +22,15 @@ Phases (any failed check raises, and the script exits non-zero):
    bytes and the host seconds are printed.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving shapes and on adversarial ids: ``csr_lookup`` at tiles
-   {64, 256, 1024} (bitwise), ``retrieve_windows`` over every doc block of
-   a query (bitwise), ``knrm_pool`` (rtol 1e-5 / atol 1e-6), and the
-   committed K=4 hot-term-split fixture (``tests/data/torch_hot_term_k4``:
-   per-pair routing, K > 1; bitwise).  Then, for both codecs, the same
-   for ``csr_lookup_packed`` (tiles {64, 256, 1024}) and
+   {64, 256, 1024} (bitwise); the first-stage scan as the main path runs
+   it, one ``lane_bounds`` table per query and ``retrieve_windows`` over
+   every doc block through it, the table, every block (== M assembled
+   from the plain table) and the independent per-block scan all bitwise;
+   ``knrm_pool`` (rtol 1e-5 / atol 1e-6); and the committed K=4
+   hot-term-split fixture (``tests/data/torch_hot_term_k4``: per-pair
+   routing, K > 1; bitwise; scans in blocks of 7, 16 and 64).  Then, for
+   both codecs, the same for ``csr_lookup_packed`` (tiles
+   {64, 256, 1024}) and ``lane_bounds_packed`` with
    ``retrieve_windows_packed`` (every doc block of a query), and both over
    the fixture packed on the card; all bitwise, ``packed`` also against
    the raw index's M.
@@ -44,9 +48,16 @@ Phases (any failed check raises, and the script exits non-zero):
 4. Timing: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events; the bound is
    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM
-   data-sheet peaks) for this run's data.  The packed kernels are timed
-   under both codecs (``packed`` in the row's own keys, ``packed-q8``
-   under ``q8``).
+   data-sheet peaks) for this run's data.  The scans are timed as whole
+   scans of the 8 retrieval queries (a table, then 64 blocks): a scan
+   row's ``ms`` is all the device work of a block (CUPTI: the block
+   kernel, 1/64 of the table, any memset), its ``library_ms`` the copy
+   alone by PyTorch calls (``torch.zeros``, ``index_select`` and
+   ``index_copy_`` of the found rows at given positions; no single call
+   computes the whole function); a table row's ``ms`` is per launch (per
+   query), beside ``torch.searchsorted`` of the same (term, doc) keys for
+   the raw index.  The packed kernels are timed under both codecs
+   (``packed`` in the row's own keys, ``packed-q8`` under ``q8``).
 
 5. The offline build at full width and scale: SEINE_LETOR
    (``configs/seine_letor.py``) at its full 65,323 docs, n_b = 20,
@@ -165,10 +176,12 @@ from repro_torch.kernels import build_all  # noqa: E402
 from repro_torch.dist.partition import pack_index  # noqa: E402
 from repro_torch.dist.sharding import partition_index  # noqa: E402
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
-    csr_lookup_kernel, csr_lookup_packed_kernel, csr_lookup_packed_plain,
-    csr_lookup_plain, lane_scales, retrieve_lanes, retrieve_windows_kernel,
+    assemble_block_ref, block_cells_ref, csr_lookup_kernel,
+    csr_lookup_packed_kernel, csr_lookup_packed_plain, csr_lookup_plain,
+    lane_bounds_kernel, lane_bounds_packed_kernel, lane_bounds_packed_ref,
+    lane_bounds_ref, lane_scales, retrieve_lanes, retrieve_windows_kernel,
     retrieve_windows_packed_kernel, route_pairs, route_terms,
-    scan_block_packed_ref, scan_block_ref)
+    scan_block_packed_ref, scan_block_ref, scan_edges)
 from repro_torch.kernels.csr_lookup.ops import _route_cells  # noqa: E402
 from repro_torch.kernels.embed_bag import (  # noqa: E402
     bag_ptr_from_offsets, embed_bag_kernel, embed_bag_plain,
@@ -209,6 +222,10 @@ TPU_KERNELS = {
     "knrm_pool": "src/repro/kernels/knrm_pool/kernel.py:34",
     "csr_lookup_packed": "src/repro/kernels/csr_lookup/kernel.py:359",
     "retrieve_windows_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
+    # the lane-bounds tables: the lane bisects that feed the scan's TPU
+    # kernels, split into a launch of their own once per scan
+    "lane_bounds": "src/repro/kernels/csr_lookup/kernel.py:162",
+    "lane_bounds_packed": "src/repro/kernels/csr_lookup/kernel.py:442",
     "seg_interact": "src/repro/kernels/seg_interact/kernel.py:50",
     "flash_attn": "src/repro/kernels/flash_attn/kernel.py:63",
     "embed_bag": "src/repro/kernels/embed_bag/kernel.py:40",
@@ -216,27 +233,32 @@ TPU_KERNELS = {
 # the launch counter of each kernel, and the kernels each serving path
 # (codec) must launch
 COUNTERS = {"csr_lookup": csr_lookup_kernel,
+            "lane_bounds": lane_bounds_kernel,
             "retrieve_windows": retrieve_windows_kernel,
             "knrm_pool": knrm_pool_kernel,
             "csr_lookup_packed": csr_lookup_packed_kernel,
+            "lane_bounds_packed": lane_bounds_packed_kernel,
             "retrieve_windows_packed": retrieve_windows_packed_kernel,
             "seg_interact": seg_interact_kernel,
             "flash_attn": flash_attn_kernel,
             "embed_bag": embed_bag_kernel}
 # a piece of each kernel's CUDA function name, as CUPTI records it
 KERNEL_NAMES = {"csr_lookup": "csr_lookup_kernel",
+                "lane_bounds": "lane_bounds_kernel",
                 "retrieve_windows": "retrieve_block_kernel",
                 "knrm_pool": "knrm_pool_kernel",
                 "csr_lookup_packed": "csr_lookup_packed_kernel",
+                "lane_bounds_packed": "lane_bounds_packed_kernel",
                 "retrieve_windows_packed": "retrieve_block_packed_kernel",
                 "seg_interact": "seg_interact_kernel",
                 "flash_attn": "flash_attn_kernel",
                 "embed_bag": "embed_bag_"}
-PATH_KERNELS = {"none": ("csr_lookup", "retrieve_windows", "knrm_pool"),
-                "packed": ("csr_lookup_packed", "retrieve_windows_packed",
-                           "knrm_pool"),
-                "packed-q8": ("csr_lookup_packed", "retrieve_windows_packed",
-                              "knrm_pool")}
+PATH_KERNELS = {"none": ("csr_lookup", "lane_bounds", "retrieve_windows",
+                         "knrm_pool"),
+                "packed": ("csr_lookup_packed", "lane_bounds_packed",
+                           "retrieve_windows_packed", "knrm_pool"),
+                "packed-q8": ("csr_lookup_packed", "lane_bounds_packed",
+                              "retrieve_windows_packed", "knrm_pool")}
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_hot_term_k4")
 # phase 5, the offline build: SEINE_LETOR at the full MQ2007 size
 BUILD_DOCS = 65_323
@@ -446,18 +468,30 @@ def stacked(index):
 
 
 def check_scan(index, q, block, what):
-    """retrieve_windows kernel == its plain version over every block."""
+    """retrieve_windows through the scan's lane-bounds table, as the main
+    path runs it (one table for every block of the query): the table ==
+    its plain version, and every block == its plain version (M assembled
+    from the plain table) and == the independent per-block scan
+    (``scan_block_ref``), bit for bit.  Returns the largest |diff|."""
     to, dids, vals, t2s, rlo, rhi = stacked(index)
     lo, hi = retrieve_lanes(q, to, t2s, rlo, rhi, dids.shape[1])
     lo, hi = lo.contiguous(), hi.contiguous()
+    n_blocks = -(-index.n_docs // block)
+    bounds = lane_bounds_kernel(dids, lo, hi, 0, block, n_blocks)
+    table = lane_bounds_ref(dids, lo, hi, scan_edges(
+        0, n_blocks * block, device=dids.device))
+    assert_equal(bounds.table, table, f"{what} lane_bounds")
+    table_err = (bounds.table - table).abs().max().item()
     err = 0.0
     for blo in range(0, index.n_docs, block):
         got = retrieve_windows_kernel(dids, vals, lo, hi, blo, block,
-                                      tile=256)
-        want = scan_block_ref(dids, vals, lo, hi, blo, block)
+                                      bounds=bounds)
+        want = assemble_block_ref(vals, None, table, blo, block)
         assert_equal(got, want, f"{what} retrieve_windows blo={blo}")
+        assert_equal(got, scan_block_ref(dids, vals, lo, hi, blo, block),
+                     f"{what} retrieve_windows vs scan_block_ref blo={blo}")
         err = max(err, (got - want).abs().max().item())
-    return err
+    return err, table_err
 
 
 def phase2(index, rng, dev):
@@ -482,8 +516,9 @@ def phase2(index, rng, dev):
         f"tiles 64/256/1024")
 
     # retrieve_windows over every doc block of one query (hot term in it)
-    scan_err = check_scan(index, qt, 1024, "full index")
-    log("phase 2: retrieve_windows == plain (bitwise) over all blocks")
+    scan_err, table_err = check_scan(index, qt, 1024, "full index")
+    log("phase 2: lane_bounds and retrieve_windows == plain (bitwise) "
+        "over all blocks, through one table per scan")
 
     # knrm_pool at the serving shape, plus exact-match and empty segments
     g = torch.Generator(device=dev).manual_seed(1)
@@ -506,10 +541,11 @@ def phase2(index, rng, dev):
                       dtype=torch.int32, device=dev)
     df = torch.arange(-1, fx.n_docs + 2, dtype=torch.int32, device=dev)
     check_lookup(fx, qf, df, (4, 64, 256, 1024), "K=4 fixture")
-    for block in (16, 64):
+    for block in (7, 16, 64):
         check_scan(fx, qf, block, "K=4 fixture")
     log("phase 2: K=4 sub-sharded fixture == plain (bitwise)")
-    return dict(scan_err=scan_err, knrm_err=knrm_err, q=qt, docs=dt,
+    return dict(scan_err=scan_err, table_err=table_err, knrm_err=knrm_err,
+                q=qt, docs=dt,
                 fixture=fx, fixture_q=qf, fixture_docs=df)
 
 
@@ -554,23 +590,39 @@ def packed_lanes(pidx, q):
 
 
 def check_packed_scan(pidx, q, block, what, raw=None):
-    """retrieve_windows_packed kernel == its plain version over every
-    block (and == the raw scan when ``raw`` is given)."""
+    """retrieve_windows_packed through the scan's lane-bounds table, as
+    ``check_scan`` holds the raw scan: the table and every block == their
+    plain versions and the per-block ``scan_block_packed_ref``, and ==
+    the raw scan's blocks when ``raw`` is given."""
     lo, hi, scale = packed_lanes(pidx, q)
-    args = (pidx._packed(), pidx.fences, pidx._serve_values, scale, lo, hi)
+    args = (pidx._packed(), pidx.fences, pidx._serve_values)
+    t = pidx.codec_tile
+    n_blocks = -(-pidx.n_docs // block)
+    bounds = lane_bounds_packed_kernel(*args, lo, hi, 0, block, n_blocks,
+                                       tile=t)
+    table = lane_bounds_packed_ref(
+        pidx._packed(), pidx.fences, pidx.nmax, lo, hi,
+        scan_edges(0, n_blocks * block, device=lo.device), tile=t)
+    assert_equal(bounds.table, table, f"{what} lane_bounds_packed")
     if raw is not None:
         to, dids, vals, t2s, rlo, rhi = stacked(raw)
         r_lo, r_hi = retrieve_lanes(q, to, t2s, rlo, rhi, dids.shape[1])
+        r_lo, r_hi = r_lo.contiguous(), r_hi.contiguous()
+        r_bounds = lane_bounds_kernel(dids, r_lo, r_hi, 0, block, n_blocks)
     for blo in range(0, pidx.n_docs, block):
-        got = retrieve_windows_packed_kernel(*args, blo, block,
-                                             tile=pidx.codec_tile)
-        want = scan_block_packed_ref(*args, blo, block,
-                                     tile=pidx.codec_tile)
+        got = retrieve_windows_packed_kernel(*args, scale, lo, hi, blo,
+                                             block, tile=t, bounds=bounds)
+        want = assemble_block_ref(pidx._serve_values, scale, table, blo,
+                                  block)
         assert_equal(got, want, f"{what} retrieve_windows_packed blo={blo}")
+        assert_equal(got, scan_block_packed_ref(*args, scale, lo, hi, blo,
+                                                block, tile=t),
+                     f"{what} retrieve_windows_packed vs "
+                     f"scan_block_packed_ref blo={blo}")
         if raw is not None:
             assert_equal(got, retrieve_windows_kernel(
-                dids, vals, r_lo.contiguous(), r_hi.contiguous(), blo,
-                block, tile=256), f"{what} packed scan vs raw blo={blo}")
+                dids, vals, r_lo, r_hi, blo, block, bounds=r_bounds),
+                f"{what} packed scan vs raw blo={blo}")
 
 
 def phase2_packed(index, packed, p2):
@@ -587,8 +639,8 @@ def phase2_packed(index, packed, p2):
             f"(bitwise) at {Q_SLOTS} x {N_CAND}, tiles 64/256/1024"
             + (", == the raw index's M" if raw is not None else ""))
         check_packed_scan(packed[codec], q, 1024, codec, raw)
-        log(f"phase 2: retrieve_windows_packed ({codec}) == plain "
-            "(bitwise) over all blocks"
+        log(f"phase 2: lane_bounds_packed and retrieve_windows_packed "
+            f"({codec}) == plain (bitwise) over all blocks"
             + (", == the raw scan" if raw is not None else ""))
         fx = pack_index(p2["fixture"], codec, tile=8)
         for tile in (8, 64, 256):
@@ -597,7 +649,7 @@ def phase2_packed(index, packed, p2):
             check_packed_lookup(fxt, p2["fixture_q"], p2["fixture_docs"],
                                 f"K=4 fixture {codec} tile={tile}",
                                 p2["fixture"] if codec == "packed" else None)
-            for block in (16, 64):
+            for block in (7, 16, 64):
                 check_packed_scan(fxt, p2["fixture_q"], block,
                                   f"K=4 fixture {codec} tile={tile}",
                                   p2["fixture"] if codec == "packed"
@@ -918,31 +970,165 @@ def time_lookup(index, requests, dev):
                 bound_by=b_by, library_ms=lib_ms, ms_cold=ms_cold)
 
 
-def time_scan(index, queries, scan_err, dev):
-    """retrieve_windows: one launch per 1024-doc block, over the full
-    scans of every retrieval query."""
+def device_profile(fns, iters: int):
+    """``{device op: (ms, count)}`` of every kernel, memcpy and memset
+    CUPTI records over ``iters`` calls cycling through ``fns``, after a
+    warm-up; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    out = {e.key: (e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0}
+    return out or None
+
+
+def all_device_ms(fns, iters: int) -> float:
+    """Device ms per call of every op the calls launch (CUPTI), or the
+    CUDA-event time per call when the profiler records none."""
+    prof = device_profile(fns, iters)
+    if prof is None:
+        return events_ms(fns, iters)
+    return sum(t for t, _ in prof.values()) / iters
+
+
+def scan_times(scans, n_blocks: int, table: str, kernel: str):
+    """Whole first-stage scans, one per entry of ``scans`` (its table
+    launch, then ``n_blocks`` block launches): ``ms``, all the device work
+    per block (the block kernel, its 1 / n_blocks share of the table and
+    any other op in the window, such as a memset); ``kernel_ms`` per block
+    launch and ``table_ms`` per table launch (CUPTI); ``call_ms`` per
+    block with the host's launch cost (CUDA events)."""
+    call = events_ms(scans, len(scans)) / n_blocks
+    prof = device_profile(scans, len(scans)) or {}
+
+    def per_launch(piece):
+        hits = [v for k, v in prof.items() if piece in k]
+        n = sum(c for _, c in hits)
+        return sum(t for t, _ in hits), n
+    kernel_sum, n_kernel = per_launch(kernel)
+    table_sum, n_table = per_launch(table)
+    if not (n_kernel and n_table):
+        return dict(ms=call, kernel_ms=call, table_ms=call, call_ms=call,
+                    timed_by="events")
+    rest = sum(t for t, _ in prof.values()) - kernel_sum - table_sum
+    memsets = sum(c for k, (_, c) in prof.items() if "memset" in k.lower())
+    kernel_ms, table_ms = kernel_sum / n_kernel, table_sum / n_table
+    # per launch, so that records CUPTI dropped do not count as zeros
+    return dict(
+        ms=kernel_ms + table_ms / n_blocks + rest / (len(scans) * n_blocks),
+        kernel_ms=kernel_ms, table_ms=table_ms, call_ms=call,
+        timed_by=(f"cupti, all device ops of {len(scans)} scans: "
+                  f"{n_kernel} of {len(scans) * n_blocks} block and "
+                  f"{n_table} of {len(scans)} table launches recorded, "
+                  f"{memsets} memsets"))
+
+
+def copy_yardstick(vals_flat, cells, pos, n_cells: int, scale=None):
+    """M built by PyTorch calls given the found postings' cells and flat
+    positions: ``torch.zeros``, ``index_select`` of the rows (times the
+    lane scale for int8 values) and ``index_copy_`` into M."""
+    m = torch.zeros((n_cells,) + tuple(vals_flat.shape[1:]),
+                    dtype=torch.float32, device=vals_flat.device)
+    rows = vals_flat.index_select(0, pos)
+    if scale is not None:
+        rows = rows.to(torch.float32) * scale[:, None, None]
+    return m.index_copy_(0, cells, rows)
+
+
+def yardstick_ms(vals, tables, n_blocks: int, scales, check):
+    """The copy yardstick's device ms per block over every block of the
+    scans whose plain tables are ``tables``; ``check`` (blo, M) holds its
+    first block against the kernel's M."""
+    flat = vals.reshape((-1,) + tuple(vals.shape[2:]))
+    q_n = tables[0].shape[0]
+    calls = []
+    for table, scale in zip(tables, scales):
+        for b in range(n_blocks):
+            cell, pos, lane = block_cells_ref(table, b * 1024, 1024)
+            sc = None if scale is None else scale.reshape(-1)[lane]
+            calls.append(lambda c=cell, p=pos, s=sc: copy_yardstick(
+                flat, c, p, 1024 * q_n, s))
+    check(0, calls[0]().view((1024, q_n) + tuple(vals.shape[2:])))
+    return all_device_ms(calls, len(calls))
+
+
+def time_scan(index, queries, errs, dev):
+    """retrieve_windows as the main path runs it: per retrieval query one
+    lane-bounds table (``lane_bounds``), then one launch per 1024-doc
+    block over the whole corpus.  Returns the scan's row (``ms``: all the
+    device work of a block) and the table's (ms per launch, once per
+    query)."""
     row = N_B * len(ZIPF_FUNCTIONS)
     to, dids, vals, t2s, rlo, rhi = stacked(index)
-    calls, n_post = [], 0
+    n_blocks = -(-N_DOCS // 1024)
+    lanes, n_post = [], 0
     for q in queries:
         lo, hi = retrieve_lanes(torch.from_numpy(q).to(dev), to, t2s, rlo,
                                 rhi, dids.shape[1])
-        lo, hi = lo.contiguous(), hi.contiguous()
+        lanes.append((lo.contiguous(), hi.contiguous()))
         n_post += int((hi - lo).sum())
-        calls += [(lo, hi, blo) for blo in range(0, N_DOCS, 1024)]
-    ms, how, call_ms = timed([lambda c=c: retrieve_windows_kernel(
-        dids, vals, c[0], c[1], c[2], 1024, tile=256) for c in calls],
-        len(calls), "retrieve_block_kernel")
-    plain_ms = events_ms([lambda c=c: scan_block_ref(
-        dids, vals, c[0], c[1], c[2], 1024) for c in calls[::16]],
-        len(calls[::16]))
-    # per launch: its block's postings read (row + id) and M written
-    n_bytes = (n_post * (row * 4 + 4) / len(calls)
-               + 1024 * Q_SLOTS * row * 4 + Q_SLOTS * 8)
-    b_ms, b_by = bound(n_bytes, 0)
-    return dict(name="retrieve_windows", ms=ms, timed_by=how,
-                call_ms=call_ms, plain_ms=plain_ms, max_abs_err=scan_err,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    def scan(lo, hi):
+        bounds = lane_bounds_kernel(dids, lo, hi, 0, 1024, n_blocks)
+        for b in range(n_blocks):
+            retrieve_windows_kernel(dids, vals, lo, hi, b * 1024, 1024,
+                                    bounds=bounds)
+    t = scan_times([lambda c=c: scan(*c) for c in lanes], n_blocks,
+                   "lane_bounds_kernel", "retrieve_block_kernel")
+    edges = scan_edges(0, n_blocks * 1024, device=dev)
+    tables = [lane_bounds_ref(dids, lo, hi, edges) for lo, hi in lanes]
+
+    def plain_scan(lo, hi):
+        table = lane_bounds_ref(dids, lo, hi, edges)
+        for b in range(n_blocks):
+            assemble_block_ref(vals, None, table, b * 1024, 1024)
+    plain_ms = events_ms([lambda c=c: plain_scan(*c) for c in lanes[:2]],
+                         2) / n_blocks
+    plain_table_ms = events_ms([lambda c=c: lane_bounds_ref(dids, *c, edges)
+                                for c in lanes], len(lanes))
+
+    def check(blo, m):
+        assert_equal(m, retrieve_windows_kernel(dids, vals, *lanes[0], blo,
+                                                1024), "copy yardstick")
+    lib_ms = yardstick_ms(vals, tables, n_blocks, [None] * len(tables),
+                          check)
+    # yardstick of the table: one searchsorted of every (term, edge) key
+    # over the globally sorted (term, doc) keys (K == 1)
+    counts = (index.term_offsets[1:] - index.term_offsets[:-1]).long()
+    keys = torch.repeat_interleave(
+        torch.arange(VOCAB, device=dev, dtype=torch.int64),
+        counts) * (N_DOCS + 1) + index.doc_ids.long()
+    probes = [torch.from_numpy(q).to(dev).long().clamp(min=0)[:, None]
+              * (N_DOCS + 1) + edges[None] for q in queries]
+    table_lib_ms = all_device_ms([lambda p=p: torch.searchsorted(keys, p)
+                                  for p in probes], len(probes))
+    # per block: its postings read (row + id) and M written; per table:
+    # every lane's ids read once and the table written
+    n_lanes = Q_SLOTS
+    b_ms, b_by = bound(n_post * (row * 4 + 4) / (len(queries) * n_blocks)
+                       + 1024 * Q_SLOTS * row * 4 + Q_SLOTS * 8, 0)
+    tb_ms, tb_by = bound(n_post * 4 / len(queries) + n_lanes * 8
+                         + n_lanes * edges.shape[0] * 4, 0)
+    scan_row = dict(name="retrieve_windows", ms=t["ms"],
+                    kernel_ms=t["kernel_ms"], timed_by=t["timed_by"],
+                    call_ms=t["call_ms"], plain_ms=plain_ms,
+                    max_abs_err=errs["scan_err"], bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms,
+                    library="torch.zeros + index_select + index_copy_ of "
+                    "the found rows at given positions (the copy alone; "
+                    "no single call computes the whole function)")
+    table_row = dict(name="lane_bounds", ms=t["table_ms"],
+                     timed_by=t["timed_by"], call_ms=t["call_ms"],
+                     plain_ms=plain_table_ms, max_abs_err=errs["table_err"],
+                     bound_ms=tb_ms, bound_by=tb_by, library_ms=table_lib_ms,
+                     library="torch.searchsorted of every (term, edge) key "
+                     "over the sorted (term, doc) keys")
+    return scan_row, table_row
 
 
 def time_knrm(index, requests, knrm_err, dev):
@@ -1016,14 +1202,18 @@ def time_packed_lookup(pidx, requests, dev):
 
 
 def time_packed_scan(pidx, queries, dev):
-    """retrieve_windows_packed: one launch per 1024-doc block over the
-    full scans of every retrieval query, on one codec's index; the blocks
-    the plain version is timed on are also held against it."""
+    """retrieve_windows_packed as the main path runs it, on one codec's
+    index: per retrieval query one lane-bounds table
+    (``lane_bounds_packed``), then one launch per 1024-doc block.  Every
+    query's table and every 16th block are also held against their plain
+    versions.  Returns the scan's measurements and the table's (``table``
+    key)."""
     row = N_B * len(ZIPF_FUNCTIONS)
     val_bytes = pidx._serve_values.element_size()
     args = (pidx._packed(), pidx.fences, pidx._serve_values)
     bits = pidx.tile_bits.long()
-    calls, n_post, id_bits, n_tiles = [], 0, 0, 0
+    n_blocks = -(-N_DOCS // 1024)
+    lanes, n_post, id_bits, n_tiles = [], 0, 0, 0
     for q in queries:
         lo, hi, scale = packed_lanes(pidx, torch.from_numpy(q).to(dev))
         for l, (a, b) in enumerate(zip(lo.view(-1).tolist(),
@@ -1034,41 +1224,92 @@ def time_packed_scan(pidx, queries, dev):
                 id_bits += int(bits[k, p // PACK_TILE].sum())
                 n_tiles += int((p[-1] // PACK_TILE - p[0] // PACK_TILE) + 1)
                 n_post += b - a
-        calls += [(scale, lo, hi, blo) for blo in range(0, N_DOCS, 1024)]
-    ms, how, call_ms = timed([lambda c=c: retrieve_windows_packed_kernel(
-        *args, *c, 1024, tile=PACK_TILE) for c in calls], len(calls),
-        "retrieve_block_packed_kernel")
-    plain_ms = events_ms([lambda c=c: scan_block_packed_ref(
-        *args, *c, 1024, tile=PACK_TILE) for c in calls[::16]],
-        len(calls[::16]))
-    err = 0.0
-    for c in calls[::16]:
-        got = retrieve_windows_packed_kernel(*args, *c, 1024, tile=PACK_TILE)
-        want = scan_block_packed_ref(*args, *c, 1024, tile=PACK_TILE)
-        assert_equal(got, want, f"retrieve_windows_packed blo={c[3]}")
-        err = max(err, (got - want).abs().max().item())
-    # per launch: its block's postings (packed id bits, the touched tiles'
-    # 12 bytes of metadata, the rows at their storage width) read and M
-    # written, plus the lanes and their scales
+        lanes.append((scale, lo, hi))
+
+    def scan(scale, lo, hi):
+        bounds = lane_bounds_packed_kernel(*args, lo, hi, 0, 1024, n_blocks,
+                                           tile=PACK_TILE)
+        for b in range(n_blocks):
+            retrieve_windows_packed_kernel(*args, scale, lo, hi, b * 1024,
+                                           1024, tile=PACK_TILE,
+                                           bounds=bounds)
+    t = scan_times([lambda c=c: scan(*c) for c in lanes], n_blocks,
+                   "lane_bounds_packed_kernel", "retrieve_block_packed_kernel")
+
+    edges = scan_edges(0, n_blocks * 1024, device=dev)
+
+    def plain_table(lo, hi):
+        return lane_bounds_packed_ref(pidx._packed(), pidx.fences, pidx.nmax,
+                                      lo, hi, edges, tile=PACK_TILE)
+    tables = [plain_table(lo, hi) for _, lo, hi in lanes]
+
+    def plain_scan(scale, lo, hi):
+        table = plain_table(lo, hi)
+        for b in range(n_blocks):
+            assemble_block_ref(pidx._serve_values, scale, table, b * 1024,
+                               1024)
+    plain_ms = events_ms([lambda c=c: plain_scan(*c) for c in lanes[:2]],
+                         2) / n_blocks
+    plain_table_ms = events_ms([lambda c=c: plain_table(*c[1:])
+                                for c in lanes], len(lanes))
+    err = table_err = 0.0
+    for (scale, lo, hi), table in zip(lanes, tables):
+        bounds = lane_bounds_packed_kernel(*args, lo, hi, 0, 1024, n_blocks,
+                                           tile=PACK_TILE)
+        assert_equal(bounds.table, table, "lane_bounds_packed")
+        table_err = max(table_err,
+                        (bounds.table - table).abs().max().item())
+        for b in range(0, n_blocks, 16):
+            got = retrieve_windows_packed_kernel(
+                *args, scale, lo, hi, b * 1024, 1024, tile=PACK_TILE,
+                bounds=bounds)
+            want = assemble_block_ref(pidx._serve_values, scale, table,
+                                      b * 1024, 1024)
+            assert_equal(got, want, f"retrieve_windows_packed blo={b * 1024}")
+            err = max(err, (got - want).abs().max().item())
+
+    def check(blo, m):
+        scale, lo, hi = lanes[0]
+        assert_equal(m, retrieve_windows_packed_kernel(
+            *args, scale, lo, hi, blo, 1024, tile=PACK_TILE),
+            "copy yardstick")
+    lib_ms = yardstick_ms(pidx._serve_values, tables, n_blocks,
+                          [c[0] for c in lanes], check)
+    # per block: its postings (packed id bits, the touched tiles' 12 bytes
+    # of metadata, the rows at their storage width) read and M written,
+    # plus the lanes and their scales; per table: every lane's packed ids
+    # and tile metadata read once and the table written
+    n_lanes = Q_SLOTS * pidx.n_shards
     n_bytes = ((id_bits / 8 + n_tiles * 12 + n_post * row * val_bytes)
-               / len(calls) + 1024 * Q_SLOTS * row * 4
-               + Q_SLOTS * pidx.n_shards * 12)
+               / (len(queries) * n_blocks) + 1024 * Q_SLOTS * row * 4
+               + n_lanes * 12)
     b_ms, b_by = bound(n_bytes, 0)
-    return dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    tb_ms, tb_by = bound((id_bits / 8 + n_tiles * 12) / len(queries)
+                         + n_lanes * 8 + n_lanes * edges.shape[0] * 4, 0)
+    return dict(ms=t["ms"], kernel_ms=t["kernel_ms"], timed_by=t["timed_by"],
+                call_ms=t["call_ms"], plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                table=dict(ms=t["table_ms"], timed_by=t["timed_by"],
+                           call_ms=t["call_ms"], plain_ms=plain_table_ms,
+                           max_abs_err=table_err, bound_ms=tb_ms,
+                           bound_by=tb_by, library_ms=None))
 
 
 def phase4(index, packed, requests, queries, launches, p2, dev):
+    scan_row, table_row = time_scan(index, queries, p2, dev)
     rows = [dict(time_lookup(index, requests, dev), path="none"),
-            dict(time_scan(index, queries, p2["scan_err"], dev), path="none"),
+            dict(table_row, path="none"), dict(scan_row, path="none"),
             dict(time_knrm(index, requests, p2["knrm_err"], dev),
                  path="none")]
-    for name, timer, inputs in (
-            ("csr_lookup_packed", time_packed_lookup, requests),
-            ("retrieve_windows_packed", time_packed_scan, queries)):
-        by_codec = {c: timer(packed[c], inputs, dev) for c in CODECS}
-        rows.append(dict(by_codec["packed"], name=name, path="packed",
-                         library_ms=None, q8=by_codec["packed-q8"]))
+    lookup = {c: time_packed_lookup(packed[c], requests, dev) for c in CODECS}
+    rows.append(dict(lookup["packed"], name="csr_lookup_packed",
+                     path="packed", library_ms=None, q8=lookup["packed-q8"]))
+    scan = {c: time_packed_scan(packed[c], queries, dev) for c in CODECS}
+    table = {c: scan[c].pop("table") for c in CODECS}
+    rows.append(dict(table["packed"], name="lane_bounds_packed",
+                     path="packed", q8=table["packed-q8"]))
+    rows.append(dict(scan["packed"], name="retrieve_windows_packed",
+                     path="packed", q8=scan["packed-q8"]))
     out = []
     for r in rows:
         lib = "knrm_pool" if r["name"] == "knrm_pool" else "csr_lookup"
@@ -1082,11 +1323,13 @@ def phase4(index, packed, requests, queries, launches, p2, dev):
         for tag, m in (("", r), (" [packed-q8]", r.get("q8"))):
             if m is None:
                 continue
-            log(f"phase 4: {r['name']}{tag}: {m['ms']:.4f} ms "
+            kernel = ("" if m.get("kernel_ms") is None else
+                      f", the block kernel alone {m['kernel_ms']:.5f} ms")
+            log(f"phase 4: {r['name']}{tag}: {m['ms']:.5f} ms "
                 f"({m['timed_by']}; {m['call_ms']:.4f} ms with launch "
-                f"cost), plain {m['plain_ms']:.4f} ms, bound "
+                f"cost{kernel}), plain {m['plain_ms']:.4f} ms, bound "
                 f"{m['bound_ms']:.5f} ms ({m['bound_by']}), library "
-                f"{r['library_ms']}")
+                f"{m.get('library_ms', r['library_ms'])}")
     return out
 
 

@@ -19,32 +19,55 @@
 // the 32 lanes copy the row with coalesced loads.  Enough warps are in
 // flight (6,000 cells at the serving shape) to hide the probe latency.
 //
-// retrieve_block_kernel replaces
+// The first-stage scan replaces
 // src/repro/kernels/csr_lookup/kernel.py::retrieve_windows_pallas fused
-// with the segment scatter that followed it (ref.py::merge_windows).
-// Block (lane l, window w) bisects lane l's posting range for the doc
-// block [blo, blo + block) and copies the w-th tile-wide window of those
-// postings straight into their M rows.  Exclusive (term, doc) ownership
-// means every output cell has at most one writer, so the scatter needs no
-// atomics; the rows written are 0.0f + v, exactly what the reference's
-// segment sum over zeros produces (a -0.0 value becomes +0.0), and the
-// untouched cells keep the zeros of the memset that precedes the launch.
-// It is bound by the bytes of the block's postings and of M.
+// with the segment scatter that followed it (ref.py::merge_windows): M
+// (block, Q, n_b, n_f) of the docs [blo, blo + block) for the query's
+// lanes (query slot q, shard k).  It is bound by writing M (4.4 MB at
+// block 1,024, Q 6, n_b 20, n_f 9, most of it zeros) and reading the
+// block's postings, so the work has to be spread over the card, M written
+// once, and as few dependent loads as possible stand before the rows
+// move.  Two kernels:
 //
-// csr_lookup_packed_kernel and retrieve_block_packed_kernel are the same
-// two kernels over tile-compressed doc ids (src/repro/core/codec.py): they
-// replace csr_lookup_packed_pallas and retrieve_windows_packed_pallas (the
-// latter fused, as above, with the decode and the merge that followed it).
-// Each posting tile stores a frame base, a width class c in {0,4,8,16,32}
-// and a word offset; the fence row stays raw.  The level-1 bisect is the
-// same fence bisect, one load then picks up the winning tile's (c, base,
-// word offset), and each level-2 probe decodes one packed word:
-// base + ((word >> (bit & 31)) & mask) with a logical (uint32_t) shift, the
-// raw word at c = 32.  A probe at r == tile reads into the row's trailing
-// max_tile_words pad and is never consulted; word reads are clamped to the
-// buffer all the same.  Under packed-q8 the values are int8 and each found
-// row is dequantised as __fmul_rn(float(v), scale) -- one rounding, as the
-// reference's single f32 multiply, never contracted into an FMA.
+// lane_bounds_kernel runs once per scan (a query's 64 blocks): one thread
+// per (lane, doc) bisects the lane for the doc, the first position whose
+// id is >= it.  The bisect is the reference's (core.index._bisect, probes
+// clamped to the row), stopped once its range is empty, where the
+// reference's fixed-count loop stops moving; the positions are the same.
+// A term posts once per doc, so the lane holds doc d iff its entries at d
+// and d + 1 differ, at the first of them: the table is all the id work a
+// block needs.
+//
+// retrieve_block_kernel runs once per block, one CTA of 256 threads per 4
+// docs (256 CTAs at block 1,024, whatever the postings' spread over
+// lanes).  One thread per (cell (doc, q), shard k) reads lane (q, k)'s two
+// table entries (one round of loads, no ids) and leaves the posting, if
+// any, in shared memory; exclusive (term, doc) ownership gives a cell at
+// most one posting over its K lanes.  Then the CTA writes its 4 docs of
+// M, a contiguous 4 * Q rows, once: the posting's row as 0.0f + v (a -0.0
+// value becomes +0.0, as the reference's segment sum over zeros gives) or
+// zeros, in 16-byte vectors (a 720-byte row is 45 of them) with eight
+// loads in flight per thread; rows whose length is not a multiple of 4
+// floats, or unaligned buffers, go one float at a time.  There is no
+// memset: every cell of M is written by exactly one thread.
+//
+// csr_lookup_packed_kernel and lane_bounds_packed_kernel are the same
+// kernels over tile-compressed doc ids (src/repro/core/codec.py): they
+// replace csr_lookup_packed_pallas and the decode and bisects of
+// retrieve_windows_packed_pallas, whose block launch,
+// retrieve_block_packed_kernel, is retrieve_block_kernel over the packed
+// index's values (f32, or int8 under packed-q8): the table holds every id
+// it needs.  Each posting tile stores a frame base, a width class c in
+// {0,4,8,16,32} and a word offset; the fence row stays raw.  The level-1
+// bisect is the same fence bisect, one load then picks up the winning
+// tile's (c, base, word offset), and each level-2 probe decodes one packed
+// word: base + ((word >> (bit & 31)) & mask) with a logical (uint32_t)
+// shift, the raw word at c = 32.  A probe at r == tile reads into the
+// row's trailing max_tile_words pad and is never consulted; word reads are
+// clamped to the buffer all the same.  Under packed-q8 each found row is
+// dequantised as __fmul_rn(float(v), scale) -- one rounding, as the
+// reference's single f32 multiply, never contracted into an FMA -- and
+// its int8 row (180 bytes) moves as char4.
 //
 // Positions and offsets are int32 inside a shard (K * Nmax < 2^31, as in
 // the reference); every values address is formed in 64 bits, since
@@ -146,47 +169,149 @@ __global__ void csr_lookup_kernel(
 }
 
 // first position p in [lo, hi) with ids[p] >= target; probes clamp to
-// [0, n - 1] like the reference's clip gathers
+// [0, n - 1] like the reference's clip gathers.  The loop ends once the
+// range is empty, where the reference's fixed-count loop stops moving.
 __device__ __forceinline__ int bisect(const int* __restrict__ ids,
-                                      int64_t n, int lo, int hi, int target,
-                                      int n_iter) {
-  for (int i = 0; i < n_iter; ++i) {
+                                      int64_t n, int lo, int hi,
+                                      int64_t target) {
+  while (lo < hi) {
     const int mid = midpoint(lo, hi);
     const int64_t at = mid < 0 ? 0 : (mid >= n ? n - 1 : (int64_t)mid);
-    const int v = __ldg(ids + at);
-    const bool go = (v < target) && (lo < hi);
-    lo = go ? mid + 1 : lo;
-    hi = go ? hi : mid;
+    if ((int64_t)__ldg(ids + at) < target)
+      lo = mid + 1;
+    else
+      hi = mid;
   }
   return lo;
 }
 
-__global__ void retrieve_block_kernel(
-    const int* __restrict__ lane_lo, const int* __restrict__ lane_hi,
-    const int* __restrict__ doc_ids, int64_t n_total, int bisect_iter,
-    const float* __restrict__ values, int row_len, float* __restrict__ out,
-    int n_q, int n_shards, int blo, int block, int window) {
-  const int l = blockIdx.x;
-  const int q = l / n_shards;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  // every warp bisects the lane for itself: the same few probes in each,
-  // no shared memory and no barrier
-  const int lo0 = __ldg(lane_lo + l), hi0 = __ldg(lane_hi + l);
-  const int s_lo = bisect(doc_ids, n_total, lo0, hi0, blo, bisect_iter);
-  const int s_hi = bisect(doc_ids, n_total, lo0, hi0, blo + block,
-                          bisect_iter);
-  const int first = blockIdx.y * window;
-  const int last = min(first + window, s_hi - s_lo);
-  for (int i = first + warp; i < last; i += n_warps) {
-    const int p = s_lo + i;
-    const int seg = __ldg(doc_ids + p) - blo;
-    const float* src = values + (int64_t)p * row_len;
-    float* dst = out + ((int64_t)seg * n_q + q) * row_len;
-    for (int j = lane; j < row_len; j += 32)
-      dst[j] = __fadd_rn(0.0f, __ldg(src + j));
+// grid (edges / 256, lanes): bounds[l][i] for doc origin + i
+__global__ void lane_bounds_kernel(const int* __restrict__ lane_lo,
+                                   const int* __restrict__ lane_hi,
+                                   const int* __restrict__ doc_ids,
+                                   int64_t n_total, int64_t origin,
+                                   int n_edges, int* __restrict__ bounds) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_edges) return;
+  const int l = blockIdx.y;
+  bounds[(int64_t)l * n_edges + i] = bisect(
+      doc_ids, n_total, __ldg(lane_lo + l), __ldg(lane_hi + l), origin + i);
+}
+
+// docs per CTA and threads per CTA of the block kernel: 256 CTAs at block
+// 1,024, and 256 threads x 8 vectors cover 4 docs x 6 slots x 45 vectors
+// in one round of loads
+constexpr int kScanDocs = 4;
+constexpr int kScanThreads = 256;
+constexpr int kScanUnroll = 8;
+
+template <int kVec>
+struct ScanVec;
+template <>
+struct ScanVec<1> {
+  using type = float;
+  __device__ static float zero() { return 0.0f; }
+};
+template <>
+struct ScanVec<4> {
+  using type = float4;
+  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+
+// 0.0f + v of the kVec stored values at element `at` of the values buffer
+// (f32, or int8 dequantised by `scale`)
+template <int kVec, bool kQuantized>
+__device__ __forceinline__ typename ScanVec<kVec>::type scan_row(
+    const void* __restrict__ values, int64_t at, float scale) {
+  if constexpr (kVec == 1) {
+    float v;
+    if constexpr (kQuantized)
+      v = __fmul_rn((float)__ldg((const signed char*)values + at), scale);
+    else
+      v = __ldg((const float*)values + at);
+    return __fadd_rn(0.0f, v);
+  } else {
+    float4 r;
+    if constexpr (kQuantized) {
+      const char4 c = __ldg((const char4*)((const signed char*)values + at));
+      r = make_float4(__fmul_rn((float)c.x, scale),
+                      __fmul_rn((float)c.y, scale),
+                      __fmul_rn((float)c.z, scale),
+                      __fmul_rn((float)c.w, scale));
+    } else {
+      r = __ldg((const float4*)((const float*)values + at));
+    }
+    return make_float4(__fadd_rn(0.0f, r.x), __fadd_rn(0.0f, r.y),
+                       __fadd_rn(0.0f, r.z), __fadd_rn(0.0f, r.w));
   }
+}
+
+// The body of both block kernels.  CTA s owns docs [s * kScanDocs, ...)
+// of the block whose first table column is edge0, and writes their cells
+// (doc, q) of M: the row of the posting the table puts there (scaled by
+// its lane's scale under q8), or zeros.
+template <int kVec, bool kQuantized>
+__device__ __forceinline__ void scan_block(
+    const int* __restrict__ bounds, int n_edges, int edge0,
+    const void* __restrict__ values, const float* __restrict__ lane_scale,
+    int row_len, float* __restrict__ out, int n_q, int n_shards,
+    int block) {
+  using V = typename ScanVec<kVec>::type;
+  extern __shared__ int smem[];
+  const int d0 = blockIdx.x * kScanDocs;
+  const int cells = min(kScanDocs, block - d0) * n_q;
+  int* src = smem;                                  // (doc, q) -> posting
+  float* scl = reinterpret_cast<float*>(smem + kScanDocs * n_q);
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) src[c] = -1;
+  __syncthreads();
+  // one thread per (cell, shard k): the lane's two table entries, in one
+  // round of loads; at most one lane of a cell's slot holds its doc
+  for (int t = threadIdx.x; t < cells * n_shards; t += blockDim.x) {
+    const int c = t / n_shards, d = c / n_q;
+    const int l = (c - d * n_q) * n_shards + (t - c * n_shards);
+    const int* at = bounds + (int64_t)l * n_edges + edge0 + d0 + d;
+    const int lo = __ldg(at), hi = __ldg(at + 1);
+    if (lo < hi) {
+      src[c] = lo;
+      if (kQuantized) scl[c] = __ldg(lane_scale + l);
+    }
+  }
+  __syncthreads();
+  // the CTA's rows of M, contiguous from dst; kScanUnroll loads are
+  // issued before their stores
+  float* dst = out + (int64_t)d0 * n_q * row_len;
+  const int per_row = row_len / kVec;
+  const int n_vec = cells * per_row;
+  for (int v0 = threadIdx.x; v0 < n_vec; v0 += kScanUnroll * blockDim.x) {
+    V x[kScanUnroll];
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      const int v = v0 + u * blockDim.x;
+      x[u] = ScanVec<kVec>::zero();
+      if (v < n_vec) {
+        const int c = v / per_row;
+        const int p = src[c];
+        if (p >= 0)
+          x[u] = scan_row<kVec, kQuantized>(
+              values, (int64_t)p * row_len + (int64_t)(v - c * per_row) * kVec,
+              kQuantized ? scl[c] : 1.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v < n_vec) reinterpret_cast<V*>(dst)[v] = x[u];
+    }
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kScanThreads) retrieve_block_kernel(
+    const int* __restrict__ bounds, int n_edges, int edge0,
+    const float* __restrict__ values, int row_len, float* __restrict__ out,
+    int n_q, int n_shards, int block) {
+  scan_block<kVec, false>(bounds, n_edges, edge0, values, nullptr, row_len,
+                          out, n_q, n_shards, block);
 }
 
 // ---------------------------------------------------------------------------
@@ -236,7 +361,7 @@ __device__ __forceinline__ int decode_packed(const int* __restrict__ words,
 // raw fence when p is on the tile's right boundary
 __device__ int packed_bisect(const PackedShard& s,
                              const int* __restrict__ words, int64_t n_total,
-                             int n_fence, int lo, int hi, int target,
+                             int n_fence, int lo, int hi, int64_t target,
                              int tile, int fence_iter, int tile_iter,
                              int* v_at) {
   const int j_lo = floordiv(lo, tile);
@@ -244,7 +369,8 @@ __device__ int packed_bisect(const PackedShard& s,
   int flo = j_lo + 1, fhi = j_hi + 1;
   for (int i = 0; i < fence_iter && flo < fhi; ++i) {
     const int mid = midpoint(flo, fhi);
-    const bool go = __ldg(s.frow + clampi(mid, 0, n_fence - 1)) < target;
+    const bool go =
+        (int64_t)__ldg(s.frow + clampi(mid, 0, n_fence - 1)) < target;
     flo = go ? mid + 1 : flo;
     fhi = go ? fhi : mid;
   }
@@ -257,7 +383,8 @@ __device__ int packed_bisect(const PackedShard& s,
   for (int i = 0; i < tile_iter && plo < phi; ++i) {
     const int mid = midpoint(plo, phi);
     const bool go =
-        decode_packed(words, n_total, w0, mid - base, c, tb) < target;
+        (int64_t)decode_packed(words, n_total, w0, mid - base, c, tb) <
+        target;
     plo = go ? mid + 1 : plo;
     phi = go ? phi : mid;
   }
@@ -318,53 +445,41 @@ __global__ void csr_lookup_packed_kernel(
   }
 }
 
-// Block (lane l = (query slot q, shard k), window w): both packed bisects
-// of the lane, then each live position of the w-th window decodes its id
-// (unpack_at: its own tile's metadata and one word) and stores
-// 0.0f + value into its M row.
-template <bool kQuantized>
-__global__ void retrieve_block_packed_kernel(
+// lane_bounds_kernel over packed ids: the two-level packed bisect of the
+// lane's shard-local range, stored as a flat position.  An empty lane is
+// its own answer (the bisect returns lo there) and reads nothing.
+__global__ void lane_bounds_packed_kernel(
     const int* __restrict__ lane_lo, const int* __restrict__ lane_hi,
-    const int* __restrict__ words, int n_words,
-    const int* __restrict__ bits, const int* __restrict__ tbase,
-    const int* __restrict__ woff, const int* __restrict__ fences,
-    int n_fence, const void* __restrict__ values, int n_max,
-    const float* __restrict__ lane_scale, int row_len,
-    float* __restrict__ out, int n_q, int n_shards, int blo, int block,
-    int tile, int fence_iter, int tile_iter) {
-  const int l = blockIdx.x;
-  const int q = l / n_shards, k = l % n_shards;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int64_t n_total = (int64_t)n_shards * n_words;
-  const PackedShard s =
-      packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
+    const int* __restrict__ words, int n_words, const int* __restrict__ bits,
+    const int* __restrict__ tbase, const int* __restrict__ woff,
+    const int* __restrict__ fences, int n_fence, int n_max, int n_shards,
+    int tile, int fence_iter, int tile_iter, int64_t origin, int n_edges,
+    int* __restrict__ bounds) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_edges) return;
+  const int l = blockIdx.y, k = l % n_shards;
   const int shard0 = k * n_max;
-  const int lo0 = __ldg(lane_lo + l) - shard0;
-  const int hi0 = __ldg(lane_hi + l) - shard0;
-  const int s_lo = packed_bisect(s, words, n_total, n_fence, lo0, hi0, blo,
-                                 tile, fence_iter, tile_iter, nullptr);
-  const int s_hi = packed_bisect(s, words, n_total, n_fence, lo0, hi0,
-                                 blo + block, tile, fence_iter, tile_iter,
-                                 nullptr);
-  const float sc = kQuantized ? __ldg(lane_scale + l) : 1.0f;
-  const int first = blockIdx.y * tile;
-  const int last = min(first + tile, s_hi - s_lo);
-  for (int i = first + warp; i < last; i += n_warps) {
-    const int p = s_lo + i;
-    const int jt = clampi(p / tile, 0, n_fence - 1);
-    const int doc = decode_packed(
-        words, n_total, s.word0 + __ldg(s.woff + jt),
-        clampi(p - jt * tile, 0, tile - 1), __ldg(s.bits + jt),
-        __ldg(s.base + jt));
-    const int seg = doc - blo;
-    if (seg < 0 || seg >= block) continue;
-    const int64_t src = ((int64_t)shard0 + p) * row_len;
-    float* dst = out + ((int64_t)seg * n_q + q) * row_len;
-    for (int j = lane; j < row_len; j += 32)
-      dst[j] = __fadd_rn(0.0f, stored<kQuantized>(values, src + j, sc));
+  const int lo = __ldg(lane_lo + l) - shard0, hi = __ldg(lane_hi + l) - shard0;
+  int pos = lo;
+  if (lo < hi) {
+    const PackedShard s =
+        packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
+    pos = packed_bisect(s, words, (int64_t)n_shards * n_words, n_fence, lo,
+                        hi, origin + i, tile, fence_iter, tile_iter,
+                        nullptr);
   }
+  bounds[(int64_t)l * n_edges + i] = shard0 + pos;
+}
+
+// the block kernel of a packed index: values f32, or int8 with lane scales
+template <int kVec, bool kQuantized>
+__global__ void __launch_bounds__(kScanThreads) retrieve_block_packed_kernel(
+    const int* __restrict__ bounds, int n_edges, int edge0,
+    const void* __restrict__ values, const float* __restrict__ lane_scale,
+    int row_len, float* __restrict__ out, int n_q, int n_shards,
+    int block) {
+  scan_block<kVec, kQuantized>(bounds, n_edges, edge0, values, lane_scale,
+                               row_len, out, n_q, n_shards, block);
 }
 
 }  // namespace
@@ -388,20 +503,45 @@ int csr_lookup_launch(const int* shard, const int* lo, const int* hi,
   return (int)cudaGetLastError();
 }
 
-int retrieve_block_launch(const int* lane_lo, const int* lane_hi,
-                          const int* doc_ids, int64_t n_total,
-                          int bisect_iter, const float* values, int row_len,
-                          float* out, int n_q, int n_shards, int blo,
-                          int block, int window, cudaStream_t stream) {
-  const size_t out_bytes = (size_t)block * n_q * row_len * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int lanes = n_q * n_shards;
-  if (lanes == 0 || n_total == 0) return (int)cudaGetLastError();
-  dim3 grid((unsigned)lanes, (unsigned)((block + window - 1) / window));
-  retrieve_block_kernel<<<grid, 256, 0, stream>>>(
-      lane_lo, lane_hi, doc_ids, n_total, bisect_iter, values, row_len, out,
-      n_q, n_shards, blo, block, window);
+int lane_bounds_launch(const int* lane_lo, const int* lane_hi,
+                       const int* doc_ids, int64_t n_total, int n_lanes,
+                       int64_t origin, int n_edges, int* bounds,
+                       cudaStream_t stream) {
+  if (n_lanes == 0 || n_edges == 0) return 0;
+  dim3 grid((unsigned)((n_edges + 255) / 256), (unsigned)n_lanes);
+  lane_bounds_kernel<<<grid, 256, 0, stream>>>(lane_lo, lane_hi, doc_ids,
+                                               n_total, origin, n_edges,
+                                               bounds);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte vectors when every row starts 16-byte aligned in both buffers
+static bool vec_rows(const void* values, int elem_bytes, int row_len,
+                     const float* out) {
+  return row_len % 4 == 0 &&
+         (uintptr_t)values % (4 * elem_bytes) == 0 &&
+         (uintptr_t)out % 16 == 0;
+}
+
+static size_t scan_smem(int n_q) {
+  return (size_t)kScanDocs * n_q * (sizeof(int) + sizeof(float));
+}
+
+int retrieve_block_launch(const int* bounds, int n_edges, int edge0,
+                          const void* values, int quantized,
+                          const float* lane_scale, int row_len, float* out,
+                          int n_q, int n_shards, int block,
+                          cudaStream_t stream) {
+  if (n_q == 0 || block == 0 || row_len == 0) return 0;
+  if (quantized || lane_scale != nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((block + kScanDocs - 1) / kScanDocs);
+  const float* v = (const float*)values;
+  if (vec_rows(values, 4, row_len, out))
+    retrieve_block_kernel<4><<<grid, kScanThreads, scan_smem(n_q), stream>>>(
+        bounds, n_edges, edge0, v, row_len, out, n_q, n_shards, block);
+  else
+    retrieve_block_kernel<1><<<grid, kScanThreads, scan_smem(n_q), stream>>>(
+        bounds, n_edges, edge0, v, row_len, out, n_q, n_shards, block);
   return (int)cudaGetLastError();
 }
 
@@ -429,29 +569,46 @@ int csr_lookup_packed_launch(
   return (int)cudaGetLastError();
 }
 
-int retrieve_block_packed_launch(
+int lane_bounds_packed_launch(
     const int* lane_lo, const int* lane_hi, const int* words, int n_words,
     const int* bits, const int* tbase, const int* woff, const int* fences,
-    int n_fence, const void* values, int quantized, int n_max,
-    const float* lane_scale, int row_len, float* out, int n_q, int n_shards,
-    int blo, int block, int tile, int fence_iter, int tile_iter,
+    int n_fence, int n_max, int n_q, int n_shards, int tile, int fence_iter,
+    int tile_iter, int64_t origin, int n_edges, int* bounds,
     cudaStream_t stream) {
-  const size_t out_bytes = (size_t)block * n_q * row_len * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
   const int lanes = n_q * n_shards;
-  if (lanes == 0 || n_max == 0) return (int)cudaGetLastError();
-  dim3 grid((unsigned)lanes, (unsigned)((block + tile - 1) / tile));
-  if (quantized)
-    retrieve_block_packed_kernel<true><<<grid, 256, 0, stream>>>(
-        lane_lo, lane_hi, words, n_words, bits, tbase, woff, fences,
-        n_fence, values, n_max, lane_scale, row_len, out, n_q, n_shards,
-        blo, block, tile, fence_iter, tile_iter);
+  if (lanes == 0 || n_edges == 0) return 0;
+  dim3 grid((unsigned)((n_edges + 255) / 256), (unsigned)lanes);
+  lane_bounds_packed_kernel<<<grid, 256, 0, stream>>>(
+      lane_lo, lane_hi, words, n_words, bits, tbase, woff, fences, n_fence,
+      n_max, n_shards, tile, fence_iter, tile_iter, origin, n_edges, bounds);
+  return (int)cudaGetLastError();
+}
+
+int retrieve_block_packed_launch(const int* bounds, int n_edges, int edge0,
+                                 const void* values, int quantized,
+                                 const float* lane_scale, int row_len,
+                                 float* out, int n_q, int n_shards, int block,
+                                 cudaStream_t stream) {
+  if (n_q == 0 || block == 0 || row_len == 0) return 0;
+  const unsigned grid = (unsigned)((block + kScanDocs - 1) / kScanDocs);
+  const size_t smem = scan_smem(n_q);
+  const bool vec = vec_rows(values, quantized ? 1 : 4, row_len, out);
+#define SCAN_ARGS                                                      \
+  bounds, n_edges, edge0, values, lane_scale, row_len, out, n_q, n_shards, \
+      block
+  if (quantized && vec)
+    retrieve_block_packed_kernel<4, true>
+        <<<grid, kScanThreads, smem, stream>>>(SCAN_ARGS);
+  else if (quantized)
+    retrieve_block_packed_kernel<1, true>
+        <<<grid, kScanThreads, smem, stream>>>(SCAN_ARGS);
+  else if (vec)
+    retrieve_block_packed_kernel<4, false>
+        <<<grid, kScanThreads, smem, stream>>>(SCAN_ARGS);
   else
-    retrieve_block_packed_kernel<false><<<grid, 256, 0, stream>>>(
-        lane_lo, lane_hi, words, n_words, bits, tbase, woff, fences,
-        n_fence, values, n_max, lane_scale, row_len, out, n_q, n_shards,
-        blo, block, tile, fence_iter, tile_iter);
+    retrieve_block_packed_kernel<1, false>
+        <<<grid, kScanThreads, smem, stream>>>(SCAN_ARGS);
+#undef SCAN_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -5,44 +5,52 @@ csr_lookup_pallas`` and ``retrieve_windows_kernel`` replaces
 ``retrieve_windows_pallas`` fused with the window merge;
 ``csr_lookup_packed_kernel`` and ``retrieve_windows_packed_kernel`` are
 the same two over tile-packed doc ids (``csr_lookup_packed_pallas``,
-``retrieve_windows_packed_pallas``).  The source file says what bounds
-each on the H100 and what the design does about it.
+``retrieve_windows_packed_pallas``).  A first-stage scan first builds its
+lane-bounds table once (``lane_bounds_kernel`` /
+``lane_bounds_packed_kernel``: each lane's first posting at every
+doc), and each block launch reads it.  The source file says what bounds
+each kernel on the H100 and what the design does about it.
 
 A wrapper given CUDA tensors validates them, allocates its output with
 ``torch.empty``, launches on PyTorch's current stream, raises on a
 nonzero ``cudaGetLastError`` and adds one to its ``launches`` count.
 Given CPU tensors it runs its plain PyTorch version instead, which
-repeats the kernel's per-cell algorithm so the CPU tests check the
-tile-edge and decode logic: :func:`csr_lookup_plain` (fence bisect,
+repeats the kernel's algorithm so the CPU tests check the tile-edge,
+decode and table logic: :func:`csr_lookup_plain` (fence bisect,
 ``jt`` clamp, in-tile bisect, fence-edge case),
 :func:`csr_lookup_packed_plain` (the same with packed probes, through
-``ref.packed_bisect``), ``ref.scan_block_ref`` and
-``ref.scan_block_packed_ref``.
+``ref.packed_bisect``), ``ref.lane_bounds_ref`` /
+``ref.lane_bounds_packed_ref`` (the table) and ``ref.assemble_block_ref``
+(M from the table).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
 from ...core.index import INT32_MAX, fence_count
 from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
                      stream_handle)
-from .ref import (bisect_steps, packed_rows, scan_block_packed_ref,
-                  scan_block_ref)
+from .ref import (assemble_block_ref, bisect_steps, lane_bounds_packed_ref,
+                  lane_bounds_ref, packed_rows, scan_edges)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "csr_lookup_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
                           _I, _I, _I, _I, _I, _I, _P],
-    "retrieve_block_launch": [_P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _I,
-                              _I, _I, _P],
+    "lane_bounds_launch": [_P, _P, _P, _L, _I, _L, _I, _P, _P],
+    "retrieve_block_launch": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                              _P],
     "csr_lookup_packed_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                                  _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I,
                                  _I, _I, _P],
-    "retrieve_block_packed_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                                     _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _P],
+    "lane_bounds_packed_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _L, _I, _P, _P],
+    "retrieve_block_packed_launch": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
+                                     _I, _P],
 }
 
 
@@ -154,38 +162,128 @@ def csr_lookup_kernel(shard, lo, hi, doc_targets, doc_ids, fences, values,
 csr_lookup_kernel.launches = 0
 
 
-def retrieve_windows_kernel(doc_ids, values, lane_lo, lane_hi, blo: int,
-                            block: int, *, tile: int) -> torch.Tensor:
-    """First-stage scan of one doc block: doc_ids (K, Nmax) int32, values
-    (K, Nmax, n_b, n_f) f32, lane_lo/lane_hi (Q, K) int32 flat posting
-    ranges (``ref.retrieve_lanes``) -> M (block, Q, n_b, n_f) f32 for
-    docs ``[blo, blo + block)``.  Each (lane, tile-wide window) block of
-    the launch bisects its lane and copies its window's postings into M."""
-    if doc_ids.device.type != "cuda":
-        return scan_block_ref(doc_ids, values, lane_lo, lane_hi, blo, block)
-    dev = doc_ids.device
-    check_cuda_tensor("doc_ids", doc_ids, torch.int32, dev, 2)
-    check_cuda_tensor("values", values, torch.float32, dev, 4)
+@dataclasses.dataclass(frozen=True)
+class LaneBounds:
+    """A first-stage scan's lane-bounds table, built once per scan by
+    :func:`lane_bounds_kernel` / :func:`lane_bounds_packed_kernel` and
+    read by every block launch: ``table[q, k, i]`` is the first flat
+    posting position of lane (q, k) whose doc id is >= doc ``origin +
+    i``, for every doc of the ``n_blocks`` blocks of ``block`` docs from
+    ``origin`` and the end: (Q, K, n_blocks * block + 1) int32, 4 bytes
+    per lane and doc."""
+    table: torch.Tensor
+    origin: int
+    block: int
+    n_blocks: int
+
+    def edge0(self, blo: int, block: int) -> int:
+        """The table column of block ``[blo, blo + block)``'s first doc;
+        raises for a block the table was not built for."""
+        b, r = divmod(int(blo) - self.origin, self.block)
+        if block != self.block or r or not 0 <= b < self.n_blocks:
+            raise ValueError(
+                f"block [{blo}, {blo} + {block}) is not one of the table's "
+                f"{self.n_blocks} blocks of {self.block} docs from "
+                f"{self.origin}")
+        return b * self.block
+
+
+def _check_lanes(lane_lo, lane_hi, n_k: int, dev):
     check_cuda_tensor("lane_lo", lane_lo, torch.int32, dev, 2)
     check_cuda_tensor("lane_hi", lane_hi, torch.int32, dev, 2)
-    n_k, n_max = doc_ids.shape
     n_q = lane_lo.shape[0]
-    if values.shape[:2] != doc_ids.shape:
-        raise ValueError("doc_ids and values disagree on (K, Nmax)")
     if lane_lo.shape != (n_q, n_k) or lane_hi.shape != (n_q, n_k):
         raise ValueError(f"lanes must be (Q, K={n_k}), got "
                          f"{tuple(lane_lo.shape)} / {tuple(lane_hi.shape)}")
-    if block <= 0 or tile <= 0:
-        raise ValueError(f"block ({block}) and tile ({tile}) must be > 0")
+    if n_q * n_k > 65535:
+        raise ValueError(f"{n_q * n_k} lanes exceed the table launch's "
+                         "65,535 grid rows")
+    return n_q
+
+
+def _scan_args(origin: int, block: int, n_blocks: int):
+    if block <= 0 or n_blocks <= 0:
+        raise ValueError(f"block ({block}) and n_blocks ({n_blocks}) must "
+                         "be > 0")
+    return int(origin), int(block), int(n_blocks)
+
+
+def lane_bounds_kernel(doc_ids, lane_lo, lane_hi, origin: int, block: int,
+                       n_blocks: int = 1) -> LaneBounds:
+    """The lane-bounds table of a scan over raw ids: doc_ids (K, Nmax)
+    int32, lane_lo / lane_hi (Q, K) int32 flat posting ranges
+    (``ref.retrieve_lanes``).  One thread per (lane, doc) runs the scan's
+    bisect over its lane (``ref.lane_bounds_ref`` on CPU tensors)."""
+    origin, block, n_blocks = _scan_args(origin, block, n_blocks)
+    n_edges = n_blocks * block + 1
+    if doc_ids.device.type != "cuda":
+        return LaneBounds(lane_bounds_ref(
+            doc_ids, lane_lo, lane_hi, scan_edges(origin, n_edges - 1)),
+            origin, block, n_blocks)
+    dev = doc_ids.device
+    check_cuda_tensor("doc_ids", doc_ids, torch.int32, dev, 2)
+    n_k, n_max = doc_ids.shape
+    n_q = _check_lanes(lane_lo, lane_hi, n_k, dev)
+    table = torch.empty((n_q, n_k, n_edges), dtype=torch.int32, device=dev)
+    lib = _lib()
+    rc = lib.lane_bounds_launch(
+        ptr(lane_lo), ptr(lane_hi), ptr(doc_ids), n_k * n_max, n_q * n_k,
+        origin, n_edges, ptr(table), stream_handle())
+    check_launch(lib, rc, "lane_bounds_kernel")
+    lane_bounds_kernel.launches += 1
+    return LaneBounds(table, origin, block, n_blocks)
+
+
+lane_bounds_kernel.launches = 0
+
+
+def _launch_block(name: str, values, lane_scale, n_q: int, n_k: int,
+                  blo: int, block: int, bounds: LaneBounds) -> torch.Tensor:
+    """One block launch of the scan: M (block, Q, n_b, n_f) from the
+    table and the values (f32, or int8 with ``lane_scale`` (Q, K))."""
+    dev = values.device
+    check_cuda_tensor("bounds", bounds.table, torch.int32, dev, 3)
+    if bounds.table.shape[:2] != (n_q, n_k):
+        raise ValueError(f"bounds table {tuple(bounds.table.shape)} does "
+                         f"not match the lanes (Q={n_q}, K={n_k})")
+    e0 = bounds.edge0(blo, block)
     out = torch.empty((block, n_q) + tuple(values.shape[2:]),
                       dtype=torch.float32, device=dev)
     lib = _lib()
-    rc = lib.retrieve_block_launch(
-        ptr(lane_lo), ptr(lane_hi), ptr(doc_ids), n_k * n_max,
-        bisect_steps(n_max), ptr(values), values.shape[2] * values.shape[3],
-        ptr(out), n_q, n_k, int(blo), int(block), int(tile),
+    rc = getattr(lib, name)(
+        ptr(bounds.table), bounds.table.shape[2], e0, ptr(values),
+        int(values.dtype == torch.int8),
+        None if lane_scale is None else ptr(lane_scale),
+        values.shape[2] * values.shape[3], ptr(out), n_q, n_k, int(block),
         stream_handle())
-    check_launch(lib, rc, "retrieve_windows_kernel")
+    check_launch(lib, rc, name)
+    return out
+
+
+def retrieve_windows_kernel(doc_ids, values, lane_lo, lane_hi, blo: int,
+                            block: int, *, tile: int = 0,
+                            bounds: Optional[LaneBounds] = None
+                            ) -> torch.Tensor:
+    """First-stage scan of one doc block: doc_ids (K, Nmax) int32, values
+    (K, Nmax, n_b, n_f) f32, lane_lo/lane_hi (Q, K) int32 flat posting
+    ranges (``ref.retrieve_lanes``) -> M (block, Q, n_b, n_f) f32 for
+    docs ``[blo, blo + block)``.  ``bounds`` is the scan's lane-bounds
+    table (:func:`lane_bounds_kernel`, built once for all its blocks);
+    without it this call builds one for its own block (a second launch).
+    The block launch reads the table and the value rows only, one CTA per
+    4 docs.  ``tile`` is not used (the kernel has no windows); it stays
+    for the callers that pass it."""
+    del tile
+    if bounds is None:
+        bounds = lane_bounds_kernel(doc_ids, lane_lo, lane_hi, blo, block)
+    if doc_ids.device.type != "cuda":
+        return assemble_block_ref(values, None, bounds.table,
+                                  bounds.edge0(blo, block), block)
+    dev = doc_ids.device
+    check_cuda_tensor("values", values, torch.float32, dev, 4)
+    n_k = values.shape[0]
+    out = _launch_block("retrieve_block_launch", values, None,
+                        lane_lo.shape[0], n_k, blo, block, bounds)
     retrieve_windows_kernel.launches += 1
     return out
 
@@ -297,42 +395,69 @@ def csr_lookup_packed_kernel(shard, lo, hi, doc_targets, packed, fences,
 csr_lookup_packed_kernel.launches = 0
 
 
+def lane_bounds_packed_kernel(packed, fences, values, lane_lo, lane_hi,
+                              origin: int, block: int, n_blocks: int = 1, *,
+                              tile: int) -> LaneBounds:
+    """:func:`lane_bounds_kernel` over packed ids: ``packed``, fences and
+    values as in :func:`csr_lookup_packed_kernel` (values give Nmax);
+    each (lane, doc) thread runs the two-level packed bisect
+    (``ref.lane_bounds_packed_ref`` on CPU tensors)."""
+    origin, block, n_blocks = _scan_args(origin, block, n_blocks)
+    n_edges = n_blocks * block + 1
+    if values.device.type != "cuda":
+        return LaneBounds(lane_bounds_packed_ref(
+            packed, fences, values.shape[1], lane_lo, lane_hi,
+            scan_edges(origin, n_edges - 1), tile=tile), origin, block,
+            n_blocks)
+    dev = values.device
+    n_k, n_words, n_fence = _check_packed(packed, fences, values, dev, tile)
+    n_q = _check_lanes(lane_lo, lane_hi, n_k, dev)
+    words, bits, base, woff = packed
+    table = torch.empty((n_q, n_k, n_edges), dtype=torch.int32, device=dev)
+    lib = _lib()
+    rc = lib.lane_bounds_packed_launch(
+        ptr(lane_lo), ptr(lane_hi), ptr(words), n_words, ptr(bits),
+        ptr(base), ptr(woff), ptr(fences), n_fence, values.shape[1], n_q,
+        n_k, int(tile), bisect_steps(n_fence), bisect_steps(tile), origin,
+        n_edges, ptr(table), stream_handle())
+    check_launch(lib, rc, "lane_bounds_packed_kernel")
+    lane_bounds_packed_kernel.launches += 1
+    return LaneBounds(table, origin, block, n_blocks)
+
+
+lane_bounds_packed_kernel.launches = 0
+
+
 def retrieve_windows_packed_kernel(packed, fences, values, lane_scale,
                                    lane_lo, lane_hi, blo: int, block: int,
-                                   *, tile: int) -> torch.Tensor:
+                                   *, tile: int,
+                                   bounds: Optional[LaneBounds] = None
+                                   ) -> torch.Tensor:
     """First-stage scan of one doc block over packed ids: ``packed``,
     fences and values as in :func:`csr_lookup_packed_kernel`;
     ``lane_scale`` (Q, K) f32 for int8 values (else None); lane_lo /
     lane_hi (Q, K) int32 flat posting ranges -> M (block, Q, n_b, n_f)
-    f32 for docs ``[blo, blo + block)``."""
+    f32 for docs ``[blo, blo + block)``.  ``bounds`` as in
+    :func:`retrieve_windows_kernel` (:func:`lane_bounds_packed_kernel`):
+    the table holds every id the block needs, so the block launch
+    decodes nothing."""
+    if bounds is None:
+        bounds = lane_bounds_packed_kernel(packed, fences, values, lane_lo,
+                                           lane_hi, blo, block, tile=tile)
+    int8 = values.dtype == torch.int8
     if values.device.type != "cuda":
-        return scan_block_packed_ref(packed, fences, values, lane_scale,
-                                     lane_lo, lane_hi, blo, block,
-                                     tile=tile)
+        return assemble_block_ref(values, lane_scale if int8 else None,
+                                  bounds.table, bounds.edge0(blo, block),
+                                  block)
     dev = values.device
-    n_k, n_words, n_fence = _check_packed(packed, fences, values, dev, tile)
-    check_cuda_tensor("lane_lo", lane_lo, torch.int32, dev, 2)
-    check_cuda_tensor("lane_hi", lane_hi, torch.int32, dev, 2)
-    n_q = lane_lo.shape[0]
-    if lane_lo.shape != (n_q, n_k) or lane_hi.shape != (n_q, n_k):
-        raise ValueError(f"lanes must be (Q, K={n_k}), got "
-                         f"{tuple(lane_lo.shape)} / {tuple(lane_hi.shape)}")
-    if block <= 0:
-        raise ValueError(f"block must be > 0, got {block}")
+    if values.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"values have dtype {values.dtype}, expected "
+                        "float32 or int8")
+    check_cuda_tensor("values", values, values.dtype, dev, 4)
+    n_q, n_k = lane_lo.shape[0], values.shape[0]
     lane_scale = _check_scale(lane_scale, values, dev, (n_q, n_k))
-    words, bits, base, woff = packed
-    out = torch.empty((block, n_q) + tuple(values.shape[2:]),
-                      dtype=torch.float32, device=dev)
-    lib = _lib()
-    rc = lib.retrieve_block_packed_launch(
-        ptr(lane_lo), ptr(lane_hi), ptr(words), n_words, ptr(bits),
-        ptr(base), ptr(woff), ptr(fences), n_fence, ptr(values),
-        int(values.dtype == torch.int8), values.shape[1],
-        None if lane_scale is None else ptr(lane_scale),
-        values.shape[2] * values.shape[3], ptr(out), n_q, n_k, int(blo),
-        int(block), int(tile), bisect_steps(n_fence), bisect_steps(tile),
-        stream_handle())
-    check_launch(lib, rc, "retrieve_windows_packed_kernel")
+    out = _launch_block("retrieve_block_packed_launch", values, lane_scale,
+                        n_q, n_k, blo, block, bounds)
     retrieve_windows_packed_kernel.launches += 1
     return out
 

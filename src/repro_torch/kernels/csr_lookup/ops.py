@@ -28,6 +28,7 @@ import torch
 from ...core.codec import validate_codec
 from ...core.index import POSTING_TILE, build_fences, fence_count
 from .kernel import (csr_lookup_kernel, csr_lookup_packed_kernel,
+                     lane_bounds_kernel, lane_bounds_packed_kernel,
                      retrieve_windows_kernel, retrieve_windows_packed_kernel)
 from .ref import (_alive_at, _lane_scale, _route, csr_lookup_packed_ref,
                   csr_lookup_ref, lane_scales, lookup_pairs_packed_ref,
@@ -211,9 +212,12 @@ def csr_lookup_pairs(term_offsets: torch.Tensor,
 
 def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
                    range_hi, query_terms, block, tile, impl, alive, codec,
-                   packed, value_scale, codec_spans, fences):
-    """``blo -> M (block, Q, n_b, n_f)`` with the lanes (and, under q8,
-    their scales) computed once for every block of the scan."""
+                   packed, value_scale, codec_spans, fences, origin,
+                   n_blocks):
+    """``blo -> M (block, Q, n_b, n_f)`` for the ``n_blocks`` doc blocks
+    from doc ``origin``, with the lanes (and, under q8, their scales)
+    computed once for every block of the scan; on the kernel path also
+    the lane-bounds table, one launch that every block launch reads."""
     codec = validate_codec(codec)
     t = int(tile or POSTING_TILE)
     use_kernel = _use_kernel(impl, values)
@@ -230,11 +234,14 @@ def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
                 tile=t, spans=tuple(codec_spans), alive=alive)
         lo_f, hi_f = _as_i32(lo_f), _as_i32(hi_f)
         scale = None if scale is None else scale.contiguous()
+        bounds = lane_bounds_packed_kernel(packed, fences, values, lo_f,
+                                           hi_f, origin, block, n_blocks,
+                                           tile=t)
 
         def packed_block(blo):
             m = retrieve_windows_packed_kernel(packed, fences, values, scale,
                                                lo_f, hi_f, blo, block,
-                                               tile=t)
+                                               tile=t, bounds=bounds)
             return _mask_dead_rows(m, alive, blo + arange)
         return packed_block
     if not use_kernel:
@@ -242,10 +249,12 @@ def _block_scanner(term_offsets, doc_ids, values, term_to_shard, range_lo,
                                           block, alive=alive)
     lo_f, hi_f = lo_f.contiguous(), hi_f.contiguous()
     vals = values.to(torch.float32)
+    bounds = lane_bounds_kernel(doc_ids, lo_f, hi_f, origin, block,
+                                n_blocks)
 
     def block_m(blo):
         m = retrieve_windows_kernel(doc_ids, vals, lo_f, hi_f, blo, block,
-                                    tile=t)
+                                    bounds=bounds)
         return _mask_dead_rows(m, alive, blo + arange)
     return block_m
 
@@ -270,7 +279,7 @@ def csr_retrieve_block(term_offsets: torch.Tensor,
     return _block_scanner(term_offsets, doc_ids, values, term_to_shard,
                           range_lo, range_hi, query_terms, int(block), tile,
                           impl, alive, codec, packed, value_scale,
-                          codec_spans, fences)(int(blo))
+                          codec_spans, fences, int(blo), 1)(int(blo))
 
 
 def csr_retrieve_topk(term_offsets: torch.Tensor,
@@ -304,7 +313,7 @@ def csr_retrieve_topk(term_offsets: torch.Tensor,
     block_m = _block_scanner(term_offsets, doc_ids, values, term_to_shard,
                              range_lo, range_hi, query_terms, block, tile,
                              impl, alive, codec, packed, value_scale,
-                             codec_spans, fences)
+                             codec_spans, fences, 0, n_blocks)
     dev = values.device
     run_v = torch.full((k,), -torch.inf, dtype=torch.float32, device=dev)
     run_i = torch.full((k,), -1, dtype=torch.int32, device=dev)

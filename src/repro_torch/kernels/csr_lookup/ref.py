@@ -223,6 +223,80 @@ def scan_block_ref(doc_ids: torch.Tensor, values: torch.Tensor,
                          alive=alive)
 
 
+def scan_edges(origin: int, n_docs: int, device=None) -> torch.Tensor:
+    """The edges of a lane-bounds table over docs ``[origin, origin +
+    n_docs)``: every doc and the end, ``origin + i`` for ``i`` in ``[0,
+    n_docs]``, int64."""
+    return origin + torch.arange(n_docs + 1, dtype=torch.int64,
+                                 device=device)
+
+
+def lane_bounds_ref(doc_ids: torch.Tensor, lane_lo: torch.Tensor,
+                    lane_hi: torch.Tensor, edges: torch.Tensor
+                    ) -> torch.Tensor:
+    """The scan's lane-bounds table: for every lane (Q, K) and edge (E,)
+    the first flat position in ``[lane_lo, lane_hi)`` whose doc id is >=
+    the edge, by the bisect :func:`scan_block_ref` runs per block ->
+    (Q, K, E) int32."""
+    flat = doc_ids.reshape(-1)
+    pos = _bisect(flat, lane_lo.long()[..., None], lane_hi.long()[..., None],
+                  edges, n_iter=bisect_steps(doc_ids.shape[1]))
+    return pos.expand(lane_lo.shape + edges.shape).to(torch.int32)
+
+
+def lane_bounds_packed_ref(packed, fences, n_max: int, lane_lo, lane_hi,
+                           edges, *, tile: int) -> torch.Tensor:
+    """Packed-codec :func:`lane_bounds_ref`: the two-level
+    :func:`packed_bisect` of each lane (shard-local) at every edge,
+    returned as flat positions (Q, K, E) int32."""
+    k_n = fences.shape[0]
+    base = torch.arange(k_n, dtype=torch.int64,
+                        device=lane_lo.device) * n_max          # (K,)
+    lo = (lane_lo.long() - base)[..., None]
+    hi = (lane_hi.long() - base)[..., None]
+    pos = packed_bisect(packed, fences, torch.arange(
+        k_n, device=lane_lo.device)[:, None], lo, hi, edges, tile=tile)
+    return (base[:, None] + pos).to(torch.int32)
+
+
+def block_cells_ref(table: torch.Tensor, e0: int, block: int):
+    """The postings of a block as the scan kernels read them from a
+    lane-bounds table whose edges are every doc: doc ``d`` of the block
+    has a posting in lane ``l`` iff ``table[l, e0 + d] < table[l, e0 + d
+    + 1]`` (a term posts once per doc), at that first position.  Returns
+    ``(cell, pos, lane)``, each (P,) int64: the cell ``d * Q + q`` of M
+    viewed as (block * Q, n_b, n_f), the flat posting and its lane ``q *
+    K + k``."""
+    q_n, k_n, _ = table.shape
+    a = table[..., e0:e0 + block].long()                     # (Q, K, D)
+    live = table[..., e0 + 1:e0 + block + 1].long() > a
+    d = torch.arange(block, device=a.device)
+    q = torch.arange(q_n, device=a.device)[:, None, None]
+    lane = torch.arange(q_n * k_n, device=a.device).view(q_n, k_n, 1)
+    return ((d * q_n + q).expand(a.shape)[live], a[live],
+            lane.expand(a.shape)[live])
+
+
+def assemble_block_ref(values: torch.Tensor, lane_scale, table: torch.Tensor,
+                       e0: int, block: int) -> torch.Tensor:
+    """M (block, Q, n_b, n_f) of the block whose first edge is column
+    ``e0`` of a lane-bounds table, as the scan kernels build it
+    (:func:`block_cells_ref`): each found cell gets ``0.0 + v`` (``v``
+    the posting's row, dequantised by its lane's ``lane_scale`` (Q, K)
+    for int8 values), every other cell +0.0."""
+    q_n = table.shape[0]
+    cell, pos, lane = block_cells_ref(table, e0, block)
+    rows = _flat_rows(values)[pos]
+    if lane_scale is not None:
+        rows = (rows.to(torch.float32)
+                * lane_scale.reshape(-1)[lane][:, None, None])
+    row = values.shape[2:]
+    out = torch.zeros((block * q_n,) + tuple(row), dtype=torch.float32,
+                      device=values.device)
+    out.index_add_(0, cell, rows)
+    return out.view((block, q_n) + tuple(row))
+
+
 def retrieve_block_ref(term_offsets, doc_ids, values, term_to_shard,
                        range_lo, range_hi, query_terms, blo: int,
                        block: int, alive=None) -> torch.Tensor:

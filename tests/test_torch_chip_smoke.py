@@ -112,13 +112,16 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
     monkeypatch.setattr(cs, "events_ms", _host_ms)
     monkeypatch.setattr(cs, "device_ms",
                         lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(cs, "device_profile", lambda fns, iters: None)
     monkeypatch.setattr(cs, "device_busy", _busy)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(lookup_ops, "_use_kernel",
                         lambda impl, like: impl in (None, "kernel"))
     for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "lane_bounds_kernel"),
                       (lookup_ops, "retrieve_windows_kernel"),
                       (lookup_ops, "csr_lookup_packed_kernel"),
+                      (lookup_ops, "lane_bounds_packed_kernel"),
                       (lookup_ops, "retrieve_windows_packed_kernel"),
                       (knrm_ops, "knrm_pool_kernel")):
         monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
@@ -134,8 +137,8 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
     kernels = cs.phase4(index, packed, requests, queries, launches, p2, dev)
 
     assert [k["name"] for k in kernels] == [
-        "csr_lookup", "retrieve_windows", "knrm_pool", "csr_lookup_packed",
-        "retrieve_windows_packed"]
+        "csr_lookup", "lane_bounds", "retrieve_windows", "knrm_pool",
+        "csr_lookup_packed", "lane_bounds_packed", "retrieve_windows_packed"]
     for k in kernels:
         assert set(k) >= KEYS
         assert k["launches"] > 0
@@ -143,7 +146,15 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
         for m in (k, k.get("q8", k)):
             assert m["max_abs_err"] == 0.0     # the plain version vs itself
             assert m["bound_ms"] > 0 and m["bound_by"] == "bytes"
-    assert set(kernels[3]["launches_by_path"]) == {"packed", "packed-q8"}
+    for i in (4, 5, 6):
+        assert set(kernels[i]["launches_by_path"]) == {"packed", "packed-q8"}
+    # one table per retrieval query and path, one launch per doc block
+    n_blocks = -(-cs.N_DOCS // 1024)
+    for table, scan in ((kernels[1], kernels[2]), (kernels[5], kernels[6])):
+        for path, n in table["launches_by_path"].items():
+            assert n == cs.N_RETRIEVE
+            assert scan["launches_by_path"][path] == cs.N_RETRIEVE * n_blocks
+        assert scan["library_ms"] > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -13,6 +13,11 @@ plain versions and ``engine.score``.  bf16 flash_attn runs on the tensor
 cores (``wgmma``, TMA loads), held against the plain version at every
 head width.
 
+The first-stage scan's lane-bounds table and its block kernels are held
+bitwise against their plain versions and the independent per-block
+reference over every block of a scan, with one table launch per scan, and
+M is shown to be written without a memset.
+
 This file imports neither jax nor repro, so it runs on a GPU host that
 has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Without a CUDA device every test skips.
@@ -20,6 +25,7 @@ tests/test_torch_gpu.py``.  Without a CUDA device every test skips.
 import copy
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -43,9 +49,13 @@ from repro_torch.kernels.embed_bag import (bag_ptr_from_offsets,
                                            segment_bag_sums_plain)
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             csr_lookup_packed_kernel,
+                                            lane_bounds_kernel,
+                                            lane_bounds_packed_kernel,
                                             lane_scales, retrieve_lanes,
                                             retrieve_windows_kernel,
-                                            retrieve_windows_packed_kernel)
+                                            retrieve_windows_packed_kernel,
+                                            scan_block_packed_ref,
+                                            scan_block_ref)
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attn_kernel,
                                             flash_attn_plain)
@@ -223,6 +233,129 @@ def test_packed_engine_on_cuda_matches_cpu(codec):
         s_c, d_c = e_cpu.retrieve(q, 10, doc_block=doc_block)
         assert torch.equal(d_g.cpu(), d_c)
         torch.testing.assert_close(s_g.cpu(), s_c, **TOL)
+
+
+def _scan_layout(layout, codec, device, tile=8):
+    """(index, query, [(origin, block, n_blocks)]) of one scan case: the
+    k1 and k4 indexes scanned whole, or the adversarial ids in lone blocks
+    at both ends of the int32 range."""
+    raw = _packed_layout(layout, device)
+    if codec != "none":
+        raw = pack_index(raw, codec, tile=tile)
+    if layout == "adversarial":
+        q, _ = adversarial_queries(adversarial_index())
+        scans = [(-(1 << 31), 256, 1), (-8, 64, 1), (1000, 256, 1),
+                 ((1 << 31) - 300, 256, 1), (40_003, 7, 1)]
+    else:
+        q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32)
+        scans = [(0, b, -(-raw.n_docs // b)) for b in (1, 7, 16, 64, 1024)]
+        scans.append((3, 5, 2))
+    return raw, q.to(device), scans
+
+
+def _scan_with_table(p, codec, q, origin, block, n_blocks):
+    """(the scan's table, M of each of its blocks, the per-block
+    reference's M), as the ops run the scan."""
+    lo, hi = retrieve_lanes(q, p.term_offsets, p.term_to_shard, p.range_lo,
+                            p.range_hi, p.nmax)
+    lo, hi = lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+    blocks = [origin + b * block for b in range(n_blocks)]
+    if codec == "none":
+        bounds = lane_bounds_kernel(p.doc_ids, lo, hi, origin, block,
+                                    n_blocks)
+        return bounds, [retrieve_windows_kernel(
+            p.doc_ids, p.values, lo, hi, blo, block, bounds=bounds)
+            for blo in blocks], [scan_block_ref(
+                p.doc_ids, p.values, lo, hi, blo, block) for blo in blocks]
+    scale = (None if p.value_scale is None
+             else lane_scales(p.value_scale, p.range_lo, q).contiguous())
+    args = (p._packed(), p.fences, p._serve_values)
+    bounds = lane_bounds_packed_kernel(*args, lo, hi, origin, block,
+                                       n_blocks, tile=p.codec_tile)
+    return bounds, [retrieve_windows_packed_kernel(
+        *args, scale, lo, hi, blo, block, tile=p.codec_tile, bounds=bounds)
+        for blo in blocks], [scan_block_packed_ref(
+            *args, scale, lo, hi, blo, block, tile=p.codec_tile)
+            for blo in blocks]
+
+
+@pytest.mark.parametrize("codec,tile", [("none", 8), ("packed", 8),
+                                        ("packed", 64), ("packed-q8", 8),
+                                        ("packed-q8", 64)])
+@pytest.mark.parametrize("layout", ["k1", "k4", "adversarial"])
+def test_scan_kernels_match_plain_over_every_block(layout, codec, tile):
+    """The lane-bounds table and every block's M on the card == their
+    plain versions (the same wrappers on the CPU) bit for bit, and M ==
+    the independent per-block reference (``scan_block_ref`` /
+    ``scan_block_packed_ref``): blocks of 1, 5 and 7 docs (CTAs of fewer
+    than 4 docs, partial last blocks), 16, 64 and 1,024, empty lanes and
+    a -1 slot, codec tiles 8 and 64, rows of 36 floats (16-byte vectors;
+    k1) and of 18 and 6 (scalar; k4, adversarial), top-bit words and
+    int32-extreme blocks.  The launch counts rise by one table per scan
+    and one per block."""
+    _require_cuda()
+    cpu, q_cpu, scans = _scan_layout(layout, codec, "cpu", tile)
+    gpu, q, _ = _scan_layout(layout, codec, "cuda", tile)
+    counters = ((lane_bounds_kernel, retrieve_windows_kernel)
+                if codec == "none" else
+                (lane_bounds_packed_kernel, retrieve_windows_packed_kernel))
+    for origin, block, n_blocks in scans:
+        before = [c.launches for c in counters]
+        bounds, got, ref = _scan_with_table(gpu, codec, q, origin, block,
+                                            n_blocks)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [
+            1, n_blocks]
+        want_bounds, want, _ = _scan_with_table(cpu, codec, q_cpu, origin,
+                                                block, n_blocks)
+        assert torch.equal(bounds.table.cpu(), want_bounds.table), (
+            origin, block)
+        for b, (g, w, r) in enumerate(zip(got, want, ref)):
+            assert torch.equal(g.cpu(), w), (origin, block, b)
+            assert torch.equal(g, r), (origin, block, b)
+
+
+@pytest.mark.parametrize("codec", ["none", "packed", "packed-q8"])
+def test_scan_kernels_at_a_wide_query(codec):
+    """80 query slots (320 cells x K = 4 lanes per CTA: more pairs and
+    row vectors than a CTA has threads, the loops take several rounds):
+    every block == the per-block reference, bitwise."""
+    _require_cuda()
+    p = _index("k4", "cuda")
+    if codec != "none":
+        p = pack_index(p, codec, tile=8)
+    q = torch.arange(-5, 75, dtype=torch.int32, device="cuda")
+    _, got, ref = _scan_with_table(p, codec, q, 0, 16, -(-p.n_docs // 16))
+    for b, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), b
+
+
+def test_scan_writes_m_without_a_memset():
+    """Every cell of M is written by the block kernel: a scan of the K=4
+    fixture on the card records no memset, and a block's M does not
+    depend on what its buffer held (the output is ``torch.empty``; the
+    caching allocator hands back the block just freed, filled with NaN
+    here)."""
+    from torch.profiler import ProfilerActivity, profile
+    _require_cuda()
+    gpu = _index("k4", "cuda")
+    q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32,
+                     device="cuda")
+    to, dids, vals, t2s, rlo, rhi = _stacked(gpu)
+    lo, hi = retrieve_lanes(q, to, t2s, rlo, rhi, dids.shape[1])
+    want = scan_block_ref(dids, vals, lo, hi, 0, 64)
+    with warnings.catch_warnings():     # the profiler's own notices
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bounds = lane_bounds_kernel(dids, lo, hi, 0, 64)
+            torch.full_like(want, float("nan"))  # freed: M reuses its block
+            got = retrieve_windows_kernel(dids, vals, lo, hi, 0, 64,
+                                          bounds=bounds)
+            torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    names = [e.key for e in prof.key_averages()]
+    assert not any("memset" in n.lower() for n in names), names
+    assert any("retrieve_block_kernel" in n for n in names), names
 
 
 def test_quantize_values_on_cuda_matches_numpy():

@@ -22,13 +22,17 @@ Phases (any failed check raises, and the script exits non-zero):
    bytes and the host seconds are printed.
 2. Each kernel against its plain PyTorch version on the card, at the
    serving shapes and on adversarial ids: ``csr_lookup`` at tiles
-   {64, 256, 1024} (bitwise); the first-stage scan as the main path runs
+   {64, 256, 1024} (bitwise), and over the same pairs as the front end's
+   coalesced lookup runs it, each pair routed on its own in a (1, P)
+   grid; the first-stage scan as the main path runs
    it, one ``lane_bounds`` table per query and ``retrieve_windows`` over
    every doc block through it, the table, every block (== M assembled
    from the plain table) and the independent per-block scan all bitwise;
-   ``knrm_pool`` (rtol 1e-5 / atol 1e-6); and the committed K=4
-   hot-term-split fixture (``tests/data/torch_hot_term_k4``: per-pair
-   routing, K > 1; bitwise; scans in blocks of 7, 16 and 64).  Then, for
+   ``knrm_pool`` (rtol 1e-5 / atol 1e-6; cos_norm in [-1, 1] and in
+   [0.99, 1], where only the exact-match kernel counts, at n_b 20 and 7);
+   and the committed K=4 hot-term-split fixture
+   (``tests/data/torch_hot_term_k4``: per-pair routing, K > 1; bitwise,
+   the (1, P) grid too; scans in blocks of 7, 16 and 64).  Then, for
    both codecs, the same for ``csr_lookup_packed`` (tiles
    {64, 256, 1024}) and ``lane_bounds_packed`` with
    ``retrieve_windows_packed`` (every doc block of a query), and both over
@@ -48,10 +52,16 @@ Phases (any failed check raises, and the script exits non-zero):
 4. Timing: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events; the bound is
    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM
-   data-sheet peaks) for this run's data.  The scans are timed as whole
-   scans of the 8 retrieval queries (a table, then 64 blocks): a scan
-   row's ``ms`` is all the device work of a block (CUPTI: the block
-   kernel, 1/64 of the table, any memset), its ``library_ms`` the copy
+   data-sheet peaks) for this run's data; ``knrm_pool``'s is the largest
+   of those and its exponentials and logarithms at the special-function
+   rate (16 per clock per SM at compute capability 9.0, times the SMs and
+   the highest SM clock the card reports).  ``csr_lookup`` is also timed
+   at the front end's coalesced shape: 8 of the requests deduplicated by
+   ``plan_coalesced``, a (1, P) grid routed per pair.  The scans are
+   timed as whole scans of the 8 retrieval queries (a table, then 64
+   blocks): a scan row's ``ms`` is all the device work of a block
+   (CUPTI: the block kernel, 1/64 of the table, any memset), its
+   ``library_ms`` the copy
    alone by PyTorch calls (``torch.zeros``, ``index_select`` and
    ``index_copy_`` of the found rows at given positions; no single call
    computes the whole function); a table row's ``ms`` is per launch (per
@@ -199,6 +209,7 @@ from repro_torch.retrievers import get_retriever  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DeadlineExceeded, NoIndexEngine, SeineEngine, ServingFrontend,
     make_qmeta, run_open_loop, serve_batches, serve_retrieval)
+from repro_torch.serving.coalesce import plan_coalesced  # noqa: E402
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
 N_B = 20                 # configs/base.py n_segments (Fig. 2 best)
@@ -215,6 +226,13 @@ PACK_TILE = 256          # codec tile (the build-time POSTING_TILE)
 CODECS = ("packed", "packed-q8")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, outside the tensor cores
+# special-function results (exp2, log2, rcp, ...) per clock per SM at
+# compute capability 9.0: the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughput
+SFU_PER_CLOCK_PER_SM = 16
+# the front end's coalesced lookup: a batch of FE_MAX_BATCH requests,
+# deduplicated by plan_coalesced with CoalescingScorer's default pair pad
+COALESCE_PAIR_PAD = 256
 KERNEL_SOURCE = "src/repro_torch/kernels/{}/csrc/{}.cu"
 TPU_KERNELS = {
     "csr_lookup": "src/repro/kernels/csr_lookup/kernel.py:217",
@@ -423,7 +441,9 @@ def assert_equal(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
 
 def check_lookup(index, q, docs, tiles, what):
     """csr_lookup kernel == its plain version (the kernel's dataflow run
-    by ``csr_lookup_plain``) and == the ref lowering, bit for bit."""
+    by ``csr_lookup_plain``) and == the ref lowering, bit for bit; then the
+    same pairs as the front end's coalesced lookup looks them up: every
+    (term, doc) pair routed on its own, a (1, P) grid."""
     ref = index.qd_matrix(q, docs, impl="ref")
     for tile in tiles:
         got = index.qd_matrix(q, docs, tile=tile)
@@ -431,6 +451,33 @@ def check_lookup(index, q, docs, tiles, what):
         torch.cuda.synchronize()
         assert_equal(got, want, f"{what} csr_lookup tile={tile}")
         assert_equal(got, ref, f"{what} csr_lookup vs ref tile={tile}")
+    shape = (q.shape[0], docs.shape[0])
+    terms = q[:, None].expand(shape).reshape(-1).contiguous()
+    pair_docs = docs[None].expand(shape).reshape(-1).contiguous()
+    got = index.lookup_pair_rows(terms, pair_docs)
+    want = plain_pairs(index, terms, pair_docs)
+    torch.cuda.synchronize()
+    assert_equal(got, want, f"{what} csr_lookup (1, P) pair grid")
+    assert_equal(got, ref.transpose(0, 1).reshape(got.shape),
+                 f"{what} csr_lookup (1, P) pair grid vs ref")
+
+
+def plain_pairs(index, terms, docs):
+    """``csr_lookup_plain`` on the card over pairs ``terms (P,)`` x ``docs
+    (P,)``, each routed on its own as ``ops.csr_lookup_pairs`` routes them
+    for the kernel: (P, n_b, n_f)."""
+    from repro_torch.core.index import POSTING_TILE, build_fences
+    to, dids, vals, t2s, rlo, _ = stacked(index)
+    split = getattr(index, "split_term", None)
+    if split is None:
+        k, lo, hi = route_terms(terms[None], to, t2s, rlo)
+    else:
+        k, lo, hi = route_pairs(terms[None], docs[None], to, t2s, rlo, split,
+                                index.split_doc)
+    i32 = lambda a: a.to(torch.int32).contiguous()  # noqa: E731
+    return csr_lookup_plain(i32(k), i32(lo), i32(hi), docs, dids,
+                            build_fences(dids, POSTING_TILE), vals,
+                            tile=POSTING_TILE)[:, 0]
 
 
 def plain_lookup(index, q, docs, tile):
@@ -513,26 +560,36 @@ def phase2(index, rng, dev):
     qt, dt = torch.from_numpy(q).to(dev), torch.from_numpy(docs).to(dev)
     check_lookup(index, qt, dt, (64, 256, 1024), "full index")
     log(f"phase 2: csr_lookup == plain (bitwise) at {Q_SLOTS} x {N_CAND}, "
-        f"tiles 64/256/1024")
+        f"tiles 64/256/1024, and as a (1, {Q_SLOTS * N_CAND}) pair grid")
 
     # retrieve_windows over every doc block of one query (hot term in it)
     scan_err, table_err = check_scan(index, qt, 1024, "full index")
     log("phase 2: lane_bounds and retrieve_windows == plain (bitwise) "
         "over all blocks, through one table per scan")
 
-    # knrm_pool at the serving shape, plus exact-match and empty segments
+    # knrm_pool at the serving shape, plus exact-match and empty segments;
+    # then cos_norm in [0.99, 1.0], where only the exact-match kernel
+    # (sigma 1e-3) is far from 0 and spans exp(0) to exp(-50), at n_b 20
+    # and at n_b 7 (no multiple of 4: the kernel stages one float at a
+    # time), with a B * Q that its 16-row tiles do not divide
     g = torch.Generator(device=dev).manual_seed(1)
-    cos = torch.rand((N_CAND, Q_SLOTS, N_B), generator=g, device=dev) * 2 - 1
-    cos[0, 0] = 1.0
-    cos[1, 0] = -1.0
-    mask = (torch.rand((N_CAND, N_B), generator=g, device=dev) > 0.2).float()
-    mask[2] = 0.0
-    got = knrm_pool_kernel(cos, mask)
-    want = knrm_pool_ref(cos, mask)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    knrm_err = (got - want).abs().max().item()
-    log(f"phase 2: knrm_pool == plain at rtol 1e-5/atol 1e-6 "
-        f"(max |diff| {knrm_err:.3g})")
+    knrm_err = 0.0
+    for n_cand, n_b, c_lo in ((N_CAND, N_B, -1.0), (N_CAND, N_B, 0.99),
+                              (N_CAND - 3, 7, 0.99), (N_CAND - 3, 7, -1.0)):
+        cos = (torch.rand((n_cand, Q_SLOTS, n_b), generator=g, device=dev)
+               * (1.0 - c_lo) + c_lo)
+        cos[0, 0] = 1.0
+        cos[1, 0] = c_lo
+        mask = (torch.rand((n_cand, n_b), generator=g, device=dev)
+                > 0.2).float()
+        mask[2] = 0.0
+        got = knrm_pool_kernel(cos, mask)
+        want = knrm_pool_ref(cos, mask)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        knrm_err = max(knrm_err, (got - want).abs().max().item())
+    log(f"phase 2: knrm_pool == plain at rtol 1e-5/atol 1e-6, cos_norm in "
+        f"[-1, 1] and [0.99, 1], n_b {N_B} and 7 (max |diff| "
+        f"{knrm_err:.3g})")
 
     # the K=4 hot-term-split fixture: per-pair routing, K > 1
     fx = load_index(FIXTURE, device=dev)
@@ -967,7 +1024,42 @@ def time_lookup(index, requests, dev):
     b_ms, b_by = bound(n_bytes, 0)
     return dict(name="csr_lookup", ms=ms, timed_by=how, call_ms=call_ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, ms_cold=ms_cold)
+                bound_by=b_by, library_ms=lib_ms, ms_cold=ms_cold,
+                coalesced=time_coalesced(index, requests, dev))
+
+
+def time_coalesced(index, requests, dev):
+    """csr_lookup at the front end's coalesced shape: one batch of
+    FE_MAX_BATCH requests, deduplicated by ``plan_coalesced``, every
+    distinct pair routed on its own and looked up through
+    ``index.lookup_pair_rows``, a (1, P) grid; held against its plain
+    version."""
+    row = N_B * len(ZIPF_FUNCTIONS)
+    terms, docs, _, n_distinct = plan_coalesced(requests[:FE_MAX_BATCH],
+                                                COALESCE_PAIR_PAD)
+    terms = torch.from_numpy(terms).to(dev)
+    docs = torch.from_numpy(docs).to(dev)
+    ms, how, call_ms = timed([lambda: index.lookup_pair_rows(terms, docs)],
+                             40, "csr_lookup_kernel")
+    got = index.lookup_pair_rows(terms, docs)
+    want = plain_pairs(index, terms, docs)
+    assert_equal(got, want, "coalesced csr_lookup")
+    found = int((got != 0).reshape(got.shape[0], -1).any(-1).sum())
+    # bytes the data needs: per pair its routing, its doc and a probe per
+    # bisect step of its term's range, the found rows and every row written
+    lo_hi = index.term_offsets.long()
+    w = terms.long().clamp(0, index.vocab_size - 1)
+    n = torch.where(terms >= 0, lo_hi[w + 1] - lo_hi[w], 0)
+    n_probes = int((torch.log2(n.double() + 1).ceil() + 1).sum())
+    n_bytes = (terms.shape[0] * (12 + 4 + row * 4) + n_probes * 4
+               + found * row * 4)
+    b_ms, b_by = bound(n_bytes, 0)
+    log(f"phase 4: csr_lookup coalesced: {FE_MAX_BATCH} requests -> "
+        f"{n_distinct} distinct pairs, a (1, {terms.shape[0]}) grid: "
+        f"{ms:.5f} ms ({how}; {call_ms:.4f} ms with launch and routing "
+        f"cost), bound {b_ms:.5f} ms ({b_by}), == plain (bitwise)")
+    return dict(ms=ms, timed_by=how, call_ms=call_ms, pairs=terms.shape[0],
+                distinct=n_distinct, bound_ms=b_ms, bound_by=b_by)
 
 
 def device_profile(fns, iters: int):
@@ -1151,11 +1243,31 @@ def time_knrm(index, requests, knrm_err, dev):
         err = (got - want).abs().max().item()
     rows, k = N_CAND * Q_SLOTS, 11
     n_bytes = (rows * N_B + N_CAND * N_B + rows * k) * 4
-    # per (row, segment, kernel): sub, div, 2 mul, exp, fma; log1p per sum
-    b_ms, b_by = bound(n_bytes, rows * N_B * k * 7 + rows * k)
+    # three limits: the bytes; per (row, segment, kernel) sub, two mul and
+    # an fma at the fp32 rate; the exponential per (row, segment, kernel)
+    # and the logarithm per sum on the special-function units
+    limits = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+              "fma": (rows * N_B * k * 4 + rows * k) / FP32_FLOPS_PER_S * 1e3,
+              "sfu": (rows * N_B * k + rows * k) / sfu_per_s() * 1e3}
+    by = max(limits, key=limits.get)
+    log("phase 4: knrm_pool limits (ms): " + ", ".join(
+        f"{n} {v:.5f}" for n, v in limits.items()))
     return dict(name="knrm_pool", ms=ms, timed_by=how, call_ms=call_ms,
                 plain_ms=plain_ms, max_abs_err=max(err, knrm_err),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=limits[by],
+                bound_by="bytes" if by == "bytes" else "operations",
+                bound_limits=limits, library_ms=None)
+
+
+def sfu_per_s() -> float:
+    """The card's special-function results per second: SFU_PER_CLOCK_PER_SM
+    x its SMs x the highest SM clock it reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
 
 
 def time_packed_lookup(pidx, requests, dev):

@@ -3,21 +3,44 @@
 // csr_lookup_kernel replaces the Pallas TPU kernel
 // src/repro/kernels/csr_lookup/kernel.py::csr_lookup_pallas.  It computes
 // M_{q,d} (B, Q, n_b, n_f): for each (candidate b, query term q) the
-// routed posting range [lo, hi) of the owning shard k is bisected for doc
-// d in two levels -- over the shard's fence row (every tile-th doc id),
-// then inside the one tile the fences select -- and the hit's
-// (n_b, n_f) values row is copied out, or +0.0 written by select where
-// the pair is absent.
+// routed posting range [lo, hi) of the owning shard k is searched for doc
+// d -- over the shard's fence row (every tile-th doc id), then inside the
+// one tile the fences select -- and the hit's (n_b, n_f) values row is
+// copied out, or +0.0 written where the pair is absent.
 //
-// What bounds it on the H100: latency, not bandwidth.  A cell moves one
-// 720-byte values row (n_b=20, n_f=9) but first walks a chain of ~25
-// dependent 4-byte probes.  The TPU kernel staged the fence row and the
-// winning tile in VMEM by DMA; here there is nothing to stage -- one warp
-// per cell runs the probes straight from global memory (the fence rows
-// and hot tiles stay in the 50 MB L2), every lane of the warp probing the
-// same address so the chain costs one broadcast load per step, and then
-// the 32 lanes copy the row with coalesced loads.  Enough warps are in
-// flight (6,000 cells at the serving shape) to hide the probe latency.
+// What bounds it on the H100: dependent rounds of loads, and the bytes each
+// round moves.  A cell moves one 720-byte values row (n_b=20, n_f=9), and
+// every load before that row depends on the one before: a bisect walks ~25
+// of them.  The TPU kernel staged the fence row and the winning tile in
+// VMEM by DMA.  Here one warp per cell (6,000 cells at the serving shape,
+// one wave) runs warp_search, a k-ary search in rounds: the lanes load the
+// last element of up to 32 * kProbes evenly spaced chunks of the range,
+// all independent, and a ballot picks the first chunk whose last element
+// is >= d.  All 6,000 warps move through the rounds together, so each
+// round costs about a memory latency plus its bytes over the card's
+// bandwidth, and a round that loads more sectors than it has to is as
+// costly as one more round.  The chain:
+//
+//  1. routing: shard, lo, hi and the doc;
+//  2. the fences of the term's own tiles only, (j_lo, j_hi], 8 probes per
+//     lane: one round for any term of up to 256 tiles, every term of the
+//     serving index at tile 256 (the fence rows stay in L1 and L2); an
+//     empty range loads nothing.  A range of at most kWholeRange (4,096)
+//     postings skips this and is searched whole in step 3, in as many
+//     rounds as the fences and a tile would take;
+//  3. the ids of the chosen tile inside [lo, hi): chunks of 32 ids (one
+//     probe per lane: 8 sectors at tile 256), then the ids of the one
+//     chunk left (one per lane); the probed value at the answer, or fence
+//     jt + 1 when the answer is the window's right edge (a tile boundary
+//     inside [lo, hi)), makes the hit check;
+//  4. the row: copied as stored (-0.0 stays -0.0) in 16-byte vectors when
+//     it is a multiple of 4 floats and both buffers are 16-byte aligned,
+//     one float at a time otherwise.  Rows and M are loaded and stored
+//     evict-first, so the doc ids (39 MB at the serving index) and fences
+//     that the next requests search stay in the 50 MB L2.
+//
+// In a sorted range the first id >= d is unique, so the positions are the
+// reference's bisect's and the output is bitwise the same.
 //
 // The first-stage scan replaces
 // src/repro/kernels/csr_lookup/kernel.py::retrieve_windows_pallas fused
@@ -100,71 +123,148 @@ __device__ __forceinline__ int doc_at(const int* __restrict__ row, int n,
   return p < n ? __ldg(row + p) : INT_MAX;
 }
 
-__global__ void csr_lookup_kernel(
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The first index in [a, b) of a sorted run whose value at(i) is >= d, or
+// b if none, searched by a whole warp: each round splits [a, b) into at
+// most 32 * kProbes chunks of `step` elements, loads every chunk's last
+// element (kProbes independent loads per lane) and keeps the first chunk
+// whose last element is >= d, less that element, which is the answer if
+// nothing before it in the chunk is.  A range of at most 32 * kProbes
+// elements takes one round (every element probed); before that, chunks
+// hold at least kMinStep elements, so that a round reads no more sectors
+// than it has probes.  An empty range loads nothing.  With kTrack, *v_at
+// tracks the value at b: it is the probed value of the chunk end that
+// became b, and keeps what the caller gave when no round finds one.
+template <int kProbes, int kMinStep, bool kTrack, typename At>
+__device__ __forceinline__ int warp_search(int a, int b, int d, int lane,
+                                           At at, int* v_at) {
+  constexpr int kChunks = 32 * kProbes;
+  while (a < b) {
+    const int n = b - a;
+    const int step =
+        n <= kChunks ? 1 : max(kMinStep, (n + kChunks - 1) / kChunks);
+    const int chunks = step == 1 ? n : (n + step - 1) / step;
+    int f[kProbes] = {};
+#pragma unroll
+    for (int i = 0; i < kProbes; ++i) {
+      const int c = i * 32 + lane;
+      if (i * 32 < chunks && c < chunks)
+        f[i] = at(min(a + (c + 1) * step, b) - 1);
+    }
+    // the first chunk whose last element is >= d: the ballots are
+    // independent; the lowest nonzero one names it
+    unsigned ge[kProbes];
+#pragma unroll
+    for (int i = 0; i < kProbes; ++i)
+      ge[i] = __ballot_sync(kFullMask, i * 32 + lane < chunks && f[i] >= d);
+    int m = chunks;
+#pragma unroll
+    for (int i = kProbes - 1; i >= 0; --i)
+      if (ge[i]) m = i * 32 + __ffs(ge[i]) - 1;
+    if (kTrack && m < chunks) {
+      int mine = f[0];
+#pragma unroll
+      for (int i = 1; i < kProbes; ++i)
+        if (i == (m >> 5)) mine = f[i];
+      *v_at = __shfl_sync(kFullMask, mine, m & 31);
+    }
+    if (m == chunks) {
+      a = b;
+    } else {
+      const int a2 = a + m * step;
+      b = min(a + (m + 1) * step, b) - 1;
+      a = a2;
+    }
+  }
+  return a;
+}
+
+// ranges of at most this many postings skip the fence search: the id
+// search ends them in three rounds (32 chunks of 128 ids, of 32, then 32
+// ids), as many as the fence round and a tile's two would take
+constexpr int kWholeRange = 4096;
+
+// One warp per (b, q) cell; every branch below is uniform over the warp.
+template <int kVec>
+__global__ void __launch_bounds__(256) csr_lookup_kernel(
     const int* __restrict__ shard, const int* __restrict__ lo,
     const int* __restrict__ hi, int pair_routed,
     const int* __restrict__ docs, const int* __restrict__ doc_ids,
     int n_max, const int* __restrict__ fences, int n_fence,
     const float* __restrict__ values, int row_len, float* __restrict__ out,
-    int n_q, int n_cand, int n_shards, int tile, int fence_iter,
-    int tile_iter) {
+    int n_q, int n_cand, int n_shards, int tile) {
   const int lane = threadIdx.x & 31;
-  const int64_t cell =
-      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (cell >= (int64_t)n_q * n_cand) return;
-  const int b = (int)(cell / n_q);
-  const int q = (int)(cell % n_q);
-  // routing: per term (Q,) or, for doc-range sub-shards, per pair (Q, B)
+  const int cell = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (cell >= n_q * n_cand) return;
+  const int b = cell / n_q;
+  const int q = cell - b * n_q;
+  // round 1, routing: per term (Q,) or, for doc-range sub-shards, per
+  // pair (Q, B)
   const int r = pair_routed ? q * n_cand + b : q;
   const int k = clampi(__ldg(shard + r), 0, n_shards - 1);
   const int lo0 = __ldg(lo + r), hi0 = __ldg(hi + r), d = __ldg(docs + b);
   const int* frow = fences + (int64_t)k * n_fence;
   const int* drow = doc_ids + (int64_t)k * n_max;
+  const auto fence = [&](int j) {
+    return __ldg(frow + clampi(j, 0, n_fence - 1));
+  };
+  const auto id = [&](int p) { return doc_at(drow, n_max, max(p, 0)); };
 
-  // level 1: first fence jf in (j_lo, j_hi] with fences[jf] >= d, over
-  // the tiles that intersect [lo, hi) only, where the fences are sorted
-  const int j_lo = floordiv(lo0, tile);
-  const int j_hi = max(floordiv(hi0 - 1, tile), j_lo);
-  int flo = j_lo + 1, fhi = j_hi + 1;
-  for (int i = 0; i < fence_iter; ++i) {
-    const int mid = midpoint(flo, fhi);
-    const bool go = (__ldg(frow + clampi(mid, 0, n_fence - 1)) < d) &&
-                    (flo < fhi);
-    flo = go ? mid + 1 : flo;
-    fhi = go ? fhi : mid;
+  // the window to search for the first id >= d: a range of at most
+  // kWholeRange postings is searched whole; a longer one is first narrowed
+  // to the tile jt whose fence is the last below d (level 1: the first
+  // fence >= d among the term's own, (j_lo, j_hi], where the fences are
+  // sorted; 8 probes per lane, one round for up to 256 tiles), less
+  // [lo, hi); fence jt + 1 stands in for the id at the window's end, a
+  // tile boundary inside [lo, hi) when the window holds no id >= d
+  int w_lo = lo0, w_hi = hi0, v_at = 0;
+  if (hi0 - lo0 > kWholeRange) {
+    const int j_lo = floordiv(lo0, tile);
+    const int j_hi = max(floordiv(hi0 - 1, tile), j_lo);
+    const int jf = warp_search<8, 1, false>(j_lo + 1, j_hi + 1, d, lane,
+                                            fence, nullptr);
+    // the clamp keeps the tile in bounds for an empty range pinned at a
+    // tile-aligned shard end; the window below is then empty
+    const int jt = clampi(jf - 1, 0, n_fence - 1);
+    const int base = jt * tile;
+    w_lo = max(base, lo0);
+    w_hi = min(base + tile, hi0);
+    v_at = fence(jt + 1);
   }
-  // the clamp keeps the tile in bounds for an empty range pinned at a
-  // tile-aligned shard end; the window below is then empty
-  const int jt = clampi(flo - 1, 0, n_fence - 1);
-  const int base = jt * tile;
-
-  // level 2: the bisect inside tile jt, over the window [w_lo, w_hi)
-  const int w_hi = min(base + tile, hi0);
-  int plo = max(base, lo0), phi = w_hi;
-  for (int i = 0; i < tile_iter; ++i) {
-    const int mid = midpoint(plo, phi);
-    const bool go =
-        (doc_at(drow, n_max, base + clampi(mid - base, 0, tile - 1)) < d) &&
-        (plo < phi);
-    plo = go ? mid + 1 : plo;
-    phi = go ? phi : mid;
-  }
-  const int pos = plo;
-  // the hit is in the tile, or -- when the bisect ran off the window's
-  // right edge at a tile boundary still inside [lo, hi) -- the next
-  // tile's first element, which is fence jt + 1
-  const int v_at =
-      pos < w_hi ? doc_at(drow, n_max, base + clampi(pos - base, 0, tile - 1))
-                 : __ldg(frow + clampi(jt + 1, 0, n_fence - 1));
+  // level 2: the first position in the window whose id is >= d (int32 max
+  // past the row end), or the window's end (its start when it is empty):
+  // chunks of 32 ids or more, one probe per lane, then the last chunk's
+  // ids, one per lane -- two rounds of at most 8 + 5 sectors at tile 256
+  const int pos = warp_search<1, 32, true>(w_lo, max(w_lo, w_hi), d, lane,
+                                           id, &v_at);
   const bool found = (pos < hi0) && (v_at == d);
 
-  float* dst = out + cell * row_len;
+  // the row as stored (a -0.0 stays -0.0), or +0.0 where the pair is
+  // absent; 16-byte vectors when the row is a multiple of 4 floats and both
+  // buffers are 16-byte aligned.  Rows and M stream through the L2
+  // (evict-first loads and stores), which keeps the ids and fences the
+  // next requests search there.
+  float* dst = out + (int64_t)cell * row_len;
+  const int n_vec = row_len / kVec;
   if (found) {
     const float* src =
         values + ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len;
-    for (int j = lane; j < row_len; j += 32) dst[j] = __ldg(src + j);
+    if constexpr (kVec == 4) {
+      for (int j = lane; j < n_vec; j += 32)
+        __stcs(reinterpret_cast<float4*>(dst) + j,
+               __ldcs(reinterpret_cast<const float4*>(src) + j));
+    } else {
+      for (int j = lane; j < n_vec; j += 32) __stcs(dst + j, __ldcs(src + j));
+    }
   } else {
-    for (int j = lane; j < row_len; j += 32) dst[j] = 0.0f;
+    if constexpr (kVec == 4) {
+      for (int j = lane; j < n_vec; j += 32)
+        __stcs(reinterpret_cast<float4*>(dst) + j,
+               make_float4(0.f, 0.f, 0.f, 0.f));
+    } else {
+      for (int j = lane; j < n_vec; j += 32) __stcs(dst + j, 0.0f);
+    }
   }
 }
 
@@ -486,20 +586,28 @@ __global__ void __launch_bounds__(kScanThreads) retrieve_block_packed_kernel(
 
 extern "C" {
 
+static bool vec_rows(const void* values, int elem_bytes, int row_len,
+                     const float* out);
+
 int csr_lookup_launch(const int* shard, const int* lo, const int* hi,
                       int pair_routed, const int* docs, const int* doc_ids,
                       int n_max, const int* fences, int n_fence,
                       const float* values, int row_len, float* out, int n_q,
-                      int n_cand, int n_shards, int tile, int fence_iter,
-                      int tile_iter, cudaStream_t stream) {
+                      int n_cand, int n_shards, int tile,
+                      cudaStream_t stream) {
   const int64_t cells = (int64_t)n_q * n_cand;
   if (cells == 0) return 0;
+  if (cells > INT_MAX) return (int)cudaErrorInvalidValue;  // int32 cells
   const int threads = 256, warps = threads / 32;
-  const int64_t blocks = (cells + warps - 1) / warps;
-  csr_lookup_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      shard, lo, hi, pair_routed, docs, doc_ids, n_max, fences, n_fence,
-      values, row_len, out, n_q, n_cand, n_shards, tile, fence_iter,
-      tile_iter);
+  const unsigned blocks = (unsigned)((cells + warps - 1) / warps);
+  if (vec_rows(values, 4, row_len, out))
+    csr_lookup_kernel<4><<<blocks, threads, 0, stream>>>(
+        shard, lo, hi, pair_routed, docs, doc_ids, n_max, fences, n_fence,
+        values, row_len, out, n_q, n_cand, n_shards, tile);
+  else
+    csr_lookup_kernel<1><<<blocks, threads, 0, stream>>>(
+        shard, lo, hi, pair_routed, docs, doc_ids, n_max, fences, n_fence,
+        values, row_len, out, n_q, n_cand, n_shards, tile);
   return (int)cudaGetLastError();
 }
 

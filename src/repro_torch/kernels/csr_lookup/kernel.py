@@ -16,10 +16,11 @@ A wrapper given CUDA tensors validates them, allocates its output with
 nonzero ``cudaGetLastError`` and adds one to its ``launches`` count.
 Given CPU tensors it runs its plain PyTorch version instead, which
 repeats the kernel's algorithm so the CPU tests check the tile-edge,
-decode and table logic: :func:`csr_lookup_plain` (fence bisect,
-``jt`` clamp, in-tile bisect, fence-edge case),
-:func:`csr_lookup_packed_plain` (the same with packed probes, through
-``ref.packed_bisect``), ``ref.lane_bounds_ref`` /
+decode and table logic: :func:`csr_lookup_plain` (the raw kernel's
+warp searches through :func:`warp_search`: the whole-range cut, the
+fence rounds, the ``jt`` clamp, the id rounds, the fence-edge case),
+:func:`csr_lookup_packed_plain` (the packed kernel's fence bisect and
+in-tile bisect over packed probes, through ``ref.packed_bisect``), ``ref.lane_bounds_ref`` /
 ``ref.lane_bounds_packed_ref`` (the table) and ``ref.assemble_block_ref``
 (M from the table).
 """
@@ -40,7 +41,7 @@ from .ref import (assemble_block_ref, bisect_steps, lane_bounds_packed_ref,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "csr_lookup_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
-                          _I, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _P],
     "lane_bounds_launch": [_P, _P, _P, _L, _I, _L, _I, _P, _P],
     "retrieve_block_launch": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
                               _P],
@@ -58,11 +59,49 @@ def _lib() -> ctypes.CDLL:
     return load_library("csr_lookup", _SIGNATURES)
 
 
+# the raw lookup kernel's warp searches: (probes per lane, least chunk) of
+# the fence search and of the id search, and the longest range it searches
+# whole, without the fences (``kWholeRange``)
+FENCE_SEARCH = (8, 1)
+ID_SEARCH = (1, 32)
+WHOLE_RANGE = 4096
+
+
+def warp_search(a, b, d, at, v_at, probes: int, min_step: int):
+    """The kernel's ``warp_search`` over every cell at once: the first
+    index in [a, b) whose value ``at(index)`` is >= d (``b`` if none), in
+    rounds of at most ``32 * probes`` chunks, each chunk's last element
+    probed (every element once the range fits one round, chunks of at
+    least ``min_step`` before that).  Returns it and the value at it as
+    the kernel tracks it (``v_at`` where no round found one)."""
+    chunks_max = 32 * probes
+    chunk = torch.arange(chunks_max, device=a.device)
+    while bool((a < b).any()):
+        n = (b - a).clamp(min=0)
+        step = torch.where(n <= chunks_max, 1, torch.clamp(
+            (n + chunks_max - 1) // chunks_max, min=min_step))
+        chunks = (n + step - 1) // step
+        last = torch.minimum(a[..., None] + (chunk + 1) * step[..., None],
+                             b[..., None]) - 1
+        f = at(last)
+        ge = (chunk < chunks[..., None]) & (f >= d[..., None])
+        hit = ge.any(-1)
+        m = torch.where(hit, (ge.cumsum(-1) == 0).sum(-1), chunks)
+        v_at = torch.where(hit, f.gather(-1, m.clamp(max=chunks_max - 1)
+                                         [..., None])[..., 0], v_at)
+        a_new = a + m * step
+        b = torch.where(hit, torch.minimum(a + (m + 1) * step, b) - 1, b)
+        a = torch.where(hit, a_new, b)
+    return a, v_at
+
+
 def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
                      *, tile: int) -> torch.Tensor:
-    """The kernel's per-cell algorithm over all (b, q) cells at once, in
-    plain PyTorch (int64 positions).  Same inputs and output as
-    :func:`csr_lookup_kernel`."""
+    """The kernel's per-cell search over all (b, q) cells at once, in
+    plain PyTorch (int64 positions), through :func:`warp_search` with the
+    kernel's widths: a range of at most WHOLE_RANGE postings searched
+    whole, a longer one first narrowed by the fence search to one tile;
+    the same clamps.  Same inputs and output as :func:`csr_lookup_kernel`."""
     n_k, n_max = doc_ids.shape
     n_fence = fences.shape[1]
     n_cand, n_q = doc_targets.shape[0], shard.shape[0]
@@ -78,36 +117,35 @@ def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
     fflat, dflat = fences.reshape(-1), doc_ids.reshape(-1)
     fbase, dbase = k * n_fence, k * n_max
 
-    def fence(j):
-        return fflat[fbase + j.clamp(0, n_fence - 1)].long()
+    def fence(j):                   # j per cell, or (cell, probe)
+        at = fbase if j.ndim == fbase.ndim else fbase[..., None]
+        return fflat[at + j.clamp(0, n_fence - 1)].long()
 
     def doc_at(p):                  # int32 max past the row: the tile pad
-        return torch.where(p < n_max,
-                           dflat[dbase + p.clamp(max=n_max - 1)].long(),
-                           INT32_MAX)
+        at = dbase if p.ndim == dbase.ndim else dbase[..., None]
+        p = p.clamp(min=0)
+        return torch.where(p < n_max, dflat[at + p.clamp(max=n_max - 1)]
+                           .long(), INT32_MAX)
 
     def floordiv(a, b):
         return torch.div(a, b, rounding_mode="floor")
 
+    # the window: a range of at most WHOLE_RANGE postings whole; a longer
+    # one narrowed to the tile jt whose fence is the last below d, less
+    # [lo, hi), with fence jt + 1 standing in for the id at its end
+    whole = hi0 - lo0 <= WHOLE_RANGE
     j_lo = floordiv(lo0, tile)
     j_hi = torch.maximum(floordiv(hi0 - 1, tile), j_lo)
-    flo, fhi = j_lo + 1, j_hi + 1
-    for _ in range(bisect_steps(n_fence)):
-        mid = floordiv(flo + fhi, 2)
-        go = (fence(mid) < d) & (flo < fhi)
-        flo, fhi = torch.where(go, mid + 1, flo), torch.where(go, fhi, mid)
-    jt = (flo - 1).clamp(0, n_fence - 1)
+    jf, _ = warp_search(j_lo + 1, torch.where(whole, j_lo + 1, j_hi + 1), d,
+                        fence, torch.zeros_like(d), *FENCE_SEARCH)
+    jt = (jf - 1).clamp(0, n_fence - 1)
     base = jt * tile
-    w_hi = torch.minimum(base + tile, hi0)
-    plo, phi = torch.maximum(base, lo0), w_hi
-    for _ in range(bisect_steps(tile)):
-        mid = floordiv(plo + phi, 2)
-        go = (doc_at(base + (mid - base).clamp(0, tile - 1)) < d) & (plo < phi)
-        plo, phi = torch.where(go, mid + 1, plo), torch.where(go, phi, mid)
-    pos = plo
-    v_at = torch.where(pos < w_hi,
-                       doc_at(base + (pos - base).clamp(0, tile - 1)),
-                       fence(jt + 1))
+    w_lo = torch.where(whole, lo0, torch.maximum(base, lo0))
+    w_hi = torch.where(whole, hi0, torch.minimum(base + tile, hi0))
+    v_edge = torch.where(whole, 0, fence(jt + 1))
+    # the first id >= d in the window, or its end (its start when empty)
+    pos, v_at = warp_search(w_lo, torch.maximum(w_lo, w_hi), d, doc_at,
+                            v_edge, *ID_SEARCH)
     found = (pos < hi0) & (v_at == d)
     rows = values.reshape((-1,) + tuple(values.shape[2:]))
     vals = rows[dbase + pos.clamp(0, n_max - 1)]
@@ -152,8 +190,7 @@ def csr_lookup_kernel(shard, lo, hi, doc_targets, doc_ids, fences, values,
         ptr(shard), ptr(lo), ptr(hi), int(route_ndim == 2),
         ptr(doc_targets), ptr(doc_ids), n_max, ptr(fences),
         fences.shape[1], ptr(values), values.shape[2] * values.shape[3],
-        ptr(out), n_q, n_cand, n_k, int(tile),
-        bisect_steps(fences.shape[1]), bisect_steps(tile), stream_handle())
+        ptr(out), n_q, n_cand, n_k, int(tile), stream_handle())
     check_launch(lib, rc, "csr_lookup_kernel")
     csr_lookup_kernel.launches += 1
     return out

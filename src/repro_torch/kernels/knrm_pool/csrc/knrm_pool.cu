@@ -8,50 +8,93 @@
 // masks each segment by seg_mask (B, n_b), sums over the n_b segments and
 // writes log1p of the 11 sums to out (B, Q, 11).
 //
-// What bounds it on the H100: the bytes.  A row reads n_b floats and
-// writes 11; the 11 * n_b exponentials are ~15 flops per byte read, under
-// the card's fp32 ridge of ~20.  The TPU kernel kept the (block_q, n_b,
-// 11) tile in VMEM so the 11x-inflated kernel tensor never reached HBM;
-// here one thread owns one row and keeps its 11 running sums in
-// registers, so the only traffic is cos_norm in, the mask (shared by the
-// Q rows of a candidate, served from L1/L2) and the (B, Q, 11) result out.
+// What bounds it on the H100: at the serving shape (1,000 candidates x 6
+// slots x n_b 20) the 1.32M exponentials on the SFUs (~0.3 us) and the
+// 0.8 MB moved (~0.25 us) -- far under a launch, so the kernel has to
+// reach the whole card at once and keep its dependent chain short.  The
+// TPU kernel kept the (block_q, n_b, 11) tile in VMEM so the 11x-inflated
+// kernel tensor never reached HBM; here each CTA owns kRows consecutive
+// (b, q) rows:
+//
+//  - it stages their kRows * n_b cos_norm floats (contiguous) and the
+//    mask rows of their candidates (contiguous too) in shared memory,
+//    in 16-byte vectors when the buffers are 16-byte aligned and n_b is a
+//    multiple of 4, one float at a time otherwise;
+//  - one thread per (row, kernel) output sums its kernel over the n_b
+//    segments from shared memory, in segment order, as
+//    exp2(a_k * (c - mu_k)^2) * m with a_k = -0.5 * log2(e) / sigma_k^2
+//    folded into a float32 constant: no division, one multiply less than
+//    the reference's form, and within 4% of the rtol 1e-5 / atol 1e-6
+//    bar of the reference's exp (most on the exact-match kernel, c in
+//    [0.99, 1.0], where c - 1 is exact);
+//  - thread t writes element t of the CTA's (kRows, 11) output tile,
+//    which is contiguous in out, so the store is coalesced.
+//
+// kRows = 16 gives 176 busy threads of 192 and 375 CTAs at the serving
+// shape's 6,000 rows: every SM of the 132 holds two or three.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kKernels = 11;
-// the reference's float32 constants, retrievers/knrm.py::MUS and SIGMAS
+constexpr int kRows = 16;
+constexpr int kThreads = 192;   // kRows * kKernels = 176, rounded to warps
+static_assert(kRows * kKernels <= kThreads, "a thread per output");
+
+// the reference's float32 constants, retrievers/knrm.py::MUS, and
+// -0.5 * log2(e) / SIGMAS^2 of its float32 SIGMAS (1e-3 for the
+// exact-match kernel, 0.1 for the rest), rounded once to float32
 __constant__ float kMus[kKernels] = {1.0f,  0.9f,  0.7f,  0.5f,
                                      0.3f,  0.1f,  -0.1f, -0.3f,
                                      -0.5f, -0.7f, -0.9f};
-__constant__ float kSigmas[kKernels] = {0.001f, 0.1f, 0.1f, 0.1f,
-                                        0.1f,   0.1f, 0.1f, 0.1f,
-                                        0.1f,   0.1f, 0.1f};
+__constant__ float kScale[kKernels] = {
+    -721347.438f, -72.1347504f, -72.1347504f, -72.1347504f,
+    -72.1347504f, -72.1347504f, -72.1347504f, -72.1347504f,
+    -72.1347504f, -72.1347504f, -72.1347504f};
 
-__global__ void knrm_pool_kernel(const float* __restrict__ cos_norm,
-                                 const float* __restrict__ seg_mask,
-                                 float* __restrict__ out, int n_q, int n_b,
-                                 int64_t n_rows) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n_rows) return;
-  const float* c_row = cos_norm + row * n_b;
-  const float* m_row = seg_mask + (row / n_q) * n_b;
-  float acc[kKernels];
-#pragma unroll
-  for (int k = 0; k < kKernels; ++k) acc[k] = 0.0f;
-  for (int s = 0; s < n_b; ++s) {
-    const float c = __ldg(c_row + s);
-    const float m = __ldg(m_row + s);
-#pragma unroll
-    for (int k = 0; k < kKernels; ++k) {
-      const float z = (c - kMus[k]) / kSigmas[k];
-      acc[k] += expf(-0.5f * (z * z)) * m;
-    }
+// n contiguous floats from src to dst, by the CTA's threads
+template <bool kVec>
+__device__ __forceinline__ void stage(float* __restrict__ dst,
+                                      const float* __restrict__ src, int n) {
+  if constexpr (kVec) {     // n % 4 == 0, src and dst 16-byte aligned
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] =
+          __ldg(reinterpret_cast<const float4*>(src) + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
   }
-  float* o = out + row * kKernels;
-#pragma unroll
-  for (int k = 0; k < kKernels; ++k) o[k] = log1pf(acc[k]);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) knrm_pool_kernel(
+    const float* __restrict__ cos_norm, const float* __restrict__ seg_mask,
+    float* __restrict__ out, int n_q, int n_b, int n_rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int r0 = blockIdx.x * kRows;
+  const int rows = min(kRows, n_rows - r0);
+  const int b0 = r0 / n_q;
+  const int n_cand = (r0 + rows - 1) / n_q - b0 + 1;
+  float* c_s = smem;                                // (rows, n_b)
+  float* m_s = smem + kRows * n_b;                  // (n_cand, n_b)
+  stage<kVec>(c_s, cos_norm + (int64_t)r0 * n_b, rows * n_b);
+  stage<kVec>(m_s, seg_mask + (int64_t)b0 * n_b, n_cand * n_b);
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const int r = t / kKernels, k = t - r * kKernels;
+  if (r >= rows) return;
+  const float mu = kMus[k], a = kScale[k];
+  const float* c_row = c_s + r * n_b;
+  const float* m_row = m_s + ((r0 + r) / n_q - b0) * n_b;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int s = 0; s < n_b; ++s) {
+    const float d = c_row[s] - mu;
+    acc += exp2f(a * (d * d)) * m_row[s];
+  }
+  out[(int64_t)r0 * kKernels + t] = log1pf(acc);
 }
 
 }  // namespace
@@ -63,9 +106,28 @@ int knrm_pool_launch(const float* cos_norm, const float* seg_mask,
                      cudaStream_t stream) {
   const int64_t rows = (int64_t)n_cand * n_q;
   if (rows == 0) return 0;
-  const int threads = 128;
-  knrm_pool_kernel<<<(unsigned)((rows + threads - 1) / threads), threads, 0,
-                     stream>>>(cos_norm, seg_mask, out, n_q, n_b, rows);
+  if (rows > INT_MAX - kRows) return (int)cudaErrorInvalidValue;  // int32
+  const unsigned grid = (unsigned)((rows + kRows - 1) / kRows);
+  // a tile's rows touch at most kRows candidates' masks
+  const size_t smem = (size_t)2 * kRows * n_b * sizeof(float);
+  const bool vec = n_b % 4 == 0 && (uintptr_t)cos_norm % 16 == 0 &&
+                   (uintptr_t)seg_mask % 16 == 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = vec
+        ? cudaFuncSetAttribute(knrm_pool_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem)
+        : cudaFuncSetAttribute(knrm_pool_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (vec)
+    knrm_pool_kernel<true><<<grid, kThreads, smem, stream>>>(
+        cos_norm, seg_mask, out, n_q, n_b, (int)rows);
+  else
+    knrm_pool_kernel<false><<<grid, kThreads, smem, stream>>>(
+        cos_norm, seg_mask, out, n_q, n_b, (int)rows);
   return (int)cudaGetLastError();
 }
 

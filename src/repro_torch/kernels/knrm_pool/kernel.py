@@ -19,6 +19,9 @@ from .ref import MUS, knrm_pool_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"knrm_pool_launch": [_P, _P, _P, _I, _I, _I, _P]}
+# a CTA stages 16 rows and up to 16 mask rows of n_b floats in shared
+# memory, 128 * n_b bytes: 128 KB at this n_b
+MAX_SEGMENTS = 1024
 
 
 def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
@@ -33,6 +36,9 @@ def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
     if seg_mask.shape != (n_cand, n_b):
         raise ValueError(f"seg_mask must be (B, n_b) = {(n_cand, n_b)}, got "
                          f"{tuple(seg_mask.shape)}")
+    if n_b > MAX_SEGMENTS:
+        raise ValueError(f"n_b = {n_b} segments exceed the kernel's "
+                         f"{MAX_SEGMENTS}")
     out = torch.empty((n_cand, n_q, len(MUS)), dtype=torch.float32,
                       device=dev)
     lib = load_library("knrm_pool", _SIGNATURES)

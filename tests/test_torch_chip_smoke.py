@@ -114,6 +114,8 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
                         lambda fns, iters, kernel, cold=False: None)
     monkeypatch.setattr(cs, "device_profile", lambda fns, iters: None)
     monkeypatch.setattr(cs, "device_busy", _busy)
+    # the H100's: 16 per clock per SM x 132 SMs x 1,980 MHz
+    monkeypatch.setattr(cs, "sfu_per_s", lambda: 16 * 132 * 1.98e9)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(lookup_ops, "_use_kernel",
                         lambda impl, like: impl in (None, "kernel"))
@@ -145,7 +147,17 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
         assert all(n > 0 for n in k["launches_by_path"].values())
         for m in (k, k.get("q8", k)):
             assert m["max_abs_err"] == 0.0     # the plain version vs itself
-            assert m["bound_ms"] > 0 and m["bound_by"] == "bytes"
+            assert m["bound_ms"] > 0 and m["bound_by"] == (
+                "operations" if k["name"] == "knrm_pool" else "bytes")
+    # knrm_pool's bound is the largest of its three limits: its
+    # exponentials on the special-function units here
+    limits = kernels[3]["bound_limits"]
+    assert kernels[3]["bound_ms"] == max(limits.values()) == limits["sfu"]
+    # the lookup at the front end's coalesced shape: one (1, P) grid of the
+    # distinct pairs of a batch
+    co = kernels[0]["coalesced"]
+    assert co["distinct"] <= co["pairs"] and co["pairs"] % 256 == 0
+    assert co["bound_ms"] > 0 and co["ms"] > 0
     for i in (4, 5, 6):
         assert set(kernels[i]["launches_by_path"]) == {"packed", "packed-q8"}
     # one table per retrieval query and path, one launch per doc block

@@ -23,6 +23,7 @@ from repro_torch.kernels.csr_lookup import (csr_lookup, csr_lookup_kernel,
                                             lookup_pairs_ref,
                                             retrieve_block_ref,
                                             route_pairs, route_terms)
+from repro_torch.kernels.csr_lookup.kernel import FENCE_SEARCH, WHOLE_RANGE
 from torch_helpers import (K_SWEEP, TILE_SWEEP, adversarial, export,
                            jax_layout, t)
 
@@ -235,6 +236,74 @@ def test_plain_kernel_version_matches_ref_per_term_and_per_pair(
     want = csr_lookup_ref(port.term_offsets, port.doc_ids, port.values,
                           port.term_to_shard, port.range_lo, q, docs)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# one hot term in all 20,402 docs and 39 tail terms: 20,480 postings, a
+# multiple of every tile below, so the last term's range and the K = 4
+# shards (5,120 postings each, the hot term split over all four) end at
+# tile-aligned shard ends; the hot term's ranges are longer than the
+# kernel searches without its fences
+DEEP_DOCS = 20402
+
+
+@pytest.fixture(scope="module")
+def deep_layouts(seine_world, world_layouts, tmp_path_factory):
+    """{(world, K): (JAX single-CSR oracle, JAX layout, port index, query,
+    docs)}: the
+    smoke world's adversarial ids (empty, OOV, past-vocab and -1 terms,
+    docs negative and past the end), and a deep hot term whose ranges span
+    more than 256 fences at tiles 4 and 8, with docs on every tile edge."""
+    from repro.data.synth_corpus import build_zipfian_index
+    from repro.dist.sharding import partition_index
+    q, docs = adversarial(seine_world, 5)
+    out = {("seine", k): (seine_world["index"],) + world_layouts[k] + (q, docs)
+           for k in (1, 4)}
+    deep = build_zipfian_index(n_docs=DEEP_DOCS)
+    edges = np.arange(256, DEEP_DOCS, 512)
+    deep_docs = np.unique(np.r_[edges - 1, edges, edges + 1, [4, 8, 12],
+                                [-3, -1, 0, DEEP_DOCS - 1, DEEP_DOCS,
+                                 DEEP_DOCS + 50]]).astype(np.int32)
+    deep_q = np.array([0, 1, 17, 39, -1, 40, 45, 0], np.int32)
+    for k in (1, 4):
+        ref = jax_layout(deep, k)
+        assert k == 1 or ref.split_term is not None
+        out[("deep", k)] = (deep, ref, export(ref, tmp_path_factory.mktemp(
+            f"deep{k}")), deep_q, deep_docs)
+    return out
+
+
+@pytest.mark.parametrize("tile", (4, 8, 64, 256))
+@pytest.mark.parametrize("k", (1, 4))
+@pytest.mark.parametrize("world", ("seine", "deep"))
+def test_plain_search_bitwise_against_jax(deep_layouts, world, k, tile):
+    """``csr_lookup_plain`` -- the kernel's k-ary fence rounds and window
+    compare, through the kernel's dataflow -- equals the JAX single-CSR
+    oracle (``impl="jnp"``) and the JAX CPU lowering of the same layout
+    (sign of zero included) bit for bit: per term (K = 1, the smoke world
+    at K = 4) and per pair (the deep world's hot term, split by doc range
+    at K = 4); on the deep world at tiles 4 and 8 some range spans more
+    than one round of fences."""
+    oracle_idx, jax_idx, port, q, docs = deep_layouts[(world, k)]
+    want = np.asarray(oracle_idx.qd_matrix(jnp.asarray(q), jnp.asarray(docs),
+                                           impl="jnp"))
+    jax_ref = np.asarray(jax_idx.qd_matrix(jnp.asarray(q), jnp.asarray(docs)))
+    got = port.qd_matrix(t(q), t(docs), impl="kernel", tile=tile).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jax_ref)
+    assert np.array_equal(np.signbit(got), np.signbit(jax_ref))
+    assert (want != 0).any() and (want == 0).any()
+    if world == "deep" and tile <= 8:
+        to, _, _, t2s, rlo = _stacked(port)
+        if k == 1:
+            _, lo, hi = route_terms(t(q), to, t2s, rlo)
+        else:
+            shape = (q.size, docs.size)
+            _, lo, hi = route_pairs(t(q)[:, None].expand(shape),
+                                    t(docs)[None].expand(shape), to, t2s,
+                                    rlo, port.split_term, port.split_doc)
+        spans = (hi - 1) // tile - lo // tile
+        assert int((hi - lo).max()) > WHOLE_RANGE
+        assert int(spans.max()) > 32 * FENCE_SEARCH[0]
 
 
 def test_unported_options_raise(hot_layouts):

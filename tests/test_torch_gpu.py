@@ -47,13 +47,16 @@ from repro_torch.kernels.embed_bag import (bag_ptr_from_offsets,
                                            embed_bag_segment_kernel,
                                            segment_bag_sums,
                                            segment_bag_sums_plain)
+from repro_torch.core.index import build_fences
 from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             csr_lookup_packed_kernel,
+                                            csr_lookup_plain,
                                             lane_bounds_kernel,
                                             lane_bounds_packed_kernel,
                                             lane_scales, retrieve_lanes,
                                             retrieve_windows_kernel,
                                             retrieve_windows_packed_kernel,
+                                            route_pairs, route_terms,
                                             scan_block_packed_ref,
                                             scan_block_ref)
 from repro_torch.kernels.flash_attn import (flash_attention,
@@ -139,6 +142,101 @@ def test_knrm_pool_kernel_matches_plain(shape):
     got = knrm_pool_kernel(cos.cuda(), mask.cuda())
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), knrm_pool_ref(cos, mask), **TOL)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary, so a kernel takes its scalar path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# one hot term in all 9,138 docs (n_b 4: 36-float rows): at tile 4 its
+# range spans 2,285 fences, two rounds of the kernel's fence search
+DEEP_DOCS = 9138
+
+
+def _lookup_case(layout):
+    """(index on the card, query, docs) of the lookup kernel's tests."""
+    q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32,
+                     device="cuda")
+    if layout == "deep":
+        idx = build_zipfian_index(n_docs=DEEP_DOCS, n_b=4, device="cuda")
+        edges = torch.arange(64, DEEP_DOCS, 64, dtype=torch.int32)
+        docs = torch.cat([edges - 1, edges, edges + 1, torch.tensor(
+            [-3, 0, DEEP_DOCS - 1, DEEP_DOCS, DEEP_DOCS + 50],
+            dtype=torch.int32)]).cuda()
+        return idx, q, docs
+    idx = _index(layout, "cuda")
+    return idx, q, torch.arange(-2, idx.n_docs + 3, dtype=torch.int32,
+                                device="cuda")
+
+
+@pytest.mark.parametrize("layout", ["k1", "k4", "deep"])
+def test_lookup_kernel_matches_plain_per_term_and_per_pair_grid(layout):
+    """The raw lookup kernel against its plain version, both on the card,
+    bit for bit (sign of zero included): routed as the layout routes
+    (per term at K = 1, per pair on the sub-sharded K = 4 fixture) and as
+    the coalesced front end's (1, P) grid of pairs each routed on its own,
+    at tiles 4, 64, 256 and 1024.  The fixture's 18-float rows and a
+    misaligned copy of the values take the scalar row copy; the deep
+    index needs several rounds of fence search at tile 4."""
+    _require_cuda()
+    idx, q, docs = _lookup_case(layout)
+    to, dids, vals, t2s, rlo, _ = _stacked(idx)
+    split = getattr(idx, "split_term", None)
+    shape = (q.shape[0], docs.shape[0])
+    pair_t = q[:, None].expand(shape).reshape(1, -1)
+    pair_d = docs[None].expand(shape).reshape(1, -1)
+    if split is None:
+        grid = route_terms(q, to, t2s, rlo)
+        pairs = route_terms(pair_t, to, t2s, rlo)
+    else:
+        grid = route_pairs(q[:, None].expand(shape), docs[None].expand(shape),
+                           to, t2s, rlo, split, idx.split_doc)
+        pairs = route_pairs(pair_t, pair_d, to, t2s, rlo, split,
+                            idx.split_doc)
+    i32 = lambda xs: [x.to(torch.int32).contiguous() for x in xs]  # noqa
+    before = csr_lookup_kernel.launches
+    for tile in (4, 64, 256, 1024):
+        fences = build_fences(dids, tile)
+        for route, d in ((grid, docs), (pairs, pair_d[0].contiguous())):
+            args = (*i32(route), d, dids, fences)
+            got = csr_lookup_kernel(*args, vals, tile=tile)
+            want = csr_lookup_plain(*args, vals, tile=tile)
+            assert torch.equal(got, want), (tile, route[0].shape)
+            assert torch.equal(got.signbit(), want.signbit())
+            if tile == 256:
+                mis = csr_lookup_kernel(*args, _misaligned(vals), tile=tile)
+                assert torch.equal(mis, want) and torch.equal(
+                    mis.signbit(), want.signbit())
+    assert csr_lookup_kernel.launches == before + 10
+    assert (want != 0).any()
+
+
+@pytest.mark.parametrize("shape,c_lo", [
+    ((1000, 6, 20), -1.0), ((1000, 6, 20), 0.99), ((37, 1, 20), -1.0),
+    ((9, 1, 7), 0.99), ((4, 6, 3), -1.0), ((11, 6, 3), 0.99)])
+def test_knrm_pool_kernel_matches_plain_on_the_card(shape, c_lo):
+    """The RBF bank against its plain version run on the card at rtol
+    1e-5 / atol 1e-6: n_b not a multiple of 4, Q = 1 (the coalesced front
+    end), B * Q not a multiple of the kernel's 16-row tile, a fully masked
+    candidate, and cos_norm in [0.99, 1.0], where the exact-match kernel
+    (sigma 1e-3) spans exp(0) to exp(-50).  A misaligned copy of the
+    inputs takes the scalar staging and gives the same bits."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cos = torch.rand(shape, generator=g, device="cuda") * (1 - c_lo) + c_lo
+    cos.view(-1)[::7] = 1.0
+    mask = (torch.rand((shape[0], shape[2]), generator=g, device="cuda")
+            > 0.25).float()
+    mask[0] = 0.0
+    got = knrm_pool_kernel(cos, mask)
+    torch.testing.assert_close(got, knrm_pool_ref(cos, mask), **TOL)
+    assert torch.equal(knrm_pool_kernel(_misaligned(cos), _misaligned(mask)),
+                       got)
 
 
 @pytest.mark.parametrize("layout", ["k1", "k4"])

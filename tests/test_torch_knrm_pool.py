@@ -17,14 +17,15 @@ from repro_torch.kernels.knrm_pool import (MUS, SIGMAS, kernel_features,
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
-def _inputs(shape, seed):
-    """cos_norm in [-1, 1] with exact-match (+1) and -1 entries, and a
-    segment mask with an all-empty candidate."""
+def _inputs(shape, seed, c_lo=-1.0):
+    """cos_norm in [c_lo, 1] with exact-match (+1) entries (and -1 ones
+    when c_lo is -1), and a segment mask with an all-empty candidate."""
     b, q, n_b = shape
     rng = np.random.RandomState(seed)
-    cos = rng.uniform(-1, 1, size=shape).astype(np.float32)
+    cos = rng.uniform(c_lo, 1, size=shape).astype(np.float32)
     cos.reshape(-1)[::7] = 1.0
-    cos.reshape(-1)[3::11] = -1.0
+    if c_lo == -1.0:
+        cos.reshape(-1)[3::11] = -1.0
     mask = (rng.rand(b, n_b) > 0.25).astype(np.float32)
     mask[0] = 0.0
     return cos, mask
@@ -36,11 +37,18 @@ def test_constants_match_jax():
                                   np.asarray(JAX_SIGMAS))
 
 
+# (B, Q, n_b[, c_lo]): n_b not a multiple of 4, Q = 1 (the coalesced
+# front end), B * Q that the kernel's 16-row tiles do not divide, and
+# cos_norm in [0.99, 1.0], where only the exact-match kernel (sigma 1e-3)
+# is far from 0 and it spans exp(0) to exp(-50)
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 6, 5), (17, 6, 20),
-                                   (64, 9, 20), (5, 130, 7)])
+                                   (64, 9, 20), (5, 130, 7), (4, 6, 3),
+                                   (9, 1, 7), (37, 1, 20), (11, 6, 3),
+                                   (40, 6, 20, 0.99), (9, 1, 7, 0.99)])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pool_matches_jax(shape, seed):
-    cos, mask = _inputs(shape, seed)
+    """Every candidate 0 is fully masked."""
+    cos, mask = _inputs(shape[:3], seed, *shape[3:])
     want = np.asarray(jax_pool_ref(jnp.asarray(cos), jnp.asarray(mask)))
     feats = np.asarray(jax_features(jnp.asarray(cos),
                                     jnp.asarray(mask)[:, None, :]))

@@ -53,11 +53,12 @@ Phases (any failed check raises, and the script exits non-zero):
    computes the same function, that call, with CUDA events; the bound is
    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM
    data-sheet peaks) for this run's data; ``knrm_pool``'s is the largest
-   of those and its exponentials and logarithms at the special-function
-   rate (16 per clock per SM at compute capability 9.0, times the SMs and
-   the highest SM clock the card reports).  ``csr_lookup`` is also timed
-   at the front end's coalesced shape: 8 of the requests deduplicated by
-   ``plan_coalesced``, a (1, P) grid routed per pair.  The scans are
+   of those and its exponentials (one per live segment, row and kernel)
+   and logarithms at the special-function rate (16 per clock per SM at
+   compute capability 9.0, times the SMs and the highest SM clock the
+   card reports).  ``csr_lookup`` is also timed at the front end's
+   coalesced shape: 8 of the requests deduplicated by ``plan_coalesced``,
+   a (1, P) grid routed per pair.  The scans are
    timed as whole scans of the 8 retrieval queries (a table, then 64
    blocks): a scan row's ``ms`` is all the device work of a block
    (CUPTI: the block kernel, 1/64 of the table, any memset), its
@@ -1243,12 +1244,16 @@ def time_knrm(index, requests, knrm_err, dev):
         err = (got - want).abs().max().item()
     rows, k = N_CAND * Q_SLOTS, 11
     n_bytes = (rows * N_B + N_CAND * N_B + rows * k) * 4
-    # three limits: the bytes; per (row, segment, kernel) sub, two mul and
-    # an fma at the fp32 rate; the exponential per (row, segment, kernel)
-    # and the logarithm per sum on the special-function units
+    # a masked segment adds +0 to every sum and needs no work: this run's
+    # data needs the (row, segment) pairs whose segment is live
+    live = Q_SLOTS * int(mask.sum().item())
+    # three limits: the bytes; per live (row, segment, kernel) a sub, two
+    # mul and an fma at the fp32 rate; the exponential per live (row,
+    # segment, kernel) and the logarithm per sum on the special-function
+    # units
     limits = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
-              "fma": (rows * N_B * k * 4 + rows * k) / FP32_FLOPS_PER_S * 1e3,
-              "sfu": (rows * N_B * k + rows * k) / sfu_per_s() * 1e3}
+              "fma": (live * k * 4 + rows * k) / FP32_FLOPS_PER_S * 1e3,
+              "sfu": (live * k + rows * k) / sfu_per_s() * 1e3}
     by = max(limits, key=limits.get)
     log("phase 4: knrm_pool limits (ms): " + ", ".join(
         f"{n} {v:.5f}" for n, v in limits.items()))
@@ -1256,7 +1261,8 @@ def time_knrm(index, requests, knrm_err, dev):
                 plain_ms=plain_ms, max_abs_err=max(err, knrm_err),
                 bound_ms=limits[by],
                 bound_by="bytes" if by == "bytes" else "operations",
-                bound_limits=limits, library_ms=None)
+                bound_limits=limits, live_row_segments=live,
+                library_ms=None)
 
 
 def sfu_per_s() -> float:

@@ -180,9 +180,17 @@ __device__ __forceinline__ int warp_search(int a, int b, int d, int lane,
   return a;
 }
 
-// ranges of at most this many postings skip the fence search: the id
-// search ends them in three rounds (32 chunks of 128 ids, of 32, then 32
-// ids), as many as the fence round and a tile's two would take
+// The raw lookup's search widths, (probes per lane, least chunk) of the
+// fence search and of the id search, and the longest range searched whole,
+// without the fences: the id search ends such a range in three rounds (32
+// chunks of 128 ids, of 32, then 32 ids), as many as the fence round and a
+// tile's two would take, but it loads fewer sectors: on an H100 the cut
+// saves 0.4 us per launch at 6 x 1,000 cells and 2.9 us at the front end's
+// coalesced (1, 41,728) grid (scripts/lookup_pool_ab.py, kWholeRange 4,096
+// against 0).  kernel.py reads these lines, so that its plain version
+// searches in the same rounds.
+constexpr int kFenceProbes = 8, kFenceMinStep = 1;
+constexpr int kIdProbes = 1, kIdMinStep = 32;
 constexpr int kWholeRange = 4096;
 
 // One warp per (b, q) cell; every branch below is uniform over the warp.
@@ -222,8 +230,8 @@ __global__ void __launch_bounds__(256) csr_lookup_kernel(
   if (hi0 - lo0 > kWholeRange) {
     const int j_lo = floordiv(lo0, tile);
     const int j_hi = max(floordiv(hi0 - 1, tile), j_lo);
-    const int jf = warp_search<8, 1, false>(j_lo + 1, j_hi + 1, d, lane,
-                                            fence, nullptr);
+    const int jf = warp_search<kFenceProbes, kFenceMinStep, false>(
+        j_lo + 1, j_hi + 1, d, lane, fence, nullptr);
     // the clamp keeps the tile in bounds for an empty range pinned at a
     // tile-aligned shard end; the window below is then empty
     const int jt = clampi(jf - 1, 0, n_fence - 1);
@@ -236,8 +244,8 @@ __global__ void __launch_bounds__(256) csr_lookup_kernel(
   // past the row end), or the window's end (its start when it is empty):
   // chunks of 32 ids or more, one probe per lane, then the last chunk's
   // ids, one per lane -- two rounds of at most 8 + 5 sectors at tile 256
-  const int pos = warp_search<1, 32, true>(w_lo, max(w_lo, w_hi), d, lane,
-                                           id, &v_at);
+  const int pos = warp_search<kIdProbes, kIdMinStep, true>(
+      w_lo, max(w_lo, w_hi), d, lane, id, &v_at);
   const bool found = (pos < hi0) && (v_at == d);
 
   // the row as stored (a -0.0 stays -0.0), or +0.0 where the pair is

@@ -28,13 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import re
 from typing import Optional
 
 import torch
 
 from ...core.index import INT32_MAX, fence_count
-from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
-                     stream_handle)
+from ..utils import (SOURCES, check_cuda_tensor, check_launch,
+                     load_library, ptr, stream_handle)
 from .ref import (assemble_block_ref, bisect_steps, lane_bounds_packed_ref,
                   lane_bounds_ref, packed_rows, scan_edges)
 
@@ -59,12 +60,26 @@ def _lib() -> ctypes.CDLL:
     return load_library("csr_lookup", _SIGNATURES)
 
 
-# the raw lookup kernel's warp searches: (probes per lane, least chunk) of
-# the fence search and of the id search, and the longest range it searches
-# whole, without the fences (``kWholeRange``)
-FENCE_SEARCH = (8, 1)
-ID_SEARCH = (1, 32)
-WHOLE_RANGE = 4096
+def _search_widths() -> dict:
+    """The raw lookup kernel's search widths, read from the constants
+    that ``csr_lookup.cu`` defines them by, so that the plain version
+    searches in the kernel's rounds."""
+    text = SOURCES["csr_lookup"].read_text()
+    names = ("kFenceProbes", "kFenceMinStep", "kIdProbes", "kIdMinStep",
+             "kWholeRange")
+    found = {n: re.findall(rf"\b{n} = (\d+)[,;]", text) for n in names}
+    if any(len(v) != 1 for v in found.values()):
+        raise RuntimeError(f"csr_lookup.cu must define each of {names} "
+                           f"once, found {found}")
+    return {n: int(v[0]) for n, v in found.items()}
+
+
+_W = _search_widths()
+# (probes per lane, least chunk) of the fence search and of the id search,
+# and the longest range searched whole, without the fences
+FENCE_SEARCH = (_W["kFenceProbes"], _W["kFenceMinStep"])
+ID_SEARCH = (_W["kIdProbes"], _W["kIdMinStep"])
+WHOLE_RANGE = _W["kWholeRange"]
 
 
 def warp_search(a, b, d, at, v_at, probes: int, min_step: int):

@@ -9,12 +9,12 @@
 // writes log1p of the 11 sums to out (B, Q, 11).
 //
 // What bounds it on the H100: at the serving shape (1,000 candidates x 6
-// slots x n_b 20) the 1.32M exponentials on the SFUs (~0.3 us) and the
-// 0.8 MB moved (~0.25 us) -- far under a launch, so the kernel has to
-// reach the whole card at once and keep its dependent chain short.  The
-// TPU kernel kept the (block_q, n_b, 11) tile in VMEM so the 11x-inflated
-// kernel tensor never reached HBM; here each CTA owns kRows consecutive
-// (b, q) rows:
+// slots x n_b 20) the exponentials on the SFUs (at most 1.32M, ~0.3 us;
+// a masked segment needs none) and the 0.8 MB moved (~0.25 us) -- far
+// under a launch, so the kernel has to reach the whole card at once and
+// keep its dependent chain short.  The TPU kernel kept the (block_q, n_b,
+// 11) tile in VMEM so the 11x-inflated kernel tensor never reached HBM;
+// here each CTA owns kRows consecutive (b, q) rows:
 //
 //  - it stages their kRows * n_b cos_norm floats (contiguous) and the
 //    mask rows of their candidates (contiguous too) in shared memory,

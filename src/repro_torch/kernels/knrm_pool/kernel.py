@@ -26,7 +26,11 @@ MAX_SEGMENTS = 1024
 
 def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
                      ) -> torch.Tensor:
-    """cos_norm (B, Q, n_b) f32, seg_mask (B, n_b) f32 -> (B, Q, 11) f32."""
+    """cos_norm (B, Q, n_b) f32, seg_mask (B, n_b) f32 -> (B, Q, 11) f32.
+
+    On the card n_b may be at most ``MAX_SEGMENTS`` (1,024): a CTA holds
+    its tile's rows and mask rows whole in shared memory, and a larger
+    n_b raises ``ValueError``.  CPU tensors take any n_b."""
     if cos_norm.device.type != "cuda":
         return knrm_pool_ref(cos_norm, seg_mask)
     dev = cos_norm.device

@@ -9,6 +9,8 @@ lowering (``impl=None`` on the CPU) and the kernel's dataflow
 per-cell version ``csr_lookup_plain``).  The CUDA kernels themselves are
 held against those plain versions in tests/test_torch_gpu.py.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ from repro_torch.kernels.csr_lookup import (csr_lookup, csr_lookup_kernel,
                                             lookup_pairs_ref,
                                             retrieve_block_ref,
                                             route_pairs, route_terms)
-from repro_torch.kernels.csr_lookup.kernel import FENCE_SEARCH, WHOLE_RANGE
+from repro_torch.kernels.csr_lookup.kernel import (FENCE_SEARCH, ID_SEARCH,
+                                                   WHOLE_RANGE)
+from repro_torch.kernels.utils import SOURCES
 from torch_helpers import (K_SWEEP, TILE_SWEEP, adversarial, export,
                            jax_layout, t)
 
@@ -304,6 +308,20 @@ def test_plain_search_bitwise_against_jax(deep_layouts, world, k, tile):
         spans = (hi - 1) // tile - lo // tile
         assert int((hi - lo).max()) > WHOLE_RANGE
         assert int(spans.max()) > 32 * FENCE_SEARCH[0]
+
+
+def test_search_widths_are_the_kernel_sources():
+    """The plain version's search widths are the constants csr_lookup.cu
+    defines, and the raw kernel instantiates its two warp searches and
+    its whole-range cut by those names only, so the plain version cannot
+    search in other rounds than the kernel."""
+    src = SOURCES["csr_lookup"].read_text()
+    body = src[src.index("csr_lookup_kernel("):
+               src.index("__global__", src.index("csr_lookup_kernel("))]
+    assert re.findall(r"warp_search<([^>]*)>", body) == [
+        "kFenceProbes, kFenceMinStep, false", "kIdProbes, kIdMinStep, true"]
+    assert "hi0 - lo0 > kWholeRange" in body
+    assert min(FENCE_SEARCH + ID_SEARCH) >= 1 and WHOLE_RANGE >= 0
 
 
 def test_unported_options_raise(hot_layouts):

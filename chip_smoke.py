@@ -36,8 +36,9 @@ Phases (any failed check raises, and the script exits non-zero):
    both codecs, the same for ``csr_lookup_packed`` (tiles
    {64, 256, 1024}) and ``lane_bounds_packed`` with
    ``retrieve_windows_packed`` (every doc block of a query), and both over
-   the fixture packed on the card; all bitwise, ``packed`` also against
-   the raw index's M.
+   the fixture packed on the card; all bitwise, the lookups also as a
+   (1, P) grid routed per pair, ``packed`` also against the raw index's
+   M.
 3. Serving, one path per codec: a ``SeineEngine`` with KNRM over the raw
    phase-1 index, then over its ``packed`` and its ``packed-q8``
    partition, each answers 16 requests of 6 query slots x 1,000
@@ -68,7 +69,10 @@ Phases (any failed check raises, and the script exits non-zero):
    computes the whole function); a table row's ``ms`` is per launch (per
    query), beside ``torch.searchsorted`` of the same (term, doc) keys for
    the raw index.  The packed kernels are timed under both codecs
-   (``packed`` in the row's own keys, ``packed-q8`` under ``q8``).
+   (``packed`` in the row's own keys, ``packed-q8`` under ``q8``);
+   ``csr_lookup`` and ``csr_lookup_packed`` warm (``ms``) and with a cold
+   L2 (``ms_cold``: 64 MB overwritten before every launch) and at the
+   coalesced shape (``coalesced``).
 
 5. The offline build at full width and scale: SEINE_LETOR
    (``configs/seine_letor.py``) at its full 65,323 docs, n_b = 20,
@@ -198,7 +202,8 @@ from repro_torch.kernels.embed_bag import (  # noqa: E402
     bag_ptr_from_offsets, embed_bag_kernel, embed_bag_plain,
     embed_bag_segment_kernel, segment_bag_sums_plain, segment_bags)
 from repro_torch.kernels.embed_bag import ops as embed_bag_ops  # noqa: E402
-from repro_torch.kernels.csr_lookup.ref import _lane_scale  # noqa: E402
+from repro_torch.kernels.csr_lookup.ref import (  # noqa: E402
+    _lane_scale, _route)
 from repro_torch.kernels.flash_attn import (flash_attn_kernel,  # noqa: E402
                                             flash_attn_plain)
 from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
@@ -620,17 +625,42 @@ def packed_args(pidx, q, docs):
             pidx._serve_values, scale)
 
 
+def plain_packed_pairs(pidx, terms, docs):
+    """``csr_lookup_packed_plain`` on the card over pairs ``terms (P,)`` x
+    ``docs (P,)``, each routed and scaled on its own as
+    ``ops.csr_lookup_pairs`` routes them for the kernel: (P, n_b, n_f)."""
+    k, lo, hi = _route(terms[None], docs[None], pidx.term_offsets,
+                       pidx.term_to_shard, pidx.range_lo, pidx.split_term,
+                       pidx.split_doc)
+    scale = (None if pidx.value_scale is None else _lane_scale(
+        pidx.value_scale, pidx.range_lo, k, terms[None]).contiguous())
+    i32 = lambda a: a.to(torch.int32).contiguous()  # noqa: E731
+    return csr_lookup_packed_plain(
+        i32(k), i32(lo), i32(hi), docs, pidx._packed(), pidx.fences,
+        pidx._serve_values, scale, tile=pidx.codec_tile)[:, 0]
+
+
 def check_packed_lookup(pidx, q, docs, what, raw=None):
     """csr_lookup_packed kernel (through the index's lookup, the main
     path's call) == its plain version == the ref lowering, bit for bit;
-    and == the raw index's M when ``raw`` is given."""
+    the same pairs as the coalesced front end looks them up, a (1, P)
+    grid routed per pair, likewise; and == the raw index's M when ``raw``
+    is given."""
     got = pidx.qd_matrix(q, docs)
     want = csr_lookup_packed_plain(*packed_args(pidx, q, docs),
                                    tile=pidx.codec_tile)
     torch.cuda.synchronize()
     assert_equal(got, want, f"{what} csr_lookup_packed")
-    assert_equal(got, pidx.qd_matrix(q, docs, impl="ref"),
-                 f"{what} csr_lookup_packed vs ref")
+    ref = pidx.qd_matrix(q, docs, impl="ref")
+    assert_equal(got, ref, f"{what} csr_lookup_packed vs ref")
+    shape = (q.shape[0], docs.shape[0])
+    terms = q[:, None].expand(shape).reshape(-1).contiguous()
+    pair_docs = docs[None].expand(shape).reshape(-1).contiguous()
+    pairs = pidx.lookup_pair_rows(terms, pair_docs)
+    assert_equal(pairs, plain_packed_pairs(pidx, terms, pair_docs),
+                 f"{what} csr_lookup_packed (1, P) pair grid")
+    assert_equal(pairs, ref.transpose(0, 1).reshape(pairs.shape),
+                 f"{what} csr_lookup_packed (1, P) pair grid vs ref")
     if raw is not None:
         assert_equal(got, raw.qd_matrix(q, docs),
                      f"{what} csr_lookup_packed vs the raw index")
@@ -1276,18 +1306,30 @@ def sfu_per_s() -> float:
     return SFU_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
 
 
+def packed_probes(t_lo: int, t_hi: int) -> int:
+    """The 4-byte loads a packed lookup cell over the range [t_lo, t_hi)
+    needs: a fence bisect over the term's own tiles, the tile's (bits,
+    base, word offset), the in-tile bisect and the hit check."""
+    n_tiles = (max((t_hi - 1) // PACK_TILE, t_lo // PACK_TILE)
+               - t_lo // PACK_TILE + 1)
+    return (n_tiles.bit_length() + 3
+            + min(PACK_TILE, t_hi - t_lo).bit_length() + 1)
+
+
 def time_packed_lookup(pidx, requests, dev):
     """csr_lookup_packed at the serving shape over one codec's index,
-    one input set per request, as :func:`time_lookup`."""
+    one input set per request, as :func:`time_lookup`: warm, and with a
+    cold L2; then at the front end's coalesced shape."""
     row = N_B * len(ZIPF_FUNCTIONS)
     val_bytes = pidx._serve_values.element_size()
     inputs = [packed_args(pidx, torch.from_numpy(q).to(dev),
                           torch.from_numpy(d).to(dev)) for q, d in requests]
+    fns = [lambda a=a: csr_lookup_packed_kernel(*a, tile=PACK_TILE)
+           for a in inputs]
+    ms, how, call_ms = timed(fns, 160, "csr_lookup_packed_kernel")
     # cold L2: the 16 requests' int8 rows (17 MB) would stay in the 50 MB
     # L2 across the timing loop, which a stream of fresh requests does not
-    ms, how, call_ms = timed(
-        [lambda a=a: csr_lookup_packed_kernel(*a, tile=PACK_TILE)
-         for a in inputs], 160, "csr_lookup_packed_kernel", cold=True)
+    ms_cold = timed(fns, 160, "csr_lookup_packed_kernel", cold=True)[0]
     plain_ms = events_ms([lambda a=a: csr_lookup_packed_plain(
         *a, tile=PACK_TILE) for a in inputs], 16)
     err, found = 0.0, 0
@@ -1298,25 +1340,54 @@ def time_packed_lookup(pidx, requests, dev):
         err = max(err, (got - want).abs().max().item())
         found += int((got != 0).reshape(got.shape[0], got.shape[1], -1)
                      .any(-1).sum())
-    # bytes the data needs, per cell: the fence bisect over its term's own
-    # tiles and the in-tile bisect plus the hit check (one 4-byte fence or
-    # packed word per probe), the tile's (bits, base, word offset); the
-    # found rows at their storage width, every f32 row written, the
+    # bytes the data needs: each cell's probes (:func:`packed_probes`),
+    # the found rows at their storage width, every f32 row written, the
     # candidates, the routing and the scales
-    n_probes = 0
-    for _, _, lo, hi, *_ in inputs:
-        for t_lo, t_hi in zip(lo.tolist(), hi.tolist()):
-            n_tiles = (max((t_hi - 1) // PACK_TILE, t_lo // PACK_TILE)
-                       - t_lo // PACK_TILE + 1)
-            n_probes += N_CAND * (n_tiles.bit_length() + 3
-                                  + min(PACK_TILE, t_hi - t_lo).bit_length()
-                                  + 1)
+    n_probes = sum(N_CAND * packed_probes(t_lo, t_hi)
+                   for _, _, lo, hi, *_ in inputs
+                   for t_lo, t_hi in zip(lo.tolist(), hi.tolist()))
     cells = N_CAND * Q_SLOTS
     n_bytes = ((n_probes * 4 + found * row * val_bytes) / len(inputs)
                + cells * row * 4 + N_CAND * 4 + Q_SLOTS * 16)
     b_ms, b_by = bound(n_bytes, 0)
     return dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                ms_cold=ms_cold,
+                coalesced=time_packed_coalesced(pidx, requests, dev))
+
+
+def time_packed_coalesced(pidx, requests, dev):
+    """csr_lookup_packed at the front end's coalesced shape over one
+    codec's index, as :func:`time_coalesced`: the distinct pairs of one
+    batch, each routed on its own, a (1, P) grid through
+    ``index.lookup_pair_rows``; held against the plain version."""
+    row = N_B * len(ZIPF_FUNCTIONS)
+    terms, docs, _, n_distinct = plan_coalesced(requests[:FE_MAX_BATCH],
+                                                COALESCE_PAIR_PAD)
+    terms = torch.from_numpy(terms).to(dev)
+    docs = torch.from_numpy(docs).to(dev)
+    ms, how, call_ms = timed([lambda: pidx.lookup_pair_rows(terms, docs)],
+                             40, "csr_lookup_packed_kernel")
+    got = pidx.lookup_pair_rows(terms, docs)
+    assert_equal(got, plain_packed_pairs(pidx, terms, docs),
+                 "coalesced csr_lookup_packed")
+    found = int((got != 0).reshape(got.shape[0], -1).any(-1).sum())
+    # bytes the data needs, as the serving shape counts them per pair
+    _, lo, hi = _route(terms[None], docs[None], pidx.term_offsets,
+                       pidx.term_to_shard, pidx.range_lo, pidx.split_term,
+                       pidx.split_doc)
+    n_probes = sum(packed_probes(t_lo, t_hi) for t_lo, t_hi in
+                   zip(lo.reshape(-1).tolist(), hi.reshape(-1).tolist()))
+    n_bytes = (terms.shape[0] * (16 + 4 + row * 4) + n_probes * 4
+               + found * row * pidx._serve_values.element_size())
+    b_ms, b_by = bound(n_bytes, 0)
+    log(f"phase 4: csr_lookup_packed coalesced ({pidx.codec}): "
+        f"{FE_MAX_BATCH} requests -> {n_distinct} distinct pairs, a (1, "
+        f"{terms.shape[0]}) grid: {ms:.5f} ms ({how}; {call_ms:.4f} ms with "
+        f"launch and routing cost), bound {b_ms:.5f} ms ({b_by}), == plain "
+        f"(bitwise)")
+    return dict(ms=ms, timed_by=how, call_ms=call_ms, pairs=terms.shape[0],
+                distinct=n_distinct, bound_ms=b_ms, bound_by=b_by)
 
 
 def time_packed_scan(pidx, queries, dev):
@@ -1443,9 +1514,11 @@ def phase4(index, packed, requests, queries, launches, p2, dev):
                 continue
             kernel = ("" if m.get("kernel_ms") is None else
                       f", the block kernel alone {m['kernel_ms']:.5f} ms")
+            cold = ("" if m.get("ms_cold") is None else
+                    f", cold L2 {m['ms_cold']:.5f} ms")
             log(f"phase 4: {r['name']}{tag}: {m['ms']:.5f} ms "
                 f"({m['timed_by']}; {m['call_ms']:.4f} ms with launch "
-                f"cost{kernel}), plain {m['plain_ms']:.4f} ms, bound "
+                f"cost{kernel}{cold}), plain {m['plain_ms']:.4f} ms, bound "
                 f"{m['bound_ms']:.5f} ms ({m['bound_by']}), library "
                 f"{m.get('library_ms', r['library_ms'])}")
     return out

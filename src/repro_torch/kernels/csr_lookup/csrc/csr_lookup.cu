@@ -81,16 +81,28 @@
 // retrieve_block_packed_kernel, is retrieve_block_kernel over the packed
 // index's values (f32, or int8 under packed-q8): the table holds every id
 // it needs.  Each posting tile stores a frame base, a width class c in
-// {0,4,8,16,32} and a word offset; the fence row stays raw.  The level-1
-// bisect is the same fence bisect, one load then picks up the winning
-// tile's (c, base, word offset), and each level-2 probe decodes one packed
-// word: base + ((word >> (bit & 31)) & mask) with a logical (uint32_t)
-// shift, the raw word at c = 32.  A probe at r == tile reads into the
-// row's trailing max_tile_words pad and is never consulted; word reads are
-// clamped to the buffer all the same.  Under packed-q8 each found row is
-// dequantised as __fmul_rn(float(v), scale) -- one rounding, as the
-// reference's single f32 multiply, never contracted into an FMA -- and
-// its int8 row (180 bytes) moves as char4.
+// {0,4,8,16,32} and a word offset; the fence row stays raw.  An id decodes
+// from one packed word: base + ((word >> (bit & 31)) & mask) with a
+// logical (uint32_t) shift (the add wraps as the reference's int32 add),
+// the raw word at c = 32, the base at c = 0.  The table's threads run the
+// two-level bisect, one load per step.  The lookup, one warp per cell as
+// the raw one, runs six dependent rounds where a bisect runs 12-20:
+//
+//  1. routing: shard, lo, hi, the doc and, under q8, the pair's scale;
+//  2. warp_search over the term's own fences, as the raw lookup's (none
+//     for a term inside one tile);
+//  3. the chosen tile's (c, base, word offset).  Staging every fence
+//     probe's tile metadata beside it, to save this round, was slower on
+//     the H100: 7.40 against 6.66 us per launch at 6 x 1,000
+//     (scripts/lookup_packed_ab.py), the staged probes costing more than
+//     the round;
+//  4. and 5. the tile's ids by warp_search over decoded probes, in the
+//     raw lookup's id rounds: chunk ends, then the last chunk;
+//  6. the row, as the raw lookup moves it (evict-first, 16-byte vectors
+//     where aligned); under packed-q8 each int8 (a 180-byte row moves as
+//     char4) is dequantised as __fmul_rn(float(v), scale) -- one rounding,
+//     as the reference's single f32 multiply, never contracted into an
+//     FMA.
 //
 // Positions and offsets are int32 inside a shard (K * Nmax < 2^31, as in
 // the reference); every values address is formed in 64 bits, since
@@ -193,6 +205,54 @@ constexpr int kFenceProbes = 8, kFenceMinStep = 1;
 constexpr int kIdProbes = 1, kIdMinStep = 32;
 constexpr int kWholeRange = 4096;
 
+// A lookup's M row, written by one warp: the stored f32 row (a -0.0 stays
+// -0.0) or the int8 row dequantised as __fmul_rn(float(v), sc) -- one
+// rounding, as the reference's single f32 multiply, never contracted into
+// an FMA -- and +0.0 where the pair is absent; float4 (char4 under q8)
+// vectors when the row is a multiple of 4 elements and both buffers are
+// aligned.  Rows and M stream through the L2 (evict-first loads and
+// stores), which keeps the ids and fences the next requests search there.
+template <int kVec, bool kQuantized>
+__device__ __forceinline__ void write_row(const void* __restrict__ values,
+                                           int64_t src, bool found, float sc,
+                                           int row_len, float* dst,
+                                           int lane) {
+  const int n_vec = row_len / kVec;
+  if (!found) {
+    for (int j = lane; j < n_vec; j += 32) {
+      if constexpr (kVec == 4)
+        __stcs(reinterpret_cast<float4*>(dst) + j,
+               make_float4(0.f, 0.f, 0.f, 0.f));
+      else
+        __stcs(dst + j, 0.0f);
+    }
+    return;
+  }
+  for (int j = lane; j < n_vec; j += 32) {
+    if constexpr (kQuantized && kVec == 4) {
+      const char4 v = __ldcs(
+          reinterpret_cast<const char4*>((const signed char*)values + src) +
+          j);
+      __stcs(reinterpret_cast<float4*>(dst) + j,
+             make_float4(__fmul_rn((float)v.x, sc),
+                         __fmul_rn((float)v.y, sc),
+                         __fmul_rn((float)v.z, sc),
+                         __fmul_rn((float)v.w, sc)));
+    } else if constexpr (kQuantized) {
+      __stcs(dst + j,
+             __fmul_rn((float)__ldcs((const signed char*)values + src + j),
+                       sc));
+    } else if constexpr (kVec == 4) {
+      __stcs(reinterpret_cast<float4*>(dst) + j,
+             __ldcs(reinterpret_cast<const float4*>((const float*)values +
+                                                    src) +
+                    j));
+    } else {
+      __stcs(dst + j, __ldcs((const float*)values + src + j));
+    }
+  }
+}
+
 // One warp per (b, q) cell; every branch below is uniform over the warp.
 template <int kVec>
 __global__ void __launch_bounds__(256) csr_lookup_kernel(
@@ -248,32 +308,10 @@ __global__ void __launch_bounds__(256) csr_lookup_kernel(
       w_lo, max(w_lo, w_hi), d, lane, id, &v_at);
   const bool found = (pos < hi0) && (v_at == d);
 
-  // the row as stored (a -0.0 stays -0.0), or +0.0 where the pair is
-  // absent; 16-byte vectors when the row is a multiple of 4 floats and both
-  // buffers are 16-byte aligned.  Rows and M stream through the L2
-  // (evict-first loads and stores), which keeps the ids and fences the
-  // next requests search there.
-  float* dst = out + (int64_t)cell * row_len;
-  const int n_vec = row_len / kVec;
-  if (found) {
-    const float* src =
-        values + ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len;
-    if constexpr (kVec == 4) {
-      for (int j = lane; j < n_vec; j += 32)
-        __stcs(reinterpret_cast<float4*>(dst) + j,
-               __ldcs(reinterpret_cast<const float4*>(src) + j));
-    } else {
-      for (int j = lane; j < n_vec; j += 32) __stcs(dst + j, __ldcs(src + j));
-    }
-  } else {
-    if constexpr (kVec == 4) {
-      for (int j = lane; j < n_vec; j += 32)
-        __stcs(reinterpret_cast<float4*>(dst) + j,
-               make_float4(0.f, 0.f, 0.f, 0.f));
-    } else {
-      for (int j = lane; j < n_vec; j += 32) __stcs(dst + j, 0.0f);
-    }
-  }
+  // the row
+  write_row<kVec, false>(
+      values, ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len,
+      found, 1.0f, row_len, out + (int64_t)cell * row_len, lane);
 }
 
 // first position p in [lo, hi) with ids[p] >= target; probes clamp to
@@ -465,13 +503,11 @@ __device__ __forceinline__ int decode_packed(const int* __restrict__ words,
 
 // first shard-local position p in [lo, hi) whose decoded id is >= target:
 // the fence bisect over the raw fence row, then the in-tile bisect over
-// decoded words; *v_at (when given) gets the decoded id at p, or the next
-// raw fence when p is on the tile's right boundary
+// decoded words (the lane-bounds table's search)
 __device__ int packed_bisect(const PackedShard& s,
                              const int* __restrict__ words, int64_t n_total,
                              int n_fence, int lo, int hi, int64_t target,
-                             int tile, int fence_iter, int tile_iter,
-                             int* v_at) {
+                             int tile, int fence_iter, int tile_iter) {
   const int j_lo = floordiv(lo, tile);
   const int j_hi = max(floordiv(hi - 1, tile), j_lo);
   int flo = j_lo + 1, fhi = j_hi + 1;
@@ -496,24 +532,17 @@ __device__ int packed_bisect(const PackedShard& s,
     plo = go ? mid + 1 : plo;
     phi = go ? phi : mid;
   }
-  if (v_at != nullptr) {
-    *v_at = plo - base < tile
-                ? decode_packed(words, n_total, w0, plo - base, c, tb)
-                : __ldg(s.frow + clampi(jt + 1, 0, n_fence - 1));
-  }
   return plo;
 }
 
-template <bool kQuantized>
-__device__ __forceinline__ float stored(const void* __restrict__ values,
-                                        int64_t at, float scale) {
-  if (kQuantized)
-    return __fmul_rn((float)__ldg((const signed char*)values + at), scale);
-  return __ldg((const float*)values + at);
-}
-
-template <bool kQuantized>
-__global__ void csr_lookup_packed_kernel(
+// One warp per (b, q) cell, as the raw lookup; every branch below is
+// uniform over the warp.  At least 6 CTAs of 8 warps per SM (at most 40
+// registers a thread; the raw lookup takes 38): 6,336 warps on 132 SMs
+// hold the serving shape's 6,000 cells in one wave.  Left to itself ptxas
+// took 48 registers, 5 CTAs per SM, and the launch 7.8 us where the cap
+// gives 6.7 (H100, scripts/lookup_packed_ab.py).
+template <int kVec, bool kQuantized>
+__global__ void __launch_bounds__(256, 6) csr_lookup_packed_kernel(
     const int* __restrict__ shard, const int* __restrict__ lo,
     const int* __restrict__ hi, int pair_routed,
     const int* __restrict__ docs, const int* __restrict__ words,
@@ -522,35 +551,59 @@ __global__ void csr_lookup_packed_kernel(
     const int* __restrict__ fences, int n_fence,
     const void* __restrict__ values, int n_max,
     const float* __restrict__ scale, int row_len, float* __restrict__ out,
-    int n_q, int n_cand, int n_shards, int tile, int fence_iter,
-    int tile_iter) {
+    int n_q, int n_cand, int n_shards, int tile) {
   const int lane = threadIdx.x & 31;
-  const int64_t cell =
-      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (cell >= (int64_t)n_q * n_cand) return;
-  const int b = (int)(cell / n_q);
-  const int q = (int)(cell % n_q);
+  const int cell = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (cell >= n_q * n_cand) return;
+  const int b = cell / n_q;
+  const int q = cell - b * n_q;
+  // round 1, routing: per term (Q,) or per pair (Q, B), and the pair's
+  // dequant scale under q8
   const int r = pair_routed ? q * n_cand + b : q;
   const int k = clampi(__ldg(shard + r), 0, n_shards - 1);
-  const int hi0 = __ldg(hi + r), d = __ldg(docs + b);
+  const int lo0 = __ldg(lo + r), hi0 = __ldg(hi + r), d = __ldg(docs + b);
+  const float sc = kQuantized ? __ldg(scale + r) : 1.0f;
   const PackedShard s =
       packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
-  int v_at;
-  const int pos = packed_bisect(s, words, (int64_t)n_shards * n_words,
-                                n_fence, __ldg(lo + r), hi0, d, tile,
-                                fence_iter, tile_iter, &v_at);
+  const int64_t n_total = (int64_t)n_shards * n_words;
+
+  // round 2: the first fence >= d among the term's own, (j_lo, j_hi]:
+  // tile jt is the one before it, or j_hi where none is (or the term lies
+  // in one tile: no fence to search); the clamp keeps jt in bounds for an
+  // empty range pinned at a tile-aligned shard end.  Fence jt + 1 stands
+  // in for the id at the window's end (a tile boundary inside [lo, hi))
+  // when the window holds no id >= d.  Round 3: tile jt's metadata.
+  const int j_lo = floordiv(lo0, tile);
+  const int j_hi = max(floordiv(hi0 - 1, tile), j_lo);
+  int v_at = 0;
+  const int jf = warp_search<kFenceProbes, kFenceMinStep, true>(
+      j_lo + 1, j_hi + 1, d, lane,
+      [&](int j) { return __ldg(s.frow + clampi(j, 0, n_fence - 1)); },
+      &v_at);
+  const int jt = clampi(jf - 1, 0, n_fence - 1);
+  const int c = __ldg(s.bits + jt), tb = __ldg(s.base + jt);
+  const int64_t w0 = s.word0 + __ldg(s.woff + jt);
+  const int base = jt * tile;
+  const int w_lo = max(base, lo0), w_hi = min(base + tile, hi0);
+
+  // rounds 4 and 5: the first position in the window whose id is >= d,
+  // or the window's end (its start when it is empty), over decoded probes
+  // in the raw lookup's id rounds.  Loading a tile of c <= 16 whole (at
+  // most 128 words, 4 per lane) and decoding it in one round instead was
+  // 0.1-0.2 us faster at 6 x 1,000 but 0.8-1.2 us slower at the coalesced
+  // (1, 41,728) grid on an H100 (scripts/lookup_packed_ab.py).
+  const int pos = warp_search<kIdProbes, kIdMinStep, true>(
+      w_lo, max(w_lo, w_hi), d, lane,
+      [&](int p) {
+        return decode_packed(words, n_total, w0, p - base, c, tb);
+      },
+      &v_at);
   const bool found = (pos < hi0) && (v_at == d);
 
-  float* dst = out + cell * row_len;
-  if (found) {
-    const float sc = kQuantized ? __ldg(scale + r) : 1.0f;
-    const int64_t src =
-        ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len;
-    for (int j = lane; j < row_len; j += 32)
-      dst[j] = stored<kQuantized>(values, src + j, sc);
-  } else {
-    for (int j = lane; j < row_len; j += 32) dst[j] = 0.0f;
-  }
+  // round 6: the row
+  write_row<kVec, kQuantized>(
+      values, ((int64_t)k * n_max + clampi(pos, 0, n_max - 1)) * row_len,
+      found, sc, row_len, out + (int64_t)cell * row_len, lane);
 }
 
 // lane_bounds_kernel over packed ids: the two-level packed bisect of the
@@ -573,8 +626,7 @@ __global__ void lane_bounds_packed_kernel(
     const PackedShard s =
         packed_shard(fences, bits, tbase, woff, n_fence, n_words, k);
     pos = packed_bisect(s, words, (int64_t)n_shards * n_words, n_fence, lo,
-                        hi, origin + i, tile, fence_iter, tile_iter,
-                        nullptr);
+                        hi, origin + i, tile, fence_iter, tile_iter);
   }
   bounds[(int64_t)l * n_edges + i] = shard0 + pos;
 }
@@ -667,21 +719,30 @@ int csr_lookup_packed_launch(
     const int* tbase, const int* woff, const int* fences, int n_fence,
     const void* values, int quantized, int n_max, const float* scale,
     int row_len, float* out, int n_q, int n_cand, int n_shards, int tile,
-    int fence_iter, int tile_iter, cudaStream_t stream) {
+    cudaStream_t stream) {
   const int64_t cells = (int64_t)n_q * n_cand;
   if (cells == 0) return 0;
+  if (cells > INT_MAX) return (int)cudaErrorInvalidValue;  // int32 cells
   const int threads = 256, warps = threads / 32;
   const unsigned blocks = (unsigned)((cells + warps - 1) / warps);
-  if (quantized)
-    csr_lookup_packed_kernel<true><<<blocks, threads, 0, stream>>>(
-        shard, lo, hi, pair_routed, docs, words, n_words, bits, tbase, woff,
-        fences, n_fence, values, n_max, scale, row_len, out, n_q, n_cand,
-        n_shards, tile, fence_iter, tile_iter);
+  const bool vec = vec_rows(values, quantized ? 1 : 4, row_len, out);
+#define LOOKUP_ARGS                                                         \
+  shard, lo, hi, pair_routed, docs, words, n_words, bits, tbase, woff,     \
+      fences, n_fence, values, n_max, scale, row_len, out, n_q, n_cand,    \
+      n_shards, tile
+  if (quantized && vec)
+    csr_lookup_packed_kernel<4, true><<<blocks, threads, 0, stream>>>(
+        LOOKUP_ARGS);
+  else if (quantized)
+    csr_lookup_packed_kernel<1, true><<<blocks, threads, 0, stream>>>(
+        LOOKUP_ARGS);
+  else if (vec)
+    csr_lookup_packed_kernel<4, false><<<blocks, threads, 0, stream>>>(
+        LOOKUP_ARGS);
   else
-    csr_lookup_packed_kernel<false><<<blocks, threads, 0, stream>>>(
-        shard, lo, hi, pair_routed, docs, words, n_words, bits, tbase, woff,
-        fences, n_fence, values, n_max, scale, row_len, out, n_q, n_cand,
-        n_shards, tile, fence_iter, tile_iter);
+    csr_lookup_packed_kernel<1, false><<<blocks, threads, 0, stream>>>(
+        LOOKUP_ARGS);
+#undef LOOKUP_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,9 @@ repeats the kernel's algorithm so the CPU tests check the tile-edge,
 decode and table logic: :func:`csr_lookup_plain` (the raw kernel's
 warp searches through :func:`warp_search`: the whole-range cut, the
 fence rounds, the ``jt`` clamp, the id rounds, the fence-edge case),
-:func:`csr_lookup_packed_plain` (the packed kernel's fence bisect and
-in-tile bisect over packed probes, through ``ref.packed_bisect``), ``ref.lane_bounds_ref`` /
+:func:`csr_lookup_packed_plain` (the packed kernel's rounds: the fence
+search, the chosen tile's metadata, the id rounds over decoded probes,
+the fence-edge case, the dequant), ``ref.lane_bounds_ref`` /
 ``ref.lane_bounds_packed_ref`` (the table) and ``ref.assemble_block_ref``
 (M from the table).
 """
@@ -33,11 +34,12 @@ from typing import Optional
 
 import torch
 
+from ...core.codec import decode_word
 from ...core.index import INT32_MAX, fence_count
 from ..utils import (SOURCES, check_cuda_tensor, check_launch,
                      load_library, ptr, stream_handle)
 from .ref import (assemble_block_ref, bisect_steps, lane_bounds_packed_ref,
-                  lane_bounds_ref, packed_rows, scan_edges)
+                  lane_bounds_ref, scan_edges)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -48,7 +50,7 @@ _SIGNATURES = {
                               _P],
     "csr_lookup_packed_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                                  _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I,
-                                 _I, _I, _P],
+                                 _P],
     "lane_bounds_packed_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _L, _I, _P, _P],
     "retrieve_block_packed_launch": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
@@ -61,9 +63,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _search_widths() -> dict:
-    """The raw lookup kernel's search widths, read from the constants
-    that ``csr_lookup.cu`` defines them by, so that the plain version
-    searches in the kernel's rounds."""
+    """The lookup kernels' search widths, read from the constants that
+    ``csr_lookup.cu`` defines them by, so that the plain versions search
+    in the kernels' rounds."""
     text = SOURCES["csr_lookup"].read_text()
     names = ("kFenceProbes", "kFenceMinStep", "kIdProbes", "kIdMinStep",
              "kWholeRange")
@@ -110,17 +112,20 @@ def warp_search(a, b, d, at, v_at, probes: int, min_step: int):
     return a, v_at
 
 
-def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
-                     *, tile: int) -> torch.Tensor:
-    """The kernel's per-cell search over all (b, q) cells at once, in
-    plain PyTorch (int64 positions), through :func:`warp_search` with the
-    kernel's widths: a range of at most WHOLE_RANGE postings searched
-    whole, a longer one first narrowed by the fence search to one tile;
-    the same clamps.  Same inputs and output as :func:`csr_lookup_kernel`."""
-    n_k, n_max = doc_ids.shape
-    n_fence = fences.shape[1]
-    n_cand, n_q = doc_targets.shape[0], shard.shape[0]
-    shape = (n_cand, n_q)
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _fence_round(shard, lo, hi, doc_targets, fences, tile: int, skip=None):
+    """The lookup kernels' routing and fence search over every (b, q) cell
+    at once (int64): routing (Q,) per term or (Q, B) per pair, then
+    :func:`warp_search` over each cell's own fences (j_lo, j_hi], none
+    where ``skip``; returns the cell's shard, range and doc, the tile jt
+    before the first fence >= d (j_hi where none is, clamped into the
+    row), its window less [lo, hi), and the tracked fence jt + 1 (0 where
+    no fence was found)."""
+    n_k, n_fence = fences.shape
+    shape = (doc_targets.shape[0], shard.shape[0])          # (B, Q)
     if shard.ndim == 2:                         # per-pair routing (Q, B)
         k, lo0, hi0 = shard.T, lo.T, hi.T
     else:
@@ -129,35 +134,52 @@ def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
     k = k.long().clamp(0, n_k - 1)
     lo0, hi0 = lo0.long(), hi0.long()
     d = doc_targets[:, None].expand(shape).long()
-    fflat, dflat = fences.reshape(-1), doc_ids.reshape(-1)
-    fbase, dbase = k * n_fence, k * n_max
+    kf = k * n_fence
 
-    def fence(j):                   # j per cell, or (cell, probe)
-        at = fbase if j.ndim == fbase.ndim else fbase[..., None]
-        return fflat[at + j.clamp(0, n_fence - 1)].long()
+    def fence(j):                   # (cell, probe)
+        return fences.reshape(-1)[kf[..., None] + j.clamp(0, n_fence - 1)
+                                  ].long()
 
-    def doc_at(p):                  # int32 max past the row: the tile pad
-        at = dbase if p.ndim == dbase.ndim else dbase[..., None]
-        p = p.clamp(min=0)
-        return torch.where(p < n_max, dflat[at + p.clamp(max=n_max - 1)]
-                           .long(), INT32_MAX)
+    j_lo = _floordiv(lo0, tile)
+    j_hi = torch.maximum(_floordiv(hi0 - 1, tile), j_lo)
+    j_end = j_hi + 1 if skip is None else torch.where(skip, j_lo + 1,
+                                                       j_hi + 1)
+    jf, v_edge = warp_search(j_lo + 1, j_end, d, fence, torch.zeros_like(d),
+                             *FENCE_SEARCH)
+    jt = (jf - 1).clamp(0, n_fence - 1)
+    base = jt * tile
+    return (k, lo0, hi0, d, jt, base, torch.maximum(base, lo0),
+            torch.minimum(base + tile, hi0), v_edge)
 
-    def floordiv(a, b):
-        return torch.div(a, b, rounding_mode="floor")
 
+def csr_lookup_plain(shard, lo, hi, doc_targets, doc_ids, fences, values,
+                     *, tile: int) -> torch.Tensor:
+    """The kernel's per-cell search over all (b, q) cells at once, in
+    plain PyTorch (int64 positions), through :func:`warp_search` with the
+    kernel's widths: a range of at most WHOLE_RANGE postings searched
+    whole, a longer one first narrowed by the fence search to one tile;
+    the same clamps.  Same inputs and output as :func:`csr_lookup_kernel`."""
+    n_max = doc_ids.shape[1]
+    dflat = doc_ids.reshape(-1)
     # the window: a range of at most WHOLE_RANGE postings whole; a longer
     # one narrowed to the tile jt whose fence is the last below d, less
     # [lo, hi), with fence jt + 1 standing in for the id at its end
-    whole = hi0 - lo0 <= WHOLE_RANGE
-    j_lo = floordiv(lo0, tile)
-    j_hi = torch.maximum(floordiv(hi0 - 1, tile), j_lo)
-    jf, _ = warp_search(j_lo + 1, torch.where(whole, j_lo + 1, j_hi + 1), d,
-                        fence, torch.zeros_like(d), *FENCE_SEARCH)
-    jt = (jf - 1).clamp(0, n_fence - 1)
-    base = jt * tile
-    w_lo = torch.where(whole, lo0, torch.maximum(base, lo0))
-    w_hi = torch.where(whole, hi0, torch.minimum(base + tile, hi0))
-    v_edge = torch.where(whole, 0, fence(jt + 1))
+    whole = hi - lo <= WHOLE_RANGE
+    if shard.ndim == 1:
+        whole = whole[None].expand(doc_targets.shape[0], -1)
+    else:
+        whole = whole.T
+    k, lo0, hi0, d, _, _, w_lo, w_hi, v_edge = _fence_round(
+        shard, lo, hi, doc_targets, fences, tile, whole)
+    w_lo = torch.where(whole, lo0, w_lo)
+    w_hi = torch.where(whole, hi0, w_hi)
+    dbase = k * n_max
+
+    def doc_at(p):                  # int32 max past the row: the tile pad
+        p = p.clamp(min=0)
+        return torch.where(p < n_max, dflat[dbase[..., None] + p.clamp(
+            max=n_max - 1)].long(), INT32_MAX)
+
     # the first id >= d in the window, or its end (its start when empty)
     pos, v_at = warp_search(w_lo, torch.maximum(w_lo, w_hi), d, doc_at,
                             v_edge, *ID_SEARCH)
@@ -380,23 +402,41 @@ def _check_scale(scale, values, dev, shape):
 
 def csr_lookup_packed_plain(shard, lo, hi, doc_targets, packed, fences,
                             values, scale, *, tile: int) -> torch.Tensor:
-    """The packed kernel's per-cell algorithm over all (b, q) cells at
-    once, in plain PyTorch: routing as ``csr_lookup_plain`` takes it, then
-    ``ref.packed_rows`` (fence bisect, the winning tile's metadata,
-    in-tile bisect over decoded words, fence-edge case, dequant, select).
-    Same inputs and output as :func:`csr_lookup_packed_kernel`."""
-    shape = (doc_targets.shape[0], shard.shape[0])          # (B, Q)
-    if shard.ndim == 2:                         # per-pair routing (Q, B)
-        k, lo0, hi0 = shard.T, lo.T, hi.T
-        sc = None if scale is None else scale.T
-    else:
-        k, lo0, hi0 = (shard[None].expand(shape), lo[None].expand(shape),
-                       hi[None].expand(shape))
-        sc = None if scale is None else scale[None].expand(shape)
-    d = doc_targets[:, None].expand(shape)
-    return packed_rows(packed, fences, values, k.long(), lo0, hi0, d,
-                       sc if values.dtype == torch.int8 else None,
-                       tile=tile)
+    """The packed kernel's rounds over all (b, q) cells at once, in plain
+    PyTorch (int64 positions): routing as ``csr_lookup_plain`` takes it;
+    the fence search (:func:`warp_search` with the kernel's widths) over
+    the term's own fences; the chosen tile's (c, base, word offset): tile
+    ``jf - 1``, or ``j_hi`` where no fence is >= d, clamped as the kernel
+    clamps it; the search over the window's decoded ids, with fence ``jt
+    + 1`` for the window's end; the row, dequantised under q8 by one f32
+    multiply.  Same inputs and output as
+    :func:`csr_lookup_packed_kernel`."""
+    words, bits, tbase, woff = packed
+    n_fence, n_words, n_max = fences.shape[1], words.shape[1], values.shape[1]
+    k, _, hi0, d, jt, base, w_lo, w_hi, v_edge = _fence_round(
+        shard, lo, hi, doc_targets, fences, tile)
+    # the chosen tile's metadata
+    kf = k * n_fence + jt
+    c, tb = bits.reshape(-1)[kf].long(), tbase.reshape(-1)[kf]
+    w0 = k * n_words + woff.reshape(-1)[kf + k].long()
+    wflat = words.reshape(-1)
+
+    def decode(p):                  # positions (cell, probe) of tile jt
+        bp = (p - base[..., None]) * c[..., None]
+        w = wflat[(w0[..., None] + _floordiv(bp, 32)).clamp(
+            0, wflat.shape[0] - 1)]
+        return decode_word(w, bp, c[..., None], tb[..., None]).long()
+
+    # the first id >= d in the window, or its end (its start when empty)
+    pos, v_at = warp_search(w_lo, torch.maximum(w_lo, w_hi), d, decode,
+                            v_edge, *ID_SEARCH)
+    found = (pos < hi0) & (v_at == d)
+    rows = values.reshape((-1,) + tuple(values.shape[2:]))
+    vals = rows[k * n_max + pos.clamp(0, n_max - 1)]
+    if values.dtype == torch.int8:              # the pair's scale, (B, Q)
+        sc = scale.T if scale.ndim == 2 else scale[None]
+        vals = vals.to(torch.float32) * sc[..., None, None]
+    return torch.where(found[..., None, None], vals, 0.0)
 
 
 def csr_lookup_packed_kernel(shard, lo, hi, doc_targets, packed, fences,
@@ -437,8 +477,7 @@ def csr_lookup_packed_kernel(shard, lo, hi, doc_targets, packed, fences,
         int(values.dtype == torch.int8), values.shape[1],
         None if scale is None else ptr(scale),
         values.shape[2] * values.shape[3], ptr(out), n_q, n_cand, n_k,
-        int(tile), bisect_steps(n_fence), bisect_steps(tile),
-        stream_handle())
+        int(tile), stream_handle())
     check_launch(lib, rc, "csr_lookup_packed_kernel")
     csr_lookup_packed_kernel.launches += 1
     return out

@@ -155,9 +155,12 @@ def test_phases_run_on_the_cpu(seed, monkeypatch):
     assert kernels[3]["bound_ms"] == max(limits.values()) == limits["sfu"]
     # the lookup at the front end's coalesced shape: one (1, P) grid of the
     # distinct pairs of a batch
-    co = kernels[0]["coalesced"]
-    assert co["distinct"] <= co["pairs"] and co["pairs"] % 256 == 0
-    assert co["bound_ms"] > 0 and co["ms"] > 0
+    # and the packed lookup's, under both codecs, warm and cold
+    for co in (kernels[0]["coalesced"], kernels[4]["coalesced"],
+               kernels[4]["q8"]["coalesced"]):
+        assert co["distinct"] <= co["pairs"] and co["pairs"] % 256 == 0
+        assert co["bound_ms"] > 0 and co["ms"] > 0
+    assert kernels[4]["ms_cold"] > 0 and kernels[4]["q8"]["ms_cold"] > 0
     for i in (4, 5, 6):
         assert set(kernels[i]["launches_by_path"]) == {"packed", "packed-q8"}
     # one table per retrieval query and path, one launch per doc block

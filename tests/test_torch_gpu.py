@@ -59,6 +59,9 @@ from repro_torch.kernels.csr_lookup import (csr_lookup_kernel,
                                             route_pairs, route_terms,
                                             scan_block_packed_ref,
                                             scan_block_ref)
+from repro_torch.kernels.csr_lookup.kernel import csr_lookup_packed_plain
+from repro_torch.kernels.csr_lookup.ops import _route_cells
+from repro_torch.kernels.csr_lookup.ref import _lane_scale, _route
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attn_kernel,
                                             flash_attn_plain)
@@ -311,6 +314,92 @@ def test_packed_kernels_match_plain(layout, codec):
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want), (tile, block, blo)
     assert csr_lookup_packed_kernel.launches == before + 3
+
+
+def _packed_lookup_case(layout):
+    """(raw partition on the card, query, docs) of the packed lookup
+    kernel's tests: the k1 and k4 indexes (per term; per pair on the
+    split hot term), the deep index split at K = 4 (ranges of 2,285
+    postings: two fence rounds at tile 8; docs on tile edges), and the
+    adversarial ids (c = 0 and c = 32 tiles, top-bit words)."""
+    if layout == "adversarial":
+        raw = adversarial_index(device="cuda")
+        q, docs = adversarial_queries(raw)
+        return raw, q.cuda(), docs.cuda()
+    if layout == "deep":
+        idx, q, docs = _lookup_case("deep")
+        return partition_index(idx, 4), q, docs
+    raw = _packed_layout(layout, "cuda")
+    q = torch.tensor([0, 1, 17, -1, 45, 39, 3, 1000], dtype=torch.int32,
+                     device="cuda")
+    return raw, q, torch.arange(-2, raw.n_docs + 3, dtype=torch.int32,
+                                device="cuda")
+
+
+def _packed_routed(p, q, docs):
+    """The packed lookup wrapper's arguments, routed as ``ops.csr_lookup``
+    routes a request (per term, or per pair where a hot term is split)
+    and as ``ops.csr_lookup_pairs`` routes the coalesced (1, P) grid of
+    the same pairs: [(args, (B, Q) view of the output)]."""
+    i32 = lambda a: a.to(torch.int32).contiguous()  # noqa: E731
+
+    def args(k, lo, hi, w, d):
+        scale = (None if p.value_scale is None else
+                 _lane_scale(p.value_scale, p.range_lo, k, w).contiguous())
+        return (i32(k), i32(lo), i32(hi), i32(d), p._packed(), p.fences,
+                p._serve_values, scale)
+    grid = args(*_route_cells(q, docs, p.term_offsets, p.term_to_shard,
+                              p.range_lo, p.split_term, p.split_doc), docs)
+    shape = (q.shape[0], docs.shape[0])
+    terms = q[:, None].expand(shape).reshape(1, -1)
+    pair_d = docs[None].expand(shape).reshape(-1)
+    pairs = args(*_route(terms, pair_d[None], p.term_offsets,
+                         p.term_to_shard, p.range_lo, p.split_term,
+                         p.split_doc), terms, pair_d)
+    return [(grid, lambda m: m),
+            (pairs, lambda m: m[:, 0].view(shape + m.shape[2:])
+             .transpose(0, 1))]
+
+
+@pytest.mark.parametrize("codec", ["packed", "packed-q8"])
+@pytest.mark.parametrize("layout", ["k1", "k4", "deep", "adversarial"])
+def test_packed_lookup_kernel_matches_plain_per_term_and_per_pair_grid(
+        layout, codec):
+    """The packed lookup kernel against its plain version, both on the
+    card, bit for bit (sign of zero included), at codec tiles 8, 64 and
+    256: routed per request (per term, or per pair on a split hot term)
+    and as the coalesced (1, P) grid, each pair routed on its own; both
+    equal the request's M.  A words buffer and a values buffer that start
+    off a 16-byte boundary (the row then moves one element at a time: the
+    row path takes vectors only when values and M are both aligned; M is
+    the wrapper's own allocation) give the same bits, and
+    ``csr_lookup_pairs`` (``index.lookup_pair_rows``) runs the same (1, P)
+    grid."""
+    _require_cuda()
+    raw, q, docs = _packed_lookup_case(layout)
+    before = csr_lookup_packed_kernel.launches
+    for tile in (8, 64, 256):
+        p = pack_index(raw, codec, tile=tile)
+        m = p.qd_matrix(q, docs)
+        for args, as_m in _packed_routed(p, q, docs):
+            got = csr_lookup_packed_kernel(*args, tile=tile)
+            want = csr_lookup_packed_plain(*args, tile=tile)
+            assert torch.equal(got, want), (tile, args[0].shape)
+            assert torch.equal(got.signbit(), want.signbit())
+            assert torch.equal(as_m(got), m), (tile, args[0].shape)
+            words, *meta = args[4]
+            mis = csr_lookup_packed_kernel(
+                *args[:4], (_misaligned(words), *meta), args[5],
+                _misaligned(args[6]), args[7], tile=tile)
+            assert torch.equal(mis, want) and torch.equal(
+                mis.signbit(), want.signbit()), (tile, "misaligned")
+        shape = (q.shape[0], docs.shape[0])
+        pairs = p.lookup_pair_rows(q[:, None].expand(shape).reshape(-1),
+                                   docs[None].expand(shape).reshape(-1))
+        assert torch.equal(pairs.view(shape + pairs.shape[1:])
+                           .transpose(0, 1), m), (tile, "csr_lookup_pairs")
+    assert csr_lookup_packed_kernel.launches == before + 3 * 6
+    assert (m != 0).any() and (m == 0).any()
 
 
 @pytest.mark.parametrize("codec", ["packed", "packed-q8"])

@@ -117,6 +117,30 @@ Phases (any failed check raises, and the script exits non-zero):
    the packed engine's and the cache's epoch must rise.  (Phase 7 runs
    before phase 6, while phase 5's index is still on the card.)
 
+8. The live index over phase 5's K = 4 index (``dist/live.py``): docs
+   0-4,095 ingested again as new ids in 4 chunks while the coalesced
+   front end serves 256 LETOR requests at R / 2 (every served score
+   equal to phase 7's ``engine.score`` bitwise, before, during and after
+   the ingest; the docs ingested again equal their originals, M and
+   scores); 64 tombstones (32 base, 32 inserted); ``compact(wait=False)``
+   while a front end with the 4,096-tile cache serves 256 more at R / 2
+   (scores equal the view's before it; M of 16 requests and top-1000 ids
+   of 8 queries unchanged by the swap; no tombstoned doc in a top-k; its
+   M rows zero; generation 1; the cache's epoch rises); the launches of
+   the ingest (``seg_interact`` once, ``embed_bag`` twice per batch) and
+   of the serving; each step's seconds, p50 / p95, queue ms and goodput
+   during the ingest and the compaction beside phase 7's coalesced R / 2
+   row, ``delta_nnz`` and the peak device memory. Then a live index of
+   2,048 + 1,024 docs against ``build_partitioned`` of the 3,072 on the
+   card (nnz, M, top-k bitwise); ``repro_torch.launch.serve.main()`` in
+   process three times (the live open loop over a ``packed-q8`` base, the
+   live first stage, the re-rank with ``--compare-noindex``), the
+   launches of each counted and the snapshot's build, partition, live
+   and heartbeat families checked; and ``seg_interact`` at n_seg 65, 128
+   and 130 and ``knrm_pool`` at n_b 1,024, 1,025 and 2,500 against their
+   plain versions, timed beside today's shapes. (Phase 8 runs after
+   phase 7 and before phase 6.)
+
 Every busy share is printed with how many of the port's kernel
 launches CUPTI recorded over the replay ("k of n").
 
@@ -162,6 +186,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -188,7 +213,10 @@ from repro_torch.data.batching import (candidates_for_query,  # noqa: E402
 from repro_torch.data.synth_corpus import generate  # noqa: E402
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
+from repro_torch.dist import live as live_mod  # noqa: E402
+from repro_torch.dist.live import LiveIndex  # noqa: E402
 from repro_torch.dist.partition import pack_index  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.dist.sharding import partition_index  # noqa: E402
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
     assemble_block_ref, block_cells_ref, csr_lookup_kernel,
@@ -2131,7 +2159,8 @@ def phase5(seed: int, dev, corpus=None):
         time_embed_bag(mix, lcp, {"build": built["embed_bag"],
                                   "noindex": served["noindex"]["embed_bag"]},
                        eb_err, eb_bitwise, dev)]
-    return rows, dict(pidx=pidx, engine=engine, ds=ds, vocab=vocab)
+    return rows, dict(pidx=pidx, engine=engine, ds=ds, vocab=vocab,
+                      builder=builder, toks=toks, segs=segs)
 
 
 
@@ -2246,6 +2275,7 @@ def phase7(ctx, seed: int, dev):
             want.append(engine.score(q, d).cpu().numpy())
     _, closed = serve_batches(engine, requests[:FE_CLOSED])
     qps = 1e3 / closed.ms_per_request
+    ctx["qps"] = qps
     log(f"phase 7: closed loop serve_batches {FE_CLOSED} x ({Q_SLOTS} "
         f"slots, {N_CAND} candidates): {closed.ms_per_request:.4f} ms per "
         f"request (p50 {closed.p50_ms:.3f}, p95 {closed.p95_ms:.3f}) -> "
@@ -2324,6 +2354,7 @@ def phase7(ctx, seed: int, dev):
                                  f"{n} of {len(reqs)} served")
     if metric("seine_frontend_epoch_swaps_total") != swaps + 1:
         raise AssertionError("phase 7: the swap was not counted")
+    ctx["coalesced_half_r"] = results.get("coalesce @ 0.5 R")
     same = all(np.array_equal(a, b) for a, b in
                zip(p_want, want[:FE_SWAP_REQUESTS]))
     log(f"phase 7: swap_engine to the packed copy: {len(reqs)} requests "
@@ -2331,6 +2362,470 @@ def phase7(ctx, seed: int, dev):
         f"scores too: {same}), cache epoch {epoch} -> {fe.cache.epoch}, "
         f"one swap counted")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the live index over phase 5's index, and the serve CLI
+# ---------------------------------------------------------------------------
+
+LIVE_DOCS = 4096         # docs 0-4,095 ingested again, as new ids
+LIVE_CHUNKS = 4
+LIVE_DEAD = 32           # tombstoned base docs, and as many inserted ones
+LIVE_WAVE = 256          # requests at R / 2 while ingesting, and again
+#                          while compacting
+LIVE_QD_REQUESTS = 16
+LIVE_AFTER = 8           # requests served after the compaction's swap
+LIVE_SMALL = (2048, 1024)    # base and inserted docs of the rebuild check
+LIVE_SMALL_TOP_K = 100
+REPAIR_SEG = (65, 128, 130)
+REPAIR_NB = (20, 1024, 1025, 2500)
+CLI_METRICS = os.path.join(REPO, "build", "serve_metrics.txt")
+# the in-process CLI runs: flags ("{metrics}": CLI_METRICS) and the kernels
+# each must launch
+CLI_RUNS = (
+    (["--partition", "term", "--codec", "packed-q8", "--live",
+      "--live-compact", "--target-qps", "200", "--coalesce",
+      "--metrics-out", "{metrics}"],
+     ("seg_interact", "embed_bag", "csr_lookup_packed", "knrm_pool")),
+    (["--partition", "term", "--live", "--retrieve-k", "100"],
+     ("seg_interact", "embed_bag", "lane_bounds", "retrieve_windows",
+      "knrm_pool")),
+    (["--compare-noindex"],
+     ("seg_interact", "embed_bag", "csr_lookup", "knrm_pool")),
+)
+CLI_FAMILIES = (
+    "seine_build_docs_total", "seine_build_batches_total",
+    "seine_build_runs_total", "seine_build_docs_per_s",
+    "seine_build_total_nnz", "seine_build_peak_host_bytes",
+    "seine_merge_fan_in", "seine_shard_nnz", "seine_shard_count",
+    "seine_shard_skew_max_ratio", "seine_shard_skew_mean_ratio",
+    "seine_shard_hot_splits", "seine_plan_range_nnz",
+    "seine_codec_tile_bits_total", "seine_live_docs",
+    "seine_live_delta_nnz", "seine_live_delta_runs",
+    "seine_live_tombstones", "seine_live_generation",
+    "seine_live_ingest_docs_total", "seine_live_deletes_total",
+    "seine_live_compactions_total", "seine_heartbeat_ranks",
+    "seine_heartbeat_age_seconds", "seine_heartbeat_dead_ranks")
+CLI_SPANS = ("build.stream_runs", "build.stage1.uniq",
+             "build.stage2.interact", "build.stage2b.compact",
+             "build.stage3.spill", "build.stage4.merge", "live.ingest",
+             "live.compact")
+
+
+def launch_counts():
+    return {n: fn.launches for n, fn in COUNTERS.items()}
+
+
+def counts_since(before):
+    return {n: fn.launches - before[n] for n, fn in COUNTERS.items()}
+
+
+def live_frontend(engine, **kw):
+    """A front end as phase 7's coalesced mode runs it."""
+    return ServingFrontend(engine, max_batch=FE_MAX_BATCH,
+                           batch_timeout_ms=FE_TIMEOUT_MS, slo_ms=FE_SLO_MS,
+                           **kw)
+
+
+def live_wave(fe, requests, warm, qps: float, seed: int):
+    """One open-loop run of ``requests`` at ``qps`` through ``fe`` after
+    ``warm`` requests served uncounted; returns (result, futures, wall
+    seconds, launches over the run)."""
+    for f in [fe.submit(q, d) for q, d in warm]:
+        f.result(timeout=120)
+    fe.stats = type(fe.stats)()
+    futures = []
+    before = launch_counts()
+    t0 = time.perf_counter()
+    res = run_open_loop(_Recording(fe, futures), requests, target_qps=qps,
+                        seed=seed, timeout=120)
+    return res, futures, time.perf_counter() - t0, counts_since(before)
+
+
+def wave_row(res, wall):
+    st = res.stats
+    return dict(p50=st.p50_ms, p95=st.p95_ms,
+                queue_ms=st.queue_ms_per_request, goodput=res.goodput,
+                served=res.n_served, rejected=res.n_rejected, wall_s=wall)
+
+
+def fmt_row(r) -> str:
+    return (f"p50 {r['p50']:.3f} ms, p95 {r['p95']:.3f} ms, queue "
+            f"{r['queue_ms']:.3f} ms per request, goodput "
+            f"{r['goodput']:.4f} ({r['served']} served, {r['rejected']} "
+            f"rejected)")
+
+
+def scores_of(engine, requests):
+    with torch.inference_mode():
+        return [engine.score(q, d).cpu().numpy() for q, d in requests]
+
+
+def same_bits(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{what}: request {i} differs (max |diff| "
+                                 f"{np.abs(g - w).max()})")
+
+
+def timed_compaction():
+    """Wrap the compaction's two steps with host timers: the explode of
+    the base to one host run, and the merger (the stage-4 merge on the
+    host, then the upload of the new generation).  Returns the dict the
+    timers fill and a function that undoes the wrapping."""
+    times = {}
+    explode, merge = live_mod._explode_base, live_mod.partitioned_from_runs
+
+    def timing(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    live_mod._explode_base = timing("explode", explode)
+    live_mod.partitioned_from_runs = timing("merge_and_upload", merge)
+
+    def undo():
+        live_mod._explode_base = explode
+        live_mod.partitioned_from_runs = merge
+    return times, undo
+
+
+def upload_s(n_bytes: int, dev) -> float:
+    """Seconds to copy ``n_bytes`` of pageable host memory to ``dev``, at
+    the rate measured on one 1 GB copy (the new generation's upload is
+    one such copy per array inside the merger)."""
+    host = np.ones(1 << 28, np.float32)
+    t0 = time.perf_counter()
+    torch.from_numpy(host).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return n_bytes * (time.perf_counter() - t0) / host.nbytes
+
+
+def live_ingest(live, toks, segs, n_docs: int, errors: list, secs: list):
+    """Ingest docs 0 .. n_docs - 1 again in LIVE_CHUNKS chunks (a
+    background thread's body); failures go to ``errors``."""
+    try:
+        t0 = time.perf_counter()
+        chunk = -(-n_docs // LIVE_CHUNKS)
+        for i in range(0, n_docs, chunk):
+            live.insert(toks[i:i + chunk], segs[i:i + chunk],
+                        batch_size=BUILD_BATCH)
+        secs.append(time.perf_counter() - t0)
+    except BaseException as e:
+        errors.append(e)
+
+
+def check_rebuild_contract(builder, toks, segs, params, queries, dev):
+    """A live index over a LIVE_SMALL[0]-doc base with LIVE_SMALL[1] docs
+    inserted equals build_partitioned of the same docs, on the card: nnz,
+    M over every doc and the top-k ids, bitwise."""
+    n_base, n_ins = LIVE_SMALL
+    n = n_base + n_ins
+    base = builder.build_partitioned(toks[:n_base], segs[:n_base], BUILD_K,
+                                     batch_size=BUILD_BATCH,
+                                     max_uniq=BUILD_MAX_UNIQ)
+    live = LiveIndex(base, builder.pipeline, batch_size=BUILD_BATCH)
+    live.insert(toks[n_base:n], segs[n_base:n])
+    full = builder.build_partitioned(toks[:n], segs[:n], BUILD_K,
+                                     batch_size=BUILD_BATCH,
+                                     max_uniq=BUILD_MAX_UNIQ)
+    if live.nnz != full.nnz or live.n_docs != full.n_docs:
+        raise AssertionError(f"phase 8: live nnz {live.nnz} / docs "
+                             f"{live.n_docs} != rebuild {full.nnz} / "
+                             f"{full.n_docs}")
+    e_live = SeineEngine(live, "knrm", params)
+    e_full = SeineEngine(full, "knrm", params)
+    docs = torch.arange(n, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for q in queries:
+            qt = torch.from_numpy(np.asarray(q, np.int32)).to(dev)
+            assert_equal(live.qd_matrix(qt, docs), full.qd_matrix(qt, docs),
+                         "phase 8: live M vs the rebuild's")
+            (sl, il), (sf, i_f) = (e_live.retrieve(q, LIVE_SMALL_TOP_K),
+                                   e_full.retrieve(q, LIVE_SMALL_TOP_K))
+            assert_equal(il, i_f, "phase 8: live top-k ids vs the rebuild's")
+            assert_equal(sl, sf, "phase 8: live top-k scores vs the "
+                         "rebuild's")
+    log(f"phase 8: a {n_base}-doc base with {n_ins} docs inserted == "
+        f"build_partitioned(K={BUILD_K}) of the {n} docs on the card: nnz "
+        f"{live.nnz}, M over every doc and top-{LIVE_SMALL_TOP_K} ids and "
+        f"scores of {len(queries)} queries (bitwise)")
+
+
+def run_cli(dev):
+    """repro_torch.launch.serve.main() in process, once per CLI_RUNS
+    entry, with the launch counts zeroed just before and read just after;
+    the first run's --metrics-out must hold the build's, partitioner's,
+    live index's and heartbeat's families and spans."""
+    os.makedirs(os.path.dirname(CLI_METRICS), exist_ok=True)
+    argv0 = sys.argv
+    out = []
+    try:
+        for flags, need in CLI_RUNS:
+            argv = [a.replace("{metrics}", CLI_METRICS) for a in flags]
+            if dev.type != "cuda":
+                argv += ["--device", str(dev)]
+            sys.argv = ["serve"] + argv
+            obs.reset()
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            serve_cli.main()
+            wall = time.perf_counter() - t0
+            got = launch_counts()
+            log(f"phase 8: CLI {' '.join(flags)}: {wall:.2f}s, launches "
+                f"{got}")
+            for name in need:
+                if got[name] <= 0:
+                    raise AssertionError(f"phase 8: the CLI ({' '.join(flags)})"
+                                         f" did not launch {name}")
+            out.append(dict(flags=flags, wall_s=wall, launches=got))
+    finally:
+        sys.argv = argv0
+    with open(CLI_METRICS) as f:
+        fams = obs.parse_prometheus(f.read())
+    missing = [n for n in CLI_FAMILIES if n not in fams]
+    spans = {dict(k)["span"] for k in fams.get("seine_span_count_total", {})}
+    missing += [s for s in CLI_SPANS if s not in spans]
+    if missing:
+        raise AssertionError(f"phase 8: the CLI's metrics lack {missing}")
+    log(f"phase 8: CLI metrics snapshot: {len(fams)} sample names, every "
+        f"one of the {len(CLI_FAMILIES)} families and {len(CLI_SPANS)} "
+        f"spans checked")
+    return out
+
+
+def check_repairs(builder, toks, segs, dev):
+    """seg_interact past one block's 64 segments and knrm_pool past one
+    staging chunk's 1,024, on the card against their plain versions, and
+    timed beside their shapes on the main path."""
+    out = {"seg_interact": {}, "knrm_pool": {}}
+    e_term, e_tok, seg, term_ids = batch_inputs(builder, toks, segs, 0, dev)
+    n_b = builder.cfg.n_segments
+    g = torch.Generator().manual_seed(8)
+    live_tok = (seg >= 0) & (seg < n_b)
+    for n_seg in (n_b,) + REPAIR_SEG:
+        s = seg
+        if n_seg != n_b:
+            draw = torch.sort(torch.randint(0, n_seg, seg.shape, generator=g),
+                              dim=1).values.to(torch.int32).to(dev)
+            s = torch.where(live_tok, draw, -1).contiguous()
+        with torch.inference_mode():
+            got = seg_interact_kernel(e_term, e_tok, s, term_ids, n_seg)
+            want = seg_interact_plain(e_term, e_tok, s, term_ids, n_seg)
+            torch.testing.assert_close(got, want, **SEG_TOL)
+            ms, how, _ = timed([lambda s=s, n=n_seg: seg_interact_kernel(
+                e_term, e_tok, s, term_ids, n)], 100, "seg_interact_kernel")
+        out["seg_interact"][str(n_seg)] = dict(
+            ms=ms, timed_by=how, max_abs_err=(got - want).abs().max().item())
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for nb in REPAIR_NB:
+        cos = (torch.rand((N_CAND, Q_SLOTS, nb), generator=gen, device=dev)
+               * 2 - 1)
+        mask = (torch.rand((N_CAND, nb), generator=gen, device=dev)
+                > 0.25).float()
+        got = knrm_pool_kernel(cos, mask)
+        want = knrm_pool_ref(cos, mask)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        ms, how, _ = timed([lambda c=cos, m=mask: knrm_pool_kernel(c, m)],
+                           100, "knrm_pool_kernel")
+        out["knrm_pool"][str(nb)] = dict(
+            ms=ms, timed_by=how, max_abs_err=(got - want).abs().max().item())
+    for name, rows in out.items():
+        log(f"phase 8: {name} at any segment count, against its plain "
+            f"version on the card: " + ", ".join(
+                f"{k}: {v['ms']:.4f} ms (max |diff| {v['max_abs_err']:.3g})"
+                for k, v in rows.items()))
+    return out
+
+
+def phase8(ctx, seed: int, dev):
+    """The live index at full width over phase 5's K = 4 index (module
+    doc): ingest while the front end serves, tombstones, a compaction
+    while it serves, the contract against a rebuild, the CLI, and the two
+    repaired kernels.  Returns the repairs' rows."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pidx, engine = ctx["pidx"], ctx["engine"]
+    builder, toks, segs = ctx["builder"], ctx["toks"], ctx["segs"]
+    n_base = pidx.n_docs
+    n_ins = min(LIVE_DOCS, n_base)
+    qps = ctx["qps"] / 2
+    live = LiveIndex(pidx, builder.pipeline, batch_size=BUILD_BATCH)
+    l_engine = SeineEngine(live, "knrm", engine.params)
+    reqs = letor_requests(ctx["ds"], ctx["vocab"], seed + 5, LIVE_WAVE)
+    reqs2 = letor_requests(ctx["ds"], ctx["vocab"], seed + 6, LIVE_WAVE)
+    if max(int(d.max()) for _, d in reqs + reqs2) >= n_base:
+        raise AssertionError("phase 8: a request holds a doc past the base")
+    want = scores_of(engine, reqs)
+    same_bits(scores_of(l_engine, reqs[:LIVE_QD_REQUESTS]),
+              want[:LIVE_QD_REQUESTS], "phase 8: live scores before ingest")
+
+    # ingest docs 0 .. n_ins - 1 again while the front end serves
+    fe = live_frontend(l_engine)
+    errors, secs = [], []
+    before = launch_counts()
+    thread = threading.Thread(target=live_ingest, args=(
+        live, toks, segs, n_ins, errors, secs), name="phase8-ingest")
+    try:
+        thread.start()
+        res, futures, wall, served_launches = live_wave(
+            fe, reqs, reqs[:FE_MAX_BATCH], qps, seed)
+        thread.join()
+    finally:
+        fe.close(timeout=600)
+    if errors:
+        raise errors[0]
+    ingest = counts_since(before)
+    chunk = -(-n_ins // LIVE_CHUNKS)
+    n_batches = sum(-(-min(chunk, n_ins - i) // BUILD_BATCH)
+                    for i in range(0, n_ins, chunk))
+    if ingest["seg_interact"] != n_batches or             ingest["embed_bag"] < 2 * n_batches:
+        raise AssertionError(f"phase 8: ingest of {n_batches} batches "
+                             f"launched seg_interact "
+                             f"{ingest['seg_interact']} and embed_bag "
+                             f"{ingest['embed_bag']} times")
+    for name in ("csr_lookup", "knrm_pool"):
+        if served_launches[name] <= 0:
+            raise AssertionError(f"phase 8: {name} was not launched "
+                                 "serving during the ingest")
+    served = check_served(futures, want, "phase 8 [during the ingest]")
+    if served != res.n_served or served == 0:
+        raise AssertionError(f"phase 8: {served} served, the run counted "
+                             f"{res.n_served}")
+    same_bits(scores_of(l_engine, reqs[:LIVE_QD_REQUESTS]),
+              want[:LIVE_QD_REQUESTS], "phase 8: live scores after ingest")
+    during_ingest = wave_row(res, wall)
+    delta_nnz = live.delta_nnz
+    log(f"phase 8: ingest of docs 0-{n_ins - 1} again as ids "
+        f"{n_base}-{n_base + n_ins - 1} in {LIVE_CHUNKS} chunks: "
+        f"{secs[0]:.2f}s = {n_ins / secs[0]:.1f} docs/s, delta_nnz "
+        f"{live.delta_nnz}, launches {ingest}; meanwhile {LIVE_WAVE} "
+        f"requests at {qps:.1f}/s (R / 2): {fmt_row(during_ingest)}; "
+        f"every served score == phase 7's engine.score (bitwise), before "
+        f"and after the ingest too")
+
+    # the docs ingested again equal their originals, bitwise
+    rng = np.random.RandomState(seed + 7)
+    with torch.inference_mode():
+        for q, _ in reqs[:LIVE_QD_REQUESTS]:
+            d = rng.choice(n_ins, min(N_CAND, n_ins),
+                           replace=False).astype(np.int32)
+            qt = torch.from_numpy(q).to(dev)
+            dd = torch.from_numpy(d).to(dev)
+            assert_equal(live.qd_matrix(qt, dd + n_base),
+                         live.qd_matrix(qt, dd),
+                         "phase 8: M of docs ingested again")
+            assert_equal(l_engine.score(q, d + n_base), l_engine.score(q, d),
+                         "phase 8: scores of docs ingested again")
+    log(f"phase 8: M and KNRM scores of docs {n_base} + i == those of doc i"
+        f" over {LIVE_QD_REQUESTS} requests (bitwise)")
+
+    # tombstones, then a compaction while the front end serves
+    dead = np.concatenate([
+        rng.choice(n_base, LIVE_DEAD, replace=False),
+        n_base + rng.choice(n_ins, LIVE_DEAD, replace=False)])
+    if live.delete(dead) != 2 * LIVE_DEAD:
+        raise AssertionError("phase 8: the tombstones were not all new")
+    want2 = scores_of(l_engine, reqs2)
+    queries = [q for q, _ in reqs2[:N_RETRIEVE]]
+    with torch.inference_mode():
+        qd_before = [live.qd_matrix(torch.from_numpy(q).to(dev),
+                                    torch.from_numpy(d).to(dev))
+                     for q, d in reqs2[:LIVE_QD_REQUESTS]]
+    top_before, _ = serve_retrieval(l_engine, queries, TOP_K)
+    fe = live_frontend(l_engine, cache_tiles=FE_CACHE_TILES)
+    times, undo = timed_compaction()
+    try:
+        epoch = fe.cache.epoch
+        t0 = time.perf_counter()
+        live.compact(wait=False)
+        res, futures, wall, served_launches = live_wave(
+            fe, reqs2, reqs2[:FE_MAX_BATCH], qps, seed + 1)
+        live.wait_compaction()
+        t_compact = time.perf_counter() - t0
+        served = check_served(futures, want2,
+                              "phase 8 [during the compaction]")
+        after = [fe.submit(q, d) for q, d in reqs2[:LIVE_AFTER]]
+        n_after = check_served(after, want2[:LIVE_AFTER],
+                               "phase 8 [after the swap]")
+        epoch_after = fe.cache.epoch
+    finally:
+        undo()
+        fe.close(timeout=600)
+    if served != res.n_served or served == 0 or n_after != LIVE_AFTER:
+        raise AssertionError(f"phase 8: {served} / {n_after} served during"
+                             " / after the compaction")
+    if live.generation != 1 or epoch_after != epoch + 1:
+        raise AssertionError(f"phase 8: generation {live.generation}, tile "
+                             f"cache epoch {epoch} -> {epoch_after}")
+    for name in ("knrm_pool",):
+        if served_launches[name] <= 0:
+            raise AssertionError(f"phase 8: {name} was not launched "
+                                 "serving during the compaction")
+    during_compact = wave_row(res, wall)
+    with torch.inference_mode():
+        for (q, d), m in zip(reqs2[:LIVE_QD_REQUESTS], qd_before):
+            assert_equal(live.qd_matrix(torch.from_numpy(q).to(dev),
+                                        torch.from_numpy(d).to(dev)), m,
+                         "phase 8: M after the compaction")
+        dead_m = live.qd_matrix(torch.from_numpy(queries[0]).to(dev),
+                                torch.from_numpy(dead.astype(np.int32))
+                                .to(dev))
+        if (dead_m != 0).any():
+            raise AssertionError("phase 8: a tombstoned doc has M rows")
+    before = launch_counts()
+    top_after, _ = serve_retrieval(l_engine, queries, TOP_K)
+    scan = counts_since(before)
+    for name in ("lane_bounds", "retrieve_windows", "knrm_pool"):
+        if scan[name] <= 0:
+            raise AssertionError(f"phase 8: {name} was not launched by the "
+                                 "live first-stage scan")
+    for (sb, ib), (sa, ia) in zip(top_before, top_after):
+        if not (np.array_equal(ib, ia) and np.array_equal(sb, sa)):
+            raise AssertionError("phase 8: top-k changed in the compaction")
+        if np.isin(ia, dead).any():
+            raise AssertionError("phase 8: a tombstoned doc in a top-k")
+    up = upload_s(live.base.posting_nbytes, dev)
+    log(f"phase 8: {2 * LIVE_DEAD} tombstones ({LIVE_DEAD} base, "
+        f"{LIVE_DEAD} inserted), then compact(wait=False) while "
+        f"{LIVE_WAVE} requests at {qps:.1f}/s: {fmt_row(during_compact)}; "
+        f"compaction {t_compact:.2f}s: explode {times.get('explode', 0):.2f}"
+        f"s, merge and upload {times.get('merge_and_upload', 0):.2f}s (the "
+        f"upload of {live.base.posting_nbytes / 1e9:.2f} GB ~{up:.2f}s at "
+        f"the rate of a 1 GB copy), the swap and the rest "
+        f"{t_compact - sum(times.values()):.2f}s; generation "
+        f"{live.generation}, tile cache epoch {epoch} -> {epoch_after}; "
+        f"every score served during and after it == the view's before it "
+        f"(bitwise), M of {LIVE_QD_REQUESTS} requests and top-{TOP_K} ids "
+        f"and scores of {len(queries)} queries unchanged, no tombstoned "
+        f"doc in a top-k, its M rows zero; scan launches {scan}")
+    row7 = ctx.get("coalesced_half_r")
+    if row7 is not None:
+        log(f"phase 8: beside phase 7's coalesced R / 2 row: p50 "
+            f"{row7['p50']:.3f} ms, p95 {row7['p95']:.3f} ms, queue "
+            f"{row7['queue_ms']:.3f} ms, goodput {row7['goodput']:.4f}")
+    del live, l_engine, fe, qd_before
+    check_rebuild_contract(builder, toks, segs, engine.params,
+                           queries[:N_RETRIEVE], dev)
+    cli = run_cli(dev)
+    repairs = check_repairs(builder, toks, segs, dev)
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else None)
+    log(f"phase 8: delta_nnz before the compaction {delta_nnz}, generation "
+        f"1, peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.2f} GB'}, wall "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return dict(repairs=repairs, during_ingest=during_ingest,
+                during_compact=during_compact, cli=cli,
+                ingest_docs_per_s=n_ins / secs[0],
+                compaction_s=dict(times, total=t_compact))
 
 
 # ---------------------------------------------------------------------------
@@ -2752,6 +3247,10 @@ def main() -> int:
     rows, built = phase5(args.seed, dev, corpus)
     kernels += rows
     phase7(built, args.seed, dev)
+    live = phase8(built, args.seed, dev)
+    for row in kernels:
+        if row["name"] in live["repairs"]:
+            row["any_segment_count"] = live["repairs"][row["name"]]
     del built
     torch.cuda.empty_cache()
     kernels.append(phase6(args.seed, dev, corpus))

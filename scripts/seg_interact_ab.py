@@ -20,12 +20,15 @@ of 32 docs with up to 512 unique terms each, and 4 No-Index requests of
 6 query slots x 1,000 candidates (the candidates' real docs, as
 ``NoIndexEngine`` passes them).  For each shape it prints the kernel's
 mean device ms per launch (CUPTI through ``torch.profiler``, ``--iters``
-launches cycling through the inputs, after a warm-up) and the operations
-and bytes the live data needs.  It prints the card's name and power limit
+launches cycling through the inputs, after a warm-up), the operations
+and bytes the live data needs, and a SHA-256 digest of the kernel's
+outputs over every input of the shape, which must be equal between trees
+that claim the same bits.  It prints the card's name and power limit
 first and needs a CUDA device.
 """
 import argparse
 import dataclasses
+import hashlib
 import os
 import subprocess
 import sys
@@ -133,6 +136,12 @@ def main() -> int:
               f"({n} launches recorded) = {flops / ms / 1e9:.2f} TFLOP/s on "
               f"the live pairs; live work {flops / 1e9:.4f} GFLOP, "
               f"{n_bytes / 1e6:.2f} MB", flush=True)
+        digest = hashlib.sha256()
+        for a in inputs:
+            digest.update(seg_interact_kernel(*a, n_b).cpu().numpy()
+                          .tobytes())
+        print(f"[{args.src}] {shape} output sha256 {digest.hexdigest()}",
+              flush=True)
     return 0
 
 

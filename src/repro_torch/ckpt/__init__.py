@@ -1,3 +1,3 @@
-from .checkpoint import load_index, load_index_shard, save_index
+from .checkpoint import load_index, load_index_shard, save_index, wait_async
 
-__all__ = ["load_index", "load_index_shard", "save_index"]
+__all__ = ["load_index", "load_index_shard", "save_index", "wait_async"]

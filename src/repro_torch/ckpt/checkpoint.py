@@ -8,19 +8,25 @@ starts and ends, sub-shard tables, idf, per-doc stats).  This is how an
 index crosses between the JAX package and the port, both ways.  A packed
 index
 (``codec`` in the manifest) stores its packed sidecars per shard and no
-fences; the fences are rebuilt from the packed tile metadata.
+fences; the fences are rebuilt from the packed tile metadata.  Saves
+record the reference's ``ckpt.save_index`` span and its
+``seine_index_saves_total`` / ``seine_ckpt_write_errors_total``
+counters.
 """
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import os
 import shutil
+import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, Set
 
 import numpy as np
 
+from .. import obs
 from ..convert import index_from_arrays
 from ..core.codec import validate_codec
 from ..kernels.utils import resolve_device
@@ -28,18 +34,71 @@ from ..kernels.utils import resolve_device
 INDEX_MANIFEST = "index_manifest.json"
 
 
-def save_index(index_dir: str, index: Any) -> str:
+_ASYNC_THREADS: List[threading.Thread] = []
+_ASYNC_ERRORS: List[BaseException] = []
+_LOCK = threading.Lock()
+_SEQ = itertools.count()
+_IN_FLIGHT: Set[str] = set()        # this process's unpublished tmp dirs
+_log = obs.get_logger("repro.ckpt")
+
+
+def _spawn_async(write) -> None:
+    """Run ``write`` on a daemon thread, keeping any failure for
+    :func:`wait_async` to raise: a background writer never fails
+    silently (the obs error counter records it; the join surfaces it)."""
+    def run():
+        try:
+            write()
+        except BaseException as e:
+            with _LOCK:
+                _ASYNC_ERRORS.append(e)
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    with _LOCK:
+        _ASYNC_THREADS.append(t)
+
+
+def wait_async() -> None:
+    """Join every background writer; raise the first failure kept."""
+    with _LOCK:
+        threads = list(_ASYNC_THREADS)
+        _ASYNC_THREADS.clear()
+    for t in threads:
+        t.join()
+    with _LOCK:
+        err = _ASYNC_ERRORS[0] if _ASYNC_ERRORS else None
+        _ASYNC_ERRORS.clear()
+    if err is not None:
+        raise err
+
+
+def _unique_sibling(index_dir: str, kind: str) -> str:
+    """``<dir>.<kind><pid>.<n>``: a name no other write of this process
+    or of another process shares (the reference's ``<dir>.tmp<pid>``
+    lets two writes of one process publish into each other)."""
+    with _LOCK:
+        n = next(_SEQ)
+    return f"{index_dir.rstrip('/')}.{kind}{os.getpid()}.{n}"
+
+
+def save_index(index_dir: str, index: Any, *,
+               async_write: bool = False) -> str:
     """Persist a port index (single CSR or partitioned, raw or packed) in
     the reference's layout, so ``repro.ckpt.load_index`` reads it: one
     ``shard_<k>.npz`` per term-range shard, ``common.npz`` and the
     manifest; fences are not stored (the loaders rebuild them).
 
     Published through a temporary directory and ``os.replace``.  An
-    existing ``index_dir`` is first moved aside to ``<dir>.old<pid>``, so
-    a writer stopped mid-overwrite leaves the previous index recoverable
-    (:func:`load_index` falls back to it); a successful publish removes
-    every stranded ``.old*`` / ``.tmp*`` sibling.  Returns
-    ``index_dir``."""
+    existing ``index_dir`` is first moved aside to ``<dir>.old<pid>.<n>``,
+    so a writer stopped mid-overwrite leaves the previous index
+    recoverable (:func:`load_index` falls back to it); a successful
+    publish removes every stranded ``.old*`` / ``.tmp*`` sibling except
+    the unpublished ones of this process's writes still in flight.  Every
+    write has its own temporary name.  The device-to-host copies run on
+    the caller's thread; ``async_write=True`` moves the file I/O and the
+    publish to a background thread, whose failure is counted on
+    ``seine_ckpt_write_errors_total`` and raised by :func:`wait_async`.
+    Returns ``index_dir``."""
     from ..core.index import SegmentInvertedIndex
     from ..dist.partition import PartitionedIndex, _host
 
@@ -67,6 +126,7 @@ def save_index(index_dir: str, index: Any) -> str:
         raise TypeError(f"cannot save index of type {type(index).__name__}")
     common.update(idf=index.idf, doc_len=index.doc_len,
                   seg_len=index.seg_len)
+    common = {n: _host(a) for n, a in common.items()}
     manifest = {
         "kind": kind, "n_shards": int(n_shards),
         "n_docs": int(index.n_docs), "vocab_size": int(index.vocab_size),
@@ -78,25 +138,52 @@ def save_index(index_dir: str, index: Any) -> str:
         manifest.update(codec=codec, codec_tile=int(index.codec_tile),
                         max_tile_words=int(index.max_tile_words),
                         codec_spans=[int(s) for s in index.codec_spans])
-    tmp = index_dir.rstrip("/") + f".tmp{os.getpid()}"
-    os.makedirs(tmp, exist_ok=True)
-    for k, arrays in enumerate(shards):
-        np.savez(os.path.join(tmp, f"shard_{k:05d}.npz"), **arrays)
-    np.savez(os.path.join(tmp, "common.npz"),
-             **{n: _host(a) for n, a in common.items()})
-    with open(os.path.join(tmp, INDEX_MANIFEST), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(index_dir):
-        old = index_dir.rstrip("/") + f".old{os.getpid()}"
-        if os.path.exists(old):
-            shutil.rmtree(old)
-        os.replace(index_dir, old)
-        os.replace(tmp, index_dir)
-        for stale in (glob.glob(index_dir.rstrip("/") + ".old*")
-                      + glob.glob(index_dir.rstrip("/") + ".tmp*")):
-            shutil.rmtree(stale, ignore_errors=True)
+    tmp = _unique_sibling(index_dir, "tmp")
+    with _LOCK:
+        _IN_FLIGHT.add(tmp)
+
+    def write():
+        try:
+            with obs.span("ckpt.save_index"):
+                os.makedirs(tmp, exist_ok=True)
+                for k, arrays in enumerate(shards):
+                    np.savez(os.path.join(tmp, f"shard_{k:05d}.npz"),
+                             **arrays)
+                np.savez(os.path.join(tmp, "common.npz"), **common)
+                with open(os.path.join(tmp, INDEX_MANIFEST), "w") as f:
+                    json.dump(manifest, f)
+                if os.path.exists(index_dir):
+                    # move the live index aside before publishing, so a
+                    # writer stopped between the two replaces leaves it
+                    # recoverable at <dir>.old*
+                    old = _unique_sibling(index_dir, "old")
+                    os.replace(index_dir, old)
+                    os.replace(tmp, index_dir)
+                    with _LOCK:
+                        _IN_FLIGHT.discard(tmp)
+                        keep = set(_IN_FLIGHT)
+                    for stale in (glob.glob(index_dir.rstrip("/") + ".old*")
+                                  + glob.glob(index_dir.rstrip("/")
+                                              + ".tmp*")):
+                        if stale not in keep:
+                            shutil.rmtree(stale, ignore_errors=True)
+                else:
+                    os.replace(tmp, index_dir)      # atomic publish
+            obs.counter("seine_index_saves_total",
+                        "index dir publishes").inc()
+        except BaseException as e:
+            obs.counter("seine_ckpt_write_errors_total",
+                        "failed (a)sync ckpt/index writes").inc()
+            _log.error("index save failed", path=index_dir, err=repr(e))
+            raise
+        finally:
+            with _LOCK:
+                _IN_FLIGHT.discard(tmp)
+
+    if async_write:
+        _spawn_async(write)
     else:
-        os.replace(tmp, index_dir)
+        write()
     return index_dir
 
 

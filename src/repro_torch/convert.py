@@ -90,7 +90,10 @@ def index_to_device(index: Any, device=None):
     """Move a single-CSR or partitioned index, raw or packed — the JAX
     package's or the port's — onto ``device`` as the port's index."""
     if getattr(index, "is_live", False):
-        raise NotImplementedError("a live index is not ported yet")
+        raise TypeError(
+            "a live index does not cross between the packages: move its "
+            "base with index_to_device(live.base) and wrap that in the "
+            "port's repro_torch.dist.live.LiveIndex")
     names = INDEX_ARRAYS + (PARTITION_ARRAYS + OPTIONAL_ARRAYS + CODEC_ARRAYS
                             if hasattr(index, "term_to_shard") else ())
     arrays = {n: _host(getattr(index, n)) for n in names

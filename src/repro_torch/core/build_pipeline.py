@@ -1,6 +1,6 @@
 """Staged streaming index build — Algorithm 1 as a device-side pipeline
-(port of ``repro.core.build_pipeline``, without the ``obs`` spans and
-counters, which come with the observability slice).
+(port of ``repro.core.build_pipeline``, with its ``obs`` spans, counters
+and gauges).
 
   stage 1  unique-term extraction   :func:`make_unique_terms_fn` — sort +
            first-occurrence compaction per doc, on the device.
@@ -19,11 +19,16 @@ counters, which come with the observability slice).
 Ids are exact: the tf filter compares integer-valued float32 sums, and
 the merge lexsorts by (term, doc), so term ids, doc ids and run
 boundaries equal the reference's bit for bit on the same corpus.
+
+The ``build.*`` spans time the host, as the reference's do: stages 1
+and 2 their launches, stage 2b the wait for the run length (the one
+host sync of a batch, which the build had before), stage 3 the copies
+and spill I/O.  The device time of each stage comes from the CUDA events
+of ``BuildStats.stage_device_ms``, read once when the streaming ends.
 """
 from __future__ import annotations
 
 import os
-import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -31,12 +36,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import SeineConfig
 from ..kernels.utils import resolve_device
 from .index import SegmentInvertedIndex, build_shard_from_runs
 from .interactions import init_interaction_params, params_to
 from .providers import EmbeddingProvider
 from .vocab import Vocabulary
+
+_log = obs.get_logger("repro.core.build")
 
 STAGES = ("stage1_uniq", "stage2_interact", "stage2b_compact",
           "stage3_spill")
@@ -181,9 +189,23 @@ class RunSpiller:
                      values=values)
             run.term_ids = run.doc_ids = run.values = None
             self.spilled_bytes += run.nbytes
+            obs.counter("seine_build_runs_spilled_total",
+                        "posting runs written to spill_dir").inc()
+            obs.counter("seine_build_spill_bytes_total",
+                        "bytes spilled to disk").inc(run.nbytes)
         else:
             self.resident_bytes += run.nbytes
         self.runs.append(run)
+        obs.counter("seine_build_runs_total",
+                    "posting runs produced (resident or spilled)").inc()
+        obs.gauge("seine_build_last_run_bytes",
+                  "size of the newest per-batch run").set(run.nbytes)
+        obs.gauge("seine_build_resident_bytes",
+                  "run bytes currently resident on host").set(
+            self.resident_bytes)
+        obs.gauge("seine_build_peak_host_bytes",
+                  "peak resident run bytes this build").set(
+            self.peak_host_bytes)
         return run
 
     @property
@@ -336,7 +358,7 @@ class BuildPipeline:
         spiller = RunSpiller(spill_dir)
         t0 = time.perf_counter()
         clock = _StageClock(dev)
-        with torch.inference_mode():
+        with torch.inference_mode(), obs.span("build.stream_runs"):
             for s in range(0, n_docs, batch_size):
                 e = min(s + batch_size, n_docs)
                 pad = batch_size - (e - s)
@@ -346,22 +368,32 @@ class BuildPipeline:
                             constant_values=n_b - 1)
                 tb_d = torch.from_numpy(tb.astype(np.int32)).to(dev)
                 sb_d = torch.from_numpy(sb.astype(np.int32)).to(dev)
-                ub = uniq_fn(tb_d)                               # stage 1
+                with obs.span("build.stage1.uniq"):
+                    ub = uniq_fn(tb_d)                           # stage 1
                 clock.lap("stage1_uniq")
-                vals = interact_fn(tb_d, sb_d, ub)               # stage 2
+                with obs.span("build.stage2.interact"):
+                    vals = interact_fn(tb_d, sb_d, ub)           # stage 2
                 clock.lap("stage2_interact")
-                terms, docs, rows, n_valid = compact_fn(
-                    vals, ub, doc_start + s)                     # stage 2b
-                n = int(n_valid)
+                with obs.span("build.stage2b.compact"):
+                    terms, docs, rows, n_valid = compact_fn(
+                        vals, ub, doc_start + s)                 # stage 2b
+                    n = int(n_valid)
                 clock.lap("stage2b_compact")
                 # padded docs hold only -1 slots, so they are masked out
-                spiller.add(terms[:n].cpu().numpy(),
-                            docs[:n].cpu().numpy(), rows[:n].cpu().numpy())
-                clock.lap("stage3_spill")                        # stage 3
+                with obs.span("build.stage3.spill"):
+                    spiller.add(terms[:n].cpu().numpy(),
+                                docs[:n].cpu().numpy(),
+                                rows[:n].cpu().numpy())          # stage 3
+                clock.lap("stage3_spill")
+                obs.counter("seine_build_docs_total",
+                            "docs through build stages 1-3").inc(e - s)
+                obs.counter("seine_build_batches_total",
+                            "device batches streamed").inc()
                 if verbose and (s // batch_size) % 16 == 0:
-                    print(f"[repro_torch.build] streamed {e}/{n_docs} "
-                          f"in {time.perf_counter() - t0:.1f}s",
-                          file=sys.stderr)
+                    _log.info("streamed", docs=f"{e}/{n_docs}",
+                              s=f"{time.perf_counter() - t0:.1f}",
+                              resident_mb=(
+                                  f"{spiller.resident_bytes / 1e6:.1f}"))
         stats = BuildStats(
             n_docs=n_docs, n_batches=len(spiller.runs),
             build_s=time.perf_counter() - t0,
@@ -371,6 +403,10 @@ class BuildPipeline:
             total_nnz=spiller.total_nnz,
             total_nnz_bytes=spiller.total_nnz_bytes,
             stage_s=dict(clock.host), stage_device_ms=clock.device_ms())
+        obs.gauge("seine_build_docs_per_s",
+                  "stage 1-3 streaming throughput").set(stats.docs_per_s)
+        obs.gauge("seine_build_total_nnz",
+                  "postings streamed in the last build").set(stats.total_nnz)
         return spiller, stats
 
     # -- stage 4 entries ---------------------------------------------------
@@ -386,11 +422,14 @@ class BuildPipeline:
         doc_len, seg_len = compute_doc_seg_lengths(
             tokens, seg_ids, self.cfg.n_segments)
         t0 = time.perf_counter()
-        index = build_shard_from_runs(
-            spiller.runs, 0, self.vocab.size, idf=self.vocab.idf,
-            doc_len=doc_len, seg_len=seg_len, n_docs=tokens.shape[0],
-            vocab_size=self.vocab.size, n_b=self.cfg.n_segments,
-            functions=self.functions, device=self.device)
+        with obs.span("build.stage4.merge"):
+            obs.gauge("seine_merge_fan_in",
+                      "runs k-way-merged in stage 4").set(len(spiller.runs))
+            index = build_shard_from_runs(
+                spiller.runs, 0, self.vocab.size, idf=self.vocab.idf,
+                doc_len=doc_len, seg_len=seg_len, n_docs=tokens.shape[0],
+                vocab_size=self.vocab.size, n_b=self.cfg.n_segments,
+                functions=self.functions, device=self.device)
         stats.stage_s["stage4_merge"] = time.perf_counter() - t0
         return index, stats
 
@@ -415,13 +454,16 @@ class BuildPipeline:
         doc_len, seg_len = compute_doc_seg_lengths(
             tokens, seg_ids, self.cfg.n_segments)
         t0 = time.perf_counter()
-        pidx = partitioned_from_runs(
-            spiller.runs, k, idf=self.vocab.idf, doc_len=doc_len,
-            seg_len=seg_len, n_docs=tokens.shape[0],
-            vocab_size=self.vocab.size, n_b=self.cfg.n_segments,
-            functions=self.functions, codec=codec, codec_tile=codec_tile,
-            device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize()
+        with obs.span("build.stage4.merge"):
+            obs.gauge("seine_merge_fan_in",
+                      "runs k-way-merged in stage 4").set(len(spiller.runs))
+            pidx = partitioned_from_runs(
+                spiller.runs, k, idf=self.vocab.idf, doc_len=doc_len,
+                seg_len=seg_len, n_docs=tokens.shape[0],
+                vocab_size=self.vocab.size, n_b=self.cfg.n_segments,
+                functions=self.functions, codec=codec,
+                codec_tile=codec_tile, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
         stats.stage_s["stage4_merge"] = time.perf_counter() - t0
         return pidx, stats

@@ -1,5 +1,6 @@
 """The offline SEINE indexer: corpus -> segment inverted index (port of
-``repro.core.builder``, without a mesh and without the ``obs`` logging).
+``repro.core.builder``, without a mesh; it logs to ``repro.core.build``
+as the reference does).
 
 ``IndexBuilder.build`` and ``.build_partitioned`` are thin wrappers over
 the staged streaming pipeline (``core.build_pipeline.BuildPipeline``):
@@ -12,11 +13,13 @@ is the No-Index baseline's query-time computation of M.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import SeineConfig
 from ..kernels.utils import resolve_device
 from .build_pipeline import BuildPipeline, compute_doc_seg_lengths
@@ -24,6 +27,8 @@ from .index import SegmentInvertedIndex, build_from_rows
 from .interactions import doc_interactions, params_to
 from .providers import EmbeddingProvider
 from .vocab import Vocabulary
+
+_log = obs.get_logger("repro.core.build")
 
 
 def unique_terms_host(tokens: np.ndarray, max_uniq: int) -> np.ndarray:
@@ -146,6 +151,7 @@ class IndexBuilder:
         rows_v: List[np.ndarray] = []
         tf_i = self.functions.index("tf") if "tf" in self.functions else None
         dev = self.device
+        t0 = time.perf_counter()
         for s in range(0, n_docs, batch_size):
             e = min(s + batch_size, n_docs)
             pad = batch_size - (e - s)
@@ -166,6 +172,9 @@ class IndexBuilder:
                 rows_d.append(np.full(idxs.size, s + i, np.int32))
                 rows_t.append(ub[i, idxs])
                 rows_v.append(vals[i, idxs])
+            if verbose and (s // batch_size) % 16 == 0:
+                _log.info("built", docs=f"{e}/{n_docs}",
+                          s=f"{time.perf_counter() - t0:.1f}")
         doc_len, seg_len = compute_doc_seg_lengths(tokens, seg_ids, n_b)
         return build_from_rows(
             np.concatenate(rows_d), np.concatenate(rows_t),

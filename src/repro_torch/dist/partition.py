@@ -25,7 +25,9 @@ bitwise equal to the raw index; only q8 values are approximate.
 :func:`partitioned_from_runs` is the stage-4 merger (term-sorted posting
 runs -> K shards), planned and merged on the host in numpy as in the
 reference; ``dist.sharding.partition_index`` feeds it one run holding a
-built index.  The ``obs`` gauges of the reference are not ported yet.
+built index.  Both record the reference's ``obs`` gauges: the shard
+balance (``seine_shard_*``) and the codec's bit widths and bytes saved
+(``seine_codec_*``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.index import merge_run_parts
 from ..kernels.utils import resolve_device
 
@@ -218,17 +221,38 @@ class PartitionedIndex:
     def retrieve_topk(self, query_terms: torch.Tensor, k: int,
                       score_block_fn, *, doc_block: Optional[int] = None,
                       impl: Optional[str] = None, tile: Optional[int] = None,
-                      alive=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      alive=None, n_docs: Optional[int] = None,
+                      extra_m_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """First-stage top-k over the K-stacked layout; the (query,
         shard) lane grid walks each shard's slice of each query term, and
-        range-based ownership counts a sub-sharded hot term's docs once."""
+        range-based ownership counts a sub-sharded hot term's docs once.
+        ``n_docs`` (default: this index's) and ``extra_m_fn`` as in
+        ``kernels.csr_lookup.csr_retrieve_topk``: the live index scans
+        its whole doc space and adds its delta's M through them."""
         from ..kernels.csr_lookup import csr_retrieve_topk
         return csr_retrieve_topk(
             self.term_offsets, self.doc_ids, self._serve_values,
             self.term_to_shard, self.range_lo, self.range_hi, query_terms,
-            n_docs=self.n_docs, k=k, score_block_fn=score_block_fn,
-            doc_block=doc_block, tile=self._tile(tile), impl=impl,
-            fences=self.fences, alive=alive, **self._codec_kwargs())
+            n_docs=self.n_docs if n_docs is None else n_docs, k=k,
+            score_block_fn=score_block_fn, doc_block=doc_block,
+            tile=self._tile(tile), impl=impl, fences=self.fences,
+            alive=alive, extra_m_fn=extra_m_fn, **self._codec_kwargs())
+
+    def block_scanner(self, query_terms: torch.Tensor, block: int,
+                      n_blocks: int, *, impl: Optional[str] = None,
+                      tile: Optional[int] = None, alive=None):
+        """``blo -> M (block, Q, n_b, n_f)`` for the ``n_blocks`` doc blocks
+        from doc 0, over this index's postings (the first-stage scan's
+        block function: one lane-bounds table for all the blocks on the
+        kernel path)."""
+        from ..kernels.csr_lookup.ops import _block_scanner
+        c = self._codec_kwargs()
+        return _block_scanner(
+            self.term_offsets, self.doc_ids, self._serve_values,
+            self.term_to_shard, self.range_lo, self.range_hi, query_terms,
+            int(block), self._tile(tile), impl, alive,
+            c.get("codec", "none"), c.get("packed"), c.get("value_scale"),
+            c.get("codec_spans", (0, 0)), self.fences, 0, int(n_blocks))
 
 
 # ---------------------------------------------------------------------------
@@ -258,9 +282,26 @@ def _codec_arrays(codec: str, tile: int, doc_ids: np.ndarray,
         doc_ids=None, packed_words=to_dev(p.packed_words),
         tile_bits=to_dev(p.tile_bits), tile_base=to_dev(p.tile_base),
         tile_word_off=to_dev(p.tile_word_off))
+    raw_bytes = int(np.prod(doc_ids.shape)) * 4
+    packed_bytes = p.nbytes
     if codec == "packed-q8":
         q, scale = quantize_values_torch(values, term_offsets.to(dev))
         out.update(values=None, values_q=q, value_scale=scale)
+        raw_bytes += values.numel() * 4
+        packed_bytes += (q.numel() * q.element_size()
+                         + scale.numel() * scale.element_size())
+    bits_hist = obs.gauge("seine_codec_tile_bits_total",
+                          "posting tiles per packed bit width")
+    bits_hist.clear()
+    widths, counts = np.unique(p.tile_bits, return_counts=True)
+    for w, c in zip(widths, counts):
+        bits_hist.set(int(c), bits=str(int(w)))
+    obs.gauge("seine_codec_bytes_saved",
+              "posting bytes removed by the codec").set(
+        max(raw_bytes - packed_bytes, 0))
+    obs.gauge("seine_codec_shrink",
+              "raw / packed posting payload bytes").set(
+        raw_bytes / max(packed_bytes, 1))
     return out
 
 
@@ -389,6 +430,22 @@ def partitioned_from_runs(runs: Sequence, k: int, *, idf, doc_len,
     vmax = max(int(spans.max()), 1)
     nmax = max(int(local_nnz.max()), 1)
     ideal = -(-int(offs[-1]) // k)          # ceil(nnz / k)
+    # shard-balance telemetry: the quantities the padded-storage and
+    # per-device byte claims ride on
+    shard_nnz = obs.gauge("seine_shard_nnz", "postings per shard")
+    shard_nnz.clear()               # drop stale shards from a previous plan
+    for i in range(k):
+        shard_nnz.set(int(local_nnz[i]), shard=str(i))
+    obs.gauge("seine_shard_count", "shards in the last partition plan"
+              ).set(k)
+    obs.gauge("seine_shard_skew_max_ratio",
+              "widest shard vs even split").set(nmax / max(ideal, 1))
+    obs.gauge("seine_shard_skew_mean_ratio",
+              "mean shard vs even split").set(
+        float(local_nnz.mean()) / max(ideal, 1))
+    obs.gauge("seine_shard_hot_splits",
+              "doc-range sub-shard cuts in the plan").set(
+        int((ranks[1:k] > 0).sum()) if k > 1 else 0)
     if k > 1 and nmax > 2 * ideal:
         warnings.warn(
             f"partitioned_from_runs: skewed posting lists — widest shard "

@@ -5,14 +5,27 @@ The planners cut the global CSR boundary array into K ranges balanced
 by posting mass; ``partition_index`` splits a built index into a
 :class:`~repro_torch.dist.partition.PartitionedIndex` through the
 stage-4 merger.  Planning and merging run on the host in numpy, as in
-the reference, so the shards are bitwise the reference's.  The plan
-balance gauges of the reference are not ported yet.
+the reference, so the shards are bitwise the reference's.  Both planners
+record the planned postings per range (``seine_plan_range_nnz``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+
+from .. import obs
+
+
+def _record_plan_balance(range_nnz: np.ndarray) -> None:
+    """Per-range nnz gauges for the freshly planned cuts (recorded here so
+    both planners and every caller feed them)."""
+    if not obs.enabled():
+        return
+    g = obs.gauge("seine_plan_range_nnz", "planned postings per range")
+    g.clear()
+    for i, n in enumerate(np.asarray(range_nnz)):
+        g.set(int(n), range=str(i))
 
 
 def plan_term_ranges(term_offsets, k: int) -> np.ndarray:
@@ -28,8 +41,10 @@ def plan_term_ranges(term_offsets, k: int) -> np.ndarray:
     nnz = int(offs[-1])
     targets = (np.arange(1, k, dtype=np.int64) * nnz) // k
     cuts = np.searchsorted(offs, targets, side="left")
-    return np.maximum.accumulate(
+    bounds = np.maximum.accumulate(
         np.concatenate([[0], cuts, [v]])).clip(0, v)
+    _record_plan_balance(np.diff(offs[bounds]))
+    return bounds
 
 
 def plan_posting_ranges(term_offsets, k: int):
@@ -64,7 +79,9 @@ def plan_posting_ranges(term_offsets, k: int):
             bounds[i + 1] = min(
                 int(np.searchsorted(offs, tgt, side="left")), v)
     if not ranks.any():
-        return np.maximum.accumulate(bounds).clip(0, v), ranks
+        bounds = np.maximum.accumulate(bounds).clip(0, v)
+        _record_plan_balance(np.diff(offs[bounds]))
+        return bounds, ranks
     # mixed plan: repair on global posting positions, so no shard is
     # minted empty when the postings allow it
     pos = np.maximum.accumulate(offs[bounds] + ranks)
@@ -75,6 +92,7 @@ def plan_posting_ranges(term_offsets, k: int):
     for i in range(1, k):
         t = int(np.searchsorted(offs, pos[i], side="right")) - 1
         bounds[i], ranks[i] = t, pos[i] - offs[t]
+    _record_plan_balance(np.diff(pos))
     return bounds, ranks
 
 

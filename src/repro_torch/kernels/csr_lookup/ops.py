@@ -293,7 +293,8 @@ def csr_retrieve_topk(term_offsets: torch.Tensor,
                       value_scale: Optional[torch.Tensor] = None,
                       codec_spans: tuple = (0, 0),
                       fences: Optional[torch.Tensor] = None,
-                      alive: Optional[torch.Tensor] = None):
+                      alive: Optional[torch.Tensor] = None,
+                      extra_m_fn=None):
     """First-stage top-k: scan the corpus in doc blocks, score each with
     ``score_block_fn(M_block, doc_ids_block) -> (block,)`` and keep a
     running top-k on the device.
@@ -306,6 +307,14 @@ def csr_retrieve_topk(term_offsets: torch.Tensor,
     exceeds the corpus the tail carries ``-inf`` and doc id ``-1``.
     ``doc_block`` defaults to the whole corpus up to 1024 docs.  Deleted
     docs (``alive`` False) score ``-inf`` and never enter the top-k.
+
+    ``extra_m_fn(blo) -> (block, Q, n_b, n_f)``, when given, is added onto
+    each block's M before scoring.  The live index composes its delta
+    this way: a (term, doc) pair lives in the base or in the delta, never
+    both, so the sum is an exclusive write per cell (x + 0 = x exactly)
+    and the ranking equals a rebuild's.  ``n_docs`` may exceed the
+    postings' own doc count (the live total): the base's lanes find
+    empty windows past its docs.
     """
     n_docs, k = int(n_docs), int(k)
     block = int(doc_block or min(max(n_docs, 1), 1024))
@@ -321,7 +330,10 @@ def csr_retrieve_topk(term_offsets: torch.Tensor,
     for b in range(n_blocks):
         blo = b * block
         docs = blo + arange
-        s = score_block_fn(block_m(blo), docs).to(torch.float32)
+        m = block_m(blo)
+        if extra_m_fn is not None:
+            m = m + extra_m_fn(blo)
+        s = score_block_fn(m, docs).to(torch.float32)
         s = torch.where(docs < n_docs, s, -torch.inf)
         if alive is not None:
             s = torch.where(_alive_at(alive, docs), s, -torch.inf)

@@ -19,18 +19,17 @@ from .ref import MUS, knrm_pool_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"knrm_pool_launch": [_P, _P, _P, _I, _I, _I, _P]}
-# a CTA stages 16 rows and up to 16 mask rows of n_b floats in shared
-# memory, 128 * n_b bytes: 128 KB at this n_b
-MAX_SEGMENTS = 1024
+# segments a CTA stages at a time: 16 rows and up to 16 mask rows of
+# this many floats, 128 KB of shared memory (csrc/knrm_pool.cu kChunk)
+SEG_CHUNK = 1024
 
 
 def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
                      ) -> torch.Tensor:
-    """cos_norm (B, Q, n_b) f32, seg_mask (B, n_b) f32 -> (B, Q, 11) f32.
-
-    On the card n_b may be at most ``MAX_SEGMENTS`` (1,024): a CTA holds
-    its tile's rows and mask rows whole in shared memory, and a larger
-    n_b raises ``ValueError``.  CPU tensors take any n_b."""
+    """cos_norm (B, Q, n_b) f32, seg_mask (B, n_b) f32 -> (B, Q, 11) f32,
+    at any n_b: a CTA stages its rows and mask rows ``SEG_CHUNK`` (1,024)
+    segments at a time and carries each sum across the chunks, in
+    segment order."""
     if cos_norm.device.type != "cuda":
         return knrm_pool_ref(cos_norm, seg_mask)
     dev = cos_norm.device
@@ -40,9 +39,6 @@ def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
     if seg_mask.shape != (n_cand, n_b):
         raise ValueError(f"seg_mask must be (B, n_b) = {(n_cand, n_b)}, got "
                          f"{tuple(seg_mask.shape)}")
-    if n_b > MAX_SEGMENTS:
-        raise ValueError(f"n_b = {n_b} segments exceed the kernel's "
-                         f"{MAX_SEGMENTS}")
     out = torch.empty((n_cand, n_q, len(MUS)), dtype=torch.float32,
                       device=dev)
     lib = load_library("knrm_pool", _SIGNATURES)

@@ -62,6 +62,15 @@
 // on FMAs; 0.099 ms per No-Index request (1.15 before), 3x its byte
 // bound: a 2-warp block waits on each 16-deep step's row slices.
 //
+// Any S: the grid's third axis walks chunks of kMaxSeg = 64 segments.
+// The block of chunk c compacts only the live tokens whose segment lies
+// in [64c, 64c + 64) (the others are left out as out-of-range tokens
+// are), sizes its per-(class, segment, term) tables by the chunk's width
+// and stores at segment offset 64c of each term's row of S * 3 floats.
+// At S <= 64 there is one chunk, and the kernel is compiled without the
+// chunk arithmetic (kChunked = false): the code, the work and the bits
+// are as without chunks.
+//
 // Deterministic, and the same bits at any U, B or term tile.  A score is
 // one FMA chain over k = 0 .. De - 1 (the zero-filled depth adds exact
 // zeros), |e_t|^2 and |e_u|^2 likewise; a cell's sum runs over its
@@ -133,7 +142,7 @@ struct Cfg {
   }
 };
 
-template <int TU, int VEC>
+template <int TU, int VEC, bool kChunked>
 __global__ void __launch_bounds__(Cfg<TU>::NT)
     seg_interact_kernel(const float* __restrict__ e_term,
                         const float* __restrict__ e_tok,
@@ -152,8 +161,11 @@ __global__ void __launch_bounds__(Cfg<TU>::NT)
   float* tok_t2 = score_s + TU * kLDS;             // [kTT]
   float* tok_inv = tok_t2 + kTT;                   // [kTT]
   float* term_v2 = tok_inv + kTT;                  // [TU]
-  float* acc_s = term_v2 + TU;  // [kClasses][S][3][TU]: dot, cos, max
-  int* list_pos = reinterpret_cast<int*>(acc_s + kClasses * S * 3 * TU);
+  // the block's segments [c0, c0 + SW): its chunk (one chunk: 0 and S)
+  const int c0 = kChunked ? blockIdx.z * kMaxSeg : 0;
+  const int SW = kChunked ? min(kMaxSeg, S - c0) : S;
+  float* acc_s = term_v2 + TU;  // [kClasses][SW][3][TU]: dot, cos, max
+  int* list_pos = reinterpret_cast<int*>(acc_s + kClasses * SW * 3 * TU);
   int* list_seg = list_pos + kWin;                 // [kWin]
   int* warp_cnt = list_seg + kWin;                 // [4]
   int* term_live = warp_cnt + 4;                   // [TU]
@@ -162,8 +174,13 @@ __global__ void __launch_bounds__(Cfg<TU>::NT)
   const int b = blockIdx.x;
   const int u0 = blockIdx.y * TU;
   const int n_terms = min(TU, U - u0);
-  const int per_term = S * 3;
-  float* out_b = out + ((int64_t)b * U + u0) * per_term;
+  const int per_term = SW * 3;
+  float* out_b = out + ((int64_t)b * U + u0) * (S * 3) + c0 * 3;
+  // where value e of the block's (term, segment, value) list goes: a
+  // term's output row holds S * 3 values, the block's chunk SW * 3
+  auto out_at = [&](int e) {
+    return kChunked ? (e / per_term) * (S * 3) + e % per_term : e;
+  };
 
   bool live = false;
   if (tid < TU) {
@@ -172,7 +189,7 @@ __global__ void __launch_bounds__(Cfg<TU>::NT)
     term_v2[tid] = 0.0f;
   }
   if (!__syncthreads_or(live)) {  // a tile of pad terms
-    for (int e = tid; e < n_terms * per_term; e += NT) out_b[e] = 0.0f;
+    for (int e = tid; e < n_terms * per_term; e += NT) out_b[out_at(e)] = 0.0f;
     return;
   }
   for (int i = tid; i < kClasses * per_term * TU; i += NT)
@@ -196,8 +213,8 @@ __global__ void __launch_bounds__(Cfg<TU>::NT)
     int n_live = 0;
     for (int p0 = w0; p0 < w_end; p0 += NT) {
       const int p = p0 + tid;
-      const int s = p < w_end ? __ldg(seg_b + p) : -1;
-      const bool on = s >= 0 && s < S;
+      const int s = p < w_end ? __ldg(seg_b + p) - c0 : -1;
+      const bool on = s >= 0 && s < SW;
       const unsigned m = __ballot_sync(0xffffffffu, on);
       int before = __popc(m & ((1u << lane) - 1u)), total = __popc(m);
       if constexpr (NW > 1) {
@@ -370,13 +387,13 @@ __global__ void __launch_bounds__(Cfg<TU>::NT)
         v = isfinite(m) ? expf(m) : 0.0f;
       }
     }
-    out_b[e] = v;
+    out_b[out_at(e)] = v;
   }
 }
 
 // the largest dynamic shared memory each kernel was allowed, per device:
 // cudaFuncSetAttribute runs once per kernel and device, not per launch
-template <int TU, int VEC>
+template <int TU, int VEC, bool kChunked>
 cudaError_t allow_smem(int bytes) {
   static std::atomic<int> allowed[kMaxDevices];
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -385,24 +402,27 @@ cudaError_t allow_smem(int bytes) {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && allowed[dev].load() >= bytes) return cudaSuccess;
   const int most = Cfg<TU>::smem_bytes(kMaxSeg);  // enough for every S
-  err = cudaFuncSetAttribute(seg_interact_kernel<TU, VEC>,
+  err = cudaFuncSetAttribute(seg_interact_kernel<TU, VEC, kChunked>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most);
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev].store(most);
   return err;
 }
 
-template <int TU, int VEC>
+template <int TU, int VEC, bool kChunked>
 int launch(const float* e_term, const float* e_tok, const int* seg,
            const int* term_ids, float* out, int B, int U, int L, int De,
            int S, cudaStream_t stream) {
-  const int smem = Cfg<TU>::smem_bytes(S);
-  cudaError_t err = allow_smem<TU, VEC>(smem);
+  const int chunks = (S + kMaxSeg - 1) / kMaxSeg;
+  const int smem = Cfg<TU>::smem_bytes(S < kMaxSeg ? S : kMaxSeg);
+  cudaError_t err = allow_smem<TU, VEC, kChunked>(smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (U + TU - 1) / TU;
-  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  seg_interact_kernel<TU, VEC>
-      <<<dim3((unsigned)B, (unsigned)tiles), Cfg<TU>::NT, smem, stream>>>(
+  if (tiles > 65535 || chunks > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  seg_interact_kernel<TU, VEC, kChunked>
+      <<<dim3((unsigned)B, (unsigned)tiles, (unsigned)chunks), Cfg<TU>::NT,
+         smem, stream>>>(
           e_term, e_tok, seg, term_ids, out, U, L, De, S);
   return (int)cudaGetLastError();
 }
@@ -411,10 +431,16 @@ template <int TU>
 int launch_tu(bool vec4, const float* e_term, const float* e_tok,
               const int* seg, const int* term_ids, float* out, int B, int U,
               int L, int De, int S, cudaStream_t stream) {
-  return vec4 ? launch<TU, 4>(e_term, e_tok, seg, term_ids, out, B, U, L, De,
-                              S, stream)
-              : launch<TU, 1>(e_term, e_tok, seg, term_ids, out, B, U, L, De,
-                              S, stream);
+  // S <= kMaxSeg: one chunk, compiled without the chunk arithmetic
+  if (S > kMaxSeg)
+    return vec4 ? launch<TU, 4, true>(e_term, e_tok, seg, term_ids, out, B,
+                                      U, L, De, S, stream)
+                : launch<TU, 1, true>(e_term, e_tok, seg, term_ids, out, B,
+                                      U, L, De, S, stream);
+  return vec4 ? launch<TU, 4, false>(e_term, e_tok, seg, term_ids, out, B, U,
+                                     L, De, S, stream)
+              : launch<TU, 1, false>(e_term, e_tok, seg, term_ids, out, B, U,
+                                     L, De, S, stream);
 }
 
 }  // namespace
@@ -426,7 +452,7 @@ int seg_interact_launch(const float* e_term, const float* e_tok,
                         int B, int U, int L, int De, int S,
                         cudaStream_t stream) {
   if (B == 0 || U == 0) return 0;
-  if (S < 1 || S > kMaxSeg || De < 1 || L < 0)
+  if (S < 1 || De < 1 || L < 0)
     return (int)cudaErrorInvalidValue;
   const bool vec4 = De % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(e_term) % 16 == 0 &&

@@ -16,9 +16,9 @@ raises on a nonzero ``cudaGetLastError`` and adds one to its
 ``launches`` count.  Given CPU tensors it runs :func:`seg_interact_plain`.
 
 :func:`fold_events` mirrors the kernel's work partition in plain Python:
-the live-token compaction per window, the token tiles, the fold classes
-and the term tiles, so that the tests check here which (term, token)
-pairs each cell sums, and in what order.
+the segment chunks, the live-token compaction per window, the token
+tiles, the fold classes and the term tiles, so that the tests check here
+which (term, token) pairs each cell sums, and in what order.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ import torch
 from ..utils import (check_cuda_tensor, check_launch, load_library, ptr,
                      stream_handle)
 
-MAX_SEGMENTS = 64
+SEG_CHUNK = 64       # segments a block owns (csrc kMaxSeg): any n_seg
 TOKEN_TILE = 64      # live tokens per tile
 SLICE = 16           # live tokens one fold thread walks per tile
 N_CLASSES = TOKEN_TILE // SLICE
@@ -47,15 +47,23 @@ def term_tile_for(n_u: int) -> int:
     return 8 if n_u <= 8 else 16
 
 
-def live_windows(seg_row, n_seg: int) -> List[np.ndarray]:
-    """One doc's live positions (seg in ``[0, n_seg)``) in token order, as
-    the kernel compacts them: one array per window of WINDOW positions,
-    empty windows left out."""
+def n_chunks(n_seg: int) -> int:
+    """Blocks per (doc, term tile): one per SEG_CHUNK segments."""
+    return -(-int(n_seg) // SEG_CHUNK)
+
+
+def live_windows(seg_row, n_seg: int, chunk: int = 0) -> List[np.ndarray]:
+    """One doc's live positions for segment chunk ``chunk`` (seg in
+    ``[SEG_CHUNK * chunk, SEG_CHUNK * (chunk + 1))`` and in ``[0,
+    n_seg)``) in token order, as the kernel compacts them: one array per
+    window of WINDOW positions, empty windows left out."""
     seg_row = np.asarray(seg_row)
+    lo = SEG_CHUNK * chunk
+    hi = min(lo + SEG_CHUNK, n_seg)
     out = []
     for w0 in range(0, seg_row.shape[0], WINDOW):
         s = seg_row[w0:w0 + WINDOW]
-        pos = w0 + np.flatnonzero((s >= 0) & (s < n_seg))
+        pos = w0 + np.flatnonzero((s >= lo) & (s < hi))
         if pos.size:
             out.append(pos)
     return out
@@ -64,10 +72,10 @@ def live_windows(seg_row, n_seg: int) -> List[np.ndarray]:
 def fold_events(seg, term_ids, n_seg: int
                 ) -> List[Tuple[int, int, int, int, int]]:
     """The kernel's work partition for one launch, in the order its loops
-    run: blocks (doc b, a tile of :func:`term_tile_for` terms), then each
-    window's token tiles of TOKEN_TILE live tokens, then fold thread (term
-    u, class c) walking the tile's live tokens ``SLICE c .. SLICE (c + 1)
-    - 1``.  Returns
+    run: blocks (doc b, a tile of :func:`term_tile_for` terms, a chunk of
+    SEG_CHUNK segments), then each window's token tiles of TOKEN_TILE
+    live tokens of the chunk, then fold thread (term u, class c) walking
+    the tile's live tokens ``SLICE c .. SLICE (c + 1) - 1``.  Returns
     ``(b, u, position, segment, class)`` per (term, token) pair folded.
 
     A cell (b, u, s) sums its events of each class in list order, then
@@ -81,17 +89,19 @@ def fold_events(seg, term_ids, n_seg: int
     tu = term_tile_for(n_u)
     events = []
     for b in range(n_b):
-        windows = live_windows(seg[b], n_seg)
+        chunks = [live_windows(seg[b], n_seg, ch)
+                  for ch in range(n_chunks(n_seg))]
         for u0 in range(0, n_u, tu):
             terms = [u for u in range(u0, min(u0 + tu, n_u)) if ids[b, u] >= 0]
-            for pos in windows:
-                for t0 in range(0, pos.size, TOKEN_TILE):
-                    tile = pos[t0:t0 + TOKEN_TILE]
-                    for c in range(N_CLASSES):
-                        for u in terms:
-                            for p in tile[c * SLICE:(c + 1) * SLICE]:
-                                events.append((b, u, int(p), int(seg[b, p]),
-                                               c))
+            for windows in chunks:
+                for pos in windows:
+                    for t0 in range(0, pos.size, TOKEN_TILE):
+                        tile = pos[t0:t0 + TOKEN_TILE]
+                        for c in range(N_CLASSES):
+                            for u in terms:
+                                for p in tile[c * SLICE:(c + 1) * SLICE]:
+                                    events.append((b, u, int(p),
+                                                   int(seg[b, p]), c))
     return events
 
 
@@ -132,7 +142,8 @@ def seg_interact_kernel(e_term: torch.Tensor, e_tok: torch.Tensor,
                         seg: torch.Tensor, term_ids: torch.Tensor,
                         n_seg: int) -> torch.Tensor:
     """e_term (B, U, De) f32, e_tok (B, L, De) f32, seg (B, L) int32,
-    term_ids (B, U) int32 -> (B, U, n_seg, 3) f32."""
+    term_ids (B, U) int32 -> (B, U, n_seg, 3) f32, at any n_seg: one
+    launch whose blocks each own SEG_CHUNK segments."""
     if e_term.device.type != "cuda":
         return seg_interact_plain(e_term, e_tok, seg, term_ids, n_seg)
     dev = e_term.device
@@ -148,8 +159,8 @@ def seg_interact_kernel(e_term: torch.Tensor, e_tok: torch.Tensor,
             f"shapes disagree: e_term {tuple(e_term.shape)}, e_tok "
             f"{tuple(e_tok.shape)}, seg {tuple(seg.shape)}, term_ids "
             f"{tuple(term_ids.shape)}")
-    if not 1 <= int(n_seg) <= MAX_SEGMENTS:
-        raise ValueError(f"n_seg must be in [1, {MAX_SEGMENTS}], got {n_seg}")
+    if int(n_seg) < 1:
+        raise ValueError(f"n_seg must be at least 1, got {n_seg}")
     if de < 1:
         raise ValueError("the embedding width must be at least 1")
     out = torch.empty((n_b, n_u, int(n_seg), 3), dtype=torch.float32,

@@ -31,10 +31,11 @@ Quick start::
         ...
     print(obs.to_prometheus())          # or obs.dump("snap.json")
 
-The port's serving path (engine, serve loops, front end, coalescer, tile
-cache) records the serving families of the inventory below; the build,
-partition, codec, live, train and checkpoint families are the
-reference's and wait for those modules' instrumentation.
+The port records the families of the inventory below where the
+reference does: the build, the partitioner and the codec, the
+checkpoint's index saves, the live index, the heartbeat and straggler
+monitors, and serving (engine, serve loops, front end, coalescer, tile
+cache).  The train families wait for the training loop's port.
 
 Metric inventory (all names, one table — keep this current):
 

@@ -15,6 +15,10 @@ per occurrence is bitwise the per-query path.
 
 Scoring stays per request: the scorer runs on each request's own (B, Q)
 M, the shapes ``engine.score`` runs, so scores are bitwise equal.
+
+Over a :class:`~repro_torch.dist.live.LiveIndex` a batch pins one view:
+its lookup, the delta tail and every request's score read that
+snapshot, even if a mutation lands mid-batch.
 """
 from __future__ import annotations
 
@@ -157,9 +161,9 @@ class CoalescingScorer:
                              "bypasses the SPMD partial-sum lookup)")
         if pair_pad < 0:
             raise ValueError(f"pair_pad must be >= 0, got {pair_pad}")
-        if getattr(engine.index, "is_live", False):
-            raise NotImplementedError("a live index is not ported yet")
         self.engine = engine
+        self._live = bool(getattr(engine.index, "is_live", False))
+        self._batch_view = None
         self.index = engine.index
         self.spec = engine.spec
         self.cache = cache
@@ -174,14 +178,34 @@ class CoalescingScorer:
             "seine_coalesce_dedupe_ratio",
             "distinct / submitted pair slots, last batch")
 
+    def _current_view(self):
+        """The batch-pinned LiveView, or a fresh snapshot outside a batch
+        (live mode only)."""
+        v = self._batch_view
+        return v if v is not None else self.index.view
+
     def lookup_distinct(self, terms: np.ndarray, docs: np.ndarray
                         ) -> torch.Tensor:
-        """(P,) distinct pairs -> (P, n_b, n_f) value rows (device)."""
-        if self.cache is not None:
-            return self.cache.lookup(terms, docs)
+        """(P,) distinct pairs -> (P, n_b, n_f) value rows (device).
+
+        With a tile cache under a live index, the cache serves the BASE
+        generation's rows and the delta / tombstone tail is applied on
+        top (exact, and still one cached-tile probe per pair).  If a
+        compaction swapped the base under the batch before the front end
+        rebound the cache, the cache is bypassed for this call (the plain
+        lookup over the view) rather than mixing rows of two
+        generations."""
         dev = self.engine.device
-        return self.index.lookup_pair_rows(_as_ids(terms, dev),
-                                           _as_ids(docs, dev))
+        if not self._live:
+            if self.cache is not None:
+                return self.cache.lookup(terms, docs)
+            return self.index.lookup_pair_rows(_as_ids(terms, dev),
+                                               _as_ids(docs, dev))
+        view = self._current_view()
+        t, d = _as_ids(terms, dev), _as_ids(docs, dev)
+        if self.cache is None or view.base is not self.cache.index:
+            return view.lookup_pair_rows(t, d)
+        return view.pair_tail(t, d, self.cache.lookup(terms, docs))
 
     @torch.inference_mode()
     def score_batch(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]]
@@ -196,14 +220,20 @@ class CoalescingScorer:
             self._pairs_counter.inc(slots)
             self._distinct_counter.inc(n_distinct)
             self._dedupe_gauge.set(n_distinct / max(slots, 1))
-        vals = self.lookup_distinct(terms, docs)
-        dev = vals.device
-        index, spec, params = self.index, self.spec, self.engine.params
-        out = []
-        for (q, d), inv in zip(requests, inverses):
-            q, d = _as_ids(q, dev), _as_ids(d, dev)
-            m = vals[torch.from_numpy(inv).to(dev).long()].reshape(
-                (d.shape[0], q.shape[0]) + tuple(vals.shape[1:]))
-            meta = make_qmeta(index, q, d)
-            out.append(spec.score(params, m, meta, index.functions))
+        if self._live:
+            self._batch_view = self.index.view
+        try:
+            vals = self.lookup_distinct(terms, docs)
+            dev = vals.device
+            index = self._batch_view if self._live else self.index
+            spec, params = self.spec, self.engine.params
+            out = []
+            for (q, d), inv in zip(requests, inverses):
+                q, d = _as_ids(q, dev), _as_ids(d, dev)
+                m = vals[torch.from_numpy(inv).to(dev).long()].reshape(
+                    (d.shape[0], q.shape[0]) + tuple(vals.shape[1:]))
+                meta = make_qmeta(index, q, d)
+                out.append(spec.score(params, m, meta, index.functions))
+        finally:
+            self._batch_view = None
         return out

@@ -1,8 +1,8 @@
 """Query-time retrieval engine (the paper's retrieval phase, Fig. 1).
 
-Port of ``repro.serving.engine`` without a mesh or a live index, each
-of which raises until its slice lands.  The engine and the serving
-loops record the reference's ``obs`` counters, gauges and spans.
+Port of ``repro.serving.engine`` without a mesh (``mesh=`` raises), live
+index included.  The engine and the serving loops record the
+reference's ``obs`` counters, gauges and spans.
 ``SeineEngine`` looks M_{q,d} up from the segment inverted index (raw or
 with packed postings) and scores it with a registered retriever; on CUDA
 tensors the lookup, the first-stage scan and KNRM's kernel bank run the
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.index import _bisect, gather_clip
+from ..core.index import gather_clip
 from ..dist.partition import PartitionedIndex
 from ..retrievers import QMeta, get_retriever
 
@@ -82,8 +82,13 @@ class SeineEngine:
     ``partition="term"`` or a pre-built index of that codec, and packs at
     ``codec_tile`` (default ``POSTING_TILE``).  ``lookup_tile`` overrides
     the lookup kernel's posting-tile width (every width gives the same
-    M); a packed index serves only at its codec tile.  ``mesh=`` and a
-    live index are not ported yet and raise ``NotImplementedError``.
+    M); a packed index serves only at its codec tile.  ``mesh=`` is not
+    ported yet and raises ``NotImplementedError``.
+
+    A :class:`~repro_torch.dist.live.LiveIndex` mutates underneath the
+    engine: every ``score`` / ``retrieve`` reads its current view once
+    and serves that snapshot (no ``partition=``, and no codec other than
+    its base's).
     """
 
     def __init__(self, index, retriever: str, params: Any, *,
@@ -99,7 +104,8 @@ class SeineEngine:
             raise ValueError(f"unknown partition scheme {partition!r}; "
                              "supported: 'term'")
         if (codec != "none" and partition != "term"
-                and not isinstance(index, PartitionedIndex)):
+                and not isinstance(index, PartitionedIndex)
+                and not getattr(index, "is_live", False)):
             raise ValueError(
                 f"codec {codec!r} requires partition='term': the packed "
                 "posting layout is the stacked-shard PartitionedIndex")
@@ -112,9 +118,17 @@ class SeineEngine:
                 "pass None for the default POSTING_TILE")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
-        if getattr(index, "is_live", False):
-            raise NotImplementedError("a live index is not ported yet")
-        if isinstance(index, PartitionedIndex):
+        self._live = bool(getattr(index, "is_live", False))
+        if self._live:
+            if partition is not None:
+                raise ValueError(
+                    "a LiveIndex is already partitioned (its base); "
+                    "pass partition=None")
+            if codec != "none" and codec != index.codec:
+                raise ValueError(
+                    f"engine codec {codec!r} conflicts with the live "
+                    f"index's base codec {index.codec!r}")
+        elif isinstance(index, PartitionedIndex):
             if codec != "none" and codec != index.codec:
                 raise ValueError(
                     f"engine codec {codec!r} conflicts with the pre-built "
@@ -144,7 +158,9 @@ class SeineEngine:
         self.defer_lookup_stats = False
         self._pending_stats = None
         self._t2s_host = (index.term_to_shard.cpu().numpy()
-                          if isinstance(index, PartitionedIndex) else None)
+                          if isinstance(index, PartitionedIndex)
+                          or self._live else None)
+        self._t2s_gen = getattr(index, "generation", -1)
         self._scores_counter = obs.counter("seine_engine_scores_total",
                                            "engine.score calls")
         self._retrieves_counter = obs.counter(
@@ -167,6 +183,11 @@ class SeineEngine:
     def _ids(self, x) -> torch.Tensor:
         return _as_ids(x, self.device)
 
+    def _serving_index(self):
+        """What one call serves: a live index's current view, read once,
+        or the index itself."""
+        return self.index.view if self._live else self.index
+
     @torch.inference_mode()
     def score(self, query_terms, doc_ids) -> torch.Tensor:
         """query_terms (Q,), doc_ids (B,) -> scores (B,) on the device."""
@@ -179,10 +200,10 @@ class SeineEngine:
                     self._pending_stats = (query_terms, doc_ids)
                 else:
                     self._sample_lookup_stats(query_terms, doc_ids)
-        m = self.index.qd_matrix(query_terms, doc_ids,
-                                 tile=self._lookup_tile)
-        meta = make_qmeta(self.index, query_terms, doc_ids)
-        return self.spec.score(self.params, m, meta, self.index.functions)
+        index = self._serving_index()
+        m = index.qd_matrix(query_terms, doc_ids, tile=self._lookup_tile)
+        meta = make_qmeta(index, query_terms, doc_ids)
+        return self.spec.score(self.params, m, meta, index.functions)
 
     def flush_lookup_stats(self) -> None:
         """Run a deferred sampled-stats lookup, if one is staged (the
@@ -196,36 +217,27 @@ class SeineEngine:
     def _found_counts(self, query_terms: torch.Tensor,
                       doc_ids: torch.Tensor) -> Tuple[int, int]:
         """(found pairs, valid pairs) of query_terms x doc_ids: the
-        lookup's found mask alone, through its plain routed bisect."""
-        from ..kernels.csr_lookup.ref import (_route, bisect_steps,
-                                              packed_bisect)
+        lookup's found mask alone, through its plain routed bisect (a
+        live index's through ``dist.live.found_counts`` over its view)."""
+        from ..dist.live import _index_found, found_counts
         index = self.index
+        if self._live:
+            return found_counts(index.view, query_terms, doc_ids)
         shape = (doc_ids.shape[0], query_terms.shape[0])
         q = query_terms[None].expand(shape)
-        d = doc_ids[:, None].expand(shape)
         valid = q >= 0
         if not isinstance(index, PartitionedIndex):
             _, found = index.lookup_positions(q, doc_ids)
         else:
-            k, lo, hi = _route(q, d, index.term_offsets,
-                               index.term_to_shard, index.range_lo,
-                               index.split_term, index.split_doc)
-            if index.codec != "none":
-                pos, v = packed_bisect(
-                    index._packed(), index.fences, k, lo, hi, d,
-                    tile=index.codec_tile, spans=index.codec_spans,
-                    with_value=True)
-                found = (pos < hi) & (v == d)
-            else:
-                n_max = index.doc_ids.shape[1]
-                flat = index.doc_ids.reshape(-1)
-                base = k.long() * n_max
-                pos = _bisect(flat, base + lo, base + hi, d,
-                              n_iter=bisect_steps(n_max))
-                found = (pos < base + hi) & (gather_clip(flat, pos) == d)
+            found = _index_found(index, q, doc_ids[:, None].expand(shape))
         return int((found & valid).sum()), int(valid.sum())
 
     def _sample_lookup_stats(self, query_terms, doc_ids) -> None:
+        if self._live and self.index.generation != self._t2s_gen:
+            # compaction plans the term routing table again: refresh the
+            # host copy once per generation
+            self._t2s_host = self.index.term_to_shard.cpu().numpy()
+            self._t2s_gen = self.index.generation
         found, total = self._found_counts(query_terms, doc_ids)
         obs.counter("seine_lookup_found_total",
                     "found pairs (sampled)").inc(found)
@@ -265,7 +277,7 @@ class SeineEngine:
         if int(k) <= 0:
             raise ValueError(f"k must be positive, got {k}")
         query_terms = self._ids(query_terms)
-        index = self.index
+        index = self._serving_index()
         n_docs = index.n_docs
         if obs.enabled():
             self._retrieves_counter.inc()

@@ -96,9 +96,11 @@ class ServingFrontend:
     Live serving: :meth:`swap_engine` stages a replacement engine (e.g.
     over a rebuilt index) that the worker installs atomically between
     batches, the in-process half of an epoch swap, counted by
-    ``seine_frontend_epoch_swaps_total``.  The live index's hooks
-    (``is_live``, ``generation``) are read through ``getattr``, for
-    the live index's slice.
+    ``seine_frontend_epoch_swaps_total``.  Over a
+    :class:`~repro_torch.dist.live.LiveIndex` (``is_live``) the tile
+    cache binds the immutable base generation, and when a compaction
+    raises ``generation`` the worker rebinds it between batches (also
+    counted as a swap).
 
     The worker thread enters ``torch.inference_mode()`` itself (grad
     mode is thread-local in torch).

@@ -199,7 +199,8 @@ def test_build_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
     assert eb["max_abs_err"] == 0.0 and eb["bitwise"]
     assert eb["bound_ms"] > 0 and eb["bound_by"] == "bytes"
     assert eb["library_ms"] > 0 and eb["log_cond_prob"]["bound_ms"] > 0
-    assert set(built) == {"pidx", "engine", "ds", "vocab"}
+    assert set(built) == {"pidx", "engine", "ds", "vocab", "builder", "toks",
+                          "segs"}
     assert not os.path.exists(tmp_path / "idx")
 
 
@@ -221,6 +222,38 @@ def test_frontend_phase_runs_on_the_cpu(seed, monkeypatch, tmp_path):
         assert r["served"] + r["rejected"] == 12 and r["served"] > 0
         assert 0.0 <= r["goodput"] <= 1.0 and r["batches"] >= 2
         assert (r["dedupe"] is None) == mode.startswith("naive")
+
+
+def test_live_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 8 (the live index, the CLI and the repaired kernels) over
+    phase 5's index at 130 docs, n_b 5, De 32: the ingest of 64 docs
+    again while the front end serves, the tombstones, the compaction
+    while it serves, the rebuild contract, the three CLI runs and the
+    any-segment-count rows."""
+    cs = _load_script()
+    _patch_build(cs, monkeypatch, tmp_path, FE_REQUESTS=12,
+                 FE_CACHE_TILES=64, FE_SLO_MS=60_000.0, LIVE_DOCS=64,
+                 LIVE_DEAD=4, LIVE_WAVE=12, LIVE_QD_REQUESTS=3, LIVE_AFTER=3,
+                 LIVE_SMALL=(64, 32), LIVE_SMALL_TOP_K=10, N_RETRIEVE=2,
+                 TOP_K=20, REPAIR_SEG=(65, 130), REPAIR_NB=(20, 1025),
+                 CLI_METRICS=str(tmp_path / "serve_metrics.txt"))
+    for mod, name in ((lookup_ops, "lane_bounds_kernel"),
+                      (lookup_ops, "csr_lookup_packed_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+    _, built = cs.phase5(0, torch.device("cpu"))
+    built["qps"] = 400.0
+    out = cs.phase8(built, 0, torch.device("cpu"))
+    assert set(out["repairs"]) == {"seg_interact", "knrm_pool"}
+    assert set(out["repairs"]["seg_interact"]) == {"5", "65", "130"}
+    assert set(out["repairs"]["knrm_pool"]) == {"20", "1025"}
+    for rows in out["repairs"].values():
+        assert all(r["max_abs_err"] == 0.0 and r["ms"] > 0
+                   for r in rows.values())
+    for wave in (out["during_ingest"], out["during_compact"]):
+        assert wave["served"] + wave["rejected"] == 12 and wave["served"]
+    assert len(out["cli"]) == 3
+    assert out["compaction_s"]["explode"] > 0
+    assert out["compaction_s"]["merge_and_upload"] > 0
 
 
 @pytest.mark.parametrize("mode", ["naive", "coalesce", "cache"])

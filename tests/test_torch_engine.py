@@ -166,10 +166,15 @@ def test_unported_engine_options_raise(small):
         with pytest.raises(exc):
             SeineEngine(port, "knrm", params, **kw)
 
-    class Live:
-        is_live = True
-    with pytest.raises(NotImplementedError, match="live"):
-        SeineEngine(Live(), "knrm", params)
+    # a live index serves as it is: no partition=, no other codec
+    from repro_torch.dist.live import LiveIndex
+    live = LiveIndex(index_to_device(small["hot_k4"], device="cpu"), None)
+    with pytest.raises(ValueError, match="already partitioned"):
+        SeineEngine(live, "knrm", params, partition="term")
+    with pytest.raises(ValueError, match="conflicts"):
+        SeineEngine(live, "knrm", params, codec="packed")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        SeineEngine(live, "knrm", params, mesh=object())
     with pytest.raises(ValueError, match="k must be positive"):
         eng.retrieve(np.zeros(6, np.int32), 0)
     # a partitioned index is served as it is, at any lookup tile, and a

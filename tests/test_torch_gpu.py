@@ -1107,3 +1107,113 @@ def test_frontend_on_cuda_equals_engine_score(mode):
         fe.close(timeout=120)
     if mode == "coalesce":
         assert csr_lookup_kernel.launches > before
+
+
+# -- segment counts past one block or one staging chunk ---------------------
+
+@pytest.mark.parametrize("n_b", [20, 1024, 1025, 2500])
+def test_knrm_pool_kernel_takes_any_segment_count(n_b):
+    """Past the 1,024 segments a CTA stages at a time the kernel walks the
+    segments in chunks and carries each sum across them: one launch per
+    call, within the bar of the plain version run on the card, and the
+    misaligned copy (scalar staging) gives the same bits."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(n_b)
+    shape = (37, 6, n_b)
+    cos = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+    cos.view(-1)[::7] = 1.0
+    mask = (torch.rand((shape[0], n_b), generator=g, device="cuda")
+            > 0.25).float()
+    mask[0] = 0.0
+    before = knrm_pool_kernel.launches
+    got = knrm_pool_kernel(cos, mask)
+    assert knrm_pool_kernel.launches == before + 1
+    torch.testing.assert_close(got, knrm_pool_ref(cos, mask), **TOL)
+    assert torch.equal(knrm_pool_kernel(_misaligned(cos), _misaligned(mask)),
+                       got)
+
+
+@pytest.mark.parametrize("n_seg", [20, 64, 65, 128, 130])
+def test_seg_interact_kernel_takes_any_segment_count(n_seg):
+    """One launch at any segment count, within the bar of the plain
+    version, zeros for pad terms and an empty segment, the same bits run
+    to run; and each chunk of 64 segments holds the bits of a launch over
+    that chunk's segments alone."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(n_seg)
+    b, u, length, de = 4, 40, 700, 64
+    e_term = (torch.randn(b, u, de, generator=g) / de ** 0.5).cuda()
+    e_tok = (torch.randn(b, length, de, generator=g) / de ** 0.5).cuda()
+    seg = torch.sort(torch.randint(-1, n_seg + 1, (b, length), generator=g),
+                     dim=1).values
+    seg[:, ::7] = -1
+    seg[seg == 1] = 0                          # segment 1 is empty
+    seg = seg.to(torch.int32).cuda()
+    term_ids = torch.randint(0, 1000, (b, u), generator=g, dtype=torch.int32)
+    term_ids[torch.rand(b, u, generator=g) < 0.3] = -1
+    term_ids = term_ids.cuda()
+    before = seg_interact_kernel.launches
+    got = seg_interact_kernel(e_term, e_tok, seg, term_ids, n_seg)
+    assert seg_interact_kernel.launches == before + 1
+    want = seg_interact_plain(e_term, e_tok, seg, term_ids, n_seg)
+    torch.testing.assert_close(got, want, **SEG_TOL)
+    assert torch.equal(got, seg_interact_kernel(e_term, e_tok, seg,
+                                                term_ids, n_seg))
+    assert (got[term_ids < 0] == 0).all() and (got[:, :, 1] == 0).all()
+    for c0 in range(0, n_seg, 64):
+        w = min(64, n_seg - c0)
+        local = torch.where((seg >= c0) & (seg < c0 + w), seg - c0, -1)
+        part = seg_interact_kernel(e_term, e_tok, local.to(torch.int32),
+                                   term_ids, w)
+        assert torch.equal(part, got[:, :, c0:c0 + w]), c0
+
+
+def test_live_index_on_cuda_matches_cpu():
+    """A LiveIndex on the card (insert through the build kernels, delete,
+    retrieve through the scan with the delta's hook, compact) against the
+    same on the CPU: ids bitwise, values within the build's bar, dead
+    docs' rows zero and never retrieved."""
+    _require_cuda()
+    from repro_torch.dist.live import LiveIndex
+    n = 96
+    b_cpu, toks, segs = _small_build("cpu", n)
+    b_gpu, _, _ = _small_build("cuda", n)
+    dead = [3, 50, 60]
+    lives, launched = {}, {}
+    for name, b in (("cpu", b_cpu), ("cuda", b_gpu)):
+        base = b.build_partitioned(toks[:48], segs[:48], 2, batch_size=16)
+        live = LiveIndex(base, b.pipeline, batch_size=16)
+        before = seg_interact_kernel.launches
+        live.insert(toks[48:], segs[48:])
+        launched[name] = seg_interact_kernel.launches - before
+        assert live.delete(dead) == len(dead)
+        lives[name] = live
+    assert launched == {"cpu": 0, "cuda": 3}
+    cpu, gpu = lives["cpu"], lives["cuda"]
+    q = torch.tensor([int(toks[60][toks[60] >= 0][0]), 5, -1, 40, 1000, 7],
+                     dtype=torch.int32)
+    docs = torch.arange(-1, n + 2, dtype=torch.int32)
+    before = csr_lookup_kernel.launches
+    m_gpu = gpu.qd_matrix(q.cuda(), docs.cuda()).cpu()
+    assert csr_lookup_kernel.launches == before + 2    # base and delta
+    torch.testing.assert_close(m_gpu, cpu.qd_matrix(q, docs), **SEG_TOL)
+    assert (m_gpu[torch.tensor(dead) + 1] == 0).all()
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(0),
+                                        cpu.n_b, cpu.functions, device="cpu")
+    e_gpu = SeineEngine(gpu, "knrm", copy.deepcopy(params))
+    e_cpu = SeineEngine(cpu, "knrm", params)
+    s_gpu, i_gpu = e_gpu.retrieve(q, n)
+    s_cpu, _ = e_cpu.retrieve(q, n)
+    assert not set(dead) & set(i_gpu.cpu().tolist())
+    torch.testing.assert_close(s_gpu.cpu(), s_cpu, **SEG_TOL)
+    m_before = gpu.qd_matrix(q.cuda(), docs.cuda())
+    for live in (cpu, gpu):
+        live.compact()
+        assert live.generation == 1 and live.delta_nnz == 0
+    assert torch.equal(gpu.qd_matrix(q.cuda(), docs.cuda()), m_before)
+    for f in ("term_offsets", "doc_ids", "term_to_shard", "range_lo",
+              "range_hi", "doc_len", "seg_len"):
+        assert torch.equal(getattr(gpu.base, f).cpu(),
+                           getattr(cpu.base, f)), f
+    torch.testing.assert_close(gpu.base.values.cpu(), cpu.base.values,
+                               **SEG_TOL)

@@ -77,3 +77,39 @@ def test_ref_is_bitwise_stable_across_threads_and_slicing(threads):
     finally:
         torch.set_num_threads(saved)
     assert torch.equal(whole, want) and torch.equal(sliced, want)
+
+
+@pytest.mark.parametrize("n_b", [1024, 1025, 2500])
+def test_scorer_past_one_staging_chunk_matches_jax(n_b):
+    """At segment counts past the 1,024 a CTA stages at a time on the card
+    (where the kernel walks them in chunks), the port's KNRM bank and
+    scorer take the same inputs as the reference's ``kernel_features``
+    and ``score``: features and scores at rtol 1e-5 / atol 1e-6."""
+    import jax
+    from repro.retrievers import get_retriever as jax_get
+    from repro.retrievers.base import QMeta as JaxMeta
+    from repro_torch.convert import params_from_jax
+    from repro_torch.retrievers import QMeta, get_retriever
+    cos, mask = _inputs((7, 6, n_b), n_b)
+    want = np.asarray(jax_features(jnp.asarray(cos),
+                                   jnp.asarray(mask)[:, None, :]))
+    c, m = torch.from_numpy(cos), torch.from_numpy(mask)
+    np.testing.assert_allclose(knrm_pool(c, m).numpy(), want, **TOL)
+    rng = np.random.RandomState(n_b)
+    seg_len = (rng.randint(0, 4, (7, n_b)) * mask).astype(np.float32)
+    q_mask = np.array([1, 1, 0, 1, 1, 1], np.float32)
+    m4 = np.zeros((7, 6, n_b, 2), np.float32)
+    m4[..., 1] = cos * np.maximum(seg_len, 1.0)[:, None, :]
+    fns = ("tf", "cosine")
+    jparams = jax_get("knrm").init(jax.random.key(0), n_b, fns)
+    meta = dict(q_mask=q_mask, q_idf=q_mask, doc_len=seg_len.sum(1),
+                seg_len=seg_len, avg_dl=np.float32(seg_len.sum(1).mean()))
+    js = jax_get("knrm").score(
+        jparams, jnp.asarray(m4),
+        JaxMeta(**{k: jnp.asarray(v) for k, v in meta.items()}), fns)
+    with torch.no_grad():
+        got = get_retriever("knrm").score(
+            params_from_jax("knrm", jparams, device="cpu"),
+            torch.from_numpy(m4),
+            QMeta(**{k: torch.as_tensor(v) for k, v in meta.items()}), fns)
+    np.testing.assert_allclose(got.numpy(), np.asarray(js), **TOL)

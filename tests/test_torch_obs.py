@@ -159,3 +159,159 @@ def test_serving_records_reference_families_only():
     assert spans["serve.request"]["count"] == 4
     assert spans["serve.retrieve"]["count"] == 2
     assert spans["frontend.batch"]["count"] >= 2
+
+
+# -- the build, the partitioner, the codec and the checkpoint ---------------
+
+@pytest.fixture(scope="module")
+def port_builder(seine_world):
+    """The port's builder on the CPU over seine_world's provider table
+    and interaction parameters (the corpus arrays are seine_world's)."""
+    from repro_torch.configs import seine_smoke
+    from repro_torch.convert import (interaction_params_from_jax,
+                                     provider_from_numpy)
+    from repro_torch.core.builder import IndexBuilder
+    from repro_torch.core.vocab import build_vocabulary
+    from repro_torch.data.synth_corpus import generate
+    w = seine_world
+    cfg = seine_smoke()
+    ds = generate(cfg, seed=0)
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
+                             keep_frac=cfg.vocab_keep_frac)
+    return IndexBuilder(
+        cfg, vocab,
+        provider_from_numpy(np.asarray(w["provider"].table()), device="cpu"),
+        ip=interaction_params_from_jax(w["builder"].ip, device="cpu"),
+        device="cpu")
+
+
+def _samples(mod, name):
+    return dict(mod.REGISTRY.get(name).samples())
+
+
+BUILD_FAMILIES = ("seine_build_docs_total", "seine_build_batches_total",
+                  "seine_build_runs_total", "seine_build_total_nnz",
+                  "seine_build_last_run_bytes", "seine_build_resident_bytes",
+                  "seine_build_peak_host_bytes", "seine_merge_fan_in",
+                  "seine_build_runs_spilled_total",
+                  "seine_build_spill_bytes_total")
+BUILD_SPANS = ("build.stream_runs", "build.stage1.uniq",
+               "build.stage2.interact", "build.stage2b.compact",
+               "build.stage3.spill", "build.stage4.merge")
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_build_counters_and_stage_spans(seine_world, port_builder, spill,
+                                        tmp_path):
+    """The build's counters and gauges equal the reference's on the same
+    corpus (they count docs, batches, runs and their bytes, all exact),
+    and both record the same stage spans."""
+    w = seine_world
+    kw = dict(batch_size=16)
+    for mod, builder in ((obs, port_builder), (jax_obs, w["builder"])):
+        mod.reset()
+        builder.build(w["toks"], w["segs"],
+                      spill_dir=str(tmp_path / mod.__name__) if spill
+                      else None, **kw)
+    for name in BUILD_FAMILIES:
+        if not spill and "spill" in name:
+            continue
+        assert _samples(obs, name) == _samples(jax_obs, name), name
+    assert obs.gauge("seine_build_total_nnz").get() == w["index"].nnz
+    assert obs.gauge("seine_build_docs_per_s").get() > 0
+    assert set(obs.span_stats()) == set(jax_obs.span_stats()) \
+        == set(BUILD_SPANS)
+
+
+def test_partition_and_codec_record_the_reference_gauges(seine_world):
+    """seine_shard_*, seine_plan_range_nnz and seine_codec_* equal the
+    reference's for the same index; re-partitioning drops stale labels."""
+    from repro.dist.sharding import partition_index as jax_partition
+    from repro_torch.convert import index_to_device
+    w = seine_world
+    port = index_to_device(w["index"], device="cpu")
+    names = ("seine_shard_nnz", "seine_shard_count",
+             "seine_shard_skew_max_ratio", "seine_shard_skew_mean_ratio",
+             "seine_shard_hot_splits", "seine_plan_range_nnz",
+             "seine_codec_tile_bits_total", "seine_codec_bytes_saved",
+             "seine_codec_shrink")
+    for codec in ("packed", "packed-q8"):
+        obs.reset()
+        jax_obs.reset()
+        partition_index(port, 2, codec=codec)
+        jax_partition(w["index"], 2, codec=codec)
+        for name in names:
+            assert _samples(obs, name) == _samples(jax_obs, name), name
+    assert set(_samples(obs, "seine_shard_nnz")) == {(("shard", "0"),),
+                                                     (("shard", "1"),)}
+    assert sum(_samples(obs, "seine_shard_nnz").values()) == port.nnz
+    partition_index(port, 1)
+    assert len(_samples(obs, "seine_shard_nnz")) == 1
+    assert len(_samples(obs, "seine_plan_range_nnz")) == 1
+
+
+def test_async_index_save_failure_recovers_previous(
+        seine_world, tmp_path, monkeypatch):
+    """An async save whose publish fails after the live index was moved
+    aside: the failure is counted and raised by wait_async, and the
+    previous index loads from the move-aside."""
+    import dataclasses
+    import os
+    from repro_torch.ckpt import load_index, save_index, wait_async
+    from repro_torch.convert import index_to_device
+    obs.reset()
+    index = index_to_device(seine_world["index"], device="cpu")
+    d = str(tmp_path / "index")
+    save_index(d, index)
+    real_replace = os.replace
+
+    def failing_replace(src, dst):
+        if os.path.abspath(dst) == os.path.abspath(d):
+            raise OSError("injected publish failure")
+        return real_replace(src, dst)
+
+    monkeypatch.setattr(os, "replace", failing_replace)
+    gen2 = dataclasses.replace(index, values=index.values * 2.0)
+    save_index(d, gen2, async_write=True)
+    with pytest.raises(OSError, match="injected publish failure"):
+        wait_async()
+    monkeypatch.setattr(os, "replace", real_replace)
+    assert obs.counter("seine_ckpt_write_errors_total").get() == 1.0
+    assert obs.counter("seine_index_saves_total").get() == 1.0
+    assert torch.equal(load_index(d, device="cpu").values, index.values)
+    assert "ckpt.save_index" in obs.span_stats()
+    # a later save publishes over the recovered state
+    save_index(d, gen2, async_write=True)
+    wait_async()
+    assert torch.equal(load_index(d, device="cpu").values, gen2.values)
+
+
+def test_sync_save_raises_and_counts(seine_world, tmp_path, monkeypatch):
+    from repro_torch.ckpt import save_index
+    from repro_torch.convert import index_to_device
+    obs.reset()
+    index = index_to_device(seine_world["index"], device="cpu")
+
+    def boom(*a, **kw):
+        raise OSError("disk full (injected)")
+
+    monkeypatch.setattr(np, "savez", boom)
+    with pytest.raises(OSError, match="disk full"):
+        save_index(str(tmp_path / "x"), index)
+    assert obs.counter("seine_ckpt_write_errors_total").get() == 1.0
+    assert obs.counter("seine_log_errors_total").get(
+        logger="repro.ckpt") == 1.0
+
+
+def test_concurrent_saves_of_one_dir_do_not_collide(seine_world, tmp_path):
+    """Writes of one process to one directory each have their own
+    temporary name (the reference's ``<dir>.tmp<pid>`` is shared, so two
+    async writes publish into each other), and the last one wins."""
+    from repro_torch.ckpt import load_index, save_index, wait_async
+    from repro_torch.convert import index_to_device
+    index = index_to_device(seine_world["index"], device="cpu")
+    d = str(tmp_path / "index")
+    for _ in range(4):
+        save_index(d, index, async_write=True)
+    wait_async()
+    assert torch.equal(load_index(d, device="cpu").doc_ids, index.doc_ids)

@@ -26,7 +26,7 @@ from repro_torch.core.builder import make_batch_interaction_fn
 from repro_torch.core.interactions import (FUNCTION_NAMES,
                                            init_interaction_params,
                                            query_doc_interactions)
-from repro_torch.kernels.seg_interact import (MAX_SEGMENTS,
+from repro_torch.kernels.seg_interact import (SEG_CHUNK,
                                               flatten_segments, seg_interact,
                                               seg_interact_kernel,
                                               seg_interact_plain,
@@ -34,7 +34,7 @@ from repro_torch.kernels.seg_interact import (MAX_SEGMENTS,
 from repro_torch.kernels.seg_interact.kernel import (N_CLASSES, SLICE,
                                                      TOKEN_TILE, WINDOW,
                                                      fold_events,
-                                                     live_windows,
+                                                     live_windows, n_chunks,
                                                      term_tile_for)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -108,7 +108,7 @@ def test_matches_the_jax_kernel_in_interpret_mode():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("n_seg", [2, MAX_SEGMENTS])
+@pytest.mark.parametrize("n_seg", [2, SEG_CHUNK])
 def test_empty_segments_give_zeros(n_seg):
     ev, st, mask = _padded(64, n_seg, 16, 32, seed=n_seg,
                            empty=(1, n_seg - 1))
@@ -161,6 +161,7 @@ def _partition_case(case, seed=0):
         runs=(3, 40, 300, 20), noncontiguous=(2, 9, 200, 7),
         long_segment=(2, 33, 400, 3), all_excluded=(2, 6, 100, 5),
         windows=(2, 17, 2 * WINDOW + 300, 64), one_segment=(2, 1, 150, 1),
+        chunks=(2, 20, WINDOW + 200, 2 * SEG_CHUNK + 2),
     )[case]
     seg = np.sort(rng.randint(0, n_seg, size=(b, length)), axis=1)
     if case == "noncontiguous":
@@ -177,7 +178,7 @@ def _partition_case(case, seed=0):
 
 
 PARTITION_CASES = ["runs", "noncontiguous", "long_segment", "all_excluded",
-                   "windows", "one_segment"]
+                   "windows", "one_segment", "chunks"]
 
 
 def cell_orders(events) -> dict:
@@ -210,17 +211,22 @@ def test_partition_covers_every_live_pair_once(case):
 
 @pytest.mark.parametrize("case", PARTITION_CASES)
 def test_partition_compacts_in_token_order(case):
-    """Live positions come out in token order, window by window; a
-    token's class is its rank in its window's live list, in tiles of
-    TOKEN_TILE and slices of SLICE."""
+    """Live positions come out in token order, chunk by chunk of
+    SEG_CHUNK segments and window by window; a token's class is its rank
+    in its chunk's window's live list, in tiles of TOKEN_TILE and slices
+    of SLICE."""
     seg, ids, n_seg = _partition_case(case)
     for b in range(seg.shape[0]):
-        windows = live_windows(seg[b], n_seg)
-        flat = np.concatenate(windows) if windows else np.zeros(0, int)
-        live = np.flatnonzero((seg[b] >= 0) & (seg[b] < n_seg))
-        assert np.array_equal(flat, live)
-        assert all(np.unique(w // WINDOW).size == 1 for w in windows)
-        rank = {int(p): r for w in windows for r, p in enumerate(w)}
+        rank = {}
+        for ch in range(n_chunks(n_seg)):
+            windows = live_windows(seg[b], n_seg, ch)
+            flat = np.concatenate(windows) if windows else np.zeros(0, int)
+            lo, hi = SEG_CHUNK * ch, min(SEG_CHUNK * (ch + 1), n_seg)
+            live = np.flatnonzero((seg[b] >= lo) & (seg[b] < hi))
+            assert np.array_equal(flat, live)
+            assert all(np.unique(w // WINDOW).size == 1 for w in windows)
+            rank.update({int(p): r for w in windows
+                         for r, p in enumerate(w)})
         for eb, _, p, _, c in fold_events(seg[b:b + 1], ids[b:b + 1],
                                           n_seg):
             assert c == rank[p] % TOKEN_TILE // SLICE
@@ -375,3 +381,52 @@ def test_query_doc_interactions_on_adversarial_terms(seine_world, batch):
         np.testing.assert_allclose(got[i], want, **TOL, err_msg=f"doc {i}")
         assert np.isfinite(got[i]).all()
         assert (got[i][[1, 5]] == 0).all()          # pad terms
+
+
+def test_build_past_one_segment_chunk_matches_jax(seine_world):
+    """A build at n_b = SEG_CHUNK + 1 (where each block of the card's
+    kernel owns one chunk of segments) on the port's CPU path against the
+    JAX build of the same corpus: ids and per-doc stats bitwise, values
+    at rtol 1e-4 / atol 1e-5 (tf and idf_indicator bitwise)."""
+    import dataclasses
+
+    from repro.configs import seine_smoke as jax_smoke
+    from repro.core import IndexBuilder as JaxBuilder
+    from repro.core import segment_corpus as jax_segment
+    from repro_torch.configs import seine_smoke
+    from repro_torch.core.builder import IndexBuilder
+    from repro_torch.core.segment import segment_corpus
+    from repro_torch.core.vocab import build_vocabulary
+    from repro_torch.data.synth_corpus import generate
+    w = seine_world
+    n_b = SEG_CHUNK + 1
+    cfg = dataclasses.replace(seine_smoke(), n_segments=n_b)
+    jcfg = dataclasses.replace(jax_smoke(), n_segments=n_b)
+    ds = generate(cfg, seed=0)
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
+                             keep_frac=cfg.vocab_keep_frac)
+    toks, segs = segment_corpus([vocab.map_tokens(d) for d in ds.docs], n_b,
+                                max_len=160)
+    jtoks, jsegs = jax_segment([w["vocab"].map_tokens(d)
+                                for d in w["ds"].docs], n_b, max_len=160)
+    np.testing.assert_array_equal(toks, jtoks)
+    np.testing.assert_array_equal(segs, jsegs)
+    assert segs.max() >= SEG_CHUNK           # the second chunk is used
+    want = JaxBuilder(jcfg, w["vocab"], w["provider"], ip=w["builder"].ip
+                      ).build(jtoks, jsegs, batch_size=16)
+    got = IndexBuilder(
+        cfg, vocab,
+        provider_from_numpy(np.asarray(w["provider"].table()), device="cpu"),
+        ip=interaction_params_from_jax(w["builder"].ip, device="cpu"),
+        device="cpu").build(toks, segs, batch_size=16)
+    for f in ("term_offsets", "doc_ids", "idf", "doc_len", "seg_len"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    v, jv = got.values.numpy(), np.asarray(want.values)
+    assert v.shape[1] == n_b
+    for i, name in enumerate(got.functions):
+        if name in ("tf", "idf_indicator"):
+            np.testing.assert_array_equal(v[..., i], jv[..., i], name)
+        else:
+            np.testing.assert_allclose(v[..., i], jv[..., i], **TOL,
+                                       err_msg=name)

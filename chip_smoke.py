@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
-front end, LM bridge) on one NVIDIA GPU.
+front end, live index, ranker training, LM bridge) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -141,6 +141,32 @@ Phases (any failed check raises, and the script exits non-zero):
    plain versions, timed beside today's shapes. (Phase 8 runs after
    phase 7 and before phase 6.)
 
+9. Ranker training over phase 5's K = 4 index (``launch/train.py``):
+   KNRM trained by ``train_ranker`` for 200 steps of 16 pairs (the
+   pairwise hinge of B = 1 scores, ``adam(3e-3)``, a ``PairSampler`` over
+   all 200 queries whose position is set from the step) with checkpoints
+   every 50 steps, keep 3; the launch counts are zeroed just before and
+   read just after, and ``csr_lookup`` and ``knrm_pool`` must each rise
+   by at least one per step.  The checkpoints after step 100 are deleted
+   and ``fit`` resumes from 100 to 200: the final parameters must equal
+   the uninterrupted run's (atol 1e-6).  The first step's M (bitwise),
+   loss, grad norm and gradients through the kernels against the same
+   through their plain versions on the card (rtol 1e-5 / atol 1e-6);
+   DeepTileBars trained for 40 steps (``bench_table1.py``'s protocol);
+   both losses must fall by tests/test_retrievers.py's bar (the last
+   window's mean at most the first's + 0.05; 20 steps for KNRM, 8 for
+   DeepTileBars).  P@5, P@10, MAP, nDCG@5 and nDCG@10 over the 200
+   queries, each scoring all 65,323 docs through ``SeineEngine.score``,
+   for BM25, KNRM at its init, trained KNRM and trained DeepTileBars.
+   ``train_seine_ranker("knrm", 20)`` on the card against the CPU (loss
+   and grad norm histories at rtol 1e-4 / atol 1e-5, TF32 off), and
+   ``repro_torch.launch.train.main()`` in process (launches counted; its
+   ``obs`` snapshot holds the ``seine_train_*`` and
+   ``seine_ckpt_saves_total`` families).  Printed: ms per step p50 /
+   p95, ms per (q, d) training pair, launches per step, the step loop's
+   busy share, the checkpoints' write seconds and the phase's peak
+   device memory.  (Phase 9 runs after phase 8 and before phase 6.)
+
 Every busy share is printed with how many of the port's kernel
 launches CUPTI recorded over the replay ("k of n").
 
@@ -179,6 +205,7 @@ list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
 of the ``repro`` package is imported.
 """
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -196,20 +223,24 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch import obs  # noqa: E402
-from repro_torch.ckpt import load_index, save_index  # noqa: E402
+from repro_torch.ckpt import (all_steps, latest_step,  # noqa: E402
+                              load_index, save_index)
 from repro_torch.configs import SEINE_LETOR, get_lm_config  # noqa: E402
 from repro_torch.core.build_pipeline import (  # noqa: E402
     make_unique_terms_fn)
 from repro_torch.core.builder import IndexBuilder  # noqa: E402
-from repro_torch.core.index import build_from_rows  # noqa: E402
+from repro_torch.core.index import (POSTING_TILE,  # noqa: E402
+                                    build_from_rows)
 from repro_torch.core.interactions import (  # noqa: E402
     init_interaction_params, seg_interact_inputs)
 from repro_torch.core.providers import (HashProvider,  # noqa: E402
                                         LMProvider)
 from repro_torch.core.segment import segment_corpus  # noqa: E402
 from repro_torch.core.vocab import build_vocabulary  # noqa: E402
-from repro_torch.data.batching import (candidates_for_query,  # noqa: E402
-                                       pad_queries)
+from repro_torch.data.batching import (PairSampler,  # noqa: E402
+                                       candidates_for_query, pad_queries)
+from repro_torch.data.metrics import (evaluate_ranking,  # noqa: E402
+                                      mean_metrics)
 from repro_torch.data.synth_corpus import generate  # noqa: E402
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
@@ -217,6 +248,7 @@ from repro_torch.dist import live as live_mod  # noqa: E402
 from repro_torch.dist.live import LiveIndex  # noqa: E402
 from repro_torch.dist.partition import pack_index  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.dist.sharding import partition_index  # noqa: E402
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
     assemble_block_ref, block_cells_ref, csr_lookup_kernel,
@@ -240,10 +272,13 @@ from repro_torch.kernels.seg_interact import (  # noqa: E402
     flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.retrievers import get_retriever  # noqa: E402
+from repro_torch.retrievers import knrm as knrm_retriever  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DeadlineExceeded, NoIndexEngine, SeineEngine, ServingFrontend,
     make_qmeta, run_open_loop, serve_batches, serve_retrieval)
 from repro_torch.serving.coalesce import plan_coalesced  # noqa: E402
+from repro_torch.train import global_norm, value_and_grad  # noqa: E402
+from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
 N_B = 20                 # configs/base.py n_segments (Fig. 2 best)
@@ -2829,6 +2864,313 @@ def phase8(ctx, seed: int, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: ranker training over phase 5's index
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 200        # KNRM steps of TRAIN_BATCH pairs
+TRAIN_BATCH = 16         # launch/train.py's PairSampler(batch_size=16)
+TRAIN_CKPT_EVERY = 50
+TRAIN_KEEP = 3           # fit's keep
+TRAIN_RESUME_FROM = 100  # the checkpoints after it are deleted, then resumed
+TRAIN_BAR = 20           # steps averaged at each end of KNRM's loss bar
+DTB_STEPS = 40           # bench_table1.py::_train_briefly
+DTB_BAR = 8              # tests/test_retrievers.py's bar: last 8 vs first 8
+BAR_SLACK = 0.05
+CPU_STEPS = 20           # train_seine_ranker on the card against the CPU
+CLI_TRAIN_STEPS = 20
+BUSY_STEPS = 8           # steps replayed under the profiler
+TRAIN_TOL = dict(rtol=1e-5, atol=1e-6)     # knrm_pool's bar
+CPU_TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+TRAIN_FAMILIES = ("seine_train_steps_total", "seine_train_loss",
+                  "seine_train_step_seconds", "seine_ckpt_saves_total")
+LETOR_METRICS = ("P@5", "P@10", "MAP", "nDCG@5", "nDCG@10")
+
+
+class PlainLookupIndex:
+    """``index`` whose ``qd_matrix`` runs the lookup kernel's plain
+    version on the card (``plain_lookup``); every other attribute is the
+    index's own."""
+
+    def __init__(self, index):
+        self._index = index
+
+    def qd_matrix(self, q, docs):
+        return plain_lookup(self._index, q, docs, POSTING_TILE)
+
+    def __getattr__(self, name):
+        return getattr(self._index, name)
+
+
+@contextlib.contextmanager
+def plain_knrm_pool():
+    """KNRM's scorer through ``knrm_pool``'s plain version."""
+    saved = knrm_retriever.knrm_pool
+    knrm_retriever.knrm_pool = lambda c, m: knrm_pool_ref(
+        c.to(torch.float32).contiguous(), m.to(torch.float32).contiguous())
+    try:
+        yield
+    finally:
+        knrm_retriever.knrm_pool = saved
+
+
+def loss_fell(history, n: int, what: str) -> str:
+    """The reference's bar: the mean loss of the last ``n`` steps at most
+    the first ``n``'s + BAR_SLACK."""
+    first = float(np.mean([h["loss"] for h in history[:n]]))
+    last = float(np.mean([h["loss"] for h in history[-n:]]))
+    if not last <= first + BAR_SLACK:
+        raise AssertionError(f"phase 9: {what}'s loss did not fall: first "
+                             f"{n} {first:.4f}, last {n} {last:.4f}")
+    return f"{what} loss first {n} {first:.4f} -> last {n} {last:.4f}"
+
+
+def check_first_step(pidx, queries, qrels, init, seed, dev):
+    """The first training step's M, loss, grad norm and gradients through
+    the kernels against the same through their plain versions, on the
+    card: M bitwise, the rest at TRAIN_TOL."""
+    sampler = PairSampler(qrels, np.arange(len(queries)),
+                          batch_size=TRAIN_BATCH, seed=seed)
+    batch = train_cli.pair_batches(sampler, queries, dev)(0)
+    with torch.inference_mode():
+        for qi, p, n in zip(batch["q"], batch["pos"], batch["neg"]):
+            for d in (p[None], n[None]):
+                assert_equal(pidx.qd_matrix(qi, d),
+                             plain_lookup(pidx, qi, d, POSTING_TILE),
+                             "phase 9: a training pair's M")
+    out = {}
+    for path in ("kernel", "plain"):
+        params = copy.deepcopy(init)
+        index = pidx if path == "kernel" else PlainLookupIndex(pidx)
+        with (plain_knrm_pool() if path == "plain"
+              else contextlib.nullcontext()):
+            loss, grads = value_and_grad(
+                train_cli.ranker_loss_fn("knrm", index), params, batch)
+        out[path] = (loss, global_norm(grads), grads)
+    (lk, nk, gk), (lp, np_, gp) = out["kernel"], out["plain"]
+    torch.testing.assert_close(lk, lp, **TRAIN_TOL)
+    torch.testing.assert_close(nk, np_, **TRAIN_TOL)
+    err = 0.0
+    for (name, a), (_, b) in zip(flatten_with_paths(gk),
+                                 flatten_with_paths(gp)):
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
+        err = max(err, (a - b).abs().max().item())
+    log(f"phase 9: the first step through the kernels == through their "
+        f"plain versions on the card: {2 * TRAIN_BATCH} pairs' M bitwise, "
+        f"loss {lk.item():.6f} / {lp.item():.6f}, grad norm "
+        f"{nk.item():.6f} / {np_.item():.6f}, gradients max |diff| "
+        f"{err:.3g} (rtol 1e-5 / atol 1e-6)")
+    return lk.item(), nk.item()
+
+
+def effectiveness(pidx, queries, qrels, runs):
+    """Table 1's protocol: every query scores every doc through
+    ``SeineEngine.score``; the LETOR metrics' means per ranker."""
+    docs = np.arange(pidx.n_docs, dtype=np.int32)
+    table = {}
+    for label, retriever, params in runs:
+        engine = SeineEngine(pidx, retriever, params)
+        t0 = time.perf_counter()
+        per_q = []
+        for qi in range(len(queries)):
+            s = engine.score(queries[qi], docs).float().cpu().numpy()
+            per_q.append(evaluate_ranking(s, qrels[qi]))
+        mm = mean_metrics(per_q)
+        bad = [k for k in LETOR_METRICS
+               if not (np.isfinite(mm[k]) and 0.0 <= mm[k] <= 1.0)]
+        if bad:
+            raise AssertionError(f"phase 9: {label}'s {bad} not in [0, 1]: "
+                                 f"{mm}")
+        table[label] = mm
+        log(f"phase 9: effectiveness of {label} over {len(queries)} queries "
+            f"x {pidx.n_docs} docs ({time.perf_counter() - t0:.2f}s): "
+            + ", ".join(f"{k} {mm[k]:.4f}" for k in LETOR_METRICS))
+    return table
+
+
+def run_train_cli(dev):
+    """repro_torch.launch.train.main() in process, counts zeroed just
+    before and read just after; its obs snapshot holds TRAIN_FAMILIES."""
+    argv0 = sys.argv
+    cli_dir = os.path.join(TRAIN_DIR, "cli")
+    sys.argv = ["train", "--workload", "seine-ranker", "--retriever",
+                "knrm", "--steps", str(CLI_TRAIN_STEPS), "--ckpt-dir",
+                cli_dir] + (["--device", str(dev)] if dev.type != "cuda"
+                            else [])
+    obs.reset()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        train_cli.main()
+        wall = time.perf_counter() - t0
+    finally:
+        sys.argv = argv0
+    got = launch_counts()
+    for name in ("csr_lookup", "knrm_pool"):
+        if got[name] < CLI_TRAIN_STEPS:
+            raise AssertionError(f"phase 9: the training CLI launched {name} "
+                                 f"{got[name]} times in {CLI_TRAIN_STEPS} "
+                                 "steps")
+    fams = obs.snapshot()["metrics"]
+    missing = [n for n in TRAIN_FAMILIES if n not in fams]
+    if missing or metric("seine_train_steps_total") != CLI_TRAIN_STEPS \
+            or metric("seine_ckpt_saves_total") < 1:
+        raise AssertionError(f"phase 9: the training CLI's obs snapshot "
+                             f"lacks {missing or TRAIN_FAMILIES}")
+    log(f"phase 9: CLI --workload seine-ranker --retriever knrm --steps "
+        f"{CLI_TRAIN_STEPS}: {wall:.2f}s, launches {got}, obs families "
+        f"{', '.join(TRAIN_FAMILIES)} present")
+    return dict(wall_s=wall, launches=got)
+
+
+def phase9(ctx, seed: int, dev):
+    """Ranker training over phase 5's K = 4 index (module doc): KNRM
+    trained with checkpoints, resumed, held against the plain path on
+    its first step and against the CPU; DeepTileBars; the LETOR metrics;
+    the training CLI.  Returns the kernels' launches per step."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    pidx, ds = ctx["pidx"], ctx["ds"]
+    queries = pad_queries(ds.queries, ctx["vocab"].map_tokens, q_len=Q_SLOTS)
+    qrels = ds.qrels
+    n_b, functions = pidx.n_b, pidx.functions
+    init = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
+                                      n_b, functions, device=dev)
+    knrm_init = copy.deepcopy(init)
+    ckpt_dir = os.path.join(TRAIN_DIR, "knrm")
+
+    def train(params, steps, ckpt=None, retriever="knrm"):
+        return train_cli.train_ranker(
+            retriever, pidx, queries, qrels, params, steps, ckpt, seed=seed,
+            verbose=False, ckpt_every=TRAIN_CKPT_EVERY)
+
+    obs.reset()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train(init, TRAIN_STEPS, ckpt_dir)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    per_step = {n: launched[n] / TRAIN_STEPS for n in ("csr_lookup",
+                                                         "knrm_pool")}
+    log(f"phase 9: KNRM {TRAIN_STEPS} steps x {TRAIN_BATCH} pairs over "
+        f"{pidx.n_docs} docs (K={pidx.n_shards}, n_b {n_b}): {wall:.2f}s, "
+        f"launches {launched}")
+    for name in ("csr_lookup", "knrm_pool"):
+        if launched[name] < TRAIN_STEPS:
+            raise AssertionError(f"phase 9: {name} launched {launched[name]} "
+                                 f"times in {TRAIN_STEPS} training steps")
+    saves = obs.span_stats().get("ckpt.save")
+    saves = saves.snapshot() if saves is not None else {}
+    steps_kept = all_steps(ckpt_dir)
+    want_kept = list(range(TRAIN_STEPS - (TRAIN_KEEP - 1) * TRAIN_CKPT_EVERY,
+                           TRAIN_STEPS + 1, TRAIN_CKPT_EVERY))
+    if steps_kept != want_kept:
+        raise AssertionError(f"phase 9: checkpoints {steps_kept}, expected "
+                             f"{want_kept}")
+    sec = np.array([h["sec"] for h in res.history]) * 1e3
+    p50, p95 = np.percentile(sec, 50), np.percentile(sec, 95)
+    log(f"phase 9: ms per step p50 {p50:.3f} p95 {p95:.3f} (mean "
+        f"{sec.mean():.3f}); ms per (q, d) training pair "
+        f"{sec.mean() / TRAIN_BATCH:.4f} (Table 1's \"Training (ms)\": time "
+        f"per step / {TRAIN_BATCH}); launches per step "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    bars = [loss_fell(res.history, TRAIN_BAR, "KNRM")]
+
+    # resume: the checkpoints after TRAIN_RESUME_FROM go, fit() resumes
+    t0 = time.perf_counter()
+    for s in steps_kept:
+        if s > TRAIN_RESUME_FROM:
+            shutil.rmtree(os.path.join(ckpt_dir, f"ckpt_{s:010d}"))
+    if latest_step(ckpt_dir) != TRAIN_RESUME_FROM:
+        raise AssertionError(f"phase 9: latest checkpoint "
+                             f"{latest_step(ckpt_dir)} after the deletes")
+    resumed = train(copy.deepcopy(knrm_init), TRAIN_STEPS, ckpt_dir)
+    t_resume = time.perf_counter() - t0
+    if resumed.state.step != TRAIN_STEPS or \
+            len(resumed.history) != TRAIN_STEPS - TRAIN_RESUME_FROM:
+        raise AssertionError("phase 9: the resumed run did not start at "
+                             f"step {TRAIN_RESUME_FROM}")
+    err = 0.0
+    for (name, a), (_, b) in zip(flatten_with_paths(resumed.state.params),
+                                 flatten_with_paths(res.state.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
+        err = max(err, (a - b).abs().max().item())
+    log(f"phase 9: deleted the step "
+        f"{[s for s in steps_kept if s > TRAIN_RESUME_FROM]} checkpoints; "
+        f"fit resumed at step {TRAIN_RESUME_FROM} and ran to "
+        f"{TRAIN_STEPS} in {t_resume:.2f}s: final parameters == the "
+        f"uninterrupted run's (max |diff| {err:.3g}, atol 1e-6)")
+
+    loss0, norm0 = check_first_step(pidx, queries, qrels, knrm_init, seed,
+                                    dev)
+    for k, v in (("loss", loss0), ("grad_norm", norm0)):
+        if not np.isclose(res.history[0][k], v, **TRAIN_TOL):
+            raise AssertionError(f"phase 9: the run's first {k} "
+                                 f"{res.history[0][k]} != {v}")
+
+    dtb = train(get_retriever("deeptilebars").init(
+        torch.Generator().manual_seed(seed), n_b, functions, device=dev),
+        DTB_STEPS, retriever="deeptilebars")
+    dtb_ms = np.mean([h["sec"] for h in dtb.history]) * 1e3
+    bars.append(loss_fell(dtb.history, DTB_BAR, "DeepTileBars"))
+    log(f"phase 9: DeepTileBars {DTB_STEPS} steps, {dtb_ms:.3f} ms per "
+        f"step, {dtb_ms / TRAIN_BATCH:.4f} ms per pair; " + "; ".join(bars))
+
+    table = effectiveness(pidx, queries, qrels, (
+        ("BM25", "bm25", get_retriever("bm25").init(
+            torch.Generator().manual_seed(seed), n_b, functions,
+            device=dev)),
+        ("KNRM at init", "knrm", knrm_init),
+        (f"KNRM after {TRAIN_STEPS} steps", "knrm", res.state.params),
+        (f"DeepTileBars after {DTB_STEPS} steps", "deeptilebars",
+         dtb.state.params)))
+
+    # train_seine_ranker on the card against the CPU, the same process
+    t0 = time.perf_counter()
+    card = train_cli.train_seine_ranker("knrm", CPU_STEPS, None, seed=seed,
+                                        verbose=False, device=dev)
+    cpu = train_cli.train_seine_ranker("knrm", CPU_STEPS, None, seed=seed,
+                                       verbose=False, device="cpu")
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[k] for h in card.history],
+                                   [h[k] for h in cpu.history],
+                                   **CPU_TRAIN_TOL, err_msg=k)
+    diff = max(abs(a["loss"] - b["loss"])
+               for a, b in zip(card.history, cpu.history))
+    secs = time.perf_counter() - t0
+    log(f"phase 9: train_seine_ranker(knrm, {CPU_STEPS}) on the card == on "
+        f"the CPU: loss and grad norm histories at rtol 1e-4 / atol 1e-5 "
+        f"(max loss |diff| {diff:.3g}; TF32 off), {secs:.2f}s")
+
+    cli = run_train_cli(dev)
+
+    busy = device_busy(lambda: train(copy.deepcopy(res.state.params),
+                                     BUSY_STEPS), BUSY_STEPS)
+    log(f"phase 9: the step loop: device busy {busy['ms']:.4f} ms per step "
+        f"of {sec.mean():.4f} ms wall, {busy_share(busy, sec.mean())}, "
+        f"{busy['ops']:.1f} device ops per step; most host self time per "
+        f"step (profiled): {busy['host']}")
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else None)
+    save_s = saves.get("total_s", 0.0)
+    log(f"phase 9: checkpoints: {saves.get('count', 0)} async saves "
+        f"({TRAIN_STEPS // TRAIN_CKPT_EVERY} + the last step again), "
+        f"{save_s:.3f}s of writes in all (the ckpt.save span, off the "
+        f"step loop's thread); peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.2f} GB'}; wall "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return dict(launches=launched, per_step=per_step, p50_ms=p50,
+                p95_ms=p95, ms_per_pair=sec.mean() / TRAIN_BATCH,
+                effectiveness=table, cli=cli, busy=busy, peak_gb=peak,
+                ckpt_save_s=save_s)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM bridge
 # ---------------------------------------------------------------------------
 
@@ -3248,9 +3590,14 @@ def main() -> int:
     kernels += rows
     phase7(built, args.seed, dev)
     live = phase8(built, args.seed, dev)
+    trained = phase9(built, args.seed, dev)
     for row in kernels:
         if row["name"] in live["repairs"]:
             row["any_segment_count"] = live["repairs"][row["name"]]
+        if row["name"] in trained["per_step"]:
+            row["launches_by_path"]["train"] = \
+                trained["launches"][row["name"]]
+            row["train_launches_per_step"] = trained["per_step"][row["name"]]
     del built
     torch.cuda.empty_cache()
     kernels.append(phase6(args.seed, dev, corpus))

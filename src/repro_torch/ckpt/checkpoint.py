@@ -12,6 +12,14 @@ fences; the fences are rebuilt from the packed tile metadata.  Saves
 record the reference's ``ckpt.save_index`` span and its
 ``seine_index_saves_total`` / ``seine_ckpt_write_errors_total``
 counters.
+
+Training checkpoints (``save_checkpoint`` / ``restore_checkpoint``) use
+the reference's format too: ``<dir>/ckpt_<step:010d>/`` holding
+``arrays.npz`` (one array per leaf, named by its path in the tree:
+dict keys sorted, list items by position, ``/``-joined, as
+``jax.tree_util.tree_flatten_with_path`` names them) and
+``manifest.json`` (``step``, ``names``, ``extra``, ``time``), kept to
+the newest ``keep``; either package restores the other's.
 """
 from __future__ import annotations
 
@@ -19,14 +27,17 @@ import glob
 import itertools
 import json
 import os
+import re
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Set
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
+import torch
 
 from .. import obs
+from .. import tree as T
 from ..convert import index_from_arrays
 from ..core.codec import validate_codec
 from ..kernels.utils import resolve_device
@@ -39,6 +50,7 @@ _ASYNC_ERRORS: List[BaseException] = []
 _LOCK = threading.Lock()
 _SEQ = itertools.count()
 _IN_FLIGHT: Set[str] = set()        # this process's unpublished tmp dirs
+_PUBLISH = threading.Lock()         # one checkpoint publish at a time
 _log = obs.get_logger("repro.ckpt")
 
 
@@ -224,3 +236,133 @@ def load_index(index_dir: str, device=None):
         codec_tile=m.get("codec_tile", 0),
         max_tile_words=m.get("max_tile_words", 0),
         codec_spans=m.get("codec_spans", (0, 0)))
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+def _step_dir(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"ckpt_{step:010d}")
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
+                    extra: Optional[Dict] = None, keep: int = 3,
+                    async_write: bool = False) -> str:
+    """Write ``tree`` (a ParamTree, an optimizer state, or nested dicts
+    and lists of tensors) as checkpoint ``step`` and keep the newest
+    ``keep``.  Returns the checkpoint's path.
+
+    Every leaf is copied to the host on the caller's thread, so later
+    in-place updates of the parameters never reach the files.  The write
+    goes to a directory of its own (``<path>.tmp<pid>.<n>``: two saves
+    of one step never share it) and is published with ``os.replace``,
+    one publish at a time; a checkpoint already at the path is moved
+    aside first and removed after.  ``async_write=True`` moves the file
+    I/O and the publish to a background thread, whose failure is counted
+    on ``seine_ckpt_write_errors_total`` and raised by
+    :func:`wait_async`."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = T.flatten_with_paths(tree)
+    arrays = {name: torch.as_tensor(leaf).detach().to("cpu", copy=True)
+              .numpy() for name, leaf in flat}
+    manifest = {
+        "step": int(step),
+        "names": [n for n, _ in flat],
+        "extra": extra or {},
+        "time": time.time(),
+    }
+    final = _step_dir(ckpt_dir, step)
+    tmp = _unique_sibling(final, "tmp")
+
+    def write():
+        try:
+            with obs.span("ckpt.save"):
+                os.makedirs(tmp)
+                np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(manifest, f)
+                with _PUBLISH:
+                    old = None
+                    if os.path.exists(final):
+                        old = _unique_sibling(final, "old")
+                        os.replace(final, old)
+                    os.replace(tmp, final)          # atomic publish
+                    if old is not None:
+                        shutil.rmtree(old, ignore_errors=True)
+                    _retain(ckpt_dir, keep)
+            obs.counter("seine_ckpt_saves_total",
+                        "checkpoint publishes").inc()
+        except BaseException as e:
+            obs.counter("seine_ckpt_write_errors_total",
+                        "failed (a)sync ckpt/index writes").inc()
+            _log.error("checkpoint write failed", path=final, err=repr(e))
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    if async_write:
+        _spawn_async(write)
+    else:
+        write()
+    return final
+
+
+def _retain(ckpt_dir: str, keep: int) -> None:
+    for s in all_steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(_step_dir(ckpt_dir, s), ignore_errors=True)
+
+
+def all_steps(ckpt_dir: str) -> List[int]:
+    """The published checkpoints' steps, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for n in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"ckpt_(\d{10})", n)
+        if m and os.path.exists(os.path.join(ckpt_dir, n, "manifest.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, target: Any, *,
+                       step: Optional[int] = None,
+                       shardings: Any = None) -> Tuple[Any, Dict]:
+    """Read checkpoint ``step`` (default: the latest) into the structure
+    of ``target``: returns ``(tree, manifest)``, the tree's containers
+    plain dicts and lists (a ParamTree read as a dict; see
+    ``repro_torch.tree.assign``) and each leaf a tensor of the target
+    leaf's dtype on its device.  A leaf missing from the checkpoint
+    raises ``KeyError``, a shape that differs ``ValueError``.
+    ``shardings=`` (reshard-on-load onto a mesh) is not ported and
+    raises ``NotImplementedError``, as ``mesh=`` does."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore_checkpoint(shardings=...) places arrays on a mesh, "
+            "which is not ported yet")
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = _step_dir(ckpt_dir, step)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves = []
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for name, leaf in T.flatten_with_paths(target):
+            if name not in data:
+                raise KeyError(f"checkpoint missing leaf {name}")
+            arr = data[name]
+            want = tuple(np.shape(leaf)) if not isinstance(
+                leaf, torch.Tensor) else tuple(leaf.shape)
+            if tuple(arr.shape) != want:
+                raise ValueError(f"shape mismatch for {name}: "
+                                 f"{arr.shape} vs {want}")
+            t = torch.from_numpy(np.array(arr))
+            if isinstance(leaf, torch.Tensor):
+                t = t.to(device=leaf.device, dtype=leaf.dtype)
+            leaves.append(t)
+    return T.unflatten(target, leaves), manifest

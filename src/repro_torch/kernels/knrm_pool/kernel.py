@@ -6,6 +6,8 @@ Given CUDA tensors it validates them, allocates the output with
 ``torch.empty``, launches on PyTorch's current stream, raises on a
 nonzero ``cudaGetLastError`` and adds one to ``knrm_pool_kernel.launches``;
 given CPU tensors it runs its plain version, ``ref.knrm_pool_ref``.
+The kernel has no backward: on CUDA tensors that need a gradient (under
+``torch.is_grad_enabled()``) it raises rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def knrm_pool_kernel(cos_norm: torch.Tensor, seg_mask: torch.Tensor
     segment order."""
     if cos_norm.device.type != "cuda":
         return knrm_pool_ref(cos_norm, seg_mask)
+    if torch.is_grad_enabled() and (cos_norm.requires_grad
+                                    or seg_mask.requires_grad):
+        raise NotImplementedError(
+            "knrm_pool_kernel has no backward: call it under "
+            "torch.no_grad() or with inputs that need no gradient")
     dev = cos_norm.device
     check_cuda_tensor("cos_norm", cos_norm, torch.float32, dev, 3)
     check_cuda_tensor("seg_mask", seg_mask, torch.float32, dev, 2)

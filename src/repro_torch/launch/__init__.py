@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` (the serving CLI)."""
+"""Entry points of the port: ``serve`` (the serving CLI) and ``train``
+(the training driver)."""

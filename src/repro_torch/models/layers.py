@@ -1,7 +1,8 @@
 """The layer helpers of the retrievers and the LM (port of the init
 helpers, ``mlp_apply``, ``rms_norm``, RoPE and the attention functions of
 ``repro.models.layers``; the mesh helpers ``maybe_constrain`` and
-``maybe_replicate`` are not ported).
+``maybe_replicate`` are not ported), and ``softmax``, rounded as
+``jax.nn.softmax``.
 
 A scorer's parameters live in :class:`ParamTree`, an ``nn.Module``
 holding the same nested dict/list structure as the reference's parameter
@@ -77,6 +78,33 @@ def mlp_apply(p, x: torch.Tensor, act=torch.relu, final_act=None
             x = final_act(x)
     return x
 
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` rounded as the reference rounds it: ``exp(x -
+    max)`` divided by its sum (``torch.softmax`` multiplies by the sum's
+    reciprocal), and as gradient the transpose of its custom JVP,
+    ``y * g - y * sum(y * g)`` (``torch.softmax``'s backward forms ``y *
+    (g - sum(y * g))``).  Where a gradient is zero in exact arithmetic,
+    the two forms leave different rounding noise, which Adam turns into
+    steps of different size."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        e = torch.exp(x - x.amax(dim, keepdim=True))
+        y = e / e.sum(dim, keepdim=True)
+        ctx.save_for_backward(y)
+        ctx.dim = dim
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * g - y * (y * g).sum(ctx.dim, keepdim=True), None
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return _Softmax.apply(x, dim)
 
 # -- norms -----------------------------------------------------------------
 

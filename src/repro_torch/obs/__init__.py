@@ -34,8 +34,8 @@ Quick start::
 The port records the families of the inventory below where the
 reference does: the build, the partitioner and the codec, the
 checkpoint's index saves, the live index, the heartbeat and straggler
-monitors, and serving (engine, serve loops, front end, coalescer, tile
-cache).  The train families wait for the training loop's port.
+monitors, serving (engine, serve loops, front end, coalescer, tile
+cache) and training (the train loop and its checkpoints).
 
 Metric inventory (all names, one table — keep this current):
 

@@ -66,7 +66,10 @@ def make_init(build: Callable[[torch.Generator, int], dict]):
 
 def hinge_pair_loss(score_fn, params, m_pos, m_neg, meta_pos, meta_neg,
                     functions) -> torch.Tensor:
-    """Pairwise hinge (the LETOR training objective used for all rankers)."""
+    """Pairwise hinge (the LETOR training objective used for all rankers).
+    ``torch.maximum`` against zero, as the reference's ``jnp.maximum``:
+    at an exact tie each side takes half the gradient."""
     sp = score_fn(params, m_pos, meta_pos, functions)
     sn = score_fn(params, m_neg, meta_neg, functions)
-    return torch.clamp(1.0 - sp + sn, min=0.0).mean()
+    x = 1.0 - sp + sn
+    return torch.maximum(torch.zeros_like(x), x).mean()

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.layers import dense_init, mlp_apply, mlp_init
+from ..models.layers import dense_init, mlp_apply, mlp_init, softmax
 from .base import QMeta, RetrieverSpec, fidx, make_init, register
 
 D_LOCAL = 32
@@ -34,8 +34,7 @@ def score(params, M, meta: QMeta, functions) -> torch.Tensor:
     local = torch.tanh(mlp_apply(params["local"], feats, act=torch.relu))
     # global decision: gated importance + top-k evidence accumulation
     sig = (local @ params["gate"])[..., 0]              # (B, n_b)
-    gate = torch.softmax(
-        sig + torch.where(meta.seg_len > 0, 0.0, -1e9), dim=-1)
+    gate = softmax(sig + torch.where(meta.seg_len > 0, 0.0, -1e9))
     attended = torch.einsum("bn,bnd->bd", gate, local)
     # lax.top_k order: descending, ties toward the lower index
     k = min(TOP_K, sig.shape[-1])

@@ -256,6 +256,32 @@ def test_live_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert out["compaction_s"]["merge_and_upload"] > 0
 
 
+def test_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 9 (ranker training) over phase 5's index at 130 docs, n_b 5,
+    De 32: KNRM with checkpoints and the resume, the first step against
+    the plain path, DeepTileBars, the LETOR metrics of four rankers, the
+    card-against-CPU run and the training CLI, at a few steps each."""
+    cs = _load_script()
+    _patch_build(cs, monkeypatch, tmp_path, TRAIN_STEPS=8, TRAIN_CKPT_EVERY=2,
+                 TRAIN_RESUME_FROM=4, TRAIN_BAR=4, DTB_STEPS=4, DTB_BAR=2,
+                 CPU_STEPS=3, CLI_TRAIN_STEPS=2, BUSY_STEPS=2,
+                 TRAIN_DIR=str(tmp_path / "train"))
+    _, built = cs.phase5(0, torch.device("cpu"))
+    out = cs.phase9(built, 0, torch.device("cpu"))
+    # one lookup and one knrm_pool per score: two scores per pair
+    assert out["per_step"] == {"csr_lookup": 2 * cs.TRAIN_BATCH,
+                               "knrm_pool": 2 * cs.TRAIN_BATCH}
+    assert set(out["effectiveness"]) == {
+        "BM25", "KNRM at init", "KNRM after 8 steps",
+        "DeepTileBars after 4 steps"}
+    for mm in out["effectiveness"].values():
+        assert set(mm) == set(cs.LETOR_METRICS)
+        assert all(0.0 <= v <= 1.0 for v in mm.values())
+    assert out["cli"]["launches"]["knrm_pool"] >= 2
+    assert out["p95_ms"] >= out["p50_ms"] > 0 and out["peak_gb"] is None
+    assert not os.path.exists(tmp_path / "train")
+
+
 @pytest.mark.parametrize("mode", ["naive", "coalesce", "cache"])
 def test_open_loop_leaves_no_cycle(mode, monkeypatch):
     """Phase 7's ``open_loop`` records the run's futures without storing

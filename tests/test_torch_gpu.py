@@ -73,6 +73,7 @@ from repro_torch.models import transformer as T
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import (NoIndexEngine, SeineEngine,
                                  ServingFrontend)
+from repro_torch.tree import flatten_with_paths
 from torch_codec_rows import adversarial_index, adversarial_queries
 
 pytestmark = pytest.mark.gpu
@@ -1217,3 +1218,77 @@ def test_live_index_on_cuda_matches_cpu():
                            getattr(cpu.base, f)), f
     torch.testing.assert_close(gpu.base.values.cpu(), cpu.base.values,
                                **SEG_TOL)
+
+
+def test_knrm_pool_kernel_refuses_a_gradient_on_the_card():
+    """The kernel has no backward: inputs that need a gradient raise
+    under grad mode, and run under no_grad or without requires_grad."""
+    _require_cuda()
+    cos = torch.rand((4, 6, 20), device="cuda") * 2 - 1
+    mask = torch.ones((4, 20), device="cuda")
+    want = knrm_pool_kernel(cos, mask)
+    for c, m in ((cos.clone().requires_grad_(True), mask),
+                 (cos, mask.clone().requires_grad_(True))):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            knrm_pool_kernel(c, m)
+        with torch.no_grad():
+            assert torch.equal(knrm_pool_kernel(c, m), want)
+
+
+@pytest.mark.parametrize("retriever", ["knrm", "deeptilebars", "hint"])
+def test_training_step_on_cuda_matches_cpu(retriever):
+    """One training step on the card (the lookup kernel; KNRM through
+    knrm_pool, HiNT through ``models.layers.softmax``) against the same
+    step on the CPU, over one index built on
+    the CPU and carried to the card, from the same initial parameters and
+    PairSampler batch: M bitwise, the loss, grad norm and gradients at
+    rtol 1e-5 / atol 1e-6, and the step's launches (two scores per
+    pair)."""
+    _require_cuda()
+    from repro_torch.convert import index_to_device
+    from repro_torch.data.batching import PairSampler, pad_queries
+    from repro_torch.launch.train import pair_batches, ranker_loss_fn
+    from repro_torch.train import adam, global_norm, make_train_step
+    from repro_torch.train import value_and_grad
+    from repro_torch.dist.compression import init_error_feedback
+    cfg = seine_smoke()
+    ds = generate(cfg, seed=0)
+    vocab = build_vocabulary(ds.docs, ds.n_raw_tokens)
+    toks, segs = segment_corpus([vocab.map_tokens(d) for d in ds.docs],
+                                cfg.n_segments, max_len=160)
+    queries = pad_queries(ds.queries, vocab.map_tokens, q_len=6)
+    provider = HashProvider(vocab.size, cfg.embed_dim, device="cpu")
+    cpu = IndexBuilder(cfg, vocab, provider, device="cpu").build(
+        toks, segs, batch_size=16)
+    indexes = {"cpu": cpu, "cuda": index_to_device(cpu, "cuda")}
+    init = get_retriever(retriever).init(torch.Generator().manual_seed(0),
+                                         cfg.n_segments, cpu.functions,
+                                         device="cpu")
+    out = {}
+    for dev, index in indexes.items():
+        sampler = PairSampler(ds.qrels, np.arange(len(queries)),
+                              batch_size=16)
+        batch = pair_batches(sampler, queries, dev)(0)
+        q, d = batch["q"][0], batch["pos"][:1]
+        out[dev] = [index.qd_matrix(q, d).cpu()]
+        params = copy.deepcopy(init).to(dev)
+        before = knrm_pool_kernel.launches, csr_lookup_kernel.launches
+        loss, grads = value_and_grad(ranker_loss_fn(retriever, index),
+                                     params, batch)
+        if dev == "cuda":
+            assert csr_lookup_kernel.launches - before[1] == 32
+            assert knrm_pool_kernel.launches - before[0] == (
+                32 if retriever == "knrm" else 0)
+        opt = adam(3e-3)
+        _, _, _, m = make_train_step(ranker_loss_fn(retriever, index), opt)(
+            params, opt.init(params), init_error_feedback(params), batch)
+        out[dev] += [loss.cpu(), global_norm(grads).cpu(), m["loss"].cpu(),
+                     {n: g.cpu() for n, g in flatten_with_paths(grads)}]
+    (m_c, l_c, n_c, s_c, g_c), (m_g, l_g, n_g, s_g, g_g) = (out["cpu"],
+                                                           out["cuda"])
+    assert torch.equal(m_g, m_c)
+    for got, want in ((l_g, l_c), (n_g, n_c), (s_g, s_c)):
+        torch.testing.assert_close(got, want, **TOL)
+    assert list(g_g) == list(g_c)
+    for n in g_c:
+        torch.testing.assert_close(g_g[n], g_c[n], **TOL, msg=n)

@@ -18,6 +18,7 @@ from repro import obs as jax_obs
 from repro.launch import serve as jax_serve
 from repro_torch import obs
 from repro_torch.launch import serve
+from torch_helpers import fresh_registry
 
 LIVE = ["--partition", "term", "--live", "--live-compact", "--target-qps",
         "200", "--coalesce", "--n-queries", "16", "--candidates", "50"]
@@ -44,7 +45,9 @@ def _log_lines(err: str) -> dict:
 
 
 def _run(mod, registry, argv, monkeypatch, capsys):
-    registry.reset()
+    # families registered by test files run earlier in this process
+    # would otherwise be written too
+    fresh_registry(monkeypatch, registry)
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     mod.main()
     return _log_lines(capsys.readouterr().err)

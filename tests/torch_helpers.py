@@ -79,3 +79,15 @@ def assert_same_partition(port, ref):
     for n in PARTITION_STATIC:
         assert tuple(np.atleast_1d(getattr(port, n))) == tuple(
             np.atleast_1d(getattr(ref, n))), n
+
+
+def fresh_registry(monkeypatch, *obs_modules):
+    """Give each ``obs`` package (the reference's, the port's) an empty
+    metric registry and no span aggregates for the rest of the test.
+    ``obs.reset()`` zeroes samples but keeps every family a test file
+    registered earlier in the same process, and a metrics exposition
+    writes each registered family; a CLI run compared family for family
+    must start from none."""
+    for mod in obs_modules:
+        monkeypatch.setattr(mod.REGISTRY, "_metrics", {})
+        mod.reset()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
-front end, live index, ranker training, LM bridge) on one NVIDIA GPU.
+front end, live index, ranker training, LM bridge, MoE LM and decode,
+SNRM) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -189,7 +190,8 @@ launches CUPTI recorded over the replay ("k of n").
    32), counts zeroed just before and read just after: ``flash_attn``
    must launch n_layers x batches times and ``seg_interact`` once per
    batch.  The device time of a build batch is split into GEMMs,
-   ``flash_attn``, ``seg_interact`` and the rest (CUPTI).  Indexed M
+   ``flash_attn``, ``seg_interact``, the MoE FFN's ranges (0 here) and
+   the rest (CUPTI).  Indexed M
    equals No-Index M (``make_qd_fn`` over the first batch's docs in build
    order) for every stored pair at atol 1e-5; a KNRM ``SeineEngine``
    serves 8 requests of 6 slots x 256 built docs and a ``NoIndexEngine``
@@ -199,6 +201,43 @@ launches CUPTI recorded over the replay ("k of n").
    bound (bytes over 3.35 TB/s or causal flops over the bf16 989
    TFLOP/s), the same on float32 inputs (TF32 off; flops over the FP32
    67 TFLOP/s), and the phase's peak device memory.
+
+10. The MoE LM and KV-cache decode, after phase 6's weights are freed:
+   granite-moe-3b-a800m (``configs/lm_archs.py``: 32 layers, d_model
+   1,536, 24 / 8 heads of 64, 40 experts top-8 of d_expert 512 at
+   capacity factor 1.25, a float32 router, vocab 49,155, bf16) at its
+   full width and depth, random weights drawn on the card from
+   ``--seed``, its parameter count held to the config's.  ``flash_attn``
+   against its plain version at the build's shape (32, 512, 24 / 8, 64)
+   in bf16 and float32; the LM build of phase 5's first 1,024 docs
+   through ``LMProvider`` (K = 4), counts zeroed just before and read
+   just after (``flash_attn`` n_layers x batches, ``seg_interact`` once
+   and ``embed_bag`` at least once per batch), the share of (token,
+   slot) pairs the dispatch dropped per batch (all pairs and the docs'
+   own tokens'), a batch's device time split as phase 6's, with the
+   kernels launched in ``moe_ffn``'s profiler ranges (``moe.route``,
+   ``moe.dispatch``, ``moe.combine``) counted apart; indexed == No-Index
+   and serving as in phase 6.  Decode:
+   8 prompts of 512 tokens through ``prefill_cache``, then 64 greedy
+   ``decode_step``s (ms per step p50 / p95, tokens/s, cache bytes, the
+   greedy agreement with the bf16 forward over the same tokens at a
+   dropless capacity factor 5.0, as decode never drops, beside the
+   forward's median top-1 - top-2 logit margin and the median largest
+   |decode - forward|); the same at 4 layers in float32 and the
+   dropless capacity factor, every step's
+   logits equal to the forward's at its position (rtol 2e-2 / atol
+   2e-2); ``combine_decode_stats`` over 4 slices of layer 0's cache ==
+   ``gqa_attention``'s decode output (rtol 1e-5 / atol 1e-5).  Last
+   ``flash_attn``'s timing at the build shape (the ``kernels`` line's
+   ``flash_attn_hd64`` row) and the phase's peak device memory.
+
+11. SNRM (``core/snrm.py``) with ``benchmarks/bench_snrm.py``'s recipe
+   over phase 5's 65,323 docs and 200 queries: d_latent 128,
+   ``adam(3e-3)``, 80 steps of 16 (q, pos, neg) triples; the first
+   step's loss and gradients on the card against the CPU's (rtol 1e-4 /
+   atol 1e-5); every doc encoded in chunks of 4,096; dot-latent
+   retrieval of all docs per query; P@5 / P@10 / MAP and the latent
+   density beside phase 9's rows.
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -235,6 +274,7 @@ from repro_torch.core.interactions import (  # noqa: E402
     init_interaction_params, seg_interact_inputs)
 from repro_torch.core.providers import (HashProvider,  # noqa: E402
                                         LMProvider)
+from repro_torch.core import snrm  # noqa: E402
 from repro_torch.core.segment import segment_corpus  # noqa: E402
 from repro_torch.core.vocab import build_vocabulary  # noqa: E402
 from repro_torch.data.batching import (PairSampler,  # noqa: E402
@@ -250,6 +290,8 @@ from repro_torch.dist.partition import pack_index  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.dist.sharding import partition_index  # noqa: E402
+from repro_torch.dist.sp_decode import (  # noqa: E402
+    combine_decode_stats, local_decode_stats)
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
     assemble_block_ref, block_cells_ref, csr_lookup_kernel,
     csr_lookup_packed_kernel, csr_lookup_packed_plain, csr_lookup_plain,
@@ -271,13 +313,15 @@ from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
 from repro_torch.kernels.seg_interact import (  # noqa: E402
     flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layers import gqa_attention  # noqa: E402
 from repro_torch.retrievers import get_retriever  # noqa: E402
 from repro_torch.retrievers import knrm as knrm_retriever  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DeadlineExceeded, NoIndexEngine, SeineEngine, ServingFrontend,
     make_qmeta, run_open_loop, serve_batches, serve_retrieval)
 from repro_torch.serving.coalesce import plan_coalesced  # noqa: E402
-from repro_torch.train import global_norm, value_and_grad  # noqa: E402
+from repro_torch.train import (adam, apply_updates,  # noqa: E402
+                               global_norm, value_and_grad)
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
@@ -413,6 +457,8 @@ FA_SWEEP = ((2, 128, 4, 2, 32, True), (1, 256, 8, 8, 64, True),
 FA_SEEDS = 3       # draws of the build-shape bf16 check
 BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 tensor cores
 GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "splitk")
+# the profiler ranges of models/transformer.py's moe_ffn
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.combine")
 
 
 def log(*a):
@@ -3178,6 +3224,14 @@ def lm_config():
     return get_lm_config(LM_ARCH)
 
 
+def param_count(params):
+    """(parameters, bytes) of an LM tree."""
+    tensors = [t for v in params.values()
+               for t in (v.values() if isinstance(v, dict) else [v])]
+    return (sum(t.numel() for t in tensors),
+            sum(t.numel() * t.element_size() for t in tensors))
+
+
 def fa_build_shape(lm):
     """(B, S, Hq, Hkv, hd) of the attention in one build batch."""
     return (LM_BATCH, BUILD_MAX_LEN, lm.n_heads, lm.n_kv_heads, lm.head_dim)
@@ -3189,17 +3243,17 @@ def qkv(shape, dtype, gen, dev):
             for n, h in ((b, hq), (b, hkv), (b, hkv))]
 
 
-def check_flash_attn(lm, seed, dev):
+def check_flash_attn(lm, seed, dev, tag="phase 6", sweep=FA_SWEEP):
     """The kernel against its plain version on the card: the build's
     shape in bf16 (2e-2) on FA_SEEDS draws and in float32 (rtol 1e-4 /
-    atol 1e-5), then the sweep FA_SWEEP in both types.  Returns the
+    atol 1e-5), then the shapes of ``sweep`` in both types.  Returns the
     largest |diff| at the build's shape in bf16 and in float32."""
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = fa_build_shape(lm)
     cases = [(shape, True, torch.bfloat16, seed + i)
              for i in range(FA_SEEDS)]
     cases += [(shape, True, torch.float32, None)]
-    cases += [(c[:5], c[5], dt, None) for c in FA_SWEEP
+    cases += [(c[:5], c[5], dt, None) for c in sweep
               for dt in (torch.float32, torch.bfloat16)]
     errs, used = [], []
     for shp, causal, dt, draw in cases:
@@ -3220,14 +3274,15 @@ def check_flash_attn(lm, seed, dev):
         used.append((err / (tol["atol"] + tol["rtol"] * want.abs()))
                     .max().item())
     bf, f32 = errs[:FA_SEEDS], errs[FA_SEEDS]
-    log(f"phase 6: flash_attn == plain at the build shape {shape} causal: "
+    rest = errs[FA_SEEDS + 1:] or [0.0]
+    log(f"{tag}: flash_attn == plain at the build shape {shape} causal: "
         f"bf16 max |diff| {', '.join(f'{e:.3g}' for e in bf)} on draws "
         f"{seed}..{seed + FA_SEEDS - 1} (bar 2e-2 + 2e-2 |plain|; worst "
         f"value at {', '.join(f'{u:.0%}' for u in used[:FA_SEEDS])} of "
         f"its bar), float32 {f32:.3g} (bar rtol 1e-4/atol 1e-5, "
-        f"{used[FA_SEEDS]:.0%}); over {len(FA_SWEEP)} sweep shapes in "
-        f"both types, largest |diff| {max(errs[FA_SEEDS + 1:]):.3g}, "
-        f"worst value at {max(used[FA_SEEDS + 1:]):.0%} of its bar")
+        f"{used[FA_SEEDS]:.0%}); over {len(sweep)} sweep shapes in "
+        f"both types, largest |diff| {max(rest):.3g}, worst value at "
+        f"{max(used[FA_SEEDS + 1:] or [0.0]):.0%} of its bar")
     return max(bf), f32
 
 
@@ -3298,21 +3353,43 @@ def check_lm_wiring(provider, toks, segs, dev):
 
 
 def kernel_split(run, n: int):
-    """Device ms per batch of ``run`` (``n`` batches), CUPTI kernel time
-    summed into GEMMs, flash_attn, seg_interact and the rest; and the
-    rest's largest kernels."""
+    """Device ms per batch of ``run`` (``n`` batches): the CUPTI time of
+    the kernels launched by the ops inside the MoE FFN's profiler ranges
+    (MOE_RANGES) summed per range, whatever the kernels are; every other
+    kernel's time summed by its name into GEMMs, flash_attn,
+    seg_interact and the rest; and the rest's largest kernels.  A dense
+    model's MoE classes stay 0."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    split = dict(gemm=0.0, flash_attn=0.0, seg_interact=0.0, rest=0.0)
-    rest = {}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0:
+    events = prof.events()
+    in_range = {name: 0.0 for name in MOE_RANGES}
+    taken = {}                     # kernel name -> us launched in a range
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
             continue
-        key = e.key.lower()
+        op = e
+        while op is not None and op.name not in MOE_RANGES:
+            op = op.cpu_parent
+        for k in e.kernels if op is not None else ():
+            if k.name not in MOE_RANGES:    # the range's own GPU span
+                in_range[op.name] += k.duration
+                taken[k.name] = taken.get(k.name, 0.0) + k.duration
+    total = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in MOE_RANGES \
+                and not getattr(e, "is_user_annotation", False):
+            total[e.name] = total.get(e.name, 0.0) + e.device_time_total
+    split = dict(gemm=0.0, flash_attn=0.0, seg_interact=0.0, **in_range,
+                 rest=0.0)
+    rest = {}
+    for name, us in total.items():
+        us -= taken.get(name, 0.0)
+        key = name.lower()
         if "flash_attn" in key:
             split["flash_attn"] += us
         elif "seg_interact" in key:
@@ -3321,13 +3398,13 @@ def kernel_split(run, n: int):
             split["gemm"] += us
         else:
             split["rest"] += us
-            rest[e.key[:60]] = us
+            rest[name[:60]] = rest.get(name[:60], 0.0) + us
     top = sorted(rest.items(), key=lambda kv: -kv[1])[:4]
     return ({k: v / 1e3 / n for k, v in split.items()},
             ", ".join(f"{k} {v / 1e3 / n:.2f} ms" for k, v in top))
 
 
-def check_lm_on_the_fly(pidx, builder, toks, segs, dev):
+def check_lm_on_the_fly(pidx, builder, toks, segs, dev, tag="phase 6"):
     """Indexed == No-Index for every stored pair of the first build
     batch: ``make_qd_fn`` over its LM_BATCH docs in build order (the same
     LM batch as the build's) for the union of their terms, against the
@@ -3351,12 +3428,13 @@ def check_lm_on_the_fly(pidx, builder, toks, segs, dev):
     err = (looked - fly).abs().max().item()
     if err > 1e-5:
         raise AssertionError(f"indexed != on-the-fly: {err}")
-    log(f"phase 6: indexed == on-the-fly for all {int(present.sum())} "
+    log(f"{tag}: indexed == on-the-fly for all {int(present.sum())} "
         f"stored pairs of the first build batch ({union.size} terms x "
         f"{LM_BATCH} docs; max |diff| {err:.3g}, bar 1e-5)")
 
 
-def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
+def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev,
+             tag="phase 6"):
     """The LM-built index served: a KNRM SeineEngine answers LM_REQUESTS
     requests over built docs, a NoIndexEngine over the same LM the first
     LM_NOINDEX_REQUESTS of them over LM_NOINDEX_CAND candidates; launch
@@ -3388,7 +3466,7 @@ def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
                 raise AssertionError(f"{name} was not launched serving the "
                                      f"LM-built index ({path})")
         st = out[path][1]
-        log(f"phase 6 [{path}]: launches {counts[path]}; serve_batches "
+        log(f"{tag} [{path}]: launches {counts[path]}; serve_batches "
             f"{len(reqs)} x ({Q_SLOTS} slots, {len(reqs[0][1])} "
             f"candidates): p50 {st.p50_ms:.3f} ms p95 {st.p95_ms:.3f} ms")
     err = 0.0
@@ -3396,12 +3474,13 @@ def serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev):
         assert s.shape == (LM_CAND,) and np.isfinite(s).all()
         np.testing.assert_allclose(n, s[:LM_NOINDEX_CAND], **BF16_TOL)
         err = max(err, float(np.abs(n - s[:LM_NOINDEX_CAND]).max()))
-    log(f"phase 6: No-Index scores == indexed scores at 2e-2 on "
+    log(f"{tag}: No-Index scores == indexed scores at 2e-2 on "
         f"{LM_NOINDEX_REQUESTS} requests (largest |diff| {err:.3g})")
     return counts
 
 
-def time_flash_attn(lm, launches, errs, dev):
+def time_flash_attn(lm, launches, errs, dev, tag="phase 6",
+                    name="flash_attn"):
     """flash_attn at the build's shape in bf16: the kernel (CUPTI), its
     plain version and ``F.scaled_dot_product_attention`` (the library
     yardstick, never used by the port; K and V repeated first when it
@@ -3440,20 +3519,20 @@ def time_flash_attn(lm, launches, errs, dev):
     f32_library_ms = events_ms([library(qf, kf, vf)], 20)
     f32_bytes = 2 * (qf.numel() + kf.numel()) * qf.element_size()
     f32_b_ms, f32_b_by = bound(f32_bytes, flops)
-    log(f"phase 6: flash_attn at {shape} causal bf16 (wgmma): {ms:.4f} ms "
+    log(f"{tag}: flash_attn at {shape} causal bf16 (wgmma): {ms:.4f} ms "
         f"({how}; {call_ms:.4f} ms with launch cost) = "
         f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
         f"scaled_dot_product_attention {library_ms:.4f} ms = "
         f"{flops / library_ms / 1e9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over "
         f"the bf16 peak)")
-    log(f"phase 6: flash_attn on float32 inputs (FMA): {f32_ms:.4f} ms = "
+    log(f"{tag}: flash_attn on float32 inputs (FMA): {f32_ms:.4f} ms = "
         f"{flops / f32_ms / 1e9:.1f} TFLOP/s; plain {f32_plain_ms:.4f} ms; "
         f"scaled_dot_product_attention (float32, TF32 off) "
         f"{f32_library_ms:.4f} ms; bound {f32_b_ms:.5f} ms ({f32_b_by}: "
         f"{f32_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over the FP32 "
         f"peak)")
-    return dict(name="flash_attn", route="cuda",
+    return dict(name=name, route="cuda", shape=list(shape),
                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
                 replaces=TPU_KERNELS["flash_attn"],
                 launches=launches["build"], launches_by_path=launches,
@@ -3482,17 +3561,15 @@ def phase6(seed: int, dev, corpus):
                           .manual_seed(seed + 7))
     table = provider.table()
     torch.cuda.synchronize()
-    tensors = [t for v in params.values()
-               for t in (v.values() if isinstance(v, dict) else [v])]
-    n_params = sum(t.numel() for t in tensors)
+    n_params, n_bytes = param_count(params)
     if n_params != lm.n_params:
         raise AssertionError(f"{n_params} parameters, the config counts "
                              f"{lm.n_params}")
     log(f"phase 6: {lm.name} ({lm.n_layers} layers, d_model {lm.d_model}, "
         f"{lm.n_heads}/{lm.n_kv_heads} heads of {lm.head_dim}, d_ff "
         f"{lm.d_ff}, vocab {lm.vocab_size}, {lm.dtype}): {n_params} "
-        f"parameters, {sum(t.numel() * t.element_size() for t in tensors)}"
-        f" bytes, drawn in {time.perf_counter() - t0:.2f}s; table() "
+        f"parameters, {n_bytes} bytes, drawn in "
+        f"{time.perf_counter() - t0:.2f}s; table() "
         f"{tuple(table.shape)} {table.dtype}")
     fa_errs = check_flash_attn(lm, seed, dev)
     wiring = check_lm_wiring(provider, toks, segs, dev)
@@ -3550,6 +3627,437 @@ def phase6(seed: int, dev, corpus):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE LM through the LM bridge, and KV-cache decode
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_DOCS = 1024          # of phase 5's docs, as phase 6's LM_DOCS
+DECODE_PROMPTS = 8
+DECODE_PROMPT_LEN = 512
+DECODE_STEPS = 64
+DECODE_CHECK_LAYERS = 4
+DROPLESS_CF = 5.0        # C >= M at top-8 of 40: no pair drops
+DECODE_SLICES = 4
+MERGE_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_extensions.py's bar
+
+
+def moe_config():
+    return get_lm_config(MOE_ARCH)
+
+
+def build_moe_index(lm, params, cfg, vocab, toks, segs, seed, dev):
+    """``build_partitioned(K=4)`` of ``toks`` through ``LMProvider`` over
+    the MoE LM, launch counts zeroed just before and read just after,
+    and the share of (token, slot) pairs each batch dropped."""
+    provider = LMProvider(lm, params, cfg.embed_dim, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(seed + 7))
+    ip = init_interaction_params(torch.Generator().manual_seed(seed + 1),
+                                 cfg.embed_dim, device=dev)
+    builder = IndexBuilder(cfg, vocab, provider, ip=ip, device=dev)
+    # each dispatch's kept share over all pairs and over the pairs of the
+    # docs' own tokens (pads enter the LM as token 0, as in the reference)
+    real = torch.from_numpy(toks >= 0).to(dev).repeat_interleave(
+        lm.moe.top_k, dim=1)
+    kept = []
+    route = T.moe_route
+
+    def observed(*args, **kw):
+        out = route(*args, **kw)
+        m = out.pos < out.cap
+        b = len(kept) // lm.n_layers
+        r = real[b * LM_BATCH:(b + 1) * LM_BATCH]
+        if r.shape != m.shape:
+            raise AssertionError(f"dispatch {len(kept)} routes {m.shape}, "
+                                 f"batch {b} holds {r.shape} pairs")
+        kept.append(torch.stack([m.float().mean(), (m & r).sum() / r.sum()]))
+        return out
+
+    T.moe_route = observed
+    try:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pidx = builder.build_partitioned(toks, segs, LM_K,
+                                         batch_size=LM_BATCH,
+                                         max_uniq=BUILD_MAX_UNIQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        built = launch_counts()
+    finally:
+        T.moe_route = route
+    st = builder.last_build_stats
+    log(f"phase 10: build launches {built}")
+    if built["flash_attn"] != lm.n_layers * st.n_batches:
+        raise AssertionError(f"flash_attn launched {built['flash_attn']} "
+                             f"times for {lm.n_layers} layers x "
+                             f"{st.n_batches} batches")
+    if built["seg_interact"] != st.n_batches:
+        raise AssertionError(f"seg_interact launched {built['seg_interact']}"
+                             f" times for {st.n_batches} batches")
+    if built["embed_bag"] < st.n_batches:
+        raise AssertionError(f"embed_bag launched {built['embed_bag']} "
+                             f"times for {st.n_batches} batches")
+    if len(kept) != lm.n_layers * st.n_batches:
+        raise AssertionError(f"{len(kept)} MoE dispatches for "
+                             f"{lm.n_layers} layers x {st.n_batches} batches")
+    dropped = 1.0 - torch.stack(kept).reshape(st.n_batches, lm.n_layers, 2
+                                              ).mean(1).cpu().numpy()
+    cap = T.moe_capacity(toks.shape[1], lm.moe.top_k, lm.moe.n_experts,
+                         lm.moe.capacity_factor)
+    stage = ", ".join(f"{k} {v:.2f}s" for k, v in st.stage_s.items())
+    log(f"phase 10: build_partitioned K={pidx.n_shards}: {st.n_docs} docs in "
+        f"{wall:.2f}s ({st.n_docs / wall:.1f} docs/s end to end; stages "
+        f"1-3 {st.build_s:.2f}s = {st.docs_per_s:.1f} docs/s), "
+        f"{st.n_batches} batches; host seconds per stage: {stage}; nnz "
+        f"{pidx.nnz}, posting_nbytes {pidx.posting_nbytes}")
+    every, own = dropped[:, 0], dropped[:, 1]
+    log(f"phase 10: (token, slot) pairs dropped per build batch at cf "
+        f"{lm.moe.capacity_factor} (C = {cap} per {toks.shape[1]}-token "
+        f"doc, top-{lm.moe.top_k} of {lm.moe.n_experts}; mean over the "
+        f"layers): all pairs mean {every.mean():.4f} (min "
+        f"{every.min():.4f}, max {every.max():.4f}), the pairs of the "
+        f"docs' own tokens mean {own.mean():.4f} (min {own.min():.4f}, max "
+        f"{own.max():.4f}; {(toks >= 0).mean():.4f} of the positions); by "
+        f"batch " + " ".join(f"{a:.4f}/{b:.4f}" for a, b in dropped))
+    return builder, pidx, built, st, wall, dropped
+
+
+def greedy_decode(params, lm, prompts, steps):
+    """``prefill_cache`` of the prompts, then ``steps`` greedy
+    ``decode_step``s: (the step logits (steps + 1, B, V): the prefill's
+    then each step's, the tokens fed (B, steps), ms per step, the
+    cache)."""
+    logits, cache = T.prefill_cache(params, prompts, lm,
+                                    prompts.shape[1] + steps)
+    out, fed, ms = [logits], [], []
+    for _ in range(steps):
+        tok = out[-1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.decode_step(params, cache, tok, lm)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+        fed.append(tok)
+    return torch.stack(out), torch.stack(fed, 1), ms, cache
+
+
+def forward_logits(params, lm, tokens, first: int):
+    """The forward's float32 logits at positions ``first`` onwards."""
+    hidden, _ = T.forward(params, tokens, lm)
+    return T.logits_of(params, hidden[:, first:], lm)
+
+
+def greedy_agreement(got, want):
+    """The share of positions where decode's and the forward's logits
+    (B, T, V) pick the same greedy token; the median over positions of
+    the forward's top-1 minus top-2 logit, and of the largest
+    |decode - forward| over the vocabulary."""
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).median().item()
+    diff = (got - want).abs().amax(-1).median().item()
+    return agree, margin, diff
+
+
+def check_decode(params, lm, prompts, dev):
+    """Decode against the forward at full width, DECODE_CHECK_LAYERS
+    layers, float32, capacity factor DROPLESS_CF: every
+    step's logits equal the forward's at that position over the prompt
+    and the tokens fed, at the reference's decode-vs-prefill bar (rtol
+    2e-2 / atol 2e-2)."""
+    n_l = min(DECODE_CHECK_LAYERS, lm.n_layers)
+    cfg = dataclasses.replace(
+        lm, n_layers=n_l, dtype="float32",
+        moe=dataclasses.replace(lm.moe, capacity_factor=DROPLESS_CF))
+    p32 = {k: ({n: t[:n_l].float() for n, t in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    with torch.inference_mode():
+        steps, fed, _, _ = greedy_decode(p32, cfg, prompts, DECODE_STEPS)
+        full = torch.cat([prompts, fed], 1)
+        want = forward_logits(p32, cfg, full, prompts.shape[1] - 1)
+    torch.cuda.synchronize()
+    got = steps.transpose(0, 1)                    # (B, steps + 1, V)
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    err = (got - want).abs().max().item()
+    agree, margin, diff = greedy_agreement(got, want)
+    cap = T.moe_capacity(full.shape[1], cfg.moe.top_k, cfg.moe.n_experts,
+                         cfg.moe.capacity_factor)
+    log(f"phase 10: decode == forward, {n_l} layers at full "
+        f"width in float32, cf {DROPLESS_CF} (C = {cap} of "
+        f"{full.shape[1]} tokens: dropless): {DECODE_STEPS} steps of "
+        f"{prompts.shape[0]} rows after a {prompts.shape[1]}-token prefill, "
+        f"max |diff| {err:.3g} (bar rtol 2e-2 / atol 2e-2), logits up to "
+        f"{want.abs().max().item():.3g}; greedy agreement {agree:.4f} "
+        f"(median top-1 - top-2 margin {margin:.3g}, median largest "
+        f"|diff| per position {diff:.3g})")
+    return err
+
+
+def check_merge(cache, seed, dev):
+    """``combine_decode_stats`` over DECODE_SLICES slices of layer 0's
+    cache against ``gqa_attention``'s decode output over the whole cache
+    (rtol 1e-5 / atol 1e-5), with rows at lengths down to less than one
+    slice, so later slices hold no valid position."""
+    k, v = cache.k[0], cache.v[0]                  # (B, S, Hkv, hd)
+    n_b, n_s, n_hkv, hd = k.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(n_b, n_hkv * 3, hd, generator=g, device=dev)
+    q = q.to(k.dtype)
+    lengths = (n_s - torch.arange(n_b, device=dev) * (n_s // n_b)).to(
+        torch.int32)
+    s_loc = n_s // DECODE_SLICES
+    stats = []
+    for i in range(DECODE_SLICES):
+        pos = i * s_loc + torch.arange(s_loc, device=dev)
+        sl = slice(i * s_loc, (i + 1) * s_loc)
+        stats.append(local_decode_stats(q, k[:, sl], v[:, sl],
+                                        pos[None] < lengths[:, None]))
+    got = combine_decode_stats(*[torch.stack([s[j] for s in stats])
+                                 for j in range(3)])
+    want = gqa_attention(q.float()[:, None], k, v, causal=False, chunk=n_s,
+                         kv_valid_len=lengths)[:, 0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **MERGE_TOL)
+    err = (got - want).abs().max().item()
+    log(f"phase 10: combine_decode_stats over {DECODE_SLICES} slices of "
+        f"layer 0's cache {tuple(k.shape)} == gqa_attention's decode "
+        f"output (lengths {lengths.tolist()}; max |diff| {err:.3g}, bar "
+        f"rtol 1e-5 / atol 1e-5)")
+    return err
+
+
+def decode_phase(params, lm, toks, seed, dev):
+    """DECODE_PROMPTS prompts of DECODE_PROMPT_LEN tokens (phase 5's
+    docs, pads as token 0) prefilled, then DECODE_STEPS greedy steps at
+    full depth in bf16: ms per step, tokens/s, cache bytes, and the
+    share of steps whose greedy token equals that of the forward over the
+    same tokens at the dropless capacity factor DROPLESS_CF (decode, at
+    M = 1, never drops a pair); then the float32 check and the merge."""
+    prompts = torch.from_numpy(toks[:DECODE_PROMPTS, :DECODE_PROMPT_LEN]
+                               ).clamp(min=0).to(dev)
+    with torch.inference_mode():
+        greedy_decode(params, lm, prompts, 2)                   # warm-up
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps, fed, ms, cache = greedy_decode(params, lm, prompts,
+                                              DECODE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launch_counts()
+        full = torch.cat([prompts, fed], 1)
+        dropless = dataclasses.replace(lm, moe=dataclasses.replace(
+            lm.moe, capacity_factor=DROPLESS_CF))
+        want = forward_logits(params, dropless, full, prompts.shape[1] - 1)
+    agree, margin, diff = greedy_agreement(steps.transpose(0, 1), want)
+    if not bool(torch.isfinite(steps).all()):
+        raise AssertionError("decode gave non-finite logits")
+    if launched["flash_attn"] != lm.n_layers:
+        raise AssertionError(f"the prefill launched flash_attn "
+                             f"{launched['flash_attn']} times for "
+                             f"{lm.n_layers} layers")
+    cache_bytes = (cache.k.numel() + cache.v.numel()) * cache.k.element_size()
+    p50, p95 = np.percentile(ms, 50), np.percentile(ms, 95)
+    log(f"phase 10: decode {prompts.shape[0]} x {prompts.shape[1]} prompt "
+        f"tokens prefilled, then {DECODE_STEPS} greedy decode_steps in "
+        f"{lm.dtype} at full depth: ms per step p50 {p50:.3f} / p95 "
+        f"{p95:.3f} (mean {np.mean(ms):.3f}), "
+        f"{prompts.shape[0] * DECODE_STEPS / (sum(ms) / 1e3):.1f} tokens/s "
+        f"over the steps; prefill and steps {wall:.2f}s; KV cache "
+        f"{cache_bytes} bytes ({tuple(cache.k.shape)} x 2, "
+        f"{cache.k.dtype}); launches {launched}; greedy agreement with "
+        f"the bf16 forward over the same {full.shape[1]} tokens at the "
+        f"dropless cf {DROPLESS_CF} {agree:.4f} (the forward's median "
+        f"top-1 - top-2 logit margin {margin:.3g}; median over positions "
+        f"of the largest |decode - forward| {diff:.3g})")
+    f32_err = check_decode(params, lm, prompts, dev)
+    merge_err = check_merge(cache, seed, dev)
+    return dict(p50_ms=p50, p95_ms=p95,
+                tokens_per_s=prompts.shape[0] * DECODE_STEPS
+                / (sum(ms) / 1e3), cache_bytes=cache_bytes,
+                greedy_agreement=agree, greedy_margin=margin,
+                logit_diff=diff, f32_max_abs_err=f32_err,
+                merge_max_abs_err=merge_err)
+
+
+def phase10(seed: int, dev, corpus):
+    """The MoE LM at granite-moe-3b-a800m's full width and depth through
+    the LM bridge, and KV-cache decode (module doc), over phase 5's
+    corpus."""
+    t_phase = time.perf_counter()
+    cfg, ds, vocab, toks, segs, _ = corpus
+    toks, segs = toks[:MOE_DOCS], segs[:MOE_DOCS]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    lm = moe_config()
+    t0 = time.perf_counter()
+    params = T.init_params(lm, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params, n_bytes = param_count(params)
+    if n_params != lm.n_params:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{lm.n_params}")
+    log(f"phase 10: {lm.name} ({lm.n_layers} layers, d_model {lm.d_model}, "
+        f"{lm.n_heads}/{lm.n_kv_heads} heads of {lm.head_dim}, "
+        f"{lm.moe.n_experts} experts top-{lm.moe.top_k} of d_expert "
+        f"{lm.moe.d_expert}, cf {lm.moe.capacity_factor}, vocab "
+        f"{lm.vocab_size}, {lm.dtype}, router float32): {n_params} "
+        f"parameters, {n_bytes} bytes, drawn in "
+        f"{time.perf_counter() - t0:.2f}s")
+    fa_errs = check_flash_attn(lm, seed, dev, tag="phase 10", sweep=())
+    builder, pidx, built, st, wall, dropped = build_moe_index(
+        lm, params, cfg, vocab, toks, segs, seed, dev)
+    n_split = min(2, st.n_batches)
+    split = kernel_split(lambda: builder.pipeline.stream_runs(
+        toks[:n_split * LM_BATCH], segs[:n_split * LM_BATCH],
+        batch_size=LM_BATCH, max_uniq=BUILD_MAX_UNIQ), n_split)
+    parts = None
+    if split is not None:
+        parts, rest = split
+        if not all(parts[name] > 0 for name in MOE_RANGES):
+            raise AssertionError(f"the profile put no kernel time in some "
+                                 f"of moe_ffn's ranges: {parts}")
+        log(f"phase 10: device ms per build batch (CUPTI, {n_split} "
+            f"batches): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      parts.items())
+            + f"; total {sum(parts.values()):.2f}; largest of the rest: "
+            f"{rest}")
+    check_lm_on_the_fly(pidx, builder, toks, segs, dev, tag="phase 10")
+    served = serve_lm(pidx, builder, toks, segs, ds, vocab, seed, dev,
+                      tag="phase 10")
+    del builder, pidx
+    decode = decode_phase(params, lm, toks, seed, dev)
+    row = time_flash_attn(lm, {"build": built["flash_attn"],
+                               "noindex": served["noindex"]["flash_attn"]},
+                          fa_errs, dev, tag="phase 10",
+                          name="flash_attn_hd64")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    log(f"phase 10: peak device memory "
+        f"{peak if peak is not None else 'not measured'} bytes; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    row.update(peak_bytes=peak, build_docs_per_s=st.n_docs / wall,
+               build_split_ms=parts,
+               dropped_share=float(dropped[:, 0].mean()),
+               dropped_share_own_tokens=float(dropped[:, 1].mean()),
+               decode=decode)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the SNRM baseline
+# ---------------------------------------------------------------------------
+
+SNRM_LATENT = 128        # bench_snrm.py
+SNRM_LR = 3e-3
+SNRM_STEPS = 80
+SNRM_BATCH = 16
+SNRM_TOL = dict(rtol=1e-4, atol=1e-5)
+SNRM_METRICS = ("P@5", "P@10", "MAP")
+
+
+def snrm_batches(queries, qrels, toks, seed):
+    """bench_snrm.py's sampler: SNRM_BATCH queries, a relevant and a
+    non-relevant doc for each."""
+    rng = np.random.RandomState(seed)
+    for _ in range(SNRM_STEPS):
+        qi = rng.randint(0, len(queries), SNRM_BATCH)
+        pos, neg = [], []
+        for q in qi:
+            rel = np.flatnonzero(qrels[q] > 0)
+            nrel = np.flatnonzero(qrels[q] == 0)
+            pos.append(rel[rng.randint(rel.size)] if rel.size else 0)
+            neg.append(nrel[rng.randint(nrel.size)] if nrel.size else 1)
+        yield {"query": queries[qi], "pos": toks[pos], "neg": toks[neg]}
+
+
+def on(batch, dev):
+    return {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def phase11(seed: int, dev, corpus, seine):
+    """SNRM (core/snrm.py) over phase 5's corpus and queries with
+    bench_snrm.py's recipe: the first step on the card against the CPU,
+    SNRM_STEPS steps, every doc encoded in chunks, dot-latent retrieval
+    over all docs per query, P@k / MAP and the latent density beside
+    phase 9's rows (``seine``: label -> metrics, BM25 among them)."""
+    t_phase = time.perf_counter()
+    cfg, ds, vocab, toks, segs, _ = corpus
+    queries = pad_queries(ds.queries, vocab.map_tokens, q_len=Q_SLOTS)
+    qrels = ds.qrels
+    params = snrm.init_snrm(vocab.size, SNRM_LATENT,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed), device=dev)
+    opt = adam(SNRM_LR)
+    state = opt.init(params)
+    batches = snrm_batches(queries, qrels, toks, seed)
+    first = next(batches)
+    loss, grads = value_and_grad(snrm.snrm_loss, params, on(first, dev))
+    host = {k: v.cpu() for k, v in params.items()}
+    cpu_loss, cpu_grads = value_and_grad(snrm.snrm_loss, host,
+                                         on(first, "cpu"))
+    torch.testing.assert_close(loss.cpu(), cpu_loss, **SNRM_TOL)
+    err = 0.0
+    for k in params:
+        torch.testing.assert_close(grads[k].cpu(), cpu_grads[k], **SNRM_TOL,
+                                   msg=k)
+        err = max(err, (grads[k].cpu() - cpu_grads[k]).abs().max().item())
+    log(f"phase 11: SNRM's first step on the card == the CPU's: loss "
+        f"{loss.item():.6f} / {cpu_loss.item():.6f}, gradients max |diff| "
+        f"{err:.3g} (rtol 1e-4 / atol 1e-5)")
+    losses, ms = [], []
+    for batch in [first, *batches]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(snrm.snrm_loss, params, on(batch, dev))
+        upd, state = opt.update(grads, state, params)
+        params = apply_updates(params, upd)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("SNRM's loss is not finite")
+    t0 = time.perf_counter()
+    z = snrm.encode_docs(params, toks)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    if tuple(z.shape) != (toks.shape[0], SNRM_LATENT) \
+            or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"SNRM encodings {tuple(z.shape)} not finite")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        zq = snrm.encode(params, torch.from_numpy(queries).to(dev))
+        scores = (zq @ z.T).cpu().numpy()
+    per_q = [evaluate_ranking(scores[i], qrels[i])
+             for i in range(len(queries))]
+    mm = mean_metrics(per_q)
+    density = (z > 0).float().mean().item()
+    log(f"phase 11: SNRM d_latent {SNRM_LATENT}, adam({SNRM_LR}) "
+        f"{SNRM_STEPS} steps of {SNRM_BATCH} (q, pos, neg): ms per step p50 "
+        f"{np.percentile(ms, 50):.3f} / p95 {np.percentile(ms, 95):.3f}, "
+        f"loss first 8 {losses[:8].mean():.4f} -> last 8 "
+        f"{losses[-8:].mean():.4f}; {toks.shape[0]} docs encoded in "
+        f"chunks of {snrm.ENCODE_CHUNK} in {enc_s:.2f}s, latent density "
+        f"{density:.4f}; dot-latent retrieval over all docs for "
+        f"{len(queries)} queries ({time.perf_counter() - t0:.2f}s)")
+    log("phase 11: effectiveness " + "; ".join(
+        f"{label}: " + ", ".join(f"{k} {m[k]:.4f}" for k in SNRM_METRICS)
+        for label, m in [("SNRM", mm)] + [(f"{k} (phase 9)", v)
+                                          for k, v in seine.items()])
+        + f"; phase {time.perf_counter() - t_phase:.1f}s")
+    return dict(metrics={k: mm[k] for k in SNRM_METRICS}, density=density,
+                losses=losses, first_step_err=err,
+                p50_ms=float(np.percentile(ms, 50)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3601,6 +4109,10 @@ def main() -> int:
     del built
     torch.cuda.empty_cache()
     kernels.append(phase6(args.seed, dev, corpus))
+    torch.cuda.empty_cache()
+    kernels.append(phase10(args.seed, dev, corpus))
+    torch.cuda.empty_cache()
+    phase11(args.seed, dev, corpus, trained["effectiveness"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

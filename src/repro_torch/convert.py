@@ -7,7 +7,8 @@ so a parity test feeds the reference's own parameters through
 (the atomic functions' ``a``, ``b`` and MLP),
 :func:`provider_from_numpy` (an embedding table) and
 :func:`lm_params_from_numpy` / :func:`lm_provider_from_numpy` (an LM's
-parameter tree and ``LMProvider``'s projection);
+parameter tree, dense or MoE, and ``LMProvider``'s projection),
+:func:`snrm_params_from_numpy` (the SNRM baseline's encoder);
 :func:`index_to_device` turns any object with
 the index's array fields (a ``repro`` index, a port index on another
 device) into the port's index on ``device``.  Nothing here imports jax:
@@ -164,11 +165,12 @@ def _f32(a) -> np.ndarray:
 
 def lm_params_from_numpy(tree: Any, cfg, device=None) -> Dict[str, Any]:
     """An LM parameter tree (the reference's ``T.init_params`` pytree:
-    ``embed``, ``layers.{ln1, ln2, wq, wk, wv, wo, w_gate, w_up,
-    w_down}`` stacked over L, ``final_norm``, ``unembed``; JAX or numpy
-    arrays) as the port's tree on ``device`` in the config's dtype.
-    Every name and shape is checked against the port's own
-    ``T.param_specs``."""
+    ``embed``, ``layers.{ln1, ln2, wq, wk, wv, wo}`` and the dense
+    ``w_gate, w_up, w_down`` or the MoE ``router, we_*`` and shared
+    ``ws_*`` stacked over L, ``final_norm``, ``unembed``; JAX or numpy
+    arrays) as the port's tree on ``device``, each leaf in its dtype
+    (``T.param_dtype``: the config's, the router float32).  Every name
+    and shape is checked against the port's own ``T.param_specs``."""
     flat = {}
     for name, value in tree.items():
         if isinstance(value, dict):
@@ -180,10 +182,10 @@ def lm_params_from_numpy(tree: Any, cfg, device=None) -> Dict[str, Any]:
     if want != got:
         raise ValueError(f"{cfg.name} parameters do not match the port's "
                          f"layout: expected {want}, got {got}")
-    dev, dt = resolve_device(device), T._dt(cfg)
+    dev = resolve_device(device)
     params: Dict[str, Any] = {"layers": {}}
     for name, value in flat.items():
-        t = torch.from_numpy(_f32(value)).to(dev, dt)
+        t = torch.from_numpy(_f32(value)).to(dev, T.param_dtype(cfg, name))
         if name.startswith("layers."):
             params["layers"][name[len("layers."):]] = t
         else:
@@ -202,3 +204,21 @@ def lm_provider_from_numpy(cfg, params: Any, proj=None,
         return LMProvider(cfg, tp, cfg.d_model, device=dev)
     p = torch.from_numpy(_f32(proj))
     return LMProvider(cfg, tp, p.shape[1], proj=p, device=dev)
+
+
+SNRM_NAMES = ("emb", "w1", "w2")
+
+
+def snrm_params_from_numpy(tree: Any, device=None) -> Dict[str, Any]:
+    """The reference's ``init_snrm`` pytree (``emb`` (|v|, d_emb), ``w1``
+    (d_emb, d_hidden), ``w2`` (d_hidden, d_latent); JAX or numpy arrays)
+    as the port's float32 tree on ``device``."""
+    if set(tree) != set(SNRM_NAMES):
+        raise ValueError(f"SNRM parameters are {SNRM_NAMES}, got "
+                         f"{sorted(tree)}")
+    dims = [np.shape(tree[n]) for n in SNRM_NAMES]
+    if any(len(s) != 2 for s in dims) or dims[0][1] != dims[1][0] \
+            or dims[1][1] != dims[2][0]:
+        raise ValueError(f"SNRM shapes do not chain: {dims}")
+    dev = resolve_device(device)
+    return {n: torch.from_numpy(_f32(tree[n])).to(dev) for n in SNRM_NAMES}

@@ -7,9 +7,9 @@ pluggable:
 
 * ``HashProvider``    — a fixed random table (word2vec stand-in);
 * ``LearnedProvider`` — a trainable table;
-* ``LMProvider``      — contextual embeddings from a decoder-only LM
-  (``models.transformer``): the bridge from the LM architectures to
-  SEINE's index.
+* ``LMProvider``      — contextual embeddings from a decoder-only LM,
+  dense or MoE (``models.transformer``): the bridge from the LM
+  architectures to SEINE's index.
 
 Tables and projections are drawn from an explicit ``torch.Generator`` or
 passed in: ``jax.random`` streams cannot be reproduced, so a parity test
@@ -183,7 +183,10 @@ class LMProvider:
         attention never mixes docs, so each row equals the reference's
         one-doc forward.  Pad and OOV positions enter the LM as token 0
         and are attended (there is no padding mask, as in the
-        reference); only their output rows are zeroed."""
+        reference); only their output rows are zeroed.  A MoE model
+        routes each doc as its own group of ``n`` tokens, as the
+        reference's one-doc forward does: its capacity depends on ``n``,
+        so the batch's pads are never trimmed before the forward."""
         n = tokens.shape[-1]
         valid = tokens >= 0
         hidden, _ = T.forward(self.params, tokens.reshape(-1, n).clamp(min=0),

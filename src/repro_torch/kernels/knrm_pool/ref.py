@@ -18,9 +18,13 @@ SIGMAS = (0.001,) + (0.1,) * 10
 
 @lru_cache(maxsize=None)
 def _bank(device: torch.device):
-    """(mus, sigmas) as float32 tensors on ``device``, made once."""
-    return (torch.tensor(MUS, dtype=torch.float32, device=device),
-            torch.tensor(SIGMAS, dtype=torch.float32, device=device))
+    """(mus, sigmas) as float32 tensors on ``device``, made once, outside
+    inference mode: a first call from an engine's scoring (under
+    ``torch.inference_mode``) would otherwise cache inference tensors,
+    which autograd refuses to save when a training step uses them."""
+    with torch.inference_mode(False):
+        return (torch.tensor(MUS, dtype=torch.float32, device=device),
+                torch.tensor(SIGMAS, dtype=torch.float32, device=device))
 
 
 def kernel_features(cos_norm: torch.Tensor, seg_mask: torch.Tensor

@@ -44,18 +44,14 @@ class ParamTree(nn.Module):
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None, *,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """N(0, scale^2) with scale 1/sqrt(d_in) by default, drawn in float32
-    on the generator's device, then cast to ``dtype``."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return (torch.randn(d_in, d_out, generator=gen, device=gen.device)
-            * scale).to(dtype)
-
-
-def embed_init(gen: torch.Generator, n: int, d: int, *,
                dtype: torch.dtype = torch.float32,
-               scale: float = 0.02) -> torch.Tensor:
-    return dense_init(gen, n, d, scale, dtype=dtype)
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """N(0, scale^2) of shape (*lead, d_in, d_out), scale 1/sqrt(d_in) by
+    default, drawn in float32 on the generator's device, then cast to
+    ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return (torch.randn(*lead, d_in, d_out, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def mlp_init(gen: torch.Generator, dims: Tuple[int, ...]) -> dict:

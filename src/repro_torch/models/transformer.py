@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, dense GQA (port of the dense path of
-``repro.models.transformer``: ``init_params``, ``forward``, ``prefill``).
+"""Decoder-only transformer LM, dense GQA and MoE (port of
+``repro.models.transformer``: ``init_params``, the capacity-dispatch
+``moe_ffn``, ``forward``, ``prefill`` and the KV-cache decode
+``init_cache`` / ``decode_step``).
 
 The reference scans stacked layers under remat for pod-scale SPMD; the
 port keeps the stacked parameter layout (so a JAX pytree carries across
@@ -9,49 +11,51 @@ hand-written CUDA kernel for CUDA tensors, its plain version on the CPU
 (where the reference uses its chunked jnp stand-in).  The bf16 forward
 rounds where the reference does: ``rms_norm``, RoPE and attention
 compute in float32 and cast back; the residual adds and
-``silu(gate) * up`` run in the working dtype.
+``silu(gate) * up`` run in the working dtype.  The MoE router is
+float32 in every model, as the reference's.
 
-MoE configs (the capacity dispatch), decoding with a KV cache, the
-losses and training are not ported yet (ROADMAP Queue 1 item 15).
+A decode step attends over the cache through ``layers.gqa_attention``
+(the reference's jnp path: the flash kernel takes no valid lengths).
+``prefill_cache`` fills a cache from a prompt in one forward; the
+reference has no such entry and decodes a prompt token by token.  The
+losses and LM training are not ported yet (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..configs.base import TransformerConfig
 from ..core.index import gather_clip
 from ..kernels.flash_attn import flash_attention
 from ..kernels.utils import resolve_device
-from .layers import apply_rope, dense_init, embed_init, rms_norm
+from .layers import apply_rope, dense_init, gqa_attention, rms_norm, softmax
 
 Params = Dict[str, Any]
 Attention = Callable[..., torch.Tensor]
-LAYER_NAMES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-               "w_down")
+# parameters kept in float32 whatever the model's dtype
+F32_PARAMS = ("layers.router",)
 
 
 def _dt(cfg: TransformerConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE config; the MoE FFN (capacity dispatch) "
-            "is not ported yet (ROADMAP Queue 1 item 15)")
+def param_dtype(cfg: TransformerConfig, name: str) -> torch.dtype:
+    """The dtype of parameter ``name`` (a key of :func:`param_specs`)."""
+    return torch.float32 if name in F32_PARAMS else _dt(cfg)
 
 
 def param_specs(cfg: TransformerConfig) -> Dict[str, Tuple[tuple,
                                                            Optional[float]]]:
     """``{"embed": (shape, scale), "layers.wq": ...}`` for every
-    parameter of the dense model: the init's N(0, scale^2) draw, or
-    ``None`` for the RMSNorm scales (ones).  Layer weights are stacked
-    over L, as in the reference's pytree."""
-    _require_dense(cfg)
-    n_l, d, hd, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    parameter: the init's N(0, scale^2) draw, or ``None`` for the RMSNorm
+    scales (ones).  Layer weights are stacked over L, expert weights
+    over (L, E), as in the reference's pytree."""
+    n_l, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     specs = {
         "embed": ((cfg.vocab_size, d), 0.02),
@@ -61,11 +65,30 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Tuple[tuple,
         "layers.wk": ((n_l, d, hkv), 1.0 / math.sqrt(d)),
         "layers.wv": ((n_l, d, hkv), 1.0 / math.sqrt(d)),
         "layers.wo": ((n_l, hq, d), 1.0 / math.sqrt(hq * n_l)),
-        "layers.w_gate": ((n_l, d, f), 1.0 / math.sqrt(d)),
-        "layers.w_up": ((n_l, d, f), 1.0 / math.sqrt(d)),
-        "layers.w_down": ((n_l, f, d), 1.0 / math.sqrt(f * n_l)),
-        "final_norm": ((d,), None),
     }
+    if cfg.moe is None:
+        f = cfg.d_ff
+        specs.update({
+            "layers.w_gate": ((n_l, d, f), 1.0 / math.sqrt(d)),
+            "layers.w_up": ((n_l, d, f), 1.0 / math.sqrt(d)),
+            "layers.w_down": ((n_l, f, d), 1.0 / math.sqrt(f * n_l)),
+        })
+    else:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_expert
+        specs.update({
+            "layers.router": ((n_l, d, e), 1.0 / math.sqrt(d)),
+            "layers.we_gate": ((n_l, e, d, fe), 1.0 / math.sqrt(d)),
+            "layers.we_up": ((n_l, e, d, fe), 1.0 / math.sqrt(d)),
+            "layers.we_down": ((n_l, e, fe, d), 1.0 / math.sqrt(fe * n_l)),
+        })
+        if cfg.moe.n_shared_experts:
+            fs = cfg.moe.n_shared_experts * fe
+            specs.update({
+                "layers.ws_gate": ((n_l, d, fs), 1.0 / math.sqrt(d)),
+                "layers.ws_up": ((n_l, d, fs), 1.0 / math.sqrt(d)),
+                "layers.ws_down": ((n_l, fs, d), 1.0 / math.sqrt(fs * n_l)),
+            })
+    specs["final_norm"] = ((d,), None)
     if not cfg.tie_embeddings:
         specs["unembed"] = ((d, cfg.vocab_size), 1.0 / math.sqrt(d))
     return specs
@@ -75,23 +98,21 @@ def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """The reference's pytree ``{"embed", "layers": {name: (L, ...)},
-    "final_norm", "unembed"}`` in the config's dtype on ``device``
-    (default CUDA), with its shapes and scales, drawn in float32 from
-    ``generator`` (default: seeded with 0, on ``device``) one layer at a
-    time and cast.  A generator on the device draws a full-width model
-    in well under a second; one on the host takes minutes."""
+    "final_norm", "unembed"}`` on ``device`` (default CUDA), with its
+    shapes, scales and dtypes (:func:`param_dtype`), drawn in float32
+    from ``generator`` (default: seeded with 0, on ``device``) one layer
+    at a time and cast.  A generator on the device draws a full-width
+    model in about a second; one on the host takes minutes."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
-    dt = _dt(cfg)
     params: Params = {"layers": {}}
     for name, (shape, scale) in param_specs(cfg).items():
+        dt = param_dtype(cfg, name)
         if scale is None:
             t = torch.ones(shape, dtype=dt, device=dev)
-        elif name == "embed":
-            t = embed_init(gen, *shape, dtype=dt, scale=scale).to(dev)
-        elif len(shape) == 3:                 # stacked over the layers
-            t = torch.stack([dense_init(gen, *shape[1:], scale,
-                                        dtype=dt).to(dev)
+        elif len(shape) >= 3:                 # stacked over the layers
+            t = torch.stack([dense_init(gen, *shape[-2:], scale, dtype=dt,
+                                        lead=shape[1:-2]).to(dev)
                              for _ in range(shape[0])])
         else:
             t = dense_init(gen, *shape, scale, dtype=dt).to(dev)
@@ -118,10 +139,131 @@ def dense_ffn(x: torch.Tensor, lp: Params) -> torch.Tensor:
     return h @ lp["w_down"]
 
 
+# -- MoE dispatch (capacity-based; Switch/GShard token-drop semantics) ------
+
+def moe_capacity(m_tokens: int, k: int, n_experts: int,
+                 cf: float = 1.25) -> int:
+    return max(1, int(math.ceil(m_tokens * k / n_experts * cf)))
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last axis: the k largest values in
+    descending order, the lower index first among equal values (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def moe_slots(eid: torch.Tensor) -> torch.Tensor:
+    """(G, N) expert ids -> (G, N) rank of each entry among the entries
+    of its group with the same expert, in entry order: the reference's
+    stable argsort by expert id, then the position inside each run."""
+    n_g, n = eid.shape
+    sorted_e, order = torch.sort(eid, dim=1, stable=True)
+    idx = torch.arange(n, device=eid.device).expand(n_g, n)
+    new_run = torch.ones_like(sorted_e, dtype=torch.bool)
+    new_run[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
+    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=1).values
+    return torch.empty_like(eid).scatter_(1, order, (idx - run_start)
+                                          .to(eid.dtype))
+
+
+class Routing(NamedTuple):
+    """Where a group's (token, slot) pairs go: the renormalised top-k
+    weights (G, M, K) float32, their experts ``eid`` and ranks ``pos``
+    among the group's pairs of that expert (both (G, M * K), token-major),
+    the capacity C (a pair keeps a row iff ``pos < C``) and the aux
+    loss."""
+    topv: torch.Tensor
+    eid: torch.Tensor
+    pos: torch.Tensor
+    cap: int
+    aux: torch.Tensor
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig,
+              capacity_factor: Optional[float] = None) -> Routing:
+    """The float32 router, top-k with its renormalisation by
+    ``max(sum, 1e-9)``, the Switch aux loss on each token's first
+    choice, and the slot ranks, for x: (G, M, D) token groups."""
+    n_g, n_m, _ = x.shape
+    n_e, k = cfg.moe.n_experts, cfg.moe.top_k
+    if capacity_factor is None:
+        capacity_factor = cfg.moe.capacity_factor
+    probs = softmax(x.float() @ router, -1)                        # (G,M,E)
+    topv, topi = top_k(probs, k)                                   # (G,M,K)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    # one_hot(topi[..., 0]), without one_hot's range check (a host sync)
+    first = topi[..., :1] == torch.arange(n_e, device=x.device)
+    ce_frac = first.float().mean(dim=(0, 1))
+    aux = cfg.moe.router_aux_coef * n_e * torch.sum(me * ce_frac)
+    eid = topi.reshape(n_g, n_m * k)
+    return Routing(topv, eid, moe_slots(eid),
+                   moe_capacity(n_m, k, n_e, capacity_factor), aux)
+
+
+def moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+            capacity_factor: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (G, M, D) token groups -> (out (G, M, D), aux loss).
+
+    Each group routes its M tokens to their top-k experts
+    (:func:`moe_route`); a (token, slot) pair takes the next of the
+    expert's C rows in the group and is dropped when none is left (its
+    output is zero).  The dispatch buffer is gathered expert-major,
+    (E, G * C, D), so the expert SwiGLU is three batched products over
+    E; the reference scatters a (G, E, C, D) buffer with the same
+    rows.  The routing, the dispatch into the buffer and the combine
+    back run under ``torch.profiler`` ranges (``moe.route``,
+    ``moe.dispatch``, ``moe.combine``), so a profile attributes their
+    device time."""
+    n_g, n_m, d = x.shape
+    n_e, k = cfg.moe.n_experts, cfg.moe.top_k
+    dt, dev = x.dtype, x.device
+    with record_function("moe.route"):
+        r = moe_route(x, lp["router"], cfg, capacity_factor)
+    with record_function("moe.dispatch"):
+        cap, kept = r.cap, r.pos < r.cap
+        g_idx = torch.arange(n_g, device=dev)[:, None]
+        # buffer row of each kept (token, slot): (e * G + g) * C + pos
+        row = (r.eid * n_g + g_idx) * cap + r.pos.clamp(max=cap - 1)
+        # the token each buffer row holds; n_g * n_m (a zero row) if none
+        tok = (g_idx * n_m + torch.arange(n_m * k, device=dev) // k)
+        holder = torch.full((n_e * n_g * cap + 1,), n_g * n_m,
+                            dtype=torch.long, device=dev)
+        holder.index_put_((torch.where(kept, row, n_e * n_g * cap)
+                           .flatten(),), tok.flatten())
+        xz = torch.cat([x.reshape(n_g * n_m, d), x.new_zeros(1, d)])
+        buf = xz[holder[:-1]].reshape(n_e, n_g * cap, d)           # (E,GC,D)
+    h = silu(torch.bmm(buf, lp["we_gate"])) * torch.bmm(buf, lp["we_up"])
+    y = torch.bmm(h, lp["we_down"]).reshape(n_e * n_g * cap, d)
+    with record_function("moe.combine"):
+        back = torch.where(kept[..., None], y[row], 0).reshape(n_g, n_m, k,
+                                                               d)
+        out = (back * r.topv[..., None].to(dt)).sum(dim=2)
+
+    if cfg.moe.n_shared_experts:
+        hs = silu(x @ lp["ws_gate"]) * (x @ lp["ws_up"])
+        out = out + hs @ lp["ws_down"]
+    return out, r.aux
+
+
+def _ffn(h: torch.Tensor, lp: Params, cfg: TransformerConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.moe is None:
+        return dense_ffn(h, lp), torch.zeros((), device=h.device)
+    return moe_ffn(h, lp, cfg)
+
+
+# -- transformer block -------------------------------------------------------
+
 def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
-          positions: torch.Tensor, attention: Attention = flash_attention
-          ) -> torch.Tensor:
-    """One pre-norm block.  x: (B, S, D) -> (B, S, D)."""
+          positions: torch.Tensor, attention: Attention = flash_attention,
+          kv_out: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block.  x: (B, S, D) -> (x, MoE aux loss).  When
+    ``kv_out`` is a list, the block's roped k and v are appended to it."""
     n_b, n_s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -130,34 +272,135 @@ def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
     v = (h @ lp["wv"]).reshape(n_b, n_s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_out is not None:
+        kv_out.append((k, v))
     o = attention(q, k, v, causal=True)
     x = x + o.reshape(n_b, n_s, hq * hd) @ lp["wo"]
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + dense_ffn(h, lp)
+    y, aux = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
+    return x + y, aux
+
+
+def _layer(params: Params, i: int) -> Params:
+    return {name: t[i] for name, t in params["layers"].items()}
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            *, attention: Attention = flash_attention
+            *, attention: Attention = flash_attention,
+            kv_out: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (final hidden (B, S, D), MoE aux loss = 0).
+    """tokens: (B, S) -> (final hidden (B, S, D), summed MoE aux loss).
     The embedding gather is the reference's ``mode="clip"`` one: an id
     past the vocabulary reads the last row, a negative id wraps first
     (``LMProvider`` clamps its pads to 0 before, as the reference's
-    does)."""
-    _require_dense(cfg)
+    does).  A MoE model routes each row of the batch as its own group
+    of S tokens, as the reference does."""
     n_b, n_s = tokens.shape
     x = gather_clip(params["embed"], tokens)                     # (B, S, D)
     positions = torch.arange(n_s, device=x.device)[None].expand(n_b, n_s)
-    layers = params["layers"]
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        lp = {name: layers[name][i] for name in LAYER_NAMES}
-        x = block(x, lp, cfg, positions=positions, attention=attention)
+        x, a = block(x, _layer(params, i), cfg, positions=positions,
+                     attention=attention, kv_out=kv_out)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
+
+
+def logits_of(params: Params, hidden: torch.Tensor,
+              cfg: TransformerConfig) -> torch.Tensor:
+    """Float32 logits of hidden states (..., D) -> (..., V)."""
+    return hidden.float() @ unembed_matrix(cfg, params).float()
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             *, attention: Attention = flash_attention) -> torch.Tensor:
     """Full-prompt forward; returns next-token logits (B, V) in float32."""
     hidden, _ = forward(params, tokens, cfg, attention=attention)
-    return hidden[:, -1].float() @ unembed_matrix(cfg, params).float()
+    return logits_of(params, hidden[:, -1], cfg)
+
+
+# -- KV-cache decode ----------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (L, B, S, Hkv, hd)
+    v: torch.Tensor       # (L, B, S, Hkv, hd)
+    length: torch.Tensor  # (B,) int32 valid lengths
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, device=None) -> KVCache:
+    """An empty cache of ``max_len`` positions on ``device`` (default
+    CUDA), in ``dtype`` (default the model's)."""
+    dev = resolve_device(device)
+    dt = dtype or _dt(cfg)
+    sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(sh, dtype=dt, device=dev),
+                   torch.zeros(sh, dtype=dt, device=dev),
+                   torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def _write_at(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
+              new: torch.Tensor) -> None:
+    """cache[b, at[b]] = new[b] in place, a row with ``at`` past the
+    cache left as it is (the reference's scatter drops it)."""
+    n_s = cache.shape[1]
+    pos = at.long().clamp(max=n_s - 1)
+    fits = (at < n_s)[:, None, None]
+    cache[rows, pos] = torch.where(fits, new.to(cache.dtype),
+                                   cache[rows, pos])
+
+
+def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
+                cfg: TransformerConfig) -> Tuple[torch.Tensor, KVCache]:
+    """One autoregressive step.  tokens: (B,) -> (logits (B, V) float32,
+    the cache one longer).  Each row's k and v are written at its own
+    ``length`` into ``cache``'s tensors, which the returned cache shares
+    (the step updates the cache in place, as a donated buffer)."""
+    n_b = tokens.shape[0]
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    length = cache.length
+    x = gather_clip(params["embed"], tokens)[:, None]              # (B,1,D)
+    pos = length[:, None]                                          # (B,1)
+    rows = torch.arange(n_b, device=x.device)
+    chunk = min(cache.k.shape[2], 4096)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kc, vc = cache.k[i], cache.v[i]
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q = (h @ lp["wq"]).reshape(n_b, 1, hq, hd)
+        k = (h @ lp["wk"]).reshape(n_b, 1, hkv, hd)
+        v = (h @ lp["wv"]).reshape(n_b, 1, hkv, hd)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        _write_at(kc, rows, length, k[:, 0])
+        _write_at(vc, rows, length, v[:, 0])
+        o = gqa_attention(q, kc, vc, causal=False, chunk=chunk,
+                          kv_valid_len=length + 1)
+        x = x + o.reshape(n_b, 1, hq * hd) @ lp["wo"]
+        y, _ = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(n_b, 1, d),
+                    lp, cfg)
+        x = x + y
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_of(params, x[:, 0], cfg), KVCache(cache.k, cache.v,
+                                                    length + 1)
+
+
+def prefill_cache(params: Params, tokens: torch.Tensor,
+                  cfg: TransformerConfig, max_len: int
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """A prompt of S tokens per row through one ``forward`` -> (its
+    next-token logits (B, V) float32, a cache of ``max_len`` positions
+    holding the prompt's k and v, every length S).  ``decode_step`` then
+    continues from position S."""
+    n_b, n_s = tokens.shape
+    if max_len < n_s:
+        raise ValueError(f"max_len {max_len} < prompt length {n_s}")
+    kv: list = []
+    hidden, _ = forward(params, tokens, cfg, kv_out=kv)
+    cache = init_cache(cfg, n_b, max_len, device=tokens.device)
+    for i, (k, v) in enumerate(kv):
+        cache.k[i, :, :n_s] = k
+        cache.v[i, :, :n_s] = v
+    cache.length.fill_(n_s)
+    return logits_of(params, hidden[:, -1], cfg), cache

@@ -383,6 +383,83 @@ def test_lm_phase_runs_on_the_cpu(seed, monkeypatch):
     assert row["f32_plain_ms"] > 0
     assert row["peak_bytes"] is None
 
+def _patch_lm(cs, monkeypatch, **sizes):
+    """The LM phases at a few dozen docs of 160 tokens in batches of 16,
+    the kernels' names wrapped in launch counters, card-only timing
+    stubbed."""
+    for name, value in dict(BUILD_DOCS=80, BUILD_N_B=5, BUILD_DE=32,
+                            BUILD_MAX_LEN=160, BUILD_MAX_UNIQ=128,
+                            LM_DOCS=48, LM_BATCH=16, LM_CAND=40,
+                            LM_NOINDEX_CAND=16, **sizes).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda fns, iters, kernel, cold=False: None)
+    monkeypatch.setattr(cs, "kernel_split", lambda run, n: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (lookup_ops, "retrieve_windows_kernel"),
+                      (knrm_ops, "knrm_pool_kernel"),
+                      (interactions, "seg_interact_kernel"),
+                      (seg_ops, "seg_interact_kernel"),
+                      (fa_ops, "flash_attn_kernel"),
+                      (eb_ops, "embed_bag_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+    monkeypatch.setattr(eb_ops, "embed_bag_segment_kernel", _counting_segments(
+        cs.embed_bag_segment_kernel, cs.embed_bag_kernel))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moe_phase_runs_on_the_cpu(seed, monkeypatch):
+    """Phase 10 (the MoE LM bridge and decode) at smoke("granite-moe-
+    3b-a800m") in bf16 with the published capacity factor 1.25 (pairs
+    drop) over 48 docs in batches of 16: the weights and their count,
+    the kernel check, the build with flash_attn counted per layer and
+    batch and the dropped share per batch, indexed == No-Index, both
+    engines, decode against the forward in float32, the slice merge and
+    the timing row."""
+    cs = _load_script()
+    _patch_lm(cs, monkeypatch, MOE_DOCS=48, DECODE_PROMPT_LEN=40,
+              DECODE_STEPS=4)
+    base = smoke("granite-moe-3b-a800m")
+    lm = dataclasses.replace(base, dtype="bfloat16", moe=dataclasses.replace(
+        base.moe, capacity_factor=1.25))
+    monkeypatch.setattr(cs, "moe_config", lambda: lm)
+    row = cs.phase10(seed, torch.device("cpu"), cs.build_corpus(seed))
+    assert set(row) >= KEYS
+    assert row["name"] == "flash_attn_hd64" and row["route"] == "cuda"
+    assert row["replaces"] == "src/repro/kernels/flash_attn/kernel.py:63"
+    assert row["shape"] == [16, 160, lm.n_heads, lm.n_kv_heads, lm.head_dim]
+    assert row["launches"] == lm.n_layers * -(-48 // 16)
+    assert row["launches_by_path"]["noindex"] > 0
+    assert row["max_abs_err"] == row["f32_max_abs_err"] == 0.0
+    assert 0.0 < row["dropped_share"] < 1.0
+    assert 0.0 <= row["dropped_share_own_tokens"] < 1.0
+    dec = row["decode"]
+    assert dec["p95_ms"] >= dec["p50_ms"] > 0 and dec["tokens_per_s"] > 0
+    assert dec["cache_bytes"] == 2 * lm.n_layers * 8 * 44 * lm.n_kv_heads \
+        * lm.head_dim * 2
+    assert 0.0 <= dec["greedy_agreement"] <= 1.0
+    assert dec["greedy_margin"] >= 0.0 and dec["logit_diff"] >= 0.0
+    assert dec["merge_max_abs_err"] <= 1e-5
+    assert row["peak_bytes"] is None
+
+
+def test_snrm_phase_runs_on_the_cpu(monkeypatch):
+    """Phase 11 (SNRM) over 80 docs: the first step against the CPU, a
+    few steps, the chunked encoding and the P@k beside phase 9's rows."""
+    cs = _load_script()
+    _patch_lm(cs, monkeypatch, SNRM_STEPS=4)
+    seine = {"BM25": {"P@5": 0.5, "P@10": 0.5, "MAP": 0.2}}
+    out = cs.phase11(0, torch.device("cpu"), cs.build_corpus(0), seine)
+    assert set(out["metrics"]) == set(cs.SNRM_METRICS)
+    assert all(0.0 <= v <= 1.0 for v in out["metrics"].values())
+    assert 0.0 < out["density"] <= 1.0
+    assert len(out["losses"]) == 4 and out["first_step_err"] < 1e-9
+
+
 def test_refuses_to_run_without_cuda():
     """No card: a non-zero exit and no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

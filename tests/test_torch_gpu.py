@@ -906,14 +906,70 @@ def test_bf16_lm_forward_on_cuda_matches_cpu(name, head_dim, seed):
     assert past.float().mean().item() <= 1e-3
 
 
-def _lm_build(device, n_docs=24):
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_forward_on_cuda_matches_cpu(name, monkeypatch):
+    """The MoE smoke LMs in float32 (TF32 off) on the card, through
+    flash_attn, against the same forward on the CPU: hidden states and
+    the summed aux loss at rtol 1e-4 / atol 1e-5, at the published
+    capacity factor 1.25 (pairs drop) and the smoke's dropless 8."""
+    _require_cuda()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for cf in (1.25, 8.0):
+        c = smoke(name)
+        c = dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=cf))
+        params = T.init_params(c, torch.Generator().manual_seed(3),
+                               device="cpu")
+        toks = torch.from_numpy(np.random.RandomState(3).randint(
+            0, c.vocab_size, (4, 200)).astype(np.int32))
+        want, want_aux = T.forward(params, toks, c)
+        before = flash_attn_kernel.launches
+        got, aux = T.forward(_on(params, "cuda"), toks.cuda(), c)
+        torch.cuda.synchronize()
+        assert flash_attn_kernel.launches == before + c.n_layers
+        torch.testing.assert_close(got.cpu(), want, **SEG_TOL)
+        torch.testing.assert_close(aux.cpu(), want_aux, **SEG_TOL)
+
+
+@pytest.mark.parametrize("name", ["minitron-4b", "granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
+def test_decode_on_cuda_matches_cpu(name, monkeypatch):
+    """``prefill_cache`` of a 40-token prompt, then 6 ``decode_step``s,
+    float32 on the card against the CPU: the logits of every step and
+    the cache at rtol 1e-4 / atol 1e-5; the lengths exactly."""
+    _require_cuda()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    c = smoke(name)
+    params = T.init_params(c, torch.Generator().manual_seed(4),
+                           device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, c.vocab_size, (3, 46)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, t = _on(params, dev), toks.to(dev)
+        logits, cache = T.prefill_cache(p, t[:, :40], c, 48)
+        steps = [logits]
+        for i in range(40, 46):
+            logits, cache = T.decode_step(p, cache, t[:, i], c)
+            steps.append(logits)
+        out[dev] = (torch.stack(steps), cache)
+    torch.cuda.synchronize()
+    (want, wc), (got, gc) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(got.cpu(), want, **SEG_TOL)
+    torch.testing.assert_close(gc.k.cpu(), wc.k, **SEG_TOL)
+    torch.testing.assert_close(gc.v.cpu(), wc.v, **SEG_TOL)
+    assert gc.length.tolist() == wc.length.tolist() == [46] * 3
+
+
+def _lm_build(device, n_docs=24, name="minitron-4b"):
     cfg = dataclasses.replace(seine_smoke(), n_docs=n_docs)
     ds = generate(cfg, seed=0)
     vocab = build_vocabulary(ds.docs, ds.n_raw_tokens,
                              keep_frac=cfg.vocab_keep_frac)
     toks, segs = segment_corpus([vocab.map_tokens(d) for d in ds.docs],
                                 cfg.n_segments, max_len=160)
-    lm = smoke("minitron-4b")
+    lm = smoke(name)
     params = T.init_params(lm, torch.Generator().manual_seed(0),
                            device=device)
     proj = torch.randn(lm.d_model, cfg.embed_dim,
@@ -941,6 +997,23 @@ def test_lm_build_on_cuda_matches_cpu(monkeypatch):
     cpu = b_cpu.build_partitioned(toks, segs, 2, batch_size=8)
     for n in ("term_offsets", "doc_ids", "fences", "term_to_shard",
               "range_lo", "range_hi", "idf", "doc_len", "seg_len"):
+        assert torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n)), n
+    torch.testing.assert_close(gpu.values.cpu(), cpu.values, **SEG_TOL)
+
+
+def test_moe_lm_build_on_cuda_matches_cpu(monkeypatch):
+    """``test_lm_build_on_cuda_matches_cpu`` over smoke("granite-moe-
+    3b-a800m"): each doc routes as its own group on both devices."""
+    _require_cuda()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    name = "granite-moe-3b-a800m"
+    b_cpu, toks, segs = _lm_build("cpu", name=name)
+    b_gpu, _, _ = _lm_build("cuda", name=name)
+    before = flash_attn_kernel.launches
+    gpu = b_gpu.build_partitioned(toks, segs, 2, batch_size=8)
+    assert flash_attn_kernel.launches == before + 2 * 3
+    cpu = b_cpu.build_partitioned(toks, segs, 2, batch_size=8)
+    for n in ("term_offsets", "doc_ids", "fences"):
         assert torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n)), n
     torch.testing.assert_close(gpu.values.cpu(), cpu.values, **SEG_TOL)
 

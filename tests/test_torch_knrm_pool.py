@@ -113,3 +113,23 @@ def test_scorer_past_one_staging_chunk_matches_jax(n_b):
             torch.from_numpy(m4),
             QMeta(**{k: torch.as_tensor(v) for k, v in meta.items()}), fns)
     np.testing.assert_allclose(got.numpy(), np.asarray(js), **TOL)
+
+
+def test_bank_made_under_inference_mode_serves_autograd():
+    """An engine scores under ``torch.inference_mode`` before a training
+    step in the same process: the RBF bank cached by the first call must
+    still be usable by autograd."""
+    from repro_torch.kernels.knrm_pool import ref
+    ref._bank.cache_clear()
+    x = torch.rand(2, 3, 4)
+    mask = torch.ones(2, 4)
+    try:
+        with torch.inference_mode():
+            want = kernel_features(x, mask[:, None, :])
+        xg = x.clone().requires_grad_(True)
+        got = kernel_features(xg, mask[:, None, :])
+        got.sum().backward()
+        assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+        torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    finally:
+        ref._bank.cache_clear()

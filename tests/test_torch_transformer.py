@@ -120,7 +120,8 @@ def test_weights_carry_across_bitwise(dtype):
     assert tp["embed"].dtype == T._dt(c)
     for k in ("embed", "unembed", "final_norm"):
         np.testing.assert_array_equal(_np(tp[k]), _np(jp[k]))
-    for k in T.LAYER_NAMES:
+    for k in [n.split(".", 1)[1] for n in T.param_specs(c)
+              if n.startswith("layers.")]:
         assert tp["layers"][k].dtype == T._dt(c)
         np.testing.assert_array_equal(_np(tp["layers"][k]),
                                       _np(jp["layers"][k]))
@@ -189,13 +190,122 @@ def test_forward_and_prefill_match_jax(name, dtype, seed):
     assert float(aux) == float(want_aux) == 0.0
 
 
-def test_moe_config_raises():
-    c = smoke("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        T.init_params(c, device="cpu")
-    dense = T.init_params(smoke("minitron-4b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.forward(dense, torch.zeros((1, 4), dtype=torch.int32), c)
+MOE = ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
+
+
+def _flat(tree):
+    out = {f"layers/{k}": v for k, v in tree["layers"].items()}
+    out.update({k: v for k, v in tree.items() if k != "layers"})
+    return out
+
+
+@pytest.mark.parametrize("name", MOE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_init_params_tree_shapes_dtypes_and_scales(name, dtype):
+    """The reference's MoE tree: the router float32 in any model, the
+    expert weights stacked over (L, E), the shared experts' when the
+    config has them; the init's scales and the config's count."""
+    jc, c = _cfgs(name, dtype)
+    want = JT.init_params(jc, jax.random.key(0))
+    got = T.init_params(c, torch.Generator().manual_seed(0), device="cpu")
+    flat_want = {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+                 for path, leaf in jax.tree_util.tree_leaves_with_path(want)}
+    flat_got = _flat(got)
+    assert set(flat_got) == set(flat_want)
+    for k, v in flat_got.items():
+        assert tuple(v.shape) == flat_want[k].shape, k
+        assert str(v.dtype).split(".")[-1] == str(flat_want[k].dtype), k
+    assert flat_got["layers/router"].dtype == torch.float32
+    assert ("layers/ws_gate" in flat_got) == bool(c.moe.n_shared_experts)
+    assert sum(v.numel() for v in flat_got.values()) == c.n_params
+    n_l, d, fe = c.n_layers, c.d_model, c.moe.d_expert
+    for k, scale in (("layers/router", d ** -0.5),
+                     ("layers/we_gate", d ** -0.5),
+                     ("layers/we_up", d ** -0.5),
+                     ("layers/we_down", (fe * n_l) ** -0.5)):
+        std = float(flat_got[k].float().std())
+        assert abs(std / scale - 1) < 0.1, (k, std, scale)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_weights_carry_across_bitwise(name):
+    """A bf16 MoE tree crosses leaf by leaf in its own dtype: the router
+    stays float32, bit for bit."""
+    jc, c = _cfgs(name, "bfloat16")
+    jp = JT.init_params(jc, jax.random.key(1))
+    tp = lm_params_from_numpy(jp, c, device="cpu")
+    got, want = _flat(tp), _flat(jp)
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert str(v.dtype).split(".")[-1] == str(want[k].dtype), k
+        np.testing.assert_array_equal(_np(v), _np(want[k]), err_msg=k)
+    assert tp["layers"]["router"].dtype == torch.float32
+    assert tp["layers"]["we_gate"].dtype == torch.bfloat16
+
+
+def test_moe_converter_checks_names_and_shapes():
+    jc, c = _cfgs("moonshot-v1-16b-a3b", "float32")
+    jp = JT.init_params(jc, jax.random.key(0))
+    missing = dict(jp, layers={k: v for k, v in jp["layers"].items()
+                               if k != "ws_up"})
+    with pytest.raises(ValueError, match="layout"):
+        lm_params_from_numpy(missing, c, device="cpu")
+    fewer = dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                           n_experts=3))
+    with pytest.raises(ValueError, match="layout"):
+        lm_params_from_numpy(jp, fewer, device="cpu")
+
+
+@pytest.mark.parametrize("name", MOE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 2])
+def test_moe_forward_and_prefill_match_jax(name, dtype, seed):
+    """Both MoE smoke configs through ``forward`` (hidden and the summed
+    aux loss) and ``prefill``; each batch row is its own routing
+    group."""
+    jc, c = _cfgs(name, dtype)
+    jp = JT.init_params(jc, jax.random.key(seed))
+    tp = lm_params_from_numpy(jp, c, device="cpu")
+    toks = _tokens(seed, c.vocab_size)
+    hidden, aux = T.forward(tp, torch.from_numpy(toks), c)
+    logits = T.prefill(tp, torch.from_numpy(toks), c)
+    if dtype == "float32":
+        want, want_aux = JT.forward(jp, jnp.asarray(toks), jc, remat=False)
+        want_logits = JT.prefill(jp, jnp.asarray(toks), jc)
+        tol = F32
+    else:
+        with jax.disable_jit():
+            want, want_aux = JT.forward(jp, jnp.asarray(toks), jc,
+                                        remat=False, scan_layers=False)
+            want_logits = JT.prefill(jp, jnp.asarray(toks), jc)
+        tol = BF16
+    assert hidden.dtype == T._dt(c) and hidden.shape == (3, 70, c.d_model)
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    np.testing.assert_allclose(_np(hidden), _np(want), **tol)
+    np.testing.assert_allclose(_np(logits), _np(want_logits), **tol)
+    np.testing.assert_allclose(float(aux), float(want_aux), **F32)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_forward_in_the_drop_regime_matches_jax(name):
+    """Granite's and moonshot's published capacity factor 1.25 on the
+    smoke widths: groups of 70 tokens drop (token, slot) pairs, and the
+    same pairs drop in both."""
+    jc, c = _cfgs(name, "float32")
+    moe = dataclasses.replace(c.moe, capacity_factor=1.25)
+    jc, c = (dataclasses.replace(jc, moe=moe),
+             dataclasses.replace(c, moe=moe))
+    jp = JT.init_params(jc, jax.random.key(5))
+    tp = lm_params_from_numpy(jp, c, device="cpu")
+    toks = _tokens(5, c.vocab_size)
+    hidden, aux = T.forward(tp, torch.from_numpy(toks), c)
+    want, want_aux = JT.forward(jp, jnp.asarray(toks), jc, remat=False)
+    np.testing.assert_allclose(_np(hidden), _np(want), **F32)
+    np.testing.assert_allclose(float(aux), float(want_aux), **F32)
+    dropless, _ = T.forward(tp, torch.from_numpy(toks),
+                            dataclasses.replace(c, moe=dataclasses.replace(
+                                moe, capacity_factor=8.0)))
+    assert not torch.allclose(hidden, dropless, **F32)
 
 
 # -- the SEINE bridge ------------------------------------------------------
@@ -266,6 +376,59 @@ def test_lm_indexed_equals_noindex(seine_world, lm_world):
         looked, fly = idx.qd_matrix(q, docs), noindex.qd_matrix(q, docs)
         assert bool(looked.flatten(2).ne(0).any(-1).all())
         np.testing.assert_allclose(_np(fly), _np(looked), rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def moe_lm_world(seine_world):
+    """``lm_world``'s recipe over smoke("granite-moe-3b-a800m") in its
+    published drop regime (capacity factor 1.25): the JAX build and the
+    port's over the first 8 docs, and the JAX provider."""
+    w = seine_world
+    moe = dataclasses.replace(jax_smoke("granite-moe-3b-a800m").moe,
+                              capacity_factor=1.25)
+    jc = dataclasses.replace(jax_smoke("granite-moe-3b-a800m"), moe=moe)
+    c = dataclasses.replace(smoke("granite-moe-3b-a800m"), moe=moe)
+    jp = JT.init_params(jc, jax.random.key(0))
+    jprov = JaxLMProvider(jc, jp, embed_dim=w["cfg"].embed_dim)
+    jb = JaxBuilder(w["cfg"], w["vocab"], jprov)
+    jidx = jb.build(w["toks"][:8], w["segs"][:8], batch_size=4)
+    prov = lm_provider_from_numpy(c, jp, np.asarray(jprov._proj),
+                                  device="cpu")
+    b = IndexBuilder(seine_smoke(), _port_vocab(), prov,
+                     ip=interaction_params_from_jax(jb.ip, device="cpu"),
+                     device="cpu")
+    idx = b.build(w["toks"][:8], w["segs"][:8], batch_size=4)
+    return dict(jprov=jprov, jidx=jidx, prov=prov, index=idx)
+
+
+def _port_vocab():
+    ds = generate(seine_smoke(), seed=0)
+    return build_vocabulary(ds.docs, ds.n_raw_tokens,
+                            keep_frac=seine_smoke().vocab_keep_frac)
+
+
+def test_moe_lm_provider_matches_jax(seine_world, moe_lm_world):
+    """``contextualize`` of 4 docs at once equals the reference's one-doc
+    forwards: each doc routes as its own group at the padded length."""
+    w, jprov, prov = seine_world, moe_lm_world["jprov"], moe_lm_world["prov"]
+    np.testing.assert_allclose(_np(prov.table()), _np(jprov.table()), **F32)
+    toks, segs = w["toks"][:4], w["segs"][:4]
+    got = prov.contextualize(torch.from_numpy(toks), torch.from_numpy(segs))
+    for i in range(4):
+        want = jprov.contextualize(jnp.asarray(toks[i]), jnp.asarray(segs[i]))
+        np.testing.assert_allclose(_np(got[i]), _np(want), **F32)
+        assert bool((got[i][toks[i] < 0] == 0).all())
+
+
+def test_moe_lm_build_matches_jax(moe_lm_world):
+    got, want = moe_lm_world["index"], moe_lm_world["jidx"]
+    assert got.nnz == int(want.nnz) > 0
+    for n in ("term_offsets", "doc_ids", "fences"):
+        g, w = got.__dict__[n].numpy(), np.asarray(getattr(want, n))
+        assert g.dtype == w.dtype, n
+        np.testing.assert_array_equal(g, w, err_msg=n)
+    np.testing.assert_allclose(got.values.numpy(), np.asarray(want.values),
+                               **F32)
 
 
 def _knrm_params(idx):

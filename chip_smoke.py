@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
 front end, live index, ranker training, LM bridge, MoE LM and decode,
-SNRM) on one NVIDIA GPU.
+SNRM, LM training) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -239,6 +239,36 @@ launches CUPTI recorded over the replay ("k of n").
    retrieval of all docs per query; P@5 / P@10 / MAP and the latent
    density beside phase 9's rows.
 
+12. LM training, after phases 6 and 10's weights are freed.  The
+   ``flash_attn`` backward kernel (``flash_attn_bwd.cu``) against its
+   plain version at stablelm-1.6b's training shape (16, 1,024, 32 / 32,
+   64), granite-moe's (8, 1,024, 24 / 8, 64), minitron-4b's (4, 1,024,
+   24 / 8, 128) and a tail length (1, 1,000, 8 / 2, 64) causal and full,
+   from the forward kernel's o and lse: float32 at rtol 1e-4 / atol
+   1e-5, bf16 with at most 0.1% of the values past 2e-2; two launches
+   bitwise; the forward's o bitwise the same with and without its lse,
+   the lse at the float32 bar.  Per shape its device ms (CUPTI, both of
+   its kernels), the plain version's, the backward of
+   ``F.scaled_dot_product_attention`` (the library yardstick) and the
+   bound (10 hd flops per attended pair over the bf16 peak, or q, k, v,
+   o, dO, lse in and dQ, dK, dV out over 3.35 TB/s).  Then
+   ``train_lm("stablelm-1.6b", smoke=False)``: the published config
+   (24 layers, d_model 2,048, 32 / 32 heads of 64, d_ff 5,632, vocab
+   100,352, bf16) at (16, 1,024), weights drawn on the card from
+   ``--seed``, 8 steps of ``adamw(3e-4)`` with every layer under remat
+   and 4 cross-entropy chunks; first one step's loss and gradient norm
+   through the kernels against the plain forward and backward on the
+   card (2e-2), then the run: loss per step, ms per step p50 / p95,
+   tokens/s, model FLOPs utilisation (6 x matmul parameters x tokens +
+   attention, over 989 TFLOP/s), launches per step (``flash_attn`` 2 per
+   layer, forward and recompute; ``flash_attn_bwd`` 1), the busy share
+   and peak device memory.  granite-moe-3b-a800m at full width and 4 of
+   its 32 layers (cut for time), (8, 1,024): the first step against the
+   plain attention (the MoE's backward, the float32 router's gradient,
+   the aux loss), then 2 steps.  Last a bf16 checkpoint and resume of
+   stablelm at full width and 2 layers: the resumed step's loss has the
+   uninterrupted run's bits.
+
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
 of the ``repro`` package is imported.
@@ -248,6 +278,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -306,8 +337,9 @@ from repro_torch.kernels.embed_bag import (  # noqa: E402
 from repro_torch.kernels.embed_bag import ops as embed_bag_ops  # noqa: E402
 from repro_torch.kernels.csr_lookup.ref import (  # noqa: E402
     _lane_scale, _route)
-from repro_torch.kernels.flash_attn import (flash_attn_kernel,  # noqa: E402
-                                            flash_attn_plain)
+from repro_torch.kernels.flash_attn import (  # noqa: E402
+    flash_attention_plain, flash_attn_bwd_kernel, flash_attn_bwd_plain,
+    flash_attn_kernel, flash_attn_plain)
 from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
                                            knrm_pool_ref)
 from repro_torch.kernels.seg_interact import (  # noqa: E402
@@ -320,8 +352,9 @@ from repro_torch.serving import (  # noqa: E402
     DeadlineExceeded, NoIndexEngine, SeineEngine, ServingFrontend,
     make_qmeta, run_open_loop, serve_batches, serve_retrieval)
 from repro_torch.serving.coalesce import plan_coalesced  # noqa: E402
-from repro_torch.train import (adam, apply_updates,  # noqa: E402
-                               global_norm, value_and_grad)
+from repro_torch.train import (adam, adamw,  # noqa: E402
+                               apply_updates, global_norm, make_train_step,
+                               value_and_grad)
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
@@ -360,6 +393,8 @@ TPU_KERNELS = {
     "seg_interact": "src/repro/kernels/seg_interact/kernel.py:50",
     "flash_attn": "src/repro/kernels/flash_attn/kernel.py:63",
     "embed_bag": "src/repro/kernels/embed_bag/kernel.py:40",
+    # no TPU kernel: the JAX package differentiates gqa_attention
+    "flash_attn_bwd": "src/repro/models/layers.py:166",
 }
 # the launch counter of each kernel, and the kernels each serving path
 # (codec) must launch
@@ -372,7 +407,8 @@ COUNTERS = {"csr_lookup": csr_lookup_kernel,
             "retrieve_windows_packed": retrieve_windows_packed_kernel,
             "seg_interact": seg_interact_kernel,
             "flash_attn": flash_attn_kernel,
-            "embed_bag": embed_bag_kernel}
+            "embed_bag": embed_bag_kernel,
+            "flash_attn_bwd": flash_attn_bwd_kernel}
 # a piece of each kernel's CUDA function name, as CUPTI records it
 KERNEL_NAMES = {"csr_lookup": "csr_lookup_kernel",
                 "lane_bounds": "lane_bounds_kernel",
@@ -383,7 +419,8 @@ KERNEL_NAMES = {"csr_lookup": "csr_lookup_kernel",
                 "retrieve_windows_packed": "retrieve_block_packed_kernel",
                 "seg_interact": "seg_interact_kernel",
                 "flash_attn": "flash_attn_kernel",
-                "embed_bag": "embed_bag_"}
+                "embed_bag": "embed_bag_",
+                "flash_attn_bwd": "flash_attn_bwd_"}
 PATH_KERNELS = {"none": ("csr_lookup", "lane_bounds", "retrieve_windows",
                          "knrm_pool"),
                 "packed": ("csr_lookup_packed", "lane_bounds_packed",
@@ -3356,8 +3393,9 @@ def kernel_split(run, n: int):
     """Device ms per batch of ``run`` (``n`` batches): the CUPTI time of
     the kernels launched by the ops inside the MoE FFN's profiler ranges
     (MOE_RANGES) summed per range, whatever the kernels are; every other
-    kernel's time summed by its name into GEMMs, flash_attn,
-    seg_interact and the rest; and the rest's largest kernels.  A dense
+    kernel's time summed by its name into GEMMs, flash_attn, its
+    backward, seg_interact and the rest; and the rest's largest
+    kernels.  A dense
     model's MoE classes stay 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3384,13 +3422,15 @@ def kernel_split(run, n: int):
         if e.device_type == DeviceType.CUDA and e.name not in MOE_RANGES \
                 and not getattr(e, "is_user_annotation", False):
             total[e.name] = total.get(e.name, 0.0) + e.device_time_total
-    split = dict(gemm=0.0, flash_attn=0.0, seg_interact=0.0, **in_range,
-                 rest=0.0)
+    split = dict(gemm=0.0, flash_attn=0.0, flash_attn_bwd=0.0,
+                 seg_interact=0.0, **in_range, rest=0.0)
     rest = {}
     for name, us in total.items():
         us -= taken.get(name, 0.0)
         key = name.lower()
-        if "flash_attn" in key:
+        if "flash_attn_bwd" in key:
+            split["flash_attn_bwd"] += us
+        elif "flash_attn" in key:
             split["flash_attn"] += us
         elif "seg_interact" in key:
             split["seg_interact"] += us
@@ -4058,6 +4098,423 @@ def phase11(seed: int, dev, corpus, seine):
                 p50_ms=float(np.percentile(ms, 50)))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_ARCH = "stablelm-1.6b"
+TRAIN_LM_STEPS = 8
+MOE_TRAIN_LAYERS = 4     # of granite-moe's 32: cut for the run's time
+MOE_TRAIN_STEPS = 2
+MOE_TRAIN_BATCH = (8, 1024)
+RESUME_LAYERS = 2        # a full-width stablelm cut to 2 layers
+RESUME_STEPS = 3         # a checkpoint at step 2, resumed for step 3
+LM_TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_lm")
+# (B, S, Hq, Hkv, hd, causal): stablelm-1.6b's training shape, then
+# granite-moe's and minitron-4b's at S 1,024, and a tail length causal
+# and full
+FA_BWD_SHAPES = ((16, 1024, 32, 32, 64, True), (8, 1024, 24, 8, 64, True),
+                 (4, 1024, 24, 8, 128, True), (1, 1000, 8, 2, 64, True),
+                 (1, 1000, 8, 2, 64, False))
+FA_BWD_PAST = 1e-3       # bf16: the share of values past 2e-2 (row 8's)
+FA_BWD_ITERS = 10
+
+
+def train_lm_config(name: str, n_layers=None):
+    cfg = get_lm_config(name)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def bwd_inputs(shape, dtype, gen, dev):
+    """q, k, v, dO of a backward shape, and the kernel's o and lse."""
+    b, s, hq, hkv, hd, causal = shape
+    q, k, v = qkv((b, s, hq, hkv, hd), dtype, gen, dev)
+    do = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(dtype)
+    o, lse = flash_attn_kernel(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def check_flash_attn_bwd(seed, dev):
+    """The backward kernel against its plain version on the card at
+    FA_BWD_SHAPES, from the forward kernel's o and lse: float32 at rtol
+    1e-4 / atol 1e-5, bf16 at most FA_BWD_PAST of the values past 2e-2;
+    two launches bitwise; the forward's lse against the plain forward's
+    (float32 bar) and its o bitwise equal to a launch without lse.
+    Returns {shape: {dtype: largest |diff| over dQ, dK, dV}}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errs = {}
+    for shape in FA_BWD_SHAPES:
+        causal = shape[5]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, o, do, lse = bwd_inputs(shape, dt, g, dev)
+            if not torch.equal(o, flash_attn_kernel(q, k, v, causal=causal)):
+                raise AssertionError(f"flash_attn's o with lse != without, "
+                                     f"{shape} {dt}")
+            torch.testing.assert_close(lse, flash_attn_plain(
+                q, k, v, causal=causal, return_lse=True)[1], **FA_F32_TOL)
+            got = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+            again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+            want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
+            torch.cuda.synchronize()
+            worst, past = 0.0, 0.0
+            for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"flash_attn_bwd's {name} differs "
+                                         f"between two launches at {shape}")
+                a, w = a.float(), w.float()
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"flash_attn_bwd's {name} is not "
+                                         f"finite at {shape}")
+                if dt == torch.float32:
+                    torch.testing.assert_close(a, w, **FA_F32_TOL, msg=name)
+                else:
+                    off = ((a - w).abs() > BF16_TOL["atol"] + BF16_TOL["rtol"]
+                           * w.abs()).float().mean().item()
+                    if off > FA_BWD_PAST:
+                        raise AssertionError(
+                            f"flash_attn_bwd's {name} at {shape}: {off:.2e} "
+                            f"of the values past 2e-2")
+                    past = max(past, off)
+                worst = max(worst, (a - w).abs().max().item())
+            errs.setdefault(shape, {})[dt] = (worst, past)
+    log("phase 12: flash_attn_bwd == plain from the forward kernel's o and "
+        "lse, two launches bitwise, o with and without lse bitwise, lse at "
+        "rtol 1e-4/atol 1e-5: " + "; ".join(
+            f"{s}: float32 {e[torch.float32][0]:.3g}, bf16 "
+            f"{e[torch.bfloat16][0]:.3g} ({e[torch.bfloat16][1]:.1e} past "
+            f"2e-2)" for s, e in errs.items()))
+    return errs
+
+
+def per_call_ms(fns, iters: int, kernel: str):
+    """(device ms per call of every kernel whose name holds ``kernel``,
+    how it was timed): CUPTI's sum over the calls' kernels, or CUDA
+    events per call when the profiler records none."""
+    prof = device_profile(fns, iters)
+    if prof is not None:
+        hits = [(t, n) for key, (t, n) in prof.items() if kernel in key]
+        if hits and sum(t for t, _ in hits) > 0:
+            return (sum(t for t, _ in hits) / iters,
+                    f"cupti, {sum(n for _, n in hits)} kernel records over "
+                    f"{iters} calls")
+    return events_ms(fns, iters), "events"
+
+
+def attention_pairs(b, s, hq, causal) -> float:
+    """(query, key) pairs attention computes: at or below the diagonal
+    under the causal mask."""
+    return b * hq * (s * (s + 1) / 2 if causal else s * s)
+
+
+def time_flash_attn_bwd(seed, dev):
+    """Per FA_BWD_SHAPES shape in bf16: the backward kernel's device ms
+    per call (both its kernels, CUPTI), with launch cost, its plain
+    version's ms and the backward of ``F.scaled_dot_product_attention``
+    (``enable_gqa``; the library yardstick, never used by the port); the
+    bound: q, k, v, o, dO and lse read once, dQ, dK, dV written once,
+    over 3.35 TB/s, or the five products' 10 hd flops per attended pair
+    over the bf16 989 TFLOP/s; at the first shape the same on float32
+    inputs against the FP32 67 TFLOP/s."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, shape in enumerate(FA_BWD_SHAPES):
+        b, s, hq, hkv, hd, causal = shape
+        flops = 10.0 * hd * attention_pairs(b, s, hq, causal)
+        for dt in ((torch.bfloat16, torch.float32) if i == 0
+                   else (torch.bfloat16,)):
+            q, k, v, o, do, lse = bwd_inputs(shape, dt, g, dev)
+            call = [lambda: flash_attn_bwd_kernel(q, k, v, o, do, lse,
+                                                  causal=causal)]
+            ms, how = per_call_ms(call, FA_BWD_ITERS, "flash_attn_bwd_")
+            call_ms = events_ms(call, FA_BWD_ITERS)
+            plain_ms = events_ms([lambda: flash_attn_bwd_plain(
+                q, k, v, o, do, lse, causal=causal)], 1)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            library_ms = events_ms([lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True)], FA_BWD_ITERS)
+            del out
+            # q, o, dO and dQ have q's size; k, v, dK and dV k's
+            n_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+                + lse.numel() * 4
+            b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S
+                               if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
+            rows.append(dict(shape=list(shape), dtype=str(dt)[6:], ms=ms,
+                             timed_by=how, call_ms=call_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                             flops=flops))
+            log(f"phase 12: flash_attn_bwd at {shape} {str(dt)[6:]}: "
+                f"{ms:.4f} ms ({how}; {call_ms:.4f} ms with launch cost) = "
+                f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
+                f"scaled_dot_product_attention's backward {library_ms:.4f} "
+                f"ms; bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, "
+                f"{flops / 1e9:.1f} GFLOP)")
+    return rows
+
+
+def first_step_check(cfg, params, batch, tag):
+    """One step's loss and gradient global norm through the kernels and
+    through the plain attention (forward and backward) on the card, at
+    the bf16 bar; the kernels' launches of the kernel step: forward and
+    remat recompute per layer, one backward per layer.  Returns (loss,
+    grad norm, the router's gradient norm for a MoE model)."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    loss, grads = value_and_grad(train_cli.lm_loss_fn(cfg), params, batch)
+    norm = global_norm(grads)
+    launched = launch_counts()
+    router = (grads["layers"]["router"] if cfg.moe is not None else None)
+    if router is not None:
+        if router.dtype != torch.float32 or not bool(
+                torch.isfinite(router).all()) or not router.abs().sum() > 0:
+            raise AssertionError(f"{tag}: the router's gradient "
+                                 f"{router.dtype} is not a finite nonzero "
+                                 f"float32 tensor")
+        router = router.norm().item()
+    del grads
+    p_loss, p_grads = value_and_grad(
+        train_cli.lm_loss_fn(cfg, flash_attention_plain), params, batch)
+    p_norm = global_norm(p_grads)
+    del p_grads
+    got = torch.stack([loss, norm]).cpu().numpy()
+    want = torch.stack([p_loss, p_norm]).cpu().numpy()
+    np.testing.assert_allclose(got, want, **BF16_TOL,
+                               err_msg=f"{tag}: kernel vs plain step")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: the first step is not finite")
+    want_launches = {"flash_attn": 2 * cfg.n_layers,
+                     "flash_attn_bwd": cfg.n_layers}
+    if {n: launched[n] for n in want_launches} != want_launches:
+        raise AssertionError(f"{tag}: a step launched {launched}, expected "
+                             f"{want_launches}")
+    log(f"{tag}: the first step through the kernels == through the plain "
+        f"attention at 2e-2: loss {got[0]:.6f} / {want[0]:.6f}, gradient "
+        f"norm {got[1]:.6f} / {want[1]:.6f}; launches {want_launches}"
+        + (f"; the float32 router's gradient norm {router:.4g}"
+           if router is not None else ""))
+    return float(got[0]), float(got[1]), router
+
+
+def matmul_params(cfg) -> int:
+    """Parameters that take part in a matrix product per token (every
+    layer weight but the norms and, for MoE, the routed experts' share
+    actually used, and the unembedding; not the embedding gather)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    if cfg.moe is None:
+        ffn = 3 * d * cfg.d_ff
+    else:
+        ffn = d * cfg.moe.n_experts + 3 * d * cfg.moe.d_expert * (
+            cfg.moe.top_k + cfg.moe.n_shared_experts)
+    return cfg.n_layers * (attn + ffn) + d * cfg.vocab_size
+
+
+def train_stablelm(seed, dev):
+    """stablelm-1.6b at full width: the first step held against the plain
+    attention, then ``train_lm(smoke=False)`` for TRAIN_LM_STEPS steps
+    with launches, step times, tokens/s, MFU, busy share and peak
+    memory."""
+    cuda = dev.type == "cuda"
+    cfg = train_lm_config(TRAIN_LM_ARCH)
+    n_b, n_s = train_cli.LM_BATCH[False]
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    n_params, n_bytes = param_count(params)
+    if n_params != cfg.n_params:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.n_params}")
+    batch = train_cli.lm_batches(cfg.vocab_size, n_b, n_s, seed, dev)(0)
+    loss0, norm0, _ = first_step_check(cfg, params, batch, "phase 12")
+    del params, batch
+    torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.train_lm(TRAIN_LM_ARCH, TRAIN_LM_STEPS, None, smoke=False,
+                             device=dev, seed=seed, verbose=False)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    per_step = {n: launched[n] / TRAIN_LM_STEPS
+                for n in ("flash_attn", "flash_attn_bwd")}
+    if per_step != {"flash_attn": 2.0 * cfg.n_layers,
+                    "flash_attn_bwd": 1.0 * cfg.n_layers}:
+        raise AssertionError(f"phase 12: launches per step {per_step}")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    losses = np.array([h["loss"] for h in res.history])
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 12: losses {losses}")
+    if not np.isclose(losses[0], loss0, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"phase 12: the run's first loss {losses[0]} "
+                             f"!= the checked step's {loss0}")
+    sec = np.array([h["sec"] for h in res.history]) * 1e3
+    steady = sec[1:] if len(sec) > 1 else sec
+    p50, p95 = np.percentile(steady, 50), np.percentile(steady, 95)
+    tokens = n_b * n_s
+    flops = 6.0 * matmul_params(cfg) * tokens + 12.0 * cfg.head_dim \
+        * attention_pairs(n_b, n_s, cfg.n_heads, True) * cfg.n_layers
+    mfu = flops / (p50 / 1e3) / BF16_FLOPS_PER_S
+    step_fn = make_train_step(train_cli.lm_loss_fn(cfg),
+                              adamw(train_cli.LM_LR))
+    st = res.state
+    nb = train_cli.lm_batches(cfg.vocab_size, n_b, n_s, seed, dev)
+    step = lambda: step_fn(st.params, st.opt_state, st.residual,
+                           nb(TRAIN_LM_STEPS))
+    busy = device_busy(step, 1)
+    split = kernel_split(step, 1)
+    if split is not None:
+        parts, rest = split
+        log(f"phase 12: device ms of a training step (CUPTI): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()
+                        if k not in MOE_RANGES)
+            + f"; total {sum(parts.values()):.2f}; largest of the rest: "
+            f"{rest}")
+    log(f"phase 12: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}): {n_params} parameters, {n_bytes} bytes; "
+        f"train_lm(smoke=False) {TRAIN_LM_STEPS} steps of ({n_b}, {n_s}) in "
+        f"{wall:.2f}s: loss per step "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (ln V = {math.log(cfg.vocab_size):.4f}); ms per step p50 "
+        f"{p50:.3f} / p95 {p95:.3f} (steps 2-{TRAIN_LM_STEPS}; the first "
+        f"{sec[0]:.3f}); {tokens / (p50 / 1e3):.1f} tokens/s; MFU "
+        f"{mfu:.4f} ({flops:.4g} flops a step: 6 x {matmul_params(cfg)} "
+        f"matmul parameters x {tokens} tokens + attention, over 989 "
+        f"TFLOP/s); launches per step {per_step}; device busy "
+        f"{busy['ms']:.2f} ms of a step, {busy_share(busy, p50)}, "
+        f"{busy['ops']:.0f} device ops a step; peak device memory "
+        f"{peak if peak is not None else 'not measured'} bytes")
+    return dict(launches=launched, per_step=per_step, losses=losses,
+                split_ms=split[0] if split is not None else None,
+                p50_ms=p50, p95_ms=p95, first_ms=float(sec[0]),
+                tokens_per_s=tokens / (p50 / 1e3), mfu=mfu,
+                flops_per_step=flops, busy=busy, peak_bytes=peak,
+                grad_norm0=norm0)
+
+
+def train_moe(seed, dev):
+    """granite-moe-3b-a800m at full width, MOE_TRAIN_LAYERS of its
+    layers: the first step held against the plain attention (the MoE's
+    backward, the float32 router's gradient, the aux loss), then
+    MOE_TRAIN_STEPS steps of ``fit_lm``."""
+    cfg = train_lm_config(MOE_ARCH, MOE_TRAIN_LAYERS)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    batch = train_cli.lm_batches(cfg.vocab_size, *MOE_TRAIN_BATCH, seed,
+                                 dev)(0)
+    with torch.no_grad():
+        _, aux = T.forward(params, batch["tokens"], cfg)
+    loss0, _, router = first_step_check(cfg, params, batch,
+                                        "phase 12 [MoE]")
+    res = train_cli.fit_lm(cfg, params, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS,
+                           None, seed=seed, verbose=False)
+    losses = [h["loss"] for h in res.history]
+    if not np.isfinite(losses).all() or not np.isclose(
+            losses[0], loss0, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"phase 12 [MoE]: losses {losses}, the checked "
+                             f"step's {loss0}")
+    ms = [h["sec"] * 1e3 for h in res.history]
+    log(f"phase 12 [MoE]: {cfg.name} at full width, {MOE_TRAIN_LAYERS} of "
+        f"{get_lm_config(MOE_ARCH).n_layers} layers, ({MOE_TRAIN_BATCH[0]}, "
+        f"{MOE_TRAIN_BATCH[1]}): aux loss {aux.item():.6f}, losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + ", ms per step "
+        + ", ".join(f"{x:.1f}" for x in ms))
+    return dict(losses=losses, aux=aux.item(), router_grad_norm=router,
+                ms=ms)
+
+
+def check_resume(seed, dev):
+    """A bf16 checkpoint and resume of stablelm at full width, cut to
+    RESUME_LAYERS layers: RESUME_STEPS steps checkpointed at step
+    RESUME_STEPS - 1 (bf16 leaves stored as ``|V2``), the last checkpoint
+    deleted, a fresh run resumed from the one before: its step's loss
+    has the uninterrupted run's bits."""
+    cfg = train_lm_config(TRAIN_LM_ARCH, RESUME_LAYERS)
+    shape = train_cli.LM_BATCH[False]
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+
+    def run():
+        params = T.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(seed), device=dev)
+        return train_cli.fit_lm(cfg, params, shape, RESUME_STEPS,
+                                LM_TRAIN_DIR, seed=seed, verbose=False,
+                                ckpt_every=RESUME_STEPS - 1)
+
+    t0 = time.perf_counter()
+    whole = run()
+    t_whole = time.perf_counter() - t0
+    steps = all_steps(LM_TRAIN_DIR)
+    if steps != [RESUME_STEPS - 1, RESUME_STEPS]:
+        raise AssertionError(f"phase 12: checkpoints {steps}")
+    arrays = os.path.join(LM_TRAIN_DIR, f"ckpt_{RESUME_STEPS - 1:010d}",
+                          "arrays.npz")
+    with np.load(arrays) as z:
+        kinds = {z[n].dtype.str for n in ("params/embed", "opt/mu/embed")}
+        n_bytes = os.path.getsize(arrays)
+    if kinds != {"|V2", "<f4"}:
+        raise AssertionError(f"phase 12: checkpoint leaf types {kinds}")
+    shutil.rmtree(os.path.join(LM_TRAIN_DIR, f"ckpt_{RESUME_STEPS:010d}"))
+    t0 = time.perf_counter()
+    resumed = run()
+    t_resumed = time.perf_counter() - t0
+    if len(resumed.history) != 1:
+        raise AssertionError(f"phase 12: the resumed run took "
+                             f"{len(resumed.history)} steps")
+    want, got = whole.history[-1]["loss"], resumed.history[0]["loss"]
+    if got != want:
+        raise AssertionError(f"phase 12: resumed step {RESUME_STEPS}'s loss "
+                             f"{got!r} != {want!r}")
+    log(f"phase 12: resume of {cfg.name} at {RESUME_LAYERS} layers: "
+        f"{RESUME_STEPS} steps with checkpoints ({t_whole:.2f}s; "
+        f"{n_bytes} bytes an arrays.npz, bf16 leaves as |V2), the step "
+        f"{RESUME_STEPS} checkpoint deleted, resumed from step "
+        f"{RESUME_STEPS - 1} ({t_resumed:.2f}s): step {RESUME_STEPS}'s loss "
+        f"{got!r} == the uninterrupted run's, bitwise")
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    return dict(loss=got, ckpt_bytes=n_bytes)
+
+
+def phase12(seed: int, dev):
+    """LM training on the card (module doc).  Returns the backward
+    kernel's row of the ``kernels`` line and the phase's numbers."""
+    t_phase = time.perf_counter()
+    errs = check_flash_attn_bwd(seed, dev)
+    timing = time_flash_attn_bwd(seed, dev)
+    lm = train_stablelm(seed, dev)
+    torch.cuda.empty_cache()
+    moe = train_moe(seed, dev)
+    torch.cuda.empty_cache()
+    resume = check_resume(seed, dev)
+    first = FA_BWD_SHAPES[0]
+    bf16, f32 = timing[0], timing[1]
+    row = dict(name="flash_attn_bwd", route="cuda",
+               source=KERNEL_SOURCE.format("flash_attn", "flash_attn_bwd"),
+               replaces=TPU_KERNELS["flash_attn_bwd"],
+               replaces_note="no TPU kernel: the JAX package takes this "
+                             "gradient with jax.grad of gqa_attention",
+               shape=list(first), launches=lm["launches"]["flash_attn_bwd"],
+               launches_per_step=lm["per_step"]["flash_attn_bwd"],
+               max_abs_err=errs[first][torch.bfloat16][0],
+               f32_max_abs_err=errs[first][torch.float32][0],
+               ms=bf16["ms"], timed_by=bf16["timed_by"],
+               call_ms=bf16["call_ms"], plain_ms=bf16["plain_ms"],
+               bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"],
+               library_ms=bf16["library_ms"], f32_ms=f32["ms"],
+               f32_plain_ms=f32["plain_ms"],
+               f32_library_ms=f32["library_ms"],
+               f32_bound_ms=f32["bound_ms"], f32_bound_by=f32["bound_by"],
+               by_shape=[r for r in timing if r["dtype"] == "bfloat16"])
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f}s")
+    return dict(row=row, lm=lm, moe=moe, resume=resume)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4113,6 +4570,15 @@ def main() -> int:
     kernels.append(phase10(args.seed, dev, corpus))
     torch.cuda.empty_cache()
     phase11(args.seed, dev, corpus, trained["effectiveness"])
+    torch.cuda.empty_cache()
+    lm_train = phase12(args.seed, dev)
+    for row in kernels:
+        if row["name"] == "flash_attn":
+            row["launches_by_path"]["train"] = lm_train["lm"]["launches"][
+                "flash_attn"]
+            row["train_launches_per_step"] = lm_train["lm"]["per_step"][
+                "flash_attn"]
+    kernels.append(lm_train["row"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,10 @@ the reference's format too: ``<dir>/ckpt_<step:010d>/`` holding
 dict keys sorted, list items by position, ``/``-joined, as
 ``jax.tree_util.tree_flatten_with_path`` names them) and
 ``manifest.json`` (``step``, ``names``, ``extra``, ``time``), kept to
-the newest ``keep``; either package restores the other's.
+the newest ``keep``; either package restores the other's.  A bfloat16
+leaf is stored as the reference's ``np.savez`` stores an
+``ml_dtypes.bfloat16`` array: numpy's raw two-byte type ``|V2`` holding
+the bf16 bits.
 """
 from __future__ import annotations
 
@@ -264,8 +267,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     :func:`wait_async`."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = T.flatten_with_paths(tree)
-    arrays = {name: torch.as_tensor(leaf).detach().to("cpu", copy=True)
-              .numpy() for name, leaf in flat}
+    arrays = {name: _to_numpy(leaf) for name, leaf in flat}
     manifest = {
         "step": int(step),
         "names": [n for n, _ in flat],
@@ -305,6 +307,23 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     else:
         write()
     return final
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of a leaf; bfloat16 (which numpy lacks) as ``|V2``
+    holding its bits, as the reference writes it."""
+    t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A stored leaf as a tensor: ``|V2`` as the bfloat16 of its bits."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def _retain(ckpt_dir: str, keep: int) -> None:
@@ -361,7 +380,7 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *,
             if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{arr.shape} vs {want}")
-            t = torch.from_numpy(np.array(arr))
+            t = _from_numpy(arr)
             if isinstance(leaf, torch.Tensor):
                 t = t.to(device=leaf.device, dtype=leaf.dtype)
             leaves.append(t)

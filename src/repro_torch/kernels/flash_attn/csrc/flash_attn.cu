@@ -18,6 +18,12 @@
 // No sequence length needs to be a multiple of a tile: the tail is
 // zero-filled and masked.
 //
+// Given a (B, Hq, Sq) float32 lse buffer (training), both kernels also
+// write each row's log-sum-exp, ln sum_t exp(q . k_t / sqrt(hd)) (+inf for
+// a row that saw no key), which flash_attn_bwd.cu recomputes P from.  The
+// lse is a template parameter: with a null buffer the instances that
+// write none run, the code the serving and build paths ran before.
+//
 // What bounds it on the H100.  At the LM build's shape (B 32, S 512,
 // Hq 24, Hkv 8, hd 128, bf16, causal) one launch moves 268 MB of q, k, v
 // and o, 0.080 ms at 3.35 TB/s, and does 5.2e10 flops, 0.052 ms on the
@@ -115,6 +121,13 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// The log-sum-exp a row hands the backward: ln sum_t exp(q . k_t / sqrt(hd))
+// from the online softmax's max m (in that natural domain) and sum l; +inf
+// for a row that saw no key, so the backward's exp(s - lse) is 0 there
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
+
 // max / sum over the 16 lanes of a half-warp (one query row)
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -128,12 +141,12 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int Sq,
-                      int Skv, int Hq, int Hkv, int n_qt, int causal,
-                      float scale) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Skv, int Hq,
+                      int Hkv, int n_qt, int causal, float scale) {
   constexpr int LD = HD + 4;
   constexpr int NC = HD / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -248,6 +261,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = q0 + ty * kRows + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if constexpr (LSE)
+      if (tx == 0) lse[(int64_t)bh * Sq + row] = row_lse(m[i], l[i]);
     T* out = o + ((int64_t)b * Sq + row) * q_stride + (int64_t)h * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) store(out + tx + 16 * c, acc[i][c] / den);
@@ -527,14 +542,15 @@ __device__ __forceinline__ Item item_at(int i, int Sq, int Skv, int Hq,
 }
 
 // One consumer warpgroup (warps 0 .. 3) and one producer warp (warp 4).
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(kThreadsBf16, 2)
     flash_attn_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
-                                 __nv_bfloat16* __restrict__ o, int Sq,
-                                 int Skv, int Hq, int Hkv, int n_qt,
-                                 int causal, float scale_log2) {
+                                 __nv_bfloat16* __restrict__ o,
+                                 float* __restrict__ lse, int Sq, int Skv,
+                                 int Hq, int Hkv, int n_qt, int causal,
+                                 float scale_log2) {
   using T = Tile<HD>;
   constexpr int NO = HD / 2;     // O accumulator values per thread
   extern __shared__ unsigned char smem_raw[];
@@ -728,6 +744,20 @@ __global__ void __launch_bounds__(kThreadsBf16, 2)
   issue_pv(n_kb - 1);
   wgmma_wait<0>();
   fence_regs<NO>(acc);
+  // m is in the exp2 domain of the scaled scores: ln sum exp = (m +
+  // log2 l) ln 2, the same log-sum-exp as the float32 kernel's
+  if constexpr (LSE) {
+    if (tq == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = q0w + r0 + 8 * hr;
+        if (row < Sq)
+          lse[((int64_t)it.b * Hq + it.h) * Sq + row] =
+              l[hr] > 0.f ? (m[hr] + log2f(l[hr])) * 0.6931471805599453f
+                          : INFINITY;
+      }
+    }
+  }
 
   // epilogue: each warp writes its 16 rows as bf16 into its rows of
   // the warpgroup's Q tile (no longer read), then stores them with
@@ -755,12 +785,12 @@ __global__ void __launch_bounds__(kThreadsBf16, 2)
   }
 }
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-               cudaStream_t stream) {
+template <int HD, bool LSE>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+               int causal, float scale, cudaStream_t stream) {
   const int smem = (2 * 64 * (HD + 4) + kBQ * kLdP) * (int)sizeof(float);
-  auto* fn = flash_attn_kernel<float, HD>;
+  auto* fn = flash_attn_kernel<float, HD, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -769,8 +799,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   fn<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv,
-      n_qt, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, Hq,
+      Hkv, n_qt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -821,14 +851,14 @@ bool make_map(CUtensorMap* map, const void* x, int B, int S, int H) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-                cudaStream_t stream) {
+template <int HD, bool LSE>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                int causal, float scale, cudaStream_t stream) {
   // the Q tile, the K ring and the V ring, then 8 bytes per barrier
   const int smem =
       (1 + 2 * kStages) * Tile<HD>::BYTES + 8 * (1 + 4 * kStages) + 1024;
-  auto* fn = flash_attn_kernel_bf16_wgmma<HD>;
+  auto* fn = flash_attn_kernel_bf16_wgmma<HD, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -843,45 +873,53 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   // exp(x / sqrt(hd)) = exp2(x * scale * log2(e)), in float32
   const float scale_log2 = scale * 1.4426950408889634f;
   fn<<<(unsigned)blocks, kThreadsBf16, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
-      n_qt, causal, scale_log2);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq,
+      Hkv, n_qt, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
+// a null lse launches the instances that write none (the serving and
+// build path's code, unchanged); otherwise those that also write it
 template <int HD>
 int launch_hd(int is_bf16, const void* q, const void* k, const void* v,
-              void* o, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-              float scale, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<HD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                                   scale, stream)
-                 : launch_f32<HD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                                  scale, stream);
+              void* o, float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+              int causal, float scale, cudaStream_t stream) {
+  if (lse == nullptr)
+    return is_bf16 ? launch_bf16<HD, false>(q, k, v, o, lse, B, Sq, Skv, Hq,
+                                            Hkv, causal, scale, stream)
+                   : launch_f32<HD, false>(q, k, v, o, lse, B, Sq, Skv, Hq,
+                                           Hkv, causal, scale, stream);
+  return is_bf16 ? launch_bf16<HD, true>(q, k, v, o, lse, B, Sq, Skv, Hq,
+                                         Hkv, causal, scale, stream)
+                 : launch_f32<HD, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                                        causal, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// is_bf16: 0 for float32 tensors, 1 for bfloat16; hd in {16, 32, 64, 128}
+// is_bf16: 0 for float32 tensors, 1 for bfloat16; hd in {16, 32, 64, 128};
+// lse: null, or (B, Hq, Sq) float32 to receive each row's log-sum-exp
 int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
-                      int B, int Sq, int Skv, int Hq, int Hkv, int hd,
-                      int is_bf16, int causal, float scale,
+                      float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                      int hd, int is_bf16, int causal, float scale,
                       cudaStream_t stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Skv < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
-      return launch_hd<16>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                           scale, stream);
+      return launch_hd<16>(is_bf16, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                            causal, scale, stream);
     case 32:
-      return launch_hd<32>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                           scale, stream);
+      return launch_hd<32>(is_bf16, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                            causal, scale, stream);
     case 64:
-      return launch_hd<64>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                           scale, stream);
+      return launch_hd<64>(is_bf16, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                            causal, scale, stream);
     case 128:
-      return launch_hd<128>(is_bf16, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
-                            scale, stream);
+      return launch_hd<128>(is_bf16, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                            causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,9 @@
-"""Wrapper of the CUDA kernel in ``csrc/flash_attn.cu``, which replaces
-``repro/kernels/flash_attn/kernel.py::flash_attn_pallas`` (the source
-file says what bounds it on the H100 and what the design does about it),
-and its plain PyTorch version.
+"""Wrappers of the CUDA kernels in ``csrc/flash_attn.cu``, which replaces
+``repro/kernels/flash_attn/kernel.py::flash_attn_pallas``, and
+``csrc/flash_attn_bwd.cu``, its backward, which replaces no TPU kernel
+(the JAX package differentiates its jnp ``gqa_attention``); each source
+says what bounds it on the H100 and what its design does about it.
+Beside each, its plain PyTorch version.
 
 Both take the model layout q ``(B, Sq, Hq, hd)``, k and v ``(B, Skv,
 Hkv, hd)`` (query head h reads KV head ``h // (Hq // Hkv)``), compute in
@@ -12,16 +14,27 @@ P . V as two bf16 parts, so that it keeps the float32 arithmetic of the
 plain version, the TPU kernel and the JAX model; float32 inputs run the
 FMA kernel.
 
-Given CUDA tensors :func:`flash_attn_kernel` validates them (float32 or
-bfloat16, contiguous, ``hd`` in {16, 32, 64, 128}), allocates its output
-with ``torch.empty``, launches on PyTorch's current stream, raises on a
-nonzero ``cudaGetLastError`` and adds one to its ``launches`` count.
-Given CPU tensors it runs :func:`flash_attn_plain`.
+With ``return_lse=True`` the forward also returns each row's
+log-sum-exp ``lse`` (B, Hq, Sq) float32, ``ln sum_t exp(q . k_t /
+sqrt(hd))`` (+inf for a row that sees no key), which the backward
+recomputes P from.  The backward takes q, k, v, the forward's o and
+lse, and dO, and returns (dQ, dK, dV) in the inputs' dtype; dK and dV
+sum over each KV head's query heads.
+
+Given CUDA tensors :func:`flash_attn_kernel` and
+:func:`flash_attn_bwd_kernel` validate them (float32 or bfloat16,
+contiguous, ``hd`` in {16, 32, 64, 128}), allocate their outputs with
+``torch.empty``, launch on PyTorch's current stream, raise on a nonzero
+``cudaGetLastError`` and add one to their ``launches`` count (one
+backward call launches the source's two kernels, dQ then dK / dV, and
+counts once).  Given CPU tensors they run :func:`flash_attn_plain` and
+:func:`flash_attn_bwd_plain`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -32,8 +45,11 @@ BLOCK_Q = 64     # query rows per block
 BLOCK_K = 64     # keys per KV tile
 HEAD_DIMS = (16, 32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, ctypes.c_float, _P]}
+_SIGNATURES = {"flash_attn_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, ctypes.c_float, _P]}
+_BWD_SIGNATURES = {"flash_attn_bwd_launch": [
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, _P]}
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -46,14 +62,20 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             f"v {tuple(v.shape)}")
 
 
+def _lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp from the online softmax's max and sum (+inf
+    where the row saw no key), as the kernels write it."""
+    return torch.where(l > 0, m + torch.log(l), float("inf"))
+
+
 def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True) -> torch.Tensor:
+                     causal: bool = True, return_lse: bool = False):
     """The kernel's function and tiling in plain PyTorch: q tiles of
     BLOCK_Q rows pre-scaled by 1/sqrt(hd); per q tile the KV tiles of
     BLOCK_K keys, zero-padded at the tail and masked there, those wholly
     above the diagonal skipped under ``causal``; the online softmax with
     the kernel's guards (``m_safe``, a zero correction while m is -inf,
-    division by max(l, 1e-30))."""
+    division by max(l, 1e-30)).  With ``return_lse``, ``(o, lse)``."""
     _check_shapes(q, k, v)
     n_b, n_q, n_hq, d = q.shape
     n_kv, n_hkv = k.shape[1], k.shape[2]
@@ -65,6 +87,7 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = pad_to(k.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
     vf = pad_to(v.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
     out = torch.empty_like(qf)
+    lse = torch.empty(qf.shape[:4], device=dev)
     n_kb_all = -(-n_kv // BLOCK_K)
     for q0 in range(0, n_q, BLOCK_Q):
         qt = qf[:, :, :, q0:q0 + BLOCK_Q]
@@ -93,40 +116,173 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         out[:, :, :, q0:q0 + BLOCK_Q] = acc / torch.clamp(l, min=1e-30)[
             ..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(n_b, n_q, n_hq, d).to(q.dtype)
+        lse[:, :, :, q0:q0 + BLOCK_Q] = _lse(m, l)
+    out = out.permute(0, 3, 1, 2, 4).reshape(n_b, n_q, n_hq, d).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(n_b, n_hq, n_q)
+    return out
 
 
-def flash_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, Hq, hd), k, v (B, Skv, Hkv, hd), float32 or bfloat16 ->
-    (B, Sq, Hq, hd) in q's dtype."""
-    if q.device.type != "cuda":
-        return flash_attn_plain(q, k, v, causal=causal)
-    _check_shapes(q, k, v)
-    dev, dt = q.device, q.dtype
+def _check_cuda(dt: torch.dtype, dev: torch.device, what: str,
+                **tensors: torch.Tensor) -> None:
     if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attn takes float32 or bfloat16, got {dt}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+        raise TypeError(f"{what} takes float32 or bfloat16, got {dt}")
+    for name, t in tensors.items():
         check_cuda_tensor(name, t, dt, dev, 4)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    n_b, n_q, n_hq, d = q.shape
-    n_kv, n_hkv = k.shape[1], k.shape[2]
+    d = tensors["q"].shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
+
+
+def flash_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, return_lse: bool = False):
+    """q (B, Sq, Hq, hd), k, v (B, Skv, Hkv, hd), float32 or bfloat16 ->
+    (B, Sq, Hq, hd) in q's dtype; with ``return_lse``, ``(o, lse (B, Hq,
+    Sq) float32)``.  Without it the launch passes a null ``lse`` and runs
+    the instances that write none."""
+    if q.device.type != "cuda":
+        return flash_attn_plain(q, k, v, causal=causal,
+                                return_lse=return_lse)
+    _check_shapes(q, k, v)
+    dev, dt = q.device, q.dtype
+    _check_cuda(dt, dev, "flash_attn", q=q, k=k, v=v)
+    n_b, n_q, n_hq, d = q.shape
+    n_kv, n_hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((n_b, n_hq, n_q), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if n_kv == 0:
         raise ValueError("flash_attn needs at least one key")
     lib = load_library("flash_attn", _SIGNATURES)
     rc = lib.flash_attn_launch(
-        ptr(q), ptr(k), ptr(v), ptr(out), n_b, n_q, n_kv, n_hq, n_hkv, d,
+        ptr(q), ptr(k), ptr(v), ptr(out),
+        ptr(lse) if return_lse else None, n_b, n_q, n_kv, n_hq, n_hkv, d,
         int(dt == torch.bfloat16), int(bool(causal)),
         ctypes.c_float(1.0 / math.sqrt(d)), stream_handle())
     check_launch(lib, rc, "flash_attn_kernel")
     flash_attn_kernel.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attn_kernel.launches = 0
+
+
+def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor,
+                         lse: torch.Tensor, *, causal: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The backward kernel's function and tiling in plain PyTorch: D =
+    rowsum(dO * O) in float32; q pre-scaled by 1/sqrt(hd); P recomputed
+    per (BLOCK_Q, BLOCK_K) tile as exp(S - lse), 0 at the masked tail
+    keys and above the diagonal, the tail queries' lse +inf; dS = P *
+    (dO V^T - D).  dQ sums dS K over the KV tiles at or below the
+    diagonal, times 1/sqrt(hd); dK (dS^T of the pre-scaled q) and dV (P^T
+    dO) sum over the query tiles at or below the diagonal and the KV
+    head's query heads.  Returns (dQ, dK, dV) in q's dtype."""
+    _check_shapes(q, k, v)
+    n_b, n_q, n_hq, d = q.shape
+    n_kv, n_hkv = k.shape[1], k.shape[2]
+    g = n_hq // n_hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+
+    def grouped(x):      # (B, S, Hq, hd) -> (B, Hkv, G, S, hd) float32
+        return pad_to(x.float().reshape(n_b, n_q, n_hkv, g, d)
+                      .permute(0, 2, 3, 1, 4), 3, BLOCK_Q)
+
+    qf, dof = grouped(q) * scale, grouped(do)
+    dsum = (dof * grouped(o)).sum(-1)                     # (B, Hkv, G, Sq)
+    lsef = pad_to(lse.float().reshape(n_b, n_hkv, g, n_q), 3, BLOCK_Q,
+                  value=float("inf"))
+    kf = pad_to(k.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
+    vf = pad_to(v.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
+    n_qt, n_kt = -(-n_q // BLOCK_Q), -(-n_kv // BLOCK_K)
+
+    def tile(qt: int, kt: int):
+        """P and dS of query tile qt against KV tile kt."""
+        qs, ks = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q), \
+            slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
+        q_pos = qt * BLOCK_Q + torch.arange(BLOCK_Q, device=dev)
+        kv_pos = kt * BLOCK_K + torch.arange(BLOCK_K, device=dev)
+        keep = (kv_pos < n_kv)[None, :]
+        if causal:
+            keep = keep & (q_pos[:, None] >= kv_pos[None, :])
+        s = qf[:, :, :, qs] @ kf[:, :, :, ks].transpose(-1, -2)
+        p = torch.where(keep, torch.exp(s - lsef[:, :, :, qs, None]), 0.0)
+        dp = dof[:, :, :, qs] @ vf[:, :, :, ks].transpose(-1, -2)
+        return p, p * (dp - dsum[:, :, :, qs, None])
+
+    def last_kt(qt: int) -> int:     # the diagonal skip
+        if not causal:
+            return n_kt
+        return min(n_kt, (min((qt + 1) * BLOCK_Q, n_q) - 1) // BLOCK_K + 1)
+
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(kf.shape[:2] + (1,) + kf.shape[3:], device=dev)
+    dv = torch.zeros_like(dk)
+    for qt in range(n_qt):
+        qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
+        for kt in range(last_kt(qt)):
+            _, ds = tile(qt, kt)
+            dq[:, :, :, qs] += ds @ kf[:, :, :, kt * BLOCK_K:
+                                       (kt + 1) * BLOCK_K]
+    for kt in range(n_kt):
+        ks = slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
+        for qt in range(kt * BLOCK_K // BLOCK_Q if causal else 0, n_qt):
+            p, ds = tile(qt, kt)
+            qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
+            dv[:, :, :, ks] += (p.transpose(-1, -2) @ dof[:, :, :, qs]).sum(
+                2, keepdim=True)
+            dk[:, :, :, ks] += (ds.transpose(-1, -2) @ qf[:, :, :, qs]).sum(
+                2, keepdim=True)
+    dq = (dq[:, :, :, :n_q] * scale).permute(0, 3, 1, 2, 4).reshape(
+        n_b, n_q, n_hq, d)
+
+    def per_kv(x):       # (B, Hkv, 1, Skv, hd) -> (B, Skv, Hkv, hd)
+        return x[:, :, 0, :n_kv].permute(0, 2, 1, 3)
+
+    return dq.to(q.dtype), per_kv(dk).to(q.dtype), per_kv(dv).to(q.dtype)
+
+
+def flash_attn_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, do: torch.Tensor,
+                          lse: torch.Tensor, *, causal: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(dQ, dK, dV) of ``o = flash_attn(q, k, v)`` given dO, from the
+    forward's o and lse (B, Hq, Sq) float32; each in q's dtype."""
+    if q.device.type != "cuda":
+        return flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    _check_shapes(q, k, v)
+    dev, dt = q.device, q.dtype
+    _check_cuda(dt, dev, "flash_attn_bwd", q=q, k=k, v=v, o=o, do=do)
+    n_b, n_q, n_hq, d = q.shape
+    n_kv, n_hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    check_cuda_tensor("lse", lse, torch.float32, dev, 3)
+    if tuple(lse.shape) != (n_b, n_hq, n_q):
+        raise ValueError(f"lse {tuple(lse.shape)} must be (B, Hq, Sq) = "
+                         f"{(n_b, n_hq, n_q)}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dk.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((n_b, n_hq, n_q), dtype=torch.float32, device=dev)
+    lib = load_library("flash_attn_bwd", _BWD_SIGNATURES)
+    rc = lib.flash_attn_bwd_launch(
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dsum),
+        ptr(dq), ptr(dk), ptr(dv), n_b, n_q, n_kv, n_hq, n_hkv, d,
+        int(dt == torch.bfloat16), int(bool(causal)),
+        ctypes.c_float(1.0 / math.sqrt(d)), stream_handle())
+    check_launch(lib, rc, "flash_attn_bwd_kernel")
+    flash_attn_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attn_bwd_kernel.launches = 0

@@ -34,6 +34,8 @@ SOURCES: Dict[str, Path] = {
     / "seg_interact.cu",
     "flash_attn": Path(__file__).parent / "flash_attn" / "csrc"
     / "flash_attn.cu",
+    "flash_attn_bwd": Path(__file__).parent / "flash_attn" / "csrc"
+    / "flash_attn_bwd.cu",
     "embed_bag": Path(__file__).parent / "embed_bag" / "csrc"
     / "embed_bag.cu",
 }

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --workload seine-ranker \
         --retriever knrm --steps 200 --ckpt-dir build/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --workload lm \
+        [--arch stablelm-1.6b] [--full] --steps 20
 
 Trains a SEINE ranker on indexed M: the smoke-scale world of the
 reference (corpus, vocabulary, TextTiling and index ids from ``--seed``
@@ -12,9 +14,15 @@ checkpoints and resume in ``--ckpt-dir``.  Every (query, doc) pair's M
 comes from the index's ``qd_matrix``: on the card the ``csr_lookup``
 kernel, and KNRM's features go through ``knrm_pool``.  Everything runs
 on the card (``--device`` defaults to CUDA, and the run fails when
-there is none); ``--device cpu`` runs the kernels' plain versions.  The
-``lm``, ``recsys`` and ``gnn`` workloads are not ported and exit with an
-error.
+there is none); ``--device cpu`` runs the kernels' plain versions.
+
+``--workload lm`` trains a decoder LM (default stablelm-1.6b) on the
+reference's random next-token batches, ``adamw(3e-4)``: its smoke config
+at (B, S) = (8, 64), or with ``--full`` the published config at (16,
+1,024).  The weights come from ``init_params`` with a ``torch.Generator``
+seeded by ``--seed``; attention runs the ``flash_attn`` forward and
+backward kernels, each layer under remat.  The ``recsys`` and ``gnn``
+workloads are not ported and exit with an error.
 """
 from __future__ import annotations
 
@@ -30,9 +38,14 @@ from ..kernels.utils import resolve_device
 _log = obs.get_logger("repro.launch.train")
 
 # the ROADMAP queue that ports each workload the driver does not run yet
-NOT_PORTED = {"lm": "ROADMAP Queue 1 item 4 (the LM's loss and training)",
-              "recsys": "ROADMAP Queue 1 item 4 (the recsys models)",
-              "gnn": "ROADMAP Queue 1 item 4 (the GNN models)"}
+NOT_PORTED = {"recsys": "ROADMAP Queue 1 item 4 (the recsys models, the "
+                        "next slice)",
+              "gnn": "ROADMAP Queue 1 item 4 (the GNN models, after the "
+                     "recsys slice)"}
+# (B, S) of an LM batch: the smoke config's, and the published config's
+LM_BATCH = {True: (8, 64), False: (16, 1024)}
+LM_CE_CHUNKS = 4
+LM_LR = 3e-4
 
 
 def has_params(params) -> bool:
@@ -143,6 +156,83 @@ def train_seine_ranker(retriever: str, steps: int, ckpt_dir, *, seed=0,
                         ckpt_dir, seed=seed, verbose=verbose)
 
 
+def lm_batches(vocab_size: int, n_b: int, n_s: int, seed: int, device):
+    """``next_batch(step)`` of the reference's ``train_lm``: ``{"tokens",
+    "labels"}`` (B, S) int32 on ``device``, the inputs and next tokens of
+    ``randint(0, V, (B, S + 1))``, the step-th draw of a
+    ``RandomState(seed)``.  The reference draws one batch per call; a
+    call out of order (a resumed run) draws again from the seed, so
+    every step sees the reference's batch of that step."""
+    state = {"rng": None, "next": None}
+
+    def next_batch(step):
+        step = int(step)
+        if state["next"] != step:
+            state["rng"] = np.random.RandomState(seed)
+            for _ in range(step):
+                state["rng"].randint(0, vocab_size, (n_b, n_s + 1))
+        t = state["rng"].randint(0, vocab_size, (n_b, n_s + 1))
+        state["next"] = step + 1
+        t = torch.from_numpy(t.astype(np.int32)).to(device)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    return next_batch
+
+
+def lm_loss_fn(cfg, attention=None):
+    """The reference's ``train_lm`` loss: ``lm_loss`` with 4 cross-entropy
+    chunks, through ``attention`` (default the ``flash_attn`` kernels)."""
+    from ..kernels.flash_attn import flash_attention
+    from ..models import transformer as T
+
+    attention = attention or flash_attention
+
+    def loss_fn(params, batch):
+        return T.lm_loss(params, batch, cfg, attention=attention,
+                         ce_chunks=LM_CE_CHUNKS)
+
+    return loss_fn
+
+
+def fit_lm(cfg, params, batch_shape, steps: int, ckpt_dir, *, seed: int = 0,
+           verbose: bool = True, ckpt_every: int = 100):
+    """Train the LM ``params`` of ``cfg`` (a tree on their device) for
+    ``steps`` on :func:`lm_batches` of ``batch_shape`` (B, S) with
+    ``adamw(3e-4)``, an error-feedback residual in the state as the
+    reference's, and checkpoints in ``ckpt_dir`` every ``ckpt_every``
+    steps (resuming from the latest).  Returns the ``FitResult``."""
+    from ..dist.compression import init_error_feedback
+    from ..train import TrainState, adamw, fit, make_train_step
+
+    dev = next(iter(params["layers"].values())).device
+    opt = adamw(LM_LR)
+    step_fn = make_train_step(lm_loss_fn(cfg), opt, donate=False)
+    st = TrainState(params=params, opt_state=opt.init(params),
+                    residual=init_error_feedback(params))
+    return fit(st, step_fn, lm_batches(cfg.vocab_size, *batch_shape, seed,
+                                       dev),
+               n_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+               verbose=verbose)
+
+
+def train_lm(arch: str, steps: int, ckpt_dir, *, smoke: bool = True,
+             device=None, seed: int = 0, verbose: bool = True):
+    """The reference's ``train_lm`` on ``device`` (default CUDA):
+    ``smoke(arch)`` at (8, 64) or the published config at (16, 1,024),
+    weights from ``init_params`` with a generator seeded by ``seed``,
+    then :func:`fit_lm`."""
+    from ..configs import get_lm_config
+    from ..configs import smoke as smoke_cfg
+    from ..models import transformer as T
+
+    dev = resolve_device(device)
+    cfg = smoke_cfg(arch) if smoke else get_lm_config(arch)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    return fit_lm(cfg, params, LM_BATCH[smoke], steps, ckpt_dir, seed=seed,
+                  verbose=verbose)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True,
@@ -162,8 +252,12 @@ def main() -> None:
                  f"{NOT_PORTED[args.workload]}")
 
     t0 = time.perf_counter()
-    res = train_seine_ranker(args.retriever, args.steps, args.ckpt_dir,
-                             device=args.device)
+    if args.workload == "lm":
+        res = train_lm(args.arch or "stablelm-1.6b", args.steps,
+                       args.ckpt_dir, smoke=args.smoke, device=args.device)
+    else:
+        res = train_seine_ranker(args.retriever, args.steps, args.ckpt_dir,
+                                 device=args.device)
     h = res.history
     _log.info("done", steps=len(h), s=f"{time.perf_counter() - t0:.1f}",
               loss=f"{h[0]['loss']:.4f}->{h[-1]['loss']:.4f}",

@@ -1,14 +1,18 @@
 """Decoder-only transformer LM, dense GQA and MoE (port of
 ``repro.models.transformer``: ``init_params``, the capacity-dispatch
-``moe_ffn``, ``forward``, ``prefill`` and the KV-cache decode
-``init_cache`` / ``decode_step``).
+``moe_ffn``, ``forward``, ``prefill``, the losses ``chunked_ce_loss``
+and ``lm_loss``, and the KV-cache decode ``init_cache`` /
+``decode_step``).
 
 The reference scans stacked layers under remat for pod-scale SPMD; the
 port keeps the stacked parameter layout (so a JAX pytree carries across
 name for name, see ``convert.lm_params_from_numpy``) and runs a plain
-loop over layers.  Attention goes through ``kernels.flash_attn``: the
-hand-written CUDA kernel for CUDA tensors, its plain version on the CPU
-(where the reference uses its chunked jnp stand-in).  The bf16 forward
+loop over layers, each under ``torch.utils.checkpoint`` when it is
+differentiated (``remat``, the reference's ``jax.checkpoint`` of the
+scanned body).  Attention goes through ``kernels.flash_attn``: the
+hand-written CUDA kernels for CUDA tensors (forward, and backward when a
+gradient is taken), their plain versions on the CPU (where the
+reference uses its chunked jnp stand-in and differentiates it).  The bf16 forward
 rounds where the reference does: ``rms_norm``, RoPE and attention
 compute in float32 and cast back; the residual adds and
 ``silu(gate) * up`` run in the working dtype.  The MoE router is
@@ -17,8 +21,7 @@ float32 in every model, as the reference's.
 A decode step attends over the cache through ``layers.gqa_attention``
 (the reference's jnp path: the flash kernel takes no valid lengths).
 ``prefill_cache`` fills a cache from a prompt in one forward; the
-reference has no such entry and decodes a prompt token by token.  The
-losses and LM training are not ported yet (ROADMAP Queue 1 item 4).
+reference has no such entry and decodes a prompt token by token.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import TransformerConfig
 from ..core.index import gather_clip
@@ -280,27 +284,49 @@ def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
     return x + y, aux
 
 
-def _layer(params: Params, i: int) -> Params:
-    return {name: t[i] for name, t in params["layers"].items()}
+def _layers(params: Params) -> List[Params]:
+    """Each layer's weights as views of the stacked (L, ...) leaves, from
+    one ``torch.unbind`` per leaf: its backward stacks the L layers'
+    gradients once, where indexing ``t[i]`` per layer would build a
+    full-size zero gradient for every layer and sum L of them."""
+    per = {name: torch.unbind(t) for name, t in params["layers"].items()}
+    n_l = len(next(iter(per.values())))
+    return [{name: u[i] for name, u in per.items()} for i in range(n_l)]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             *, attention: Attention = flash_attention,
-            kv_out: Optional[list] = None
+            kv_out: Optional[list] = None, remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (final hidden (B, S, D), summed MoE aux loss).
     The embedding gather is the reference's ``mode="clip"`` one: an id
     past the vocabulary reads the last row, a negative id wraps first
     (``LMProvider`` clamps its pads to 0 before, as the reference's
     does).  A MoE model routes each row of the batch as its own group
-    of S tokens, as the reference does."""
+    of S tokens, as the reference does.
+
+    ``remat``: when autograd records the forward (a layer weight needs a
+    gradient), each layer runs under ``torch.utils.checkpoint`` (not
+    re-entrant), which keeps only its input and recomputes the layer in
+    the backward, as the reference's ``jax.checkpoint`` of the scanned
+    body; the values are the same.  Without gradients, and with
+    ``kv_out`` (which the recompute would append to again), layers run
+    as they are."""
     n_b, n_s = tokens.shape
     x = gather_clip(params["embed"], tokens)                     # (B, S, D)
     positions = torch.arange(n_s, device=x.device)[None].expand(n_b, n_s)
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = block(x, _layer(params, i), cfg, positions=positions,
-                     attention=attention, kv_out=kv_out)
+    layers = _layers(params)
+    remat = remat and kv_out is None and torch.is_grad_enabled() and any(
+        t.requires_grad for t in params["layers"].values())
+    for lp in layers:
+        if remat:
+            x, a = checkpoint(block, x, lp, cfg, positions=positions,
+                              attention=attention, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = block(x, lp, cfg, positions=positions,
+                         attention=attention, kv_out=kv_out)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -317,6 +343,78 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Full-prompt forward; returns next-token logits (B, V) in float32."""
     hidden, _ = forward(params, tokens, cfg, attention=attention)
     return logits_of(params, hidden[:, -1], cfg)
+
+
+# -- losses -------------------------------------------------------------------
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) summed and returned in float32.  On CUDA, bf16
+    operands stay bf16 on the tensor cores (``out_dtype``); otherwise
+    both are widened to float32, which for bf16 values is the same
+    product (the reference's ``preferred_element_type=float32``)."""
+    if a.is_cuda and torch.bfloat16 in (a.dtype, b.dtype):
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                        out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LogitsF32(torch.autograd.Function):
+    """Float32 logits ``h @ w`` of a chunk's hidden states h (N, D)
+    against the unembedding w (D, V), with its gradients; a float32 dL /
+    dlogits meets bf16 operands on the card as bf16 (the tensor cores'
+    type), and in float32 everywhere else."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        return (_mm_f32(g, w.T).to(h.dtype), _mm_f32(h.T, g).to(w.dtype))
+
+
+def chunked_ce_loss(hidden: torch.Tensor, labels: torch.Tensor,
+                    unembed: torch.Tensor, n_chunks: int = 8
+                    ) -> torch.Tensor:
+    """Mean cross-entropy without the (B, S, V) logits: hidden (B, S, D),
+    labels (B, S) with -1 ignored, unembed (D, V).  The reference's
+    chunking: ``n_chunks`` cut to S, then down to a divisor of S; per
+    chunk of c positions the (B, c, V) float32 logits (bf16 operands,
+    float32 sums), ``logsumexp`` minus the gold logit, summed over the
+    valid positions with their count; the total over max(count, 1)."""
+    n_b, n_s, d = hidden.shape
+    n_chunks = min(n_chunks, n_s)
+    while n_s % n_chunks:
+        n_chunks -= 1
+    c = n_s // n_chunks
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for i in range(n_chunks):
+        h = hidden[:, i * c:(i + 1) * c].reshape(n_b * c, d)
+        lab = labels[:, i * c:(i + 1) * c].long()
+        logits = _LogitsF32.apply(h, unembed).reshape(n_b, c, -1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.clamp(min=0)[..., None])[..., 0]
+        valid = (lab >= 0).float()
+        tot = tot + torch.sum((lse - gold) * valid)
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig, *, attention: Attention = flash_attention,
+            ce_chunks: int = 8, remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    (B, S), -1 ignored) plus the MoE aux loss, as the reference's.  Its
+    ``attn_chunk`` sizes the jnp attention's KV chunks; the kernels tile
+    by themselves."""
+    hidden, aux = forward(params, batch["tokens"], cfg, attention=attention,
+                          remat=remat)
+    ce = chunked_ce_loss(hidden, batch["labels"],
+                         unembed_matrix(cfg, params), n_chunks=ce_chunks)
+    return ce + aux
 
 
 # -- KV-cache decode ----------------------------------------------------------
@@ -364,8 +462,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     pos = length[:, None]                                          # (B,1)
     rows = torch.arange(n_b, device=x.device)
     chunk = min(cache.k.shape[2], 4096)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         kc, vc = cache.k[i], cache.v[i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q = (h @ lp["wq"]).reshape(n_b, 1, hq, hd)

@@ -460,6 +460,61 @@ def test_snrm_phase_runs_on_the_cpu(monkeypatch):
     assert len(out["losses"]) == 4 and out["first_step_err"] < 1e-9
 
 
+def test_lm_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 12 (LM training) at smoke configs in bf16: the backward
+    kernel's check and timing at small shapes, the stablelm run with its
+    first step against the plain attention and its launches per step
+    (forward and recompute, backward, per layer), the MoE steps, the
+    bf16 checkpoint's resume bitwise and the kernels-line row."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+
+    cs = _load_script()
+    stable = dataclasses.replace(smoke("stablelm-1.6b"), dtype="bfloat16")
+    moe = dataclasses.replace(smoke("granite-moe-3b-a800m"),
+                              dtype="bfloat16")
+    arch = {"stablelm-1.6b": stable, "granite-moe-3b-a800m": moe}
+    monkeypatch.setattr(configs, "get_lm_config", arch.__getitem__)
+    monkeypatch.setattr(cs, "get_lm_config", arch.__getitem__)
+    monkeypatch.setattr(train_cli, "LM_BATCH", {True: (8, 64),
+                                                False: (2, 70)})
+    for name, value in dict(
+            FA_BWD_SHAPES=((2, 70, 4, 4, 16, True), (1, 130, 4, 2, 32, True),
+                           (1, 65, 4, 1, 16, False)),
+            TRAIN_LM_STEPS=3, MOE_TRAIN_BATCH=(2, 40),
+            LM_TRAIN_DIR=str(tmp_path / "lm")).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "events_ms", _host_ms)
+    monkeypatch.setattr(cs, "device_profile", lambda fns, iters: None)
+    monkeypatch.setattr(cs, "device_busy", _busy)
+    monkeypatch.setattr(cs, "kernel_split", lambda run, n: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for name in ("flash_attn_kernel", "flash_attn_bwd_kernel"):
+        monkeypatch.setattr(fa_ops, name, _counting(getattr(cs, name)))
+    out = cs.phase12(0, torch.device("cpu"))
+    row = out["row"]
+    assert set(row) >= KEYS
+    assert row["name"] == "flash_attn_bwd" and row["route"] == "cuda"
+    assert row["source"] == \
+        "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu"
+    assert row["replaces"] == "src/repro/models/layers.py:166"
+    assert row["launches"] == 3 * stable.n_layers
+    assert row["launches_per_step"] == stable.n_layers
+    assert out["lm"]["per_step"]["flash_attn"] == 2 * stable.n_layers
+    assert row["max_abs_err"] == row["f32_max_abs_err"] == 0.0
+    assert row["bound_ms"] > 0 and row["library_ms"] > 0
+    assert row["plain_ms"] > 0 and row["f32_bound_ms"] > 0
+    assert len(row["by_shape"]) == 3
+    lm = out["lm"]
+    assert np.isfinite(lm["losses"]).all() and len(lm["losses"]) == 3
+    assert lm["p95_ms"] >= lm["p50_ms"] > 0 and 0 < lm["mfu"]
+    assert lm["peak_bytes"] is None
+    assert out["moe"]["router_grad_norm"] > 0 and out["moe"]["aux"] > 0
+    assert len(out["moe"]["losses"]) == 2
+    assert np.isfinite(out["resume"]["loss"])
+    assert not os.path.exists(tmp_path / "lm")
+
+
 def test_refuses_to_run_without_cuda():
     """No card: a non-zero exit and no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

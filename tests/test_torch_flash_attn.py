@@ -10,7 +10,14 @@ those of tests/test_kernels.py::TestFlashAttention, its non-causal case,
 the LM build's grouping at S = 160 (Hq 6 over Hkv 2), and sequence
 lengths around the 64-row tile.  Bars: rtol 1e-4 / atol 1e-5 in float32
 (tests/test_kernels.py's), 2e-2 for bf16 inputs.
+
+The backward: ``flash_attn_bwd_plain`` (the backward kernel's tiling in
+torch, P recomputed from the forward's lse) and ``flash_attention``'s
+autograd Function, which runs it on CPU tensors, against ``jax.grad`` of
+the reference's ``gqa_attention`` (the function the JAX model
+differentiates) and of ``naive_attention``, at the same bars.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +28,9 @@ from repro.models.layers import gqa_attention as jax_gqa
 from repro.models.layers import naive_attention as jax_naive
 from repro_torch.kernels.flash_attn import (BLOCK_K, BLOCK_Q,
                                             flash_attention,
+                                            flash_attention_plain,
+                                            flash_attn_bwd_kernel,
+                                            flash_attn_bwd_plain,
                                             flash_attn_kernel,
                                             flash_attn_plain)
 from repro_torch.kernels.flash_attn import ops as fa_ops
@@ -172,3 +182,130 @@ def test_plain_bf16_at_the_build_width_matches_jax(s, causal):
     f32 = flash_attn_plain(tq.float(), tk.float(), tv.float(),
                            causal=causal)
     np.testing.assert_allclose(_np(got), _np(f32), **BF16)
+
+
+# (B, S, Hq, Hkv, hd, causal): groups 1, 2 and 4, head widths 16-128,
+# lengths below, at and past the 64-row tile
+BWD_SHAPES = [(2, 63, 4, 4, 16, True), (1, 64, 4, 2, 32, False),
+              (2, 65, 8, 2, 64, True), (1, 130, 4, 1, 16, True),
+              (1, 130, 4, 1, 16, False), (1, 100, 2, 2, 128, True),
+              (2, 128, 8, 2, 32, True), (1, 1, 2, 1, 16, True)]
+
+
+def _jax_grads(fn, arrays, do, dtype):
+    """(dq, dk, dv) of sum(fn(q, k, v) * dO) by jax.grad (jitted: the
+    eager grad of the chunked scan takes seconds a shape)."""
+    q, k, v = _jax(arrays, dtype)
+    g = jnp.asarray(do).astype(dtype)
+    return jax.jit(jax.grad(lambda q, k, v: jnp.sum(
+        fn(q, k, v).astype(jnp.float32) * g.astype(jnp.float32)),
+        argnums=(0, 1, 2)))(q, k, v)
+
+
+def _port_grads(arrays, do, dtype, causal, attention=flash_attention):
+    q, k, v = (t.requires_grad_() for t in _torch(arrays, dtype))
+    o = attention(q, k, v, causal=causal)
+    return torch.autograd.grad(o, (q, k, v), torch.from_numpy(do).to(dtype))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal", BWD_SHAPES)
+def test_backward_matches_jax_grad_in_float32(b, s, hq, hkv, hd, causal):
+    """The plain backward, called directly on the plain forward's o and
+    lse and through the autograd Function, against jax.grad of
+    gqa_attention (chunks of 48, which do not divide the tile) and of
+    naive_attention."""
+    arrays = _qkv(b, s, hq, hkv, hd, seed=3 * s + hd)
+    do = np.random.RandomState(s).randn(b, s, hq, hd).astype(np.float32)
+    want_gqa = _jax_grads(lambda q, k, v: jax_gqa(q, k, v, causal=causal,
+                                                  chunk=48),
+                          arrays, do, jnp.float32)
+    want_naive = _jax_grads(lambda q, k, v: jax_naive(q, k, v,
+                                                      causal=causal),
+                            arrays, do, jnp.float32)
+    tq, tk, tv = _torch(arrays)
+    o, lse = flash_attn_plain(tq, tk, tv, causal=causal, return_lse=True)
+    direct = flash_attn_bwd_plain(tq, tk, tv, o, torch.from_numpy(do), lse,
+                                  causal=causal)
+    through = _port_grads(arrays, do, torch.float32, causal)
+    for got in (direct, through):
+        for name, g, w1, w2 in zip("qkv", got, want_gqa, want_naive):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(_np(g), _np(w1), **F32, err_msg=name)
+            np.testing.assert_allclose(_np(g), _np(w2), **F32, err_msg=name)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal", BWD_SHAPES)
+def test_backward_matches_jax_grad_in_bf16(b, s, hq, hkv, hd, causal):
+    """bf16 inputs: the autograd Function's gradients (bf16, from the
+    plain forward's bf16 o) against jax.grad of gqa_attention in bf16,
+    at 2e-2."""
+    arrays = _qkv(b, s, hq, hkv, hd, seed=5 * s + hd)
+    do = np.random.RandomState(s + 1).randn(b, s, hq, hd).astype(np.float32)
+    want = _jax_grads(lambda q, k, v: jax_gqa(q, k, v, causal=causal,
+                                              chunk=64),
+                      arrays, do, jnp.bfloat16)
+    got = _port_grads(arrays, do, torch.bfloat16, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(g), _np(w), **BF16, err_msg=name)
+
+
+@pytest.mark.parametrize("sq,skv", [(70, 130), (130, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_with_other_key_lengths(sq, skv, causal):
+    """Sq != Skv, both counted from 0 as in the forward: under the causal
+    mask the keys past Sq get no gradient from any query."""
+    arrays = _qkv(1, sq, 4, 2, 16, seed=sq + skv, skv=skv)
+    do = np.random.RandomState(sq).randn(1, sq, 4, 16).astype(np.float32)
+    want = _jax_grads(lambda q, k, v: jax_naive(q, k, v, causal=causal),
+                      arrays, do, jnp.float32)
+    got = _port_grads(arrays, do, torch.float32, causal)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **F32, err_msg=name)
+    if causal and skv > sq:
+        assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
+
+
+def test_forward_lse_matches_logsumexp():
+    """The lse the forward keeps is ln sum exp of the scaled, masked
+    scores, per (b, h, row) in (B, Hq, Sq), and the output is the same
+    with or without it."""
+    arrays = _qkv(2, 130, 6, 2, 32, seed=11)
+    tq, tk, tv = _torch(arrays)
+    o, lse = flash_attn_plain(tq, tk, tv, causal=True, return_lse=True)
+    assert torch.equal(o, flash_attn_plain(tq, tk, tv, causal=True))
+    kr = tk.repeat_interleave(3, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, kr) / np.sqrt(32)
+    s = s.masked_fill(torch.ones(130, 130).triu(1).bool(), float("-inf"))
+    np.testing.assert_allclose(_np(lse), _np(torch.logsumexp(s, -1)), **F32)
+
+
+def test_autograd_takes_the_plain_versions_on_the_cpu(monkeypatch):
+    """On CPU tensors the Function calls the kernel wrappers, which run
+    the plain forward (with lse) and the plain backward and count no
+    launch; with no input needing a gradient the forward keeps no lse.
+    ``flash_attention_plain`` gives the same bits."""
+    calls = []
+    monkeypatch.setattr(fa_ops, "flash_attn_kernel",
+                        lambda *a, **k: calls.append(k) or
+                        flash_attn_kernel(*a, **k))
+    arrays = _qkv(1, 70, 4, 2, 16, seed=4)
+    do = np.random.RandomState(4).randn(1, 70, 4, 16).astype(np.float32)
+    before = (flash_attn_kernel.launches, flash_attn_bwd_kernel.launches)
+    got = _port_grads(arrays, do, torch.float32, True)
+    assert calls == [dict(causal=True, return_lse=True)]
+    with torch.no_grad():
+        flash_attention(*_torch(arrays))
+    assert calls[-1] == dict(causal=True)
+    plain = _port_grads(arrays, do, torch.float32, True,
+                        attention=flash_attention_plain)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert (flash_attn_kernel.launches,
+            flash_attn_bwd_kernel.launches) == before
+
+
+def test_backward_rejects_mismatched_shapes():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError):
+        flash_attn_bwd_plain(q, k, k, q, q, torch.zeros(1, 4, 8))

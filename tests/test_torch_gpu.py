@@ -13,6 +13,12 @@ plain versions and ``engine.score``.  bf16 flash_attn runs on the tensor
 cores (``wgmma``, TMA loads), held against the plain version at every
 head width.
 
+The flash_attn backward kernel is held against its plain version from
+the forward kernel's o and lse (float32 at rtol 1e-4 / atol 1e-5, bf16
+with at most 0.1% of values past 2e-2), bitwise run to run; the forward
+keeps its bits (digests of the tree before it could write an lse), and
+a smoke LM's training steps on the card match the CPU's.
+
 The first-stage scan's lane-bounds table and its block kernels are held
 bitwise against their plain versions and the independent per-block
 reference over every block of a scan, with one table launch per scan, and
@@ -63,6 +69,8 @@ from repro_torch.kernels.csr_lookup.kernel import csr_lookup_packed_plain
 from repro_torch.kernels.csr_lookup.ops import _route_cells
 from repro_torch.kernels.csr_lookup.ref import _lane_scale, _route
 from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attn_bwd_kernel,
+                                            flash_attn_bwd_plain,
                                             flash_attn_kernel,
                                             flash_attn_plain)
 from repro_torch.kernels.knrm_pool import knrm_pool_kernel, knrm_pool_ref
@@ -853,6 +861,117 @@ def test_flash_attn_wgmma_matches_plain(hd, causal):
         want = flash_attn_plain(q, k, v, causal=causal)
         torch.testing.assert_close(got.cpu().float(), want.float(),
                                    rtol=2e-2, atol=2e-2)
+
+
+# scripts/flash_attn_fwd_digest.py on the tree before the forward kernel
+# could write an lse (commit bd5bb5a, NVIDIA H100 80GB HBM3, 700.00 W)
+FWD_DIGESTS = {
+    "(32, 512, 24, 8, 128) bfloat16 causal=True": "4a875c2d48519c2b",
+    "(4, 512, 24, 8, 64) bfloat16 causal=True": "8a973279f3b8f2a9",
+    "(2, 200, 6, 2, 64) bfloat16 causal=False": "9dbc4ca903eface6",
+    "(2, 200, 6, 2, 128) float32 causal=True": "5d85e7140d6806dd"}
+
+
+def test_flash_attn_forward_keeps_its_bits():
+    """The forward kernel without an lse (serving, the build, decode's
+    prefill) gives the bits the tree before the lse gave, at the LM
+    build's shape, hd 64 and the float32 kernel."""
+    _require_cuda()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "flash_attn_fwd_digest", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scripts", "flash_attn_fwd_digest.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.digests(flash_attn_kernel) == FWD_DIGESTS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attn_backward_kernel_matches_plain(hd, causal, dtype):
+    """The backward kernel against its plain version on the card, from
+    the forward kernel's o and lse, at lengths that are not multiples of
+    the 64-row tile, one query, Sq != Skv both ways, and GQA groups of 1,
+    3 and 4: float32 at rtol 1e-4 / atol 1e-5, bf16 with at most 0.1% of
+    the values past 2e-2 (row 8's bar).  Two launches give the same bits,
+    the forward's o is the same with and without its lse, and one call
+    counts one launch."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(hd + int(causal))
+    for b, sq, skv, hq, hkv in ((2, 100, 100, 6, 2), (3, 1, 1, 4, 4),
+                                (1, 70, 130, 3, 1), (2, 129, 129, 8, 2),
+                                (1, 130, 70, 4, 1)):
+        q, do = (torch.randn(b, sq, hq, hd, generator=g).to(dt).cuda()
+                 for _ in range(2))
+        k, v = (torch.randn(b, skv, hkv, hd, generator=g).to(dt).cuda()
+                for _ in range(2))
+        o, lse = flash_attn_kernel(q, k, v, causal=causal, return_lse=True)
+        assert torch.equal(o, flash_attn_kernel(q, k, v, causal=causal))
+        _, want_lse = flash_attn_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+        before = flash_attn_bwd_kernel.launches
+        got = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+        again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attn_bwd_kernel.launches == before + 2
+        want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
+        for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert a.dtype == dt and a.shape == w.shape, name
+            assert torch.equal(a, a2), name
+            a, w = a.float(), w.float()
+            if dtype == "float32":
+                torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5,
+                                           msg=name)
+            else:
+                past = ((a - w).abs() > 2e-2 + 2e-2 * w.abs()).float()
+                assert past.mean().item() <= 1e-3, name
+
+
+def test_flash_attention_autograd_runs_both_kernels():
+    """``flash_attention`` under autograd on CUDA tensors: one forward
+    launch with lse and one backward launch per call, gradients equal
+    to the plain Function's on the card (float32 bar)."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attn import flash_attention_plain
+    g = torch.Generator().manual_seed(0)
+    x = [torch.randn(2, 150, h, 64, generator=g).cuda() for h in (6, 2, 2)]
+    do = torch.randn(2, 150, 6, 64, generator=g).cuda()
+    grads = []
+    for attention in (flash_attention, flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_() for t in x)
+        before = (flash_attn_kernel.launches, flash_attn_bwd_kernel.launches)
+        grads.append(torch.autograd.grad(attention(q, k, v), (q, k, v), do))
+        after = (flash_attn_kernel.launches, flash_attn_bwd_kernel.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1] if attention is flash_attention else [0, 0])
+    for a, w in zip(*grads):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "granite-moe-3b-a800m"])
+def test_lm_training_steps_on_cuda_match_cpu(name):
+    """Three ``fit_lm`` steps of the float32 smoke config on the card
+    (the kernels, remat, the chunked loss) against the same steps on the
+    CPU (the plain versions) from the same weights: loss and gradient
+    norm per step at rtol 1e-4 / atol 1e-5."""
+    _require_cuda()
+    from repro_torch.launch import train as train_cli
+    cfg = smoke(name)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict)
+               else v.cuda()) for k, v in cpu.items()}
+    before = flash_attn_bwd_kernel.launches
+    runs = [train_cli.fit_lm(cfg, p, (4, 96), 3, None, verbose=False)
+            for p in (gpu, cpu)]
+    assert flash_attn_bwd_kernel.launches == before + 3 * cfg.n_layers
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in runs[0].history],
+                                   [h[key] for h in runs[1].history],
+                                   rtol=1e-4, atol=1e-5, err_msg=key)
 
 
 def test_flash_attn_kernel_refuses_what_it_does_not_take():

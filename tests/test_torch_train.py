@@ -506,7 +506,7 @@ def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
         ["ckpt_0000000006"]
 
 
-@pytest.mark.parametrize("workload", ["lm", "recsys", "gnn"])
+@pytest.mark.parametrize("workload", ["recsys", "gnn"])
 def test_cli_refuses_unported_workloads(workload, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["train", "--workload", workload,
                                       "--device", "cpu"])

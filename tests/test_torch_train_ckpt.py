@@ -268,3 +268,84 @@ def test_concurrent_saves_of_one_step_publish_one_checkpoint(tmp_path):
     got, manifest = restore_checkpoint(str(tmp_path), {"w": torch.zeros(64)})
     assert manifest["step"] == 5
     assert len(set(got["w"].tolist())) == 1          # one write, whole
+
+
+def _bf16_lm_tree(seed):
+    """A bf16 LM state as the reference's train_lm checkpoints it: bf16
+    parameters (a float32 router), float32 AdamW moments and residual."""
+    from repro.configs import smoke as jax_smoke
+    from repro.models import transformer as JT
+    import dataclasses
+    cfg = dataclasses.replace(jax_smoke("granite-moe-3b-a800m"),
+                              dtype="bfloat16")
+    jp = JT.init_params(cfg, jax.random.key(seed))
+    opt = jax_train.adamw(3e-4)
+    return {"params": jp, "opt": opt.init(jp), "residual": jax_init_ef(jp)}
+
+
+def _bits(x):
+    """A leaf's raw bytes and numpy dtype string, bf16 read as its bits."""
+    a = x.detach().cpu() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            a = a.view(torch.int16)
+        return a.numpy().tobytes()
+    return a.tobytes()
+
+
+def test_jax_bf16_checkpoint_restores_bitwise_in_the_port(tmp_path):
+    """A bf16 tree written by ``repro.ckpt.save_checkpoint`` (its bf16
+    leaves stored as numpy ``|V2``) restores into bf16 targets bit for
+    bit; the float32 leaves as before."""
+    jtree = _bf16_lm_tree(0)
+    jax_ckpt.save_checkpoint(str(tmp_path / "j"), 3, jtree)
+    target = jax.tree.map(lambda x: torch.zeros(
+        x.shape, dtype=torch.bfloat16 if x.dtype == jnp.bfloat16
+        else torch.float32), jtree)
+    got, _ = restore_checkpoint(str(tmp_path / "j"), target)
+    n_bf16 = 0
+    for (n, a), (_, b) in zip(T.flatten_with_paths(got), jax_flatten(jtree)):
+        want_dt = torch.bfloat16 if b.dtype == jnp.bfloat16 else None
+        if want_dt is not None:
+            n_bf16 += 1
+            assert a.dtype == torch.bfloat16, n
+        assert _bits(a) == _bits(b), n
+    assert n_bf16 > 0
+    assert got["params"]["layers"]["router"].dtype == torch.float32
+
+
+def test_port_writes_bf16_leaves_as_the_reference(tmp_path):
+    """The port's ``arrays.npz`` holds each bf16 leaf as ``|V2`` with the
+    reference's bytes, and every other leaf as the reference does."""
+    jtree = _bf16_lm_tree(1)
+    jax_ckpt.save_checkpoint(str(tmp_path / "j"), 5, jtree)
+    ptree = jax.tree.map(lambda x: torch.from_numpy(
+        np.asarray(x).view(np.int16).copy()).view(torch.bfloat16)
+        if x.dtype == jnp.bfloat16 else torch.from_numpy(np.array(x)), jtree)
+    save_checkpoint(str(tmp_path / "p"), 5, ptree)
+    name = os.path.join("ckpt_0000000005", "arrays.npz")
+    with np.load(str(tmp_path / "j" / name)) as want, \
+            np.load(str(tmp_path / "p" / name)) as got:
+        assert sorted(got.files) == sorted(want.files)
+        kinds = set()
+        for n in want.files:
+            assert got[n].dtype == want[n].dtype, n
+            assert got[n].tobytes() == want[n].tobytes(), n
+            kinds.add(got[n].dtype.str)
+    assert "|V2" in kinds and "<f4" in kinds
+
+
+def test_port_bf16_round_trip_is_bitwise(tmp_path):
+    """Port to port: bf16, float32 and int32 leaves come back bit for
+    bit, on a ParamTree too."""
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(4, 7, generator=g).bfloat16(),
+            "b": [torch.randn(3, generator=g), torch.arange(5,
+                                                            dtype=torch.int32)],
+            "step": torch.tensor(9, dtype=torch.int32)}
+    save_checkpoint(str(tmp_path / "p"), 1, tree)
+    target = jax.tree.map(torch.zeros_like, tree)
+    got, _ = restore_checkpoint(str(tmp_path / "p"), target)
+    for (n, a), (_, b) in zip(T.flatten_with_paths(got),
+                              T.flatten_with_paths(tree)):
+        assert a.dtype == b.dtype and _bits(a) == _bits(b), n

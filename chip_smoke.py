@@ -251,7 +251,11 @@ launches CUPTI recorded over the replay ("k of n").
    its kernels), the plain version's, the backward of
    ``F.scaled_dot_product_attention`` (the library yardstick) and the
    bound (10 hd flops per attended pair over the bf16 peak, or q, k, v,
-   o, dO, lse in and dQ, dK, dV out over 3.35 TB/s).  Then
+   o, dO, lse in and dQ, dK, dV out over 3.35 TB/s); beside it the bf16
+   design's own bound (20 hd flops a pair: S and dP in both kernels, dQ,
+   dK and dV from two bf16 parts) and the TFLOP/s against each; the bf16
+   kernel's distance from the plain mirror of its operand rounding
+   (``flash_attn_bwd_plain(bf16_parts=True)``).  Then
    ``train_lm("stablelm-1.6b", smoke=False)``: the published config
    (24 layers, d_model 2,048, 32 / 32 heads of 64, d_ff 5,632, vocab
    100,352, bf16) at (16, 1,024), weights drawn on the card from
@@ -4157,7 +4161,12 @@ def check_flash_attn_bwd(seed, dev):
             again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
             want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
             torch.cuda.synchronize()
-            worst, past = 0.0, 0.0
+            worst, past, mirror = 0.0, 0.0, None
+            if dt == torch.bfloat16:   # the kernel's own operand rounding
+                mirror = max((a.float() - m.float()).abs().max().item()
+                             for a, m in zip(got, flash_attn_bwd_plain(
+                                 q, k, v, o, do, lse, causal=causal,
+                                 bf16_parts=True)))
             for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
                 if not torch.equal(a, a2):
                     raise AssertionError(f"flash_attn_bwd's {name} differs "
@@ -4177,13 +4186,14 @@ def check_flash_attn_bwd(seed, dev):
                             f"of the values past 2e-2")
                     past = max(past, off)
                 worst = max(worst, (a - w).abs().max().item())
-            errs.setdefault(shape, {})[dt] = (worst, past)
+            errs.setdefault(shape, {})[dt] = (worst, past, mirror)
     log("phase 12: flash_attn_bwd == plain from the forward kernel's o and "
         "lse, two launches bitwise, o with and without lse bitwise, lse at "
         "rtol 1e-4/atol 1e-5: " + "; ".join(
             f"{s}: float32 {e[torch.float32][0]:.3g}, bf16 "
             f"{e[torch.bfloat16][0]:.3g} ({e[torch.bfloat16][1]:.1e} past "
-            f"2e-2)" for s, e in errs.items()))
+            f"2e-2; {e[torch.bfloat16][2]:.3g} from the two-part mirror)"
+            for s, e in errs.items()))
     return errs
 
 
@@ -4214,8 +4224,10 @@ def time_flash_attn_bwd(seed, dev):
     (``enable_gqa``; the library yardstick, never used by the port); the
     bound: q, k, v, o, dO and lse read once, dQ, dK, dV written once,
     over 3.35 TB/s, or the five products' 10 hd flops per attended pair
-    over the bf16 989 TFLOP/s; at the first shape the same on float32
-    inputs against the FP32 67 TFLOP/s."""
+    over the bf16 989 TFLOP/s; beside it the bf16 design's bound, its 20
+    hd flops a pair over the same peak, and the TFLOP/s against each; at
+    the first shape the same on float32 inputs against the FP32 67
+    TFLOP/s."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -4243,17 +4255,30 @@ def time_flash_attn_bwd(seed, dev):
                 + lse.numel() * 4
             b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S
                                if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
-            rows.append(dict(shape=list(shape), dtype=str(dt)[6:], ms=ms,
-                             timed_by=how, call_ms=call_ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                             flops=flops))
+            row = dict(shape=list(shape), dtype=str(dt)[6:], ms=ms,
+                       timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                       bytes=n_bytes, flops=flops,
+                       tflops=flops / ms / 1e9)
+            design = ""
+            if dt == torch.bfloat16:
+                # S and dP twice, dQ, dK and dV from two bf16 parts each
+                row["design_flops"] = 2.0 * flops
+                row["design_bound_ms"], row["design_bound_by"] = bound(
+                    n_bytes, 2.0 * flops, BF16_FLOPS_PER_S)
+                row["design_tflops"] = 2.0 * flops / ms / 1e9
+                design = (f"; the design's 20 hd bound "
+                          f"{row['design_bound_ms']:.5f} ms "
+                          f"({row['design_bound_by']}), "
+                          f"{row['design_tflops']:.1f} TFLOP/s of its "
+                          f"{2.0 * flops / 1e9:.1f} GFLOP")
+            rows.append(row)
             log(f"phase 12: flash_attn_bwd at {shape} {str(dt)[6:]}: "
                 f"{ms:.4f} ms ({how}; {call_ms:.4f} ms with launch cost) = "
                 f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
                 f"scaled_dot_product_attention's backward {library_ms:.4f} "
                 f"ms; bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, "
-                f"{flops / 1e9:.1f} GFLOP)")
+                f"{flops / 1e9:.1f} GFLOP){design}")
     return rows
 
 
@@ -4502,10 +4527,12 @@ def phase12(seed: int, dev):
                shape=list(first), launches=lm["launches"]["flash_attn_bwd"],
                launches_per_step=lm["per_step"]["flash_attn_bwd"],
                max_abs_err=errs[first][torch.bfloat16][0],
+               mirror_max_abs_err=errs[first][torch.bfloat16][2],
                f32_max_abs_err=errs[first][torch.float32][0],
                ms=bf16["ms"], timed_by=bf16["timed_by"],
                call_ms=bf16["call_ms"], plain_ms=bf16["plain_ms"],
                bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"],
+               design_bound_ms=bf16["design_bound_ms"],
                library_ms=bf16["library_ms"], f32_ms=f32["ms"],
                f32_plain_ms=f32["plain_ms"],
                f32_library_ms=f32["library_ms"],
@@ -4539,7 +4566,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {name}: {line.strip()}")
 
     index, rng = build_index(args.seed, dev)

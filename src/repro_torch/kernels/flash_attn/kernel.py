@@ -9,10 +9,10 @@ Both take the model layout q ``(B, Sq, Hq, hd)``, k and v ``(B, Skv,
 Hkv, hd)`` (query head h reads KV head ``h // (Hq // Hkv)``), compute in
 float32 and return ``(B, Sq, Hq, hd)`` in q's dtype.  Positions count
 from 0 for queries and keys alike, as in the TPU kernel.  bfloat16
-inputs run the tensor-core kernel (``wgmma``), which carries p through
-P . V as two bf16 parts, so that it keeps the float32 arithmetic of the
-plain version, the TPU kernel and the JAX model; float32 inputs run the
-FMA kernel.
+inputs run the tensor-core kernels (``wgmma``), which carry p through
+P . V, and P and dS through the backward's products, as two bf16 parts,
+so that they keep the float32 arithmetic of the plain versions, the TPU
+kernel and the JAX model; float32 inputs run the FMA kernels.
 
 With ``return_lse=True`` the forward also returns each row's
 log-sum-exp ``lse`` (B, Hq, Sq) float32, ``ln sum_t exp(q . k_t /
@@ -171,9 +171,17 @@ def flash_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attn_kernel.launches = 0
 
 
+def _bf16_parts(x: torch.Tensor) -> torch.Tensor:
+    """x as the bf16 kernel feeds it to a product: hi = bf16(x) and lo =
+    bf16(x - hi), summed (exactly) in float32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
 def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, do: torch.Tensor,
-                         lse: torch.Tensor, *, causal: bool = True
+                         lse: torch.Tensor, *, causal: bool = True,
+                         bf16_parts: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """The backward kernel's function and tiling in plain PyTorch: D =
@@ -183,7 +191,13 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (dO V^T - D).  dQ sums dS K over the KV tiles at or below the
     diagonal, times 1/sqrt(hd); dK (dS^T of the pre-scaled q) and dV (P^T
     dO) sum over the query tiles at or below the diagonal and the KV
-    head's query heads.  Returns (dQ, dK, dV) in q's dtype."""
+    head's query heads.  Returns (dQ, dK, dV) in q's dtype.
+
+    ``bf16_parts=True`` mirrors the bf16 kernel's operands (tests and
+    ``chip_smoke.py`` only): q is not pre-scaled, P = exp(S / sqrt(hd) -
+    lse) from the float32 S, P and dS enter their products as two bf16
+    parts (:func:`_bf16_parts`; the dK / dV kernel also forms its dS
+    from P's parts), and dQ and dK are scaled at the end."""
     _check_shapes(q, k, v)
     n_b, n_q, n_hq, d = q.shape
     n_kv, n_hkv = k.shape[1], k.shape[2]
@@ -195,7 +209,7 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return pad_to(x.float().reshape(n_b, n_q, n_hkv, g, d)
                       .permute(0, 2, 3, 1, 4), 3, BLOCK_Q)
 
-    qf, dof = grouped(q) * scale, grouped(do)
+    qf, dof = grouped(q) * (1.0 if bf16_parts else scale), grouped(do)
     dsum = (dof * grouped(o)).sum(-1)                     # (B, Hkv, G, Sq)
     lsef = pad_to(lse.float().reshape(n_b, n_hkv, g, n_q), 3, BLOCK_Q,
                   value=float("inf"))
@@ -204,7 +218,7 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_qt, n_kt = -(-n_q // BLOCK_Q), -(-n_kv // BLOCK_K)
 
     def tile(qt: int, kt: int):
-        """P and dS of query tile qt against KV tile kt."""
+        """P and dP - D of query tile qt against KV tile kt."""
         qs, ks = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q), \
             slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
         q_pos = qt * BLOCK_Q + torch.arange(BLOCK_Q, device=dev)
@@ -213,9 +227,13 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             keep = keep & (q_pos[:, None] >= kv_pos[None, :])
         s = qf[:, :, :, qs] @ kf[:, :, :, ks].transpose(-1, -2)
+        if bf16_parts:
+            s = s * scale
         p = torch.where(keep, torch.exp(s - lsef[:, :, :, qs, None]), 0.0)
         dp = dof[:, :, :, qs] @ vf[:, :, :, ks].transpose(-1, -2)
-        return p, p * (dp - dsum[:, :, :, qs, None])
+        return p, dp - dsum[:, :, :, qs, None]
+
+    parts = _bf16_parts if bf16_parts else (lambda x: x)
 
     def last_kt(qt: int) -> int:     # the diagonal skip
         if not causal:
@@ -228,13 +246,15 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for qt in range(n_qt):
         qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
         for kt in range(last_kt(qt)):
-            _, ds = tile(qt, kt)
-            dq[:, :, :, qs] += ds @ kf[:, :, :, kt * BLOCK_K:
-                                       (kt + 1) * BLOCK_K]
+            p, dpd = tile(qt, kt)
+            dq[:, :, :, qs] += parts(p * dpd) @ kf[:, :, :, kt * BLOCK_K:
+                                                   (kt + 1) * BLOCK_K]
     for kt in range(n_kt):
         ks = slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
         for qt in range(kt * BLOCK_K // BLOCK_Q if causal else 0, n_qt):
-            p, ds = tile(qt, kt)
+            p, dpd = tile(qt, kt)
+            p = parts(p)
+            ds = parts(p * dpd)
             qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
             dv[:, :, :, ks] += (p.transpose(-1, -2) @ dof[:, :, :, qs]).sum(
                 2, keepdim=True)
@@ -242,6 +262,8 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 2, keepdim=True)
     dq = (dq[:, :, :, :n_q] * scale).permute(0, 3, 1, 2, 4).reshape(
         n_b, n_q, n_hq, d)
+    if bf16_parts:
+        dk = dk * scale
 
     def per_kv(x):       # (B, Hkv, 1, Skv, hd) -> (B, Skv, Hkv, hd)
         return x[:, :, 0, :n_kv].permute(0, 2, 1, 3)

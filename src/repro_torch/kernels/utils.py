@@ -3,10 +3,10 @@
 Kernels are CUDA C++ sources under ``<kernel>/csrc/`` with a plain C
 interface.  They are compiled at first use with ``nvcc`` for ``sm_90a``
 into ``build/`` at the repository root and loaded with ``ctypes``; a
-library's file name carries the hash of its source, so an edited source
-is rebuilt and a stale library is never loaded.  :func:`build_all`
-starts one ``nvcc`` per source at once, so a cold start pays for the
-slowest build, not for their sum.
+library's file name carries the hash of its source and of the headers
+beside it, so an edited source or header is rebuilt and a stale library
+is never loaded.  :func:`build_all` starts one ``nvcc`` per source at
+once, so a cold start pays for the slowest build, not for their sum.
 """
 from __future__ import annotations
 
@@ -77,8 +77,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's file, named by a hash of its source, the headers
+    beside it (``*.cuh``) and the flags."""
+    src = SOURCES[name]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -504,7 +504,12 @@ def test_lm_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert row["max_abs_err"] == row["f32_max_abs_err"] == 0.0
     assert row["bound_ms"] > 0 and row["library_ms"] > 0
     assert row["plain_ms"] > 0 and row["f32_bound_ms"] > 0
+    assert row["design_bound_ms"] == pytest.approx(2 * row["bound_ms"]) \
+        or row["bound_by"] == "bytes"
+    assert row["mirror_max_abs_err"] >= 0
     assert len(row["by_shape"]) == 3
+    assert all(r["design_tflops"] == pytest.approx(2 * r["tflops"])
+               for r in row["by_shape"])
     lm = out["lm"]
     assert np.isfinite(lm["losses"]).all() and len(lm["losses"]) == 3
     assert lm["p95_ms"] >= lm["p50_ms"] > 0 and 0 < lm["mfu"]

@@ -266,6 +266,42 @@ def test_backward_with_other_key_lengths(sq, skv, causal):
         assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
 
 
+# (B, Sq, Skv, Hq, Hkv, hd, causal): the bf16 backward test's shapes and
+# the other key lengths, both ways, causal and full
+PARTS_SHAPES = [(b, s, s, hq, hkv, hd, causal)
+                for b, s, hq, hkv, hd, causal in BWD_SHAPES] + [
+    (1, sq, skv, 4, 2, 16, causal) for sq, skv in ((70, 130), (130, 70))
+    for causal in (True, False)]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal", PARTS_SHAPES)
+def test_backward_bf16_parts_matches_jax_grad(b, sq, skv, hq, hkv, hd,
+                                              causal):
+    """The plain mirror of the bf16 kernel's operands (P and dS in two
+    bf16 parts, the scale on the float32 S and in the epilogues), from
+    the plain forward's bf16 o and lse, against jax.grad of gqa_attention
+    in bf16: at most 0.1% of the values past 2e-2, the bar the card holds
+    the kernel to; and within 2e-2 of the plain backward."""
+    arrays = _qkv(b, sq, hq, hkv, hd, seed=7 * sq + skv + hd, skv=skv)
+    do = np.random.RandomState(sq + 2).randn(b, sq, hq, hd).astype(
+        np.float32)
+    want = _jax_grads(lambda q, k, v: jax_gqa(q, k, v, causal=causal,
+                                              chunk=64),
+                      arrays, do, jnp.bfloat16)
+    tq, tk, tv = _torch(arrays, torch.bfloat16)
+    tdo = torch.from_numpy(do).bfloat16()
+    o, lse = flash_attn_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = flash_attn_bwd_plain(tq, tk, tv, o, tdo, lse, causal=causal,
+                               bf16_parts=True)
+    plain = flash_attn_bwd_plain(tq, tk, tv, o, tdo, lse, causal=causal)
+    for name, g, w, p in zip("qkv", got, want, plain):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        g, w = _np(g), _np(w)
+        past = np.abs(g - w) > BF16["atol"] + BF16["rtol"] * np.abs(w)
+        assert past.mean() <= 1e-3, (name, past.mean())
+        np.testing.assert_allclose(g, _np(p), **BF16, err_msg=name)
+
+
 def test_forward_lse_matches_logsumexp():
     """The lse the forward keeps is ln sum exp of the scaled, masked
     scores, per (b, h, row) in (B, Hq, Sq), and the output is the same

@@ -887,6 +887,31 @@ def test_flash_attn_forward_keeps_its_bits():
     assert mod.digests(flash_attn_kernel) == FWD_DIGESTS
 
 
+# scripts/flash_attn_bwd_digest.py on the tree before the bf16 backward
+# was redesigned (commit b560b28, NVIDIA H100 80GB HBM3, 700.00 W)
+BWD_DIGESTS = {
+    "(2, 100, 100, 6, 2, 64) causal=True": "784a9f2184ffb7a1",
+    "(1, 130, 70, 4, 1, 16) causal=False": "af9e41e9158cb322",
+    "(2, 129, 129, 8, 2, 32) causal=True": "268e61f0e3c6d701",
+    "(1, 200, 200, 4, 4, 128) causal=True": "6f65a688ee02e5dc",
+    "(1, 70, 130, 3, 1, 64) causal=True": "198f0280e7185f24"}
+
+
+def test_flash_attn_backward_keeps_its_float32_bits():
+    """The backward kernel's float32 instances (FMAs) give the bits the
+    tree before the bf16 redesign gave, over tail lengths, Sq != Skv both
+    ways, groups of 1, 3 and 4 and every head width."""
+    _require_cuda()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "flash_attn_bwd_digest", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scripts", "flash_attn_bwd_digest.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.digests(flash_attn_bwd_kernel) == BWD_DIGESTS
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -895,15 +920,19 @@ def test_flash_attn_backward_kernel_matches_plain(hd, causal, dtype):
     the forward kernel's o and lse, at lengths that are not multiples of
     the 64-row tile, one query, Sq != Skv both ways, and GQA groups of 1,
     3 and 4: float32 at rtol 1e-4 / atol 1e-5, bf16 with at most 0.1% of
-    the values past 2e-2 (row 8's bar).  Two launches give the same bits,
-    the forward's o is the same with and without its lse, and one call
-    counts one launch."""
+    the values past 2e-2 (row 8's bar).  At hd 64 and 128 also lengths
+    that are tile multiples, whose rings wrap around many times (16 KV
+    tiles a query tile; 4 heads x 16 query tiles a key tile).  Two
+    launches give the same bits, the forward's o is the same with and
+    without its lse, and one call counts one launch."""
     _require_cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(hd + int(causal))
-    for b, sq, skv, hq, hkv in ((2, 100, 100, 6, 2), (3, 1, 1, 4, 4),
-                                (1, 70, 130, 3, 1), (2, 129, 129, 8, 2),
-                                (1, 130, 70, 4, 1)):
+    cases = [(2, 100, 100, 6, 2), (3, 1, 1, 4, 4), (1, 70, 130, 3, 1),
+             (2, 129, 129, 8, 2), (1, 130, 70, 4, 1)]
+    cases += {64: [(2, 1024, 1024, 8, 2)],
+              128: [(1, 256, 256, 4, 1)]}.get(hd, [])
+    for b, sq, skv, hq, hkv in cases:
         q, do = (torch.randn(b, sq, hq, hd, generator=g).to(dt).cuda()
                  for _ in range(2))
         k, v = (torch.randn(b, skv, hkv, hd, generator=g).to(dt).cuda()

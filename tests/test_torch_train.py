@@ -29,6 +29,7 @@ from repro.launch import train as jax_train_cli
 from repro.retrievers import get_retriever as jax_get
 from repro.serving import make_qmeta as jax_qmeta
 from repro import train as jax_train
+from repro.train import loop as jax_loop
 from repro_torch import obs
 from repro_torch import tree as T
 from repro_torch.convert import params_from_jax
@@ -40,6 +41,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models.layers import ParamTree
 from repro_torch.retrievers import all_retrievers, get_retriever
 from repro_torch import train
+from repro_torch.train import loop as torch_loop
 from torch_helpers import export, fresh_registry
 
 OPT_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -483,14 +485,46 @@ def _main(mod, argv, monkeypatch, capsys):
     return dict(w.split("=", 1) for w in done[0].split()[2:])
 
 
-def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
-    fresh_registry(monkeypatch, jax_obs, obs)
+class _StepClock:
+    """Stands in for the ``time`` module of a training loop, which reads
+    ``perf_counter`` at the start and at the end of each step: every step
+    takes 1 s, and step ``slow_step`` (counted from 0) ``slow`` s.  The
+    straggler monitor flags a step that takes more than twice the median
+    of the steps before it, so under wall time a slow last step (a loaded
+    machine) flags it in one CLI and not in the other."""
+
+    def __init__(self, slow_step=None, slow=10.0):
+        self.slow_step, self.slow = slow_step, slow
+        self.calls, self.now = 0, 0.0
+
+    def perf_counter(self) -> float:
+        if self.calls % 2:                      # the end of a step
+            self.now += (self.slow if self.calls // 2 == self.slow_step
+                         else 1.0)
+        self.calls += 1
+        return self.now
+
+
+def _fake_clocks(monkeypatch, slow_step=None):
+    """Each loop its own clock, both with the same steps."""
+    for loop in (jax_loop, torch_loop):
+        monkeypatch.setattr(loop, "time", _StepClock(slow_step))
+
+
+def _cli_runs(tmp_path, monkeypatch, capsys):
     argv = ["--workload", "seine-ranker", "--retriever", "knrm", "--steps",
             "6"]
     want = _main(jax_train_cli, argv + ["--ckpt-dir", str(tmp_path / "j")],
                  monkeypatch, capsys)
     got = _main(train_cli, argv + ["--ckpt-dir", str(tmp_path / "t"),
                                    "--device", "cpu"], monkeypatch, capsys)
+    return got, want
+
+
+def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    fresh_registry(monkeypatch, jax_obs, obs)
+    _fake_clocks(monkeypatch)
+    got, want = _cli_runs(tmp_path, monkeypatch, capsys)
     assert got["steps"] == want["steps"] == "6"
     assert got["stragglers"] == "0"
     fams = set(obs.snapshot()["metrics"])
@@ -504,6 +538,22 @@ def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
     assert sorted(p.name for p in (tmp_path / "t").iterdir()) == \
         sorted(p.name for p in (tmp_path / "j").iterdir()) == \
         ["ckpt_0000000006"]
+
+
+def test_cli_flags_the_same_straggler_as_jax(tmp_path, monkeypatch, capsys):
+    """Both CLIs on clocks whose last step is 10x slower than the five
+    before it: each flags that step, and both snapshots hold the same
+    families, the straggler counter among them."""
+    fresh_registry(monkeypatch, jax_obs, obs)
+    _fake_clocks(monkeypatch, slow_step=5)
+    got, want = _cli_runs(tmp_path, monkeypatch, capsys)
+    assert got["steps"] == want["steps"] == "6"
+    assert got["stragglers"] == want["stragglers"] == "1"
+    fams = set(obs.snapshot()["metrics"])
+    assert fams == set(jax_obs.snapshot()["metrics"])
+    assert "seine_straggler_flagged_total" in fams
+    assert obs.REGISTRY.get("seine_straggler_flagged_total").get() == \
+        jax_obs.REGISTRY.get("seine_straggler_flagged_total").get() == 1
 
 
 @pytest.mark.parametrize("workload", ["recsys", "gnn"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
 front end, live index, ranker training, LM bridge, MoE LM and decode,
-SNRM, LM training) on one NVIDIA GPU.
+SNRM, LM training, the recsys models and MACE) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -299,7 +299,9 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 from repro_torch import obs  # noqa: E402
 from repro_torch.ckpt import (all_steps, latest_step,  # noqa: E402
                               load_index, save_index)
-from repro_torch.configs import SEINE_LETOR, get_lm_config  # noqa: E402
+from repro_torch.configs import (SEINE_LETOR, get_bundle,  # noqa: E402
+                                 get_lm_config)
+from repro_torch.configs import smoke as configs_smoke  # noqa: E402
 from repro_torch.core.build_pipeline import (  # noqa: E402
     make_unique_terms_fn)
 from repro_torch.core.builder import IndexBuilder  # noqa: E402
@@ -316,6 +318,8 @@ from repro_torch.data.batching import (PairSampler,  # noqa: E402
                                        candidates_for_query, pad_queries)
 from repro_torch.data.metrics import (evaluate_ranking,  # noqa: E402
                                       mean_metrics)
+from repro_torch.data.recsys_data import (ctr_batch,  # noqa: E402
+                                          seqrec_batch)
 from repro_torch.data.synth_corpus import generate  # noqa: E402
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
@@ -348,6 +352,8 @@ from repro_torch.kernels.knrm_pool import (knrm_pool_kernel,  # noqa: E402
                                            knrm_pool_ref)
 from repro_torch.kernels.seg_interact import (  # noqa: E402
     flatten_segments, seg_interact, seg_interact_kernel, seg_interact_plain)
+from repro_torch.models import mace as MA  # noqa: E402
+from repro_torch.models import recsys as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import gqa_attention  # noqa: E402
 from repro_torch.retrievers import get_retriever  # noqa: E402
@@ -360,6 +366,8 @@ from repro_torch.train import (adam, adamw,  # noqa: E402
                                apply_updates, global_norm, make_train_step,
                                value_and_grad)
 from repro_torch.tree import flatten_with_paths  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 N_DOCS = 65_323          # MQ2007, configs/seine_letor.py
 N_B = 20                 # configs/base.py n_segments (Fig. 2 best)
@@ -425,6 +433,8 @@ KERNEL_NAMES = {"csr_lookup": "csr_lookup_kernel",
                 "flash_attn": "flash_attn_kernel",
                 "embed_bag": "embed_bag_",
                 "flash_attn_bwd": "flash_attn_bwd_"}
+# CUDA kernels one counted launch runs (a backward call: dQ, then dK / dV)
+KERNELS_PER_LAUNCH = {"flash_attn_bwd": 2}
 PATH_KERNELS = {"none": ("csr_lookup", "lane_bounds", "retrieve_windows",
                          "knrm_pool"),
                 "packed": ("csr_lookup_packed", "lane_bounds_packed",
@@ -489,12 +499,14 @@ LM_BF16_LAYERS = 2
 LM_BF16_PAST = 1e-3
 FA_F32_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py's bar
 # (B, S, Hq, Hkv, hd, causal): tests/test_kernels.py::TestFlashAttention's
-# causal shapes and its non-causal one, S = 160 with a group of 3, and the
-# build's head width at an S that is no multiple of the 64-key tile
+# causal shapes and its non-causal one, S = 160 with a group of 3, the
+# build's head width at an S that is no multiple of the 64-key tile, and
+# BERT4Rec's training attention (phase 13's B4R_FA_SHAPE)
 FA_SWEEP = ((2, 128, 4, 2, 32, True), (1, 256, 8, 8, 64, True),
             (2, 64, 4, 1, 16, True), (1, 96, 2, 2, 32, True),
             (1, 64, 4, 2, 32, False), (2, 160, 6, 2, 32, True),
-            (2, 200, 6, 2, 128, True), (2, 200, 6, 2, 128, False))
+            (2, 200, 6, 2, 128, True), (2, 200, 6, 2, 128, False),
+            (256, 200, 2, 2, 32, False))
 FA_SEEDS = 3       # draws of the build-shape bf16 check
 BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 tensor cores
 GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "splitk")
@@ -927,7 +939,8 @@ def device_busy(run, n: int):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    launched = sum(fn.launches for fn in COUNTERS.values())
+    launched = sum(fn.launches * KERNELS_PER_LAUNCH.get(n, 1)
+                   for n, fn in COUNTERS.items())
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     recorded = sum(e.count for e in prof.key_averages()
                    if any(k in e.key for k in KERNEL_NAMES.values()))
@@ -4120,6 +4133,8 @@ LM_TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_lm")
 FA_BWD_SHAPES = ((16, 1024, 32, 32, 64, True), (8, 1024, 24, 8, 64, True),
                  (4, 1024, 24, 8, 128, True), (1, 1000, 8, 2, 64, True),
                  (1, 1000, 8, 2, 64, False))
+# checked in float32 only: BERT4Rec's training attention (B4R_FA_SHAPE)
+FA_BWD_F32_SHAPES = ((256, 200, 2, 2, 32, False),)
 FA_BWD_PAST = 1e-3       # bf16: the share of values past 2e-2 (row 8's)
 FA_BWD_ITERS = 10
 
@@ -4141,16 +4156,19 @@ def bwd_inputs(shape, dtype, gen, dev):
 
 def check_flash_attn_bwd(seed, dev):
     """The backward kernel against its plain version on the card at
-    FA_BWD_SHAPES, from the forward kernel's o and lse: float32 at rtol
-    1e-4 / atol 1e-5, bf16 at most FA_BWD_PAST of the values past 2e-2;
-    two launches bitwise; the forward's lse against the plain forward's
-    (float32 bar) and its o bitwise equal to a launch without lse.
-    Returns {shape: {dtype: largest |diff| over dQ, dK, dV}}."""
+    FA_BWD_SHAPES (both types) and FA_BWD_F32_SHAPES (float32), from the
+    forward kernel's o and lse: float32 at rtol 1e-4 / atol 1e-5, bf16 at
+    most FA_BWD_PAST of the values past 2e-2; two launches bitwise; the
+    forward's lse against the plain forward's (float32 bar) and its o
+    bitwise equal to a launch without lse.  Returns {shape: {dtype:
+    (largest |diff| over dQ, dK, dV, share past 2e-2, mirror |diff|)}}."""
     g = torch.Generator(device=dev).manual_seed(seed)
     errs = {}
-    for shape in FA_BWD_SHAPES:
+    both = (torch.float32, torch.bfloat16)
+    for shape, dtypes in [(s, both) for s in FA_BWD_SHAPES] + [
+            (s, (torch.float32,)) for s in FA_BWD_F32_SHAPES]:
         causal = shape[5]
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             q, k, v, o, do, lse = bwd_inputs(shape, dt, g, dev)
             if not torch.equal(o, flash_attn_kernel(q, k, v, causal=causal)):
                 raise AssertionError(f"flash_attn's o with lse != without, "
@@ -4190,24 +4208,29 @@ def check_flash_attn_bwd(seed, dev):
     log("phase 12: flash_attn_bwd == plain from the forward kernel's o and "
         "lse, two launches bitwise, o with and without lse bitwise, lse at "
         "rtol 1e-4/atol 1e-5: " + "; ".join(
-            f"{s}: float32 {e[torch.float32][0]:.3g}, bf16 "
-            f"{e[torch.bfloat16][0]:.3g} ({e[torch.bfloat16][1]:.1e} past "
-            f"2e-2; {e[torch.bfloat16][2]:.3g} from the two-part mirror)"
+            f"{s}: float32 {e[torch.float32][0]:.3g}" + (
+                f", bf16 {e[torch.bfloat16][0]:.3g} "
+                f"({e[torch.bfloat16][1]:.1e} past 2e-2; "
+                f"{e[torch.bfloat16][2]:.3g} from the two-part mirror)"
+                if torch.bfloat16 in e else "")
             for s, e in errs.items()))
     return errs
 
 
 def per_call_ms(fns, iters: int, kernel: str):
-    """(device ms per call of every kernel whose name holds ``kernel``,
-    how it was timed): CUPTI's sum over the calls' kernels, or CUDA
-    events per call when the profiler records none."""
+    """(device ms per call of the kernels whose names hold ``kernel``, how
+    it was timed): the sum over those kernels of each one's mean CUPTI
+    time per record (each runs once a call), so that records the
+    profiler drops late in this script do not count as free calls; or
+    CUDA events per call when it records none."""
     prof = device_profile(fns, iters)
     if prof is not None:
         hits = [(t, n) for key, (t, n) in prof.items() if kernel in key]
         if hits and sum(t for t, _ in hits) > 0:
-            return (sum(t for t, _ in hits) / iters,
-                    f"cupti, {sum(n for _, n in hits)} kernel records over "
-                    f"{iters} calls")
+            return (sum(t / n for t, n in hits),
+                    f"cupti, {sum(n for _, n in hits)} of "
+                    f"{len(hits) * iters} kernel records over {iters} "
+                    f"calls")
     return events_ms(fns, iters), "events"
 
 
@@ -4542,6 +4565,668 @@ def phase12(seed: int, dev):
     return dict(row=row, lm=lm, moe=moe, resume=resume)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recsys models and MACE on the card
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("autoint", "dlrm-mlperf", "sasrec", "bert4rec")
+# (B, S, Hq, Hkv, hd, causal) of BERT4Rec's attention at its paper's
+# training batch: 2 heads of 32, full attention, S = 200 (a tail of 8 keys
+# past three 64-key tiles)
+B4R_FA_SHAPE = (256, 200, 2, 2, 32, False)
+# rows of a training batch: configs/base.py's train_batch for the CTR
+# models; BERT4Rec's and SASRec's papers' batches of sequences
+RECSYS_TRAIN_BATCH = {"autoint": 65536, "dlrm-mlperf": 65536,
+                      "sasrec": 128, "bert4rec": 256}
+RECSYS_TRAIN_STEPS = 8
+RECSYS_SHAPES_SERVED = ("serve_p99", "retrieval_cand")
+RECSYS_SERVE_CALLS = 20
+# candidates per forward of a CTR model at retrieval_cand: an unchunked
+# AutoInt forward over 1,000,000 candidates holds ~70 GB of activations
+RECSYS_CAND_CHUNK = 65536
+RECSYS_CHECK_ROWS = 256      # serving rows also computed on the CPU
+MACE_SHAPE = "molecule"      # configs/base.py GNN_SHAPES: 128 x 30 x 64
+MACE_STEPS = 8
+EQUI_TOL = 1e-4              # tests/test_models_smoke.py's property
+# MACE's float32 step against its float64 step, relative to each
+# gradient's norm: at the molecule batch the CPU's own float32 step lies
+# up to 1.8e-4 from its float64 one (close atoms make forces and their
+# gradients reach 6e8), so the card is held to the CPU in float64 at
+# rtol 1e-4 / atol 1e-5 and its float32 step to the float64 one here
+MACE_F32_REL = 1e-3
+LIBRARY_WARMUP = 3           # calls before a library yardstick is timed
+RECSYS_CLI = tuple((["--workload", "recsys", "--arch", a], a)
+                   for a in RECSYS_ARCHS) + ((["--workload", "gnn"], "gnn"),)
+RECSYS_CLI_STEPS = (2, 4)    # a checkpoint at 2, resumed for 3 and 4
+RECSYS_DIR = os.path.join(REPO, "build", "chip_smoke_recsys")
+
+
+def recsys_config(arch: str):
+    """The published config; DLRM's tables cut to the reference's smoke
+    cut (each vocab at most 100): Criteo-1TB's 187,767,399 rows x 128 are
+    96.1 GB in float32, more than the card holds before Adam's state."""
+    cfg = get_bundle(arch).config
+    if arch == "dlrm-mlperf":
+        cfg = dataclasses.replace(cfg, vocab_sizes=configs_smoke(
+            arch).vocab_sizes)
+    return cfg
+
+
+def mace_config():
+    return get_bundle("mace").config
+
+
+def served_shape(arch: str, name: str):
+    return get_bundle(arch).shape(name)
+
+
+def mace_dims():
+    """(graphs, atoms, edges each) of MACE_SHAPE."""
+    shape = get_bundle("mace").shape(MACE_SHAPE)
+    return shape.n_graphs, shape.n_nodes, shape.n_edges
+
+
+def fixed_warmup(fn, n: int = LIBRARY_WARMUP):
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+
+
+def check_b4r_attention(seed, dev):
+    """flash_attn forward and backward, float32, at BERT4Rec's shape
+    against their plain versions on the card (rtol 1e-4 / atol 1e-5),
+    from the forward kernel's o and lse; two launches bitwise.  Returns
+    (forward max |diff|, backward max |diff| over dQ, dK, dV)."""
+    b, s, hq, hkv, hd, causal = B4R_FA_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    q, k, v = qkv((b, s, hq, hkv, hd), torch.float32, g, dev)
+    do = torch.randn(b, s, hq, hd, generator=g, device=dev)
+    o, lse = flash_attn_kernel(q, k, v, causal=causal, return_lse=True)
+    o2 = flash_attn_kernel(q, k, v, causal=causal)
+    want_o, want_lse = flash_attn_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(o, o2):
+        raise AssertionError("phase 13: flash_attn's o with lse != without")
+    torch.testing.assert_close(o, want_o, **FA_F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **FA_F32_TOL)
+    got = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+    again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
+    want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"phase 13: flash_attn_bwd's {name} "
+                                 f"differs between two launches")
+        torch.testing.assert_close(a, w, **FA_F32_TOL, msg=name)
+    fwd = (o - want_o).abs().max().item()
+    bwd = max((a - w).abs().max().item() for a, w in zip(got, want))
+    log(f"phase 13: flash_attn and flash_attn_bwd float32 at BERT4Rec's "
+        f"{B4R_FA_SHAPE} == plain at rtol 1e-4/atol 1e-5: forward max "
+        f"|diff| {fwd:.3g}, backward {bwd:.3g}; two launches bitwise")
+    return fwd, bwd
+
+
+def time_b4r_attention(seed, dev):
+    """Both kernels at BERT4Rec's shape in float32: CUPTI device ms, the
+    plain versions' ms, ``F.scaled_dot_product_attention`` and its
+    backward (float32, TF32 off, timed after LIBRARY_WARMUP calls) and
+    the bounds: q, k, v and o over 3.35 TB/s or 4 hd flops a pair over
+    the FP32 67 TFLOP/s (forward); q, k, v, o, dO and lse in, dQ, dK, dV
+    out, or 10 hd flops a pair (backward)."""
+    b, s, hq, hkv, hd, causal = B4R_FA_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    q, k, v = qkv((b, s, hq, hkv, hd), torch.float32, g, dev)
+    do = torch.randn(b, s, hq, hd, generator=g, device=dev)
+    o, lse = flash_attn_kernel(q, k, v, causal=causal, return_lse=True)
+    pairs = attention_pairs(b, s, hq, causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_call = lambda: flash_attn_kernel(q, k, v, causal=causal)
+    ms, how, call_ms = timed([fwd_call], 50, "flash_attn_kernel")
+    plain_ms = events_ms([lambda: flash_attn_plain(q, k, v,
+                                                   causal=causal)], 3)
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal)
+    fixed_warmup(lib)
+    library_ms = events_ms([lib], 50)
+    f_bytes = 4 * q.numel() * 4
+    f_flops = 4.0 * hd * pairs
+    b_ms, b_by = bound(f_bytes, f_flops)
+    bwd_call = lambda: flash_attn_bwd_kernel(q, k, v, o, do, lse,
+                                             causal=causal)
+    bms, bhow = per_call_ms([bwd_call], 20, "flash_attn_bwd_")
+    b_call_ms = events_ms([bwd_call], 20)
+    b_plain_ms = events_ms([lambda: flash_attn_bwd_plain(
+        q, k, v, o, do, lse, causal=causal)], 2)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    out = sdpa(qg, kg, vg, is_causal=causal)
+    dot = do.transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                          retain_graph=True)
+    fixed_warmup(lib_bwd)
+    b_library_ms = events_ms([lib_bwd], 20)
+    del out
+    bb_bytes = 8 * q.numel() * 4 + lse.numel() * 4
+    bb_flops = 10.0 * hd * pairs
+    bb_ms, bb_by = bound(bb_bytes, bb_flops)
+    log(f"phase 13: flash_attn float32 at {B4R_FA_SHAPE}: {ms:.4f} ms "
+        f"({how}; {call_ms:.4f} ms with launch cost) = "
+        f"{f_flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
+        f"scaled_dot_product_attention {library_ms:.4f} ms ({LIBRARY_WARMUP} "
+        f"warm-up calls); bound {b_ms:.5f} ms ({b_by}: {f_bytes / 1e6:.1f} "
+        f"MB, {f_flops / 1e9:.2f} GFLOP)")
+    log(f"phase 13: flash_attn_bwd float32 at {B4R_FA_SHAPE}: {bms:.4f} ms "
+        f"({bhow}; {b_call_ms:.4f} ms with launch cost) = "
+        f"{bb_flops / bms / 1e9:.1f} TFLOP/s; plain {b_plain_ms:.3f} ms; "
+        f"scaled_dot_product_attention's backward {b_library_ms:.4f} ms; "
+        f"bound {bb_ms:.5f} ms ({bb_by}: {bb_bytes / 1e6:.1f} MB, "
+        f"{bb_flops / 1e9:.2f} GFLOP)")
+    return (dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=f_bytes, flops=f_flops),
+            dict(ms=bms, timed_by=bhow, call_ms=b_call_ms,
+                 plain_ms=b_plain_ms, library_ms=b_library_ms,
+                 bound_ms=bb_ms, bound_by=bb_by, bytes=bb_bytes,
+                 flops=bb_flops))
+
+
+def tree_on(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def peak_text(peak) -> str:
+    return "not measured" if peak is None else f"{peak} bytes"
+
+
+def split_of(run):
+    """Device ms of one ``run`` by kernel class (``kernel_split``) as a
+    dict and a line, or (None, "not measured") when the profiler records
+    no kernel."""
+    split = kernel_split(run, 1)
+    if split is None:
+        return None, "not measured"
+    parts, rest = split
+    return parts, (", ".join(f"{k} {v:.3f}" for k, v in parts.items()
+                             if v and k not in MOE_RANGES)
+                   + f"; largest of the rest: {rest}")
+
+
+def serve_fn(cfg, params, shape, seed, dev):
+    """The serving step of ``shape`` as ``repro.launch.steps``' recsys
+    cells compose it, and its inputs (host numpy from ``seed``):
+    ``serve_p99`` the sigmoid of a CTR logit, or a sequence model's pair
+    scores, over a batch of 512; ``retrieval_cand`` one context against
+    1,000,000 candidates (a CTR model's item field set to each
+    candidate, in chunks of RECSYS_CAND_CHUNK; a sequence model's last
+    hidden state against the candidates' embeddings).  Returns
+    ``step(params, inputs) -> scores`` and the inputs."""
+    rng = np.random.RandomState(seed)
+    ctr = cfg.family in ("attn-ctr", "dlrm")
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if shape.kind == "online-inference":
+        if ctr:
+            b = ctr_batch(cfg, shape.batch, seed=seed)
+            b.pop("label")
+            return (lambda p, x: torch.sigmoid(ctr_logit(cfg, p, x)),
+                    {k: on(v) for k, v in b.items()})
+        items = seqrec_batch(cfg, shape.batch, seed=seed)["items"]
+        x = {"items": on(items),
+             "target": on(rng.randint(0, cfg.n_items, shape.batch))}
+        return (lambda p, x: R.seqrec_pair_scores(p, cfg, x["items"],
+                                                  x["target"]), x)
+    n_c = shape.n_candidates
+    if not ctr:
+        items = seqrec_batch(cfg, 1, seed=seed)["items"]
+        x = {"items": on(items), "cand_ids": on(np.arange(n_c) % cfg.n_items)}
+
+        def seq_step(p, x):
+            h = R.seqrec_encode(p, cfg, x["items"])[:, -1]
+            return R.seqrec_score_items(p, h, x["cand_ids"])[0]
+        return seq_step, x
+    b = ctr_batch(cfg, 1, seed=seed)
+    x = {"sparse_ids": on(b["sparse_ids"]),
+         "cand_ids": on(rng.randint(0, cfg.vocab_sizes[0], n_c))}
+    if cfg.n_dense:
+        x["dense"] = on(b["dense"])
+
+    def ctr_step(p, x):
+        out = []
+        for c0 in range(0, x["cand_ids"].shape[0], RECSYS_CAND_CHUNK):
+            cand = x["cand_ids"][c0:c0 + RECSYS_CAND_CHUNK]
+            ids = x["sparse_ids"].expand(cand.shape[0], -1).clone()
+            ids[:, 0] = cand                    # vary the item field
+            bx = {"sparse_ids": ids}
+            if cfg.n_dense:
+                bx["dense"] = x["dense"].expand(cand.shape[0], -1)
+            out.append(torch.sigmoid(ctr_logit(cfg, p, bx)))
+        return torch.cat(out)
+    return ctr_step, x
+
+
+def ctr_logit(cfg, p, x):
+    if cfg.family == "dlrm":
+        return R.dlrm_forward(p, cfg, x["dense"], x["sparse_ids"])
+    return R.autoint_forward(p, cfg, x["sparse_ids"])
+
+
+def head_rows(x, n: int):
+    """The first ``n`` rows (or candidates) of serving inputs, on the
+    CPU."""
+    out = {}
+    for k, v in x.items():
+        cut = k in ("cand_ids", "target") or v.shape[0] > 1
+        out[k] = (v[:n] if cut else v).cpu()
+    return out
+
+
+def serve_recsys(arch, cfg, params, seed, dev):
+    """Each RECSYS_SHAPES_SERVED shape: RECSYS_SERVE_CALLS calls after two
+    warm-up calls (p50 / p95 ms, host clock around a synchronised call),
+    launches counted over the timed calls (zeroed just before, read just
+    after), the busy share of one replayed call and the peak memory; the
+    scores finite, of the expected shape, and their first
+    RECSYS_CHECK_ROWS rows equal to the CPU's on the same inputs (rtol
+    1e-4 / atol 1e-5)."""
+    cpu_params = tree_on(params, torch.device("cpu"))
+    rows = {}
+    for name in RECSYS_SHAPES_SERVED:
+        shape = served_shape(arch, name)
+        step, x = serve_fn(cfg, params, shape, seed, dev)
+        want_n = shape.batch if shape.kind == "online-inference" \
+            else shape.n_candidates
+        with torch.no_grad():
+            for _ in range(2):
+                out = step(params, x)
+            torch.cuda.synchronize()
+            if tuple(out.shape) != (want_n,) or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"phase 13 [{arch} {name}]: scores "
+                                     f"{tuple(out.shape)}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+            cpu = step(cpu_params, head_rows(x, RECSYS_CHECK_ROWS))
+            np.testing.assert_allclose(
+                out[:RECSYS_CHECK_ROWS].cpu().numpy(), cpu.numpy(),
+                **CPU_TRAIN_TOL, err_msg=f"phase 13 [{arch} {name}]")
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            ms = []
+            for _ in range(RECSYS_SERVE_CALLS):
+                t0 = time.perf_counter()
+                step(params, x)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launched = {n: c for n, c in launch_counts().items() if c}
+            peak = torch.cuda.max_memory_allocated() \
+                if dev.type == "cuda" else None
+            busy = device_busy(lambda: step(params, x), 1)
+            split, split_line = split_of(lambda: step(params, x))
+        p50, p95 = np.percentile(ms, 50), np.percentile(ms, 95)
+        per_call = {n: c / RECSYS_SERVE_CALLS for n, c in launched.items()}
+        want = ({"flash_attn": float(cfg.n_blocks)}
+                if R.uses_flash_attn(cfg) else {})
+        if per_call != want:
+            raise AssertionError(f"phase 13 [{arch} {name}]: launches per "
+                                 f"call {per_call}, expected {want}")
+        rows[name] = dict(p50_ms=p50, p95_ms=p95, busy=busy, split_ms=split,
+                          launches=launched, peak_bytes=peak)
+        log(f"phase 13 [{arch} {name}]: {want_n} scores a call, first "
+            f"{RECSYS_CHECK_ROWS} == the CPU's at rtol 1e-4/atol 1e-5; "
+            f"p50 {p50:.3f} / p95 {p95:.3f} ms a call over "
+            f"{RECSYS_SERVE_CALLS}; launches per call {per_call or 'none'}; "
+            f"device busy {busy['ms']:.3f} ms a call, "
+            f"{busy_share(busy, p50)}, {busy['ops']:.0f} device ops a "
+            f"call; peak device memory {peak_text(peak)}; device ms of a "
+            f"call (CUPTI): {split_line}")
+    return rows
+
+
+def grads_close(got, want, tol, what, scaled=False):
+    """Every leaf of two gradient trees at ``tol``; with ``scaled`` the
+    atol is relative to the leaf's largest entry (MACE's gradients reach
+    ~4e3, as in tests/test_torch_mace.py).  Returns the largest |diff|."""
+    worst = 0.0
+    for (n, a), (_, b) in zip(flatten_with_paths(got),
+                              flatten_with_paths(want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        top = max(float(b.abs().max()) if b.numel() else 0.0, 1.0) \
+            if scaled else 1.0
+        torch.testing.assert_close(a, b, rtol=tol["rtol"],
+                                   atol=tol["atol"] * top,
+                                   msg=f"{what}: {n}")
+        worst = max(worst, (a - b).abs().max().item() if a.numel() else 0.0)
+    return worst
+
+
+def first_step_against(loss_fn, params, batch, other, tol, what):
+    """The loss and every gradient of one step, against ``other``: (loss
+    fn, params, batch) run the same step another way (the CPU, or the
+    plain attention)."""
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    o_loss, o_grads = value_and_grad(*other)
+    np.testing.assert_allclose(loss.item(), o_loss.item(), **tol,
+                               err_msg=f"{what}: loss")
+    return loss.item(), grads_close(grads, o_grads, tol, what)
+
+
+def run_steps(fit_fn, params, dev, what):
+    """``fit_fn(params)`` with counts zeroed just before and read just
+    after: losses, ms per step p50 / p95 (steps 2 on), launches per
+    step, peak memory."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    res = fit_fn(params)
+    launched = {n: c for n, c in launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else None
+    losses = [h["loss"] for h in res.history]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 13 [{what}]: losses {losses}")
+    ms = np.array([h["sec"] for h in res.history]) * 1e3
+    steady = ms[1:] if len(ms) > 1 else ms
+    return res, dict(losses=losses, p50_ms=float(np.percentile(steady, 50)),
+                     p95_ms=float(np.percentile(steady, 95)),
+                     first_ms=float(ms[0]), launches=launched,
+                     per_step={n: c / len(losses)
+                               for n, c in launched.items()},
+                     peak_bytes=peak)
+
+
+def train_recsys_arch(arch, cfg, params, seed, dev):
+    """RECSYS_TRAIN_STEPS steps of ``fit_recsys`` at the arch's training
+    batch: the first step held against the CPU (and BERT4Rec's against
+    the plain attention on the card), launches per step, the loss of
+    step 1's batch before and after the run (it must fall), ms per step,
+    samples/s, the busy share of one replayed step, peak memory."""
+    n_b = RECSYS_TRAIN_BATCH[arch]
+    batch = train_cli.recsys_batches(cfg, seed, dev, n_b)(0)
+    loss_fn = train_cli.recsys_loss_fn(cfg)
+    cpu = torch.device("cpu")
+    loss0, cpu_err = first_step_against(
+        loss_fn, params, batch,
+        (train_cli.recsys_loss_fn(cfg), tree_on(params, cpu),
+         tree_on(batch, cpu)), CPU_TRAIN_TOL,
+        f"phase 13 [{arch}]: the card's first step vs the CPU's")
+    plain_err = None
+    if R.uses_flash_attn(cfg):
+        _, plain_err = first_step_against(
+            loss_fn, params, batch,
+            (train_cli.recsys_loss_fn(cfg, flash_attention_plain), params,
+             batch), CPU_TRAIN_TOL,
+            f"phase 13 [{arch}]: the kernels' first step vs the plain "
+            f"attention's")
+    with torch.no_grad():
+        before = loss_fn(params, batch).item()
+    res, row = run_steps(lambda p: train_cli.fit_recsys(
+        cfg, p, RECSYS_TRAIN_STEPS, None, seed=seed, batch=n_b,
+        verbose=False), params, dev, arch)
+    with torch.no_grad():
+        after = loss_fn(res.state.params, batch).item()
+    if not np.isclose(row["losses"][0], loss0, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"phase 13 [{arch}]: the run's first loss "
+                             f"{row['losses'][0]} != the checked step's "
+                             f"{loss0}")
+    if not after < before:
+        raise AssertionError(f"phase 13 [{arch}]: step 1's batch's loss "
+                             f"did not fall: {before} -> {after}")
+    want = ({"flash_attn": float(cfg.n_blocks),
+             "flash_attn_bwd": float(cfg.n_blocks)}
+            if R.uses_flash_attn(cfg) else {})
+    if row["per_step"] != want:
+        raise AssertionError(f"phase 13 [{arch}]: launches per step "
+                             f"{row['per_step']}, expected {want}")
+    step_fn = make_train_step(loss_fn, adam(train_cli.RECSYS_LR))
+    st = res.state
+    nb = train_cli.recsys_batches(cfg, seed, dev, n_b)
+    replay = lambda: step_fn(st.params, st.opt_state, st.residual,
+                             nb(RECSYS_TRAIN_STEPS))
+    busy = device_busy(replay, 1)
+    split, split_line = split_of(replay)
+    row.update(batch=n_b, cpu_err=cpu_err, plain_err=plain_err, busy=busy,
+               split_ms=split,
+               loss_before=before, loss_after=after,
+               samples_per_s=n_b / (row["p50_ms"] / 1e3))
+    log(f"phase 13 [{arch}]: training at batch {n_b}: the first step == "
+        f"the CPU's (loss {loss0:.6f}, largest gradient |diff| "
+        f"{cpu_err:.3g})"
+        + (f", == the plain attention's (largest |diff| {plain_err:.3g})"
+           if plain_err is not None else "")
+        + f"; {RECSYS_TRAIN_STEPS} steps: loss per step "
+        + ", ".join(f"{x:.4f}" for x in row["losses"])
+        + f"; step 1's batch {before:.4f} -> {after:.4f}; ms per step p50 "
+        f"{row['p50_ms']:.3f} / p95 {row['p95_ms']:.3f} (the first "
+        f"{row['first_ms']:.1f}); {row['samples_per_s']:.1f} samples/s; "
+        f"launches per step {row['per_step'] or 'none'}; device busy "
+        f"{busy['ms']:.3f} ms a step, {busy_share(busy, row['p50_ms'])}, "
+        f"{busy['ops']:.0f} device ops a step; peak device memory "
+        f"{peak_text(row['peak_bytes'])}; device ms of a step (CUPTI): "
+        f"{split_line}")
+    return row
+
+
+def recsys_phase(seed, dev):
+    """Each arch: weights drawn on the card from ``seed``, serving, then
+    training (module doc)."""
+    out = {}
+    for arch in RECSYS_ARCHS:
+        cfg = recsys_config(arch)
+        params = train_cli.recsys_init(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"phase 13 [{arch}]: {cfg.name} ({cfg.family}, embed_dim "
+            f"{cfg.embed_dim}, {cfg.source}): {n_params} parameters"
+            + (f"; tables cut to vocabs <= 100 (Criteo-1TB's "
+               f"{sum(get_bundle(arch).config.vocab_sizes)} rows do not "
+               f"fit)" if arch == "dlrm-mlperf" else ""))
+        served = serve_recsys(arch, cfg, params, seed, dev)
+        trained = train_recsys_arch(arch, cfg, params, seed, dev)
+        out[arch] = dict(serve=served, train=trained, params=n_params)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def mace_phase(seed, dev):
+    """MACE at its published width on the ``molecule`` shape: the
+    equivariance property, the first step against the CPU, MACE_STEPS
+    steps of ``fit_gnn``."""
+    cfg = mace_config()
+    dims = mace_dims()
+    params = MA.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    batch = train_cli.gnn_batches(cfg, seed, dev, dims)(0)
+    inputs = {k: batch[k] for k in MA.INPUTS}
+    rot = torch.from_numpy(rotation(seed)).to(dev)
+    shift = torch.randn(3, generator=torch.Generator().manual_seed(seed)
+                        ).to(dev)
+    with torch.no_grad():
+        e1, f1 = MA.energy_and_forces(params, cfg, n_graphs=dims[0],
+                                      **inputs)
+        e2, f2 = MA.energy_and_forces(
+            params, cfg, n_graphs=dims[0],
+            **dict(inputs, positions=inputs["positions"] @ rot.T + shift))
+    e_err = ((e1 - e2).abs() / e1.abs().clamp(min=1.0)).max().item()
+    f_err = ((f2 - f1 @ rot.T).abs().max()
+             / f1.abs().max().clamp(min=1e-3)).item()
+    if not (e_err < EQUI_TOL and f_err < EQUI_TOL) or not bool(
+            torch.isfinite(f1).all()):
+        raise AssertionError(f"phase 13 [MACE]: under a rotation the "
+                             f"energies moved {e_err:.3g}, the forces "
+                             f"{f_err:.3g} (bar {EQUI_TOL})")
+    loss_fn = train_cli.gnn_loss_fn(cfg, dims[0])
+    cpu = torch.device("cpu")
+    f64 = lambda tree: tree_map(lambda t: t.double() if t.is_floating_point()
+                                else t, tree)
+    want_loss, want = value_and_grad(loss_fn, f64(tree_on(params, cpu)),
+                                     f64(tree_on(batch, cpu)))
+    got_loss, got = value_and_grad(loss_fn, f64(params), f64(batch))
+    np.testing.assert_allclose(got_loss.item(), want_loss.item(),
+                               **CPU_TRAIN_TOL, err_msg="phase 13 [MACE]")
+    cpu_err = grads_close(got, want, CPU_TRAIN_TOL, "phase 13 [MACE]: the "
+                          "card's first step vs the CPU's, float64",
+                          scaled=True)
+    loss0, grads = value_and_grad(loss_fn, params, batch)
+    loss0 = loss0.item()
+    f32_rel = max([abs(loss0 - want_loss.item()) / abs(want_loss.item())]
+                  + [((a.double().cpu() - b).norm() / b.norm()).item()
+                     for a, b in zip(tree_leaves(grads), tree_leaves(want))
+                     if b.norm() > 0])
+    if not f32_rel < MACE_F32_REL:
+        raise AssertionError(f"phase 13 [MACE]: the card's float32 step is "
+                             f"{f32_rel:.3g} from the float64 step (bar "
+                             f"{MACE_F32_REL})")
+    del got, want, grads
+    with torch.no_grad():
+        before = loss_fn(params, batch).item()
+    res, row = run_steps(lambda p: train_cli.fit_gnn(
+        cfg, p, MACE_STEPS, None, seed=seed, shape=dims, verbose=False),
+        params, dev, "MACE")
+    with torch.no_grad():
+        after = loss_fn(res.state.params, batch).item()
+    if not np.isclose(row["losses"][0], loss0, rtol=1e-5, atol=1e-6) \
+            or not after < before:
+        raise AssertionError(f"phase 13 [MACE]: first loss {row['losses'][0]}"
+                             f" (checked {loss0}); step 1's batch {before} "
+                             f"-> {after}")
+    step_fn = make_train_step(loss_fn, adam(train_cli.GNN_LR))
+    st = res.state
+    nb = train_cli.gnn_batches(cfg, seed, dev, dims)
+    replay = lambda: step_fn(st.params, st.opt_state, st.residual,
+                             nb(MACE_STEPS))
+    busy = device_busy(replay, 1)
+    split, split_line = split_of(replay)
+    row.update(equivariance=(e_err, f_err), cpu_err=cpu_err,
+               f32_rel=f32_rel, busy=busy, split_ms=split,
+               loss_before=before, loss_after=after)
+    log(f"phase 13 [MACE]: {cfg.name} (d_hidden {cfg.d_hidden}, "
+        f"correlation order {cfg.correlation_order}, {cfg.n_layers} layers) "
+        f"on {MACE_SHAPE} {dims} (graphs, atoms, edges each): under a "
+        f"random rotation and shift energies moved {e_err:.3g} and forces "
+        f"{f_err:.3g} of their scale (bar {EQUI_TOL}); the first step in "
+        f"float64 == the CPU's at rtol 1e-4/atol 1e-5 (largest gradient "
+        f"|diff| {cpu_err:.3g}, atol relative to each leaf's largest "
+        f"entry); in float32 (loss {loss0:.6g}) {f32_rel:.3g} of each "
+        f"gradient's norm from the float64 step (bar {MACE_F32_REL}); "
+        f"{MACE_STEPS} steps: loss per step "
+        + ", ".join(f"{x:.6g}" for x in row["losses"])
+        + f"; step 1's batch {before:.6g} -> {after:.6g}; ms per step p50 "
+        f"{row['p50_ms']:.3f} / p95 {row['p95_ms']:.3f} (the first "
+        f"{row['first_ms']:.1f}); device busy {busy['ms']:.3f} ms a step, "
+        f"{busy_share(busy, row['p50_ms'])}, {busy['ops']:.0f} device ops "
+        f"a step; peak device memory {peak_text(row['peak_bytes'])}; "
+        f"device ms of a step (CUPTI): {split_line}")
+    return row
+
+
+def rotation(seed: int) -> np.ndarray:
+    """A random proper rotation (tests/prophelpers.py's)."""
+    q, _ = np.linalg.qr(np.random.RandomState(seed).randn(3, 3))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    return q.astype(np.float32)
+
+
+def run_recsys_cli(dev):
+    """``repro_torch.launch.train.main()`` in process for each RECSYS_CLI
+    workload: RECSYS_CLI_STEPS[0] steps into a checkpoint directory, then
+    the CLI asked for RECSYS_CLI_STEPS[1] resumes there; an
+    uninterrupted run in another directory: the resumed steps' losses and
+    gradient norms have its bits.  BERT4Rec's CLI launches flash_attn."""
+    argv0 = sys.argv
+    rows = {}
+    a, b = RECSYS_CLI_STEPS
+    try:
+        for flags, name in RECSYS_CLI:
+            runs = []
+            for steps, where in ((a, "part"), (b, "part"), (b, "whole")):
+                d = os.path.join(RECSYS_DIR, name, where)
+                sys.argv = ["train"] + flags + [
+                    "--steps", str(steps), "--ckpt-dir", d] + (
+                    ["--device", str(dev)] if dev.type != "cuda" else [])
+                for fn in COUNTERS.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                runs.append((train_cli.main(), time.perf_counter() - t0,
+                             {n: c for n, c in launch_counts().items()
+                              if c}))
+            resumed, whole = runs[1][0].history, runs[2][0].history
+            if [h["step"] for h in resumed] != list(range(a + 1, b + 1)):
+                raise AssertionError(f"phase 13: the {name} CLI resumed at "
+                                     f"{[h['step'] for h in resumed]}")
+            for key in ("loss", "grad_norm"):
+                got = [h[key] for h in resumed]
+                want = [h[key] for h in whole[a:]]
+                if got != want:
+                    raise AssertionError(f"phase 13: the {name} CLI's "
+                                         f"resumed {key} {got} != the "
+                                         f"uninterrupted run's {want}")
+            if name == "bert4rec" and not runs[2][2].get("flash_attn"):
+                raise AssertionError("phase 13: the bert4rec CLI launched "
+                                     "no flash_attn")
+            rows[name] = dict(wall_s=[r[1] for r in runs],
+                              launches=runs[2][2],
+                              losses=[h["loss"] for h in whole])
+            log(f"phase 13: CLI {' '.join(flags)}: {a} steps into a "
+                f"checkpoint ({runs[0][1]:.2f}s), resumed to {b} "
+                f"({runs[1][1]:.2f}s): steps {a + 1}-{b}'s losses "
+                + ", ".join(f"{h['loss']!r}" for h in resumed)
+                + f" == the uninterrupted run's ({runs[2][1]:.2f}s), "
+                f"bitwise, gradient norms too; launches of {b} steps "
+                f"{runs[2][2] or 'none'}")
+    finally:
+        sys.argv = argv0
+        shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    return rows
+
+
+def phase13(seed: int, dev):
+    """The recsys models and MACE on the card (module doc).  Returns the
+    two rows of the ``kernels`` line at BERT4Rec's shape and the phase's
+    numbers."""
+    t_phase = time.perf_counter()
+    fwd_err, bwd_err = check_b4r_attention(seed, dev)
+    fwd, bwd = time_b4r_attention(seed, dev)
+    recsys = recsys_phase(seed, dev)
+    mace = mace_phase(seed, dev)
+    torch.cuda.empty_cache()
+    cli = run_recsys_cli(dev)
+    b4r = recsys["bert4rec"]
+    served = sum(r["launches"].get("flash_attn", 0)
+                 for r in b4r["serve"].values())
+    trained = b4r["train"]["launches"]
+    if served == 0 or not trained.get("flash_attn") \
+            or not trained.get("flash_attn_bwd"):
+        raise AssertionError("phase 13: BERT4Rec's main path launched no "
+                             "flash_attn or flash_attn_bwd")
+    if any(r["launches"].get("flash_attn") or r["launches"].get(
+            "flash_attn_bwd") for a in ("sasrec", "autoint", "dlrm-mlperf")
+           for r in list(recsys[a]["serve"].values()) + [recsys[a]["train"]]):
+        raise AssertionError("phase 13: a model without a kernel head dim "
+                             "launched flash_attn")
+    note = ("float32, non-causal, BERT4Rec's training batch; launches: "
+            "its serving calls and training steps in phase 13")
+    rows = [dict(name="flash_attn_bert4rec", route="cuda",
+                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
+                 replaces=TPU_KERNELS["flash_attn"], shape=list(B4R_FA_SHAPE),
+                 launches=served + trained["flash_attn"],
+                 launches_by_path=dict(serve=served,
+                                       train=trained["flash_attn"]),
+                 launches_per_step=b4r["train"]["per_step"]["flash_attn"],
+                 max_abs_err=fwd_err, note=note, **fwd),
+            dict(name="flash_attn_bwd_bert4rec", route="cuda",
+                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn_bwd"),
+                 replaces=TPU_KERNELS["flash_attn_bwd"],
+                 shape=list(B4R_FA_SHAPE),
+                 launches=trained["flash_attn_bwd"],
+                 launches_per_step=b4r["train"]["per_step"]["flash_attn_bwd"],
+                 max_abs_err=bwd_err, note=note, **bwd)]
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f}s")
+    return dict(rows=rows, recsys=recsys, mace=mace, cli=cli)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4606,6 +5291,8 @@ def main() -> int:
             row["train_launches_per_step"] = lm_train["lm"]["per_step"][
                 "flash_attn"]
     kernels.append(lm_train["row"])
+    torch.cuda.empty_cache()
+    kernels += phase13(args.seed, dev)["rows"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,44 @@
-"""Config dataclasses of the port: SEINE itself and the decoder-only LM
-(copies of ``repro.configs.base.SeineConfig``, ``MoEConfig`` and
-``TransformerConfig``; ``repro.configs`` loads jax through its package,
-so the port keeps its own copies)."""
+"""Config dataclasses of the port: SEINE itself, the decoder-only LM,
+MACE, the recsys models, the input-shape cells and the (arch, shapes)
+bundles (copies of ``repro.configs.base``; ``repro.configs`` loads jax
+through its package, so the port keeps its own copies)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the (arch x shape) grid."""
+
+    name: str
+    kind: str  # "training" | "inference-prefill" | "inference-decode" |
+    #            "long-context-decode" | "full-batch" | "sampled-training" |
+    #            "full-batch-large" | "batched-small-graphs" | "online-inference" |
+    #            "offline-scoring" | "retrieval-scoring"
+    # LM shapes
+    seq_len: int = 0
+    global_batch: int = 0
+    # GNN shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    n_graphs: int = 0
+    # recsys shapes
+    batch: int = 0
+    n_candidates: int = 0
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("inference-decode", "long-context-decode")
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind in ("training", "full-batch", "sampled-training",
+                             "full-batch-large", "batched-small-graphs")
 
 
 @dataclass(frozen=True)
@@ -100,3 +133,97 @@ class TransformerConfig:
             * self.moe.d_expert + d * self.moe.n_experts
         per_layer = self._attn_params() + active_ffn + 2 * d
         return self.n_layers * per_layer + self._embed_params() + d
+
+
+@dataclass(frozen=True)
+class MACEConfig:
+    name: str = "mace"
+    family: str = "gnn"
+    n_layers: int = 2
+    d_hidden: int = 128
+    l_max: int = 2
+    correlation_order: int = 3
+    n_rbf: int = 8
+    n_species: int = 16
+    r_cut: float = 5.0
+    d_readout: int = 64
+    dtype: str = "float32"
+    source: str = "arXiv:2206.07697"
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    family: str  # "attn-ctr" | "dlrm" | "seq-rec"
+    n_dense: int = 0
+    n_sparse: int = 0
+    embed_dim: int = 16
+    vocab_sizes: Tuple[int, ...] = ()
+    # AutoInt
+    n_attn_layers: int = 0
+    n_heads: int = 0
+    d_attn: int = 0
+    # DLRM
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    interaction: str = "dot"
+    # sequential recommenders
+    n_blocks: int = 0
+    seq_len: int = 0
+    n_items: int = 0
+    causal: bool = True
+    dtype: str = "float32"
+    source: str = ""
+
+
+@dataclass(frozen=True)
+class ArchBundle:
+    """An architecture + its assigned input shapes, as one dry-run unit."""
+
+    arch_id: str
+    config: Any
+    shapes: Tuple[ShapeConfig, ...]
+    domain: str  # "lm" | "gnn" | "recsys" | "ir"
+
+    def shape(self, name: str) -> ShapeConfig:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r}; "
+                       f"have {[s.name for s in self.shapes]}")
+
+
+# ---------------------------------------------------------------------------
+# Shared shape sets (from the assignment)
+# ---------------------------------------------------------------------------
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig(name="train_4k", kind="training", seq_len=4096,
+                global_batch=256),
+    ShapeConfig(name="prefill_32k", kind="inference-prefill", seq_len=32768,
+                global_batch=32),
+    ShapeConfig(name="decode_32k", kind="inference-decode", seq_len=32768,
+                global_batch=128),
+    ShapeConfig(name="long_500k", kind="long-context-decode",
+                seq_len=524288, global_batch=1),
+)
+
+GNN_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig(name="full_graph_sm", kind="full-batch",
+                n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeConfig(name="minibatch_lg", kind="sampled-training",
+                n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                fanout=(15, 10)),
+    ShapeConfig(name="ogb_products", kind="full-batch-large",
+                n_nodes=2449029, n_edges=61859140, d_feat=100),
+    ShapeConfig(name="molecule", kind="batched-small-graphs",
+                n_nodes=30, n_edges=64, n_graphs=128),
+)
+
+RECSYS_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig(name="train_batch", kind="training", batch=65536),
+    ShapeConfig(name="serve_p99", kind="online-inference", batch=512),
+    ShapeConfig(name="serve_bulk", kind="offline-scoring", batch=262144),
+    ShapeConfig(name="retrieval_cand", kind="retrieval-scoring", batch=1,
+                n_candidates=1_000_000),
+)

@@ -1,11 +1,10 @@
 """The LM-family transformer architectures at their exact published
-dims (copy of ``repro.configs.lm_archs``; the shape cells and bundles of
-the dry-run are not ported)."""
+dims with their shape cells (copy of ``repro.configs.lm_archs``)."""
 from __future__ import annotations
 
 import dataclasses
 
-from .base import MoEConfig, TransformerConfig
+from .base import LM_SHAPES, ArchBundle, MoEConfig, TransformerConfig
 
 # -- granite-moe-3b-a800m [hf:ibm-granite/granite-3.0-1b-a400m-base] --------
 GRANITE_MOE = TransformerConfig(
@@ -51,6 +50,10 @@ STABLELM_16 = TransformerConfig(
 
 LM_CONFIGS = {cfg.name: cfg for cfg in (GRANITE_MOE, MOONSHOT, YI_9B,
                                         MINITRON_4B, STABLELM_16)}
+LM_BUNDLES = {
+    name: ArchBundle(arch_id=name, config=cfg, shapes=LM_SHAPES, domain="lm")
+    for name, cfg in LM_CONFIGS.items()
+}
 
 
 def smoke_config(cfg: TransformerConfig) -> TransformerConfig:

@@ -8,7 +8,9 @@ so a parity test feeds the reference's own parameters through
 :func:`provider_from_numpy` (an embedding table) and
 :func:`lm_params_from_numpy` / :func:`lm_provider_from_numpy` (an LM's
 parameter tree, dense or MoE, and ``LMProvider``'s projection),
-:func:`snrm_params_from_numpy` (the SNRM baseline's encoder);
+:func:`snrm_params_from_numpy` (the SNRM baseline's encoder),
+:func:`recsys_params_from_numpy` (AutoInt, DLRM, SASRec, BERT4Rec) and
+:func:`mace_params_from_numpy` (MACE);
 :func:`index_to_device` turns any object with
 the index's array fields (a ``repro`` index, a port index on another
 device) into the port's index on ``device``.  Nothing here imports jax:
@@ -27,6 +29,8 @@ from .core.interactions import params_to
 from .core.providers import HashProvider, LearnedProvider, LMProvider
 from .dist.partition import PartitionedIndex
 from .kernels.utils import resolve_device
+from .models import mace as MA
+from .models import recsys as R
 from .models import transformer as T
 from .models.layers import ParamTree
 from .retrievers import get_retriever
@@ -222,3 +226,52 @@ def snrm_params_from_numpy(tree: Any, device=None) -> Dict[str, Any]:
         raise ValueError(f"SNRM shapes do not chain: {dims}")
     dev = resolve_device(device)
     return {n: torch.from_numpy(_f32(tree[n])).to(dev) for n in SNRM_NAMES}
+
+
+
+def _walk(tree: Any, path=()):
+    """``(name, leaf)`` of nested dicts (keys sorted) and lists; anything
+    else, a shape tuple included, is a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (str(k),))
+    elif isinstance(tree, list):
+        for i, x in enumerate(tree):
+            yield from _walk(x, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def _rebuild(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _tree_from_numpy(tree: Any, shapes: Any, device, what: str) -> Any:
+    """``tree`` (nested dicts and lists of JAX or numpy arrays) as float32
+    tensors on ``device``, checked leaf by leaf against ``shapes`` (the
+    port's nesting with a shape tuple per leaf)."""
+    got = {n: tuple(np.shape(v)) for n, v in _walk(tree)}
+    want = dict(_walk(shapes))
+    if got != want:
+        raise ValueError(f"{what} parameters do not match the port's "
+                         f"layout: expected {want}, got {got}")
+    dev = resolve_device(device)
+    return _rebuild(tree, lambda v: torch.from_numpy(_f32(v)).to(dev))
+
+
+def recsys_params_from_numpy(tree: Any, cfg, device=None) -> Dict[str, Any]:
+    """A recsys parameter tree (the reference's ``autoint_init``,
+    ``dlrm_init`` or ``seqrec_init`` pytree; JAX or numpy arrays) as the
+    port's float32 tree on ``device``, every name and shape checked
+    against ``models.recsys.param_shapes(cfg)``."""
+    return _tree_from_numpy(tree, R.param_shapes(cfg), device, cfg.name)
+
+
+def mace_params_from_numpy(tree: Any, cfg, device=None) -> Dict[str, Any]:
+    """The reference's MACE ``init_params`` pytree as the port's float32
+    tree on ``device``, checked against ``models.mace.param_shapes``."""
+    return _tree_from_numpy(tree, MA.param_shapes(cfg), device, cfg.name)

@@ -4,6 +4,9 @@
         --retriever knrm --steps 200 --ckpt-dir build/ck
     PYTHONPATH=src python -m repro_torch.launch.train --workload lm \
         [--arch stablelm-1.6b] [--full] --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --workload recsys \
+        --arch bert4rec --steps 20 --ckpt-dir build/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --workload gnn
 
 Trains a SEINE ranker on indexed M: the smoke-scale world of the
 reference (corpus, vocabulary, TextTiling and index ids from ``--seed``
@@ -21,8 +24,20 @@ reference's random next-token batches, ``adamw(3e-4)``: its smoke config
 at (B, S) = (8, 64), or with ``--full`` the published config at (16,
 1,024).  The weights come from ``init_params`` with a ``torch.Generator``
 seeded by ``--seed``; attention runs the ``flash_attn`` forward and
-backward kernels, each layer under remat.  The ``recsys`` and ``gnn``
-workloads are not ported and exit with an error.
+backward kernels, each layer under remat.
+
+``--workload recsys`` trains a recommender (``--arch`` autoint, the
+default, dlrm-mlperf, sasrec or bert4rec) at its smoke config, as the
+reference does with and without ``--full``: the reference's synthetic
+batches (CTR batches of 256, sequence batches of 64, batch seed ``seed *
+7919 + step``) and ``adam(1e-3)``.  BERT4Rec's attention runs the
+``flash_attn`` forward and backward kernels; SASRec's head dim (50) is
+not one they take, so it runs the plain attention as the reference does.
+``--workload gnn`` trains MACE's smoke config on batches of 8 molecules
+of 12 atoms and 32 edges, energy targets ``sin(0..7)`` and zero forces,
+with ``adam(1e-3)``; its loss trains through the forces, a gradient of a
+gradient.  Weights come from a ``torch.Generator`` seeded by
+``--seed``; checkpoints and resume work as for the other workloads.
 """
 from __future__ import annotations
 
@@ -37,15 +52,33 @@ from ..kernels.utils import resolve_device
 
 _log = obs.get_logger("repro.launch.train")
 
-# the ROADMAP queue that ports each workload the driver does not run yet
-NOT_PORTED = {"recsys": "ROADMAP Queue 1 item 4 (the recsys models, the "
-                        "next slice)",
-              "gnn": "ROADMAP Queue 1 item 4 (the GNN models, after the "
-                     "recsys slice)"}
 # (B, S) of an LM batch: the smoke config's, and the published config's
 LM_BATCH = {True: (8, 64), False: (16, 1024)}
 LM_CE_CHUNKS = 4
 LM_LR = 3e-4
+RECSYS_LR = 1e-3
+# batch of the reference's train_recsys: CTR rows, or sequences
+RECSYS_BATCH = {"ctr": 256, "seq": 64}
+GNN_LR = 1e-3
+# the reference's train_gnn: graphs, atoms and edges per graph
+GNN_BATCH = (8, 12, 32)
+
+
+def _fit(loss_fn, params, opt, next_batch, steps: int, ckpt_dir, *,
+         verbose: bool, ckpt_every: int, data_state=None):
+    """The reference trainers' loop: ``opt`` through ``make_train_step``
+    (clipping at 1.0), an error-feedback residual in the state as the
+    reference's, and checkpoints in ``ckpt_dir`` every ``ckpt_every``
+    steps (resuming from the latest).  Returns the ``FitResult``."""
+    from ..dist.compression import init_error_feedback
+    from ..train import TrainState, fit, make_train_step
+
+    step_fn = make_train_step(loss_fn, opt, donate=False)
+    st = TrainState(params=params, opt_state=opt.init(params),
+                    residual=init_error_feedback(params))
+    return fit(st, step_fn, next_batch, n_steps=steps, ckpt_dir=ckpt_dir,
+               ckpt_every=ckpt_every, data_state=data_state,
+               verbose=verbose)
 
 
 def has_params(params) -> bool:
@@ -103,21 +136,15 @@ def train_ranker(retriever: str, index, queries: np.ndarray,
     ``ckpt_every`` steps, keeping the last 3, and resumes from the latest.
     Returns the ``FitResult``."""
     from ..data.batching import PairSampler
-    from ..dist.compression import init_error_feedback
-    from ..train import TrainState, adam, fit, make_train_step
+    from ..train import adam
 
     params = params.to(index.device)
     sampler = PairSampler(qrels, np.arange(len(queries)),
                           batch_size=16, seed=seed)
-    opt = adam(3e-3)
-    step_fn = make_train_step(ranker_loss_fn(retriever, index), opt,
-                              donate=False)
-    st = TrainState(params=params, opt_state=opt.init(params),
-                    residual=init_error_feedback(params))
-    return fit(st, step_fn,
-               pair_batches(sampler, queries, index.device),
-               n_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-               data_state=sampler.state_dict, verbose=verbose)
+    return _fit(ranker_loss_fn(retriever, index), params, adam(3e-3),
+                pair_batches(sampler, queries, index.device), steps,
+                ckpt_dir, verbose=verbose, ckpt_every=ckpt_every,
+                data_state=sampler.state_dict)
 
 
 def train_seine_ranker(retriever: str, steps: int, ckpt_dir, *, seed=0,
@@ -201,18 +228,12 @@ def fit_lm(cfg, params, batch_shape, steps: int, ckpt_dir, *, seed: int = 0,
     ``adamw(3e-4)``, an error-feedback residual in the state as the
     reference's, and checkpoints in ``ckpt_dir`` every ``ckpt_every``
     steps (resuming from the latest).  Returns the ``FitResult``."""
-    from ..dist.compression import init_error_feedback
-    from ..train import TrainState, adamw, fit, make_train_step
+    from ..train import adamw
 
     dev = next(iter(params["layers"].values())).device
-    opt = adamw(LM_LR)
-    step_fn = make_train_step(lm_loss_fn(cfg), opt, donate=False)
-    st = TrainState(params=params, opt_state=opt.init(params),
-                    residual=init_error_feedback(params))
-    return fit(st, step_fn, lm_batches(cfg.vocab_size, *batch_shape, seed,
-                                       dev),
-               n_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-               verbose=verbose)
+    return _fit(lm_loss_fn(cfg), params, adamw(LM_LR),
+                lm_batches(cfg.vocab_size, *batch_shape, seed, dev), steps,
+                ckpt_dir, verbose=verbose, ckpt_every=ckpt_every)
 
 
 def train_lm(arch: str, steps: int, ckpt_dir, *, smoke: bool = True,
@@ -233,7 +254,139 @@ def train_lm(arch: str, steps: int, ckpt_dir, *, smoke: bool = True,
                   verbose=verbose)
 
 
-def main() -> None:
+def recsys_init(cfg, gen: torch.Generator, device=None):
+    """The init of ``cfg``'s family (``models.recsys``)."""
+    from ..models import recsys as R
+    init = {"attn-ctr": R.autoint_init, "dlrm": R.dlrm_init}.get(
+        cfg.family, R.seqrec_init)
+    return init(cfg, gen, device)
+
+
+def recsys_loss_fn(cfg, attention=None):
+    """The reference's ``train_recsys`` loss of ``cfg``'s family: BCE of
+    AutoInt's or DLRM's logit, SASRec's BPR loss or BERT4Rec's sampled
+    softmax; BERT4Rec's attention through ``attention`` (default the
+    ``flash_attn`` kernels)."""
+    from ..kernels.flash_attn import flash_attention
+    from ..models import recsys as R
+
+    attention = attention or flash_attention
+    if cfg.family == "attn-ctr":
+        return lambda p, b: R.bce_loss(
+            R.autoint_forward(p, cfg, b["sparse_ids"]), b["label"])
+    if cfg.family == "dlrm":
+        return lambda p, b: R.bce_loss(
+            R.dlrm_forward(p, cfg, b["dense"], b["sparse_ids"]), b["label"])
+    if cfg.causal:
+        return lambda p, b: R.sasrec_loss(p, cfg, b, attention=attention)
+    return lambda p, b: R.bert4rec_loss(p, cfg, b, attention=attention)
+
+
+def recsys_batches(cfg, seed: int, device, batch: int = 0):
+    """``next_batch(step)``: the reference's ``ctr_batch`` or
+    ``seqrec_batch`` of seed ``seed * 7919 + step`` on ``device``, of
+    ``batch`` rows (default the reference's: 256 CTR rows, 64
+    sequences)."""
+    from ..data.recsys_data import ctr_batch, seqrec_batch
+
+    ctr = cfg.family in ("attn-ctr", "dlrm")
+    gen = ctr_batch if ctr else seqrec_batch
+    n = batch or RECSYS_BATCH["ctr" if ctr else "seq"]
+
+    def next_batch(step):
+        b = gen(cfg, n, seed=seed * 7919 + int(step))
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    return next_batch
+
+
+def fit_recsys(cfg, params, steps: int, ckpt_dir, *, seed: int = 0,
+               batch: int = 0, verbose: bool = True, ckpt_every: int = 100):
+    """Train the recsys ``params`` of ``cfg`` (a tree on their device) for
+    ``steps`` on :func:`recsys_batches` with :func:`recsys_loss_fn` and
+    ``adam(1e-3)``.  Returns the ``FitResult``."""
+    from .. import tree
+    from ..train import adam
+
+    dev = tree.leaves(params)[0].device
+    return _fit(recsys_loss_fn(cfg), params, adam(RECSYS_LR),
+                recsys_batches(cfg, seed, dev, batch), steps, ckpt_dir,
+                verbose=verbose, ckpt_every=ckpt_every)
+
+
+def train_recsys(arch: str, steps: int, ckpt_dir, *, seed: int = 0,
+                 device=None, verbose: bool = True):
+    """The reference's ``train_recsys`` on ``device`` (default CUDA):
+    ``smoke(arch)``, weights from a generator seeded by ``seed``, then
+    :func:`fit_recsys`."""
+    from ..configs import smoke as smoke_cfg
+
+    dev = resolve_device(device)
+    cfg = smoke_cfg(arch)
+    params = recsys_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    return fit_recsys(cfg, params, steps, ckpt_dir, seed=seed,
+                      verbose=verbose)
+
+
+def gnn_batches(cfg, seed: int, device, shape=GNN_BATCH):
+    """``next_batch(step)`` of the reference's ``train_gnn``:
+    ``batched_molecules(*shape, seed=seed * 31 + step)`` on ``device``
+    with energy targets ``sin(0..n_graphs-1)`` and zero forces."""
+    from ..data.graph import batched_molecules
+
+    n_graphs, nodes_per, edges_per = shape
+
+    def next_batch(step):
+        b = batched_molecules(n_graphs, nodes_per, edges_per,
+                              seed=seed * 31 + int(step),
+                              n_species=cfg.n_species)
+        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        # synthetic targets from a fixed "teacher" configuration
+        b["energy"] = torch.sin(torch.arange(n_graphs, dtype=torch.float32,
+                                             device=device))
+        b["forces"] = torch.zeros_like(b["positions"])
+        return b
+
+    return next_batch
+
+
+def gnn_loss_fn(cfg, n_graphs: int):
+    """The reference's ``train_gnn`` loss: ``mace_loss`` (energies and
+    forces) over ``n_graphs`` graphs."""
+    from ..models import mace as MA
+    return lambda p, b: MA.mace_loss(p, cfg, b, n_graphs=n_graphs)
+
+
+def fit_gnn(cfg, params, steps: int, ckpt_dir, *, seed: int = 0,
+            shape=GNN_BATCH, verbose: bool = True, ckpt_every: int = 100):
+    """Train the MACE ``params`` of ``cfg`` for ``steps`` on
+    :func:`gnn_batches` of ``shape`` with ``adam(1e-3)``.  Returns the
+    ``FitResult``."""
+    from ..train import adam
+
+    dev = params["species_embed"].device
+    return _fit(gnn_loss_fn(cfg, shape[0]), params, adam(GNN_LR),
+                gnn_batches(cfg, seed, dev, shape), steps, ckpt_dir,
+                verbose=verbose, ckpt_every=ckpt_every)
+
+
+def train_gnn(steps: int, ckpt_dir, *, seed: int = 0, device=None,
+              verbose: bool = True):
+    """The reference's ``train_gnn`` on ``device`` (default CUDA): the
+    smoke MACE config, weights from a generator seeded by ``seed``, then
+    :func:`fit_gnn`."""
+    from ..configs import smoke as smoke_cfg
+    from ..models import mace as MA
+
+    dev = resolve_device(device)
+    cfg = smoke_cfg("mace")
+    params = MA.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    return fit_gnn(cfg, params, steps, ckpt_dir, seed=seed, verbose=verbose)
+
+
+def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True,
                     choices=["seine-ranker", "lm", "recsys", "gnn"])
@@ -247,21 +400,24 @@ def main() -> None:
                     help="torch device to run on (default: CUDA; 'cpu' "
                          "runs the kernels' plain versions)")
     args = ap.parse_args()
-    if args.workload in NOT_PORTED:
-        ap.error(f"--workload {args.workload} is not ported yet: "
-                 f"{NOT_PORTED[args.workload]}")
 
     t0 = time.perf_counter()
-    if args.workload == "lm":
-        res = train_lm(args.arch or "stablelm-1.6b", args.steps,
-                       args.ckpt_dir, smoke=args.smoke, device=args.device)
-    else:
+    if args.workload == "seine-ranker":
         res = train_seine_ranker(args.retriever, args.steps, args.ckpt_dir,
                                  device=args.device)
+    elif args.workload == "lm":
+        res = train_lm(args.arch or "stablelm-1.6b", args.steps,
+                       args.ckpt_dir, smoke=args.smoke, device=args.device)
+    elif args.workload == "recsys":
+        res = train_recsys(args.arch or "autoint", args.steps,
+                           args.ckpt_dir, device=args.device)
+    else:
+        res = train_gnn(args.steps, args.ckpt_dir, device=args.device)
     h = res.history
     _log.info("done", steps=len(h), s=f"{time.perf_counter() - t0:.1f}",
               loss=f"{h[0]['loss']:.4f}->{h[-1]['loss']:.4f}",
               stragglers=len(res.straggler.flagged))
+    return res
 
 
 if __name__ == "__main__":

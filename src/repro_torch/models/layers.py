@@ -1,6 +1,6 @@
-"""The layer helpers of the retrievers and the LM (port of the init
-helpers, ``mlp_apply``, ``rms_norm``, RoPE and the attention functions of
-``repro.models.layers``; the mesh helpers ``maybe_constrain`` and
+"""The layer helpers of the retrievers, the LM, the recsys models and MACE
+(port of the init helpers, ``mlp_apply``, ``rms_norm``, ``layer_norm``,
+RoPE and the attention functions of ``repro.models.layers``; the mesh helpers ``maybe_constrain`` and
 ``maybe_replicate`` are not ported), and ``softmax``, rounded as
 ``jax.nn.softmax``.
 
@@ -51,6 +51,15 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return (torch.randn(*lead, d_in, d_out, generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, n: int, d: int, *,
+               dtype: torch.dtype = torch.float32,
+               scale: float = 0.02) -> torch.Tensor:
+    """An (n, d) N(0, scale^2) table, drawn in float32 on the generator's
+    device, then cast to ``dtype``."""
+    return (torch.randn(n, d, generator=gen, device=gen.device)
             * scale).to(dtype)
 
 
@@ -111,6 +120,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """In float32 (the mean, then the variance of x - mean), cast back to
+    x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = torch.square(x - mu).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
 
 
 # -- RoPE ------------------------------------------------------------------

@@ -81,7 +81,7 @@ from repro_torch.models import transformer as T
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import (NoIndexEngine, SeineEngine,
                                  ServingFrontend)
-from repro_torch.tree import flatten_with_paths
+from repro_torch.tree import flatten_with_paths, tree_map
 from torch_codec_rows import adversarial_index, adversarial_queries
 
 pytestmark = pytest.mark.gpu
@@ -1513,3 +1513,60 @@ def test_training_step_on_cuda_matches_cpu(retriever):
     assert list(g_g) == list(g_c)
     for n in g_c:
         torch.testing.assert_close(g_g[n], g_c[n], **TOL, msg=n)
+
+
+def test_flash_attn_at_bert4rec_shape_matches_plain():
+    """BERT4Rec's training attention (256, 200, 2 / 2, 32), float32 and
+    non-causal: 200 keys are three 64-key tiles and a tail of 8, and the
+    KV head's group is 1.  The forward (with and without its lse) and the
+    backward kernel against their plain versions on the card at rtol
+    1e-4 / atol 1e-5; two backward launches bitwise."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(13)
+    q, k, v, do = (torch.randn(256, 200, 2, 32, generator=g).cuda()
+                   for _ in range(4))
+    o, lse = flash_attn_kernel(q, k, v, causal=False, return_lse=True)
+    assert torch.equal(o, flash_attn_kernel(q, k, v, causal=False))
+    want_o, want_lse = flash_attn_plain(q, k, v, causal=False,
+                                        return_lse=True)
+    torch.testing.assert_close(o, want_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5)
+    got = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=False)
+    again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=False)
+    want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=False)
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2), name
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("arch", ["autoint", "dlrm-mlperf", "sasrec",
+                                  "bert4rec", "mace"])
+def test_recsys_and_mace_training_steps_on_cuda_match_cpu(arch):
+    """Three steps of ``fit_recsys`` (``fit_gnn`` for MACE) at the smoke
+    config on the card against the same steps on the CPU from the same
+    weights: loss and gradient norm per step at rtol 1e-4 / atol 1e-5;
+    BERT4Rec launches both flash_attn kernels once per block and step,
+    the others none; the card's run is bitwise the same twice."""
+    _require_cuda()
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import mace as MA
+    cfg = smoke(arch)
+    if arch == "mace":
+        init = MA.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        fit = lambda p: train_cli.fit_gnn(cfg, p, 3, None, verbose=False)
+    else:
+        init = train_cli.recsys_init(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+        fit = lambda p: train_cli.fit_recsys(cfg, p, 3, None, verbose=False)
+    on = lambda dev: tree_map(lambda t: t.to(dev), init)
+    before = (flash_attn_kernel.launches, flash_attn_bwd_kernel.launches)
+    runs = [fit(on("cuda")), fit(on("cuda")), fit(on("cpu"))]
+    n = 3 * 2 * cfg.n_blocks if arch == "bert4rec" else 0
+    assert (flash_attn_kernel.launches - before[0],
+            flash_attn_bwd_kernel.launches - before[1]) == (n, n)
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in runs[0].history] == \
+            [h[key] for h in runs[1].history], key
+        np.testing.assert_allclose([h[key] for h in runs[0].history],
+                                   [h[key] for h in runs[2].history],
+                                   rtol=1e-4, atol=1e-5, err_msg=key)

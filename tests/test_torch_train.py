@@ -556,16 +556,99 @@ def test_cli_flags_the_same_straggler_as_jax(tmp_path, monkeypatch, capsys):
         jax_obs.REGISTRY.get("seine_straggler_flagged_total").get() == 1
 
 
-@pytest.mark.parametrize("workload", ["recsys", "gnn"])
-def test_cli_refuses_unported_workloads(workload, monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["train", "--workload", workload,
-                                      "--device", "cpu"])
-    with pytest.raises(SystemExit) as exc:
-        train_cli.main()
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"--workload {workload} is not ported yet" in err
-    assert "ROADMAP Queue 1 item 4" in err
+CLI_WORKLOADS = [["--workload", "recsys", "--arch", a]
+                 for a in ("autoint", "dlrm-mlperf", "sasrec", "bert4rec")]
+CLI_WORKLOADS += [["--workload", "gnn"]]
+
+
+def _jax_weights(monkeypatch, argv):
+    """The port's trainer starts from the reference's weights: its init
+    (``jax.random.key(0)``) carried across by ``convert``."""
+    from repro import configs as jax_configs
+    from repro.models import mace as JM
+    from repro.models import recsys as JR
+    from repro_torch.convert import (mace_params_from_numpy,
+                                     recsys_params_from_numpy)
+    from repro_torch.models import mace as MA
+
+    if argv[1] == "gnn":
+        jp = JM.init_params(jax_configs.smoke("mace"), jax.random.key(0))
+        monkeypatch.setattr(MA, "init_params", lambda c, gen, dev: (
+            mace_params_from_numpy(jax.tree.map(np.asarray, jp), c, dev)))
+        return
+    jc = jax_configs.smoke(argv[3])
+    init = {"attn-ctr": JR.autoint_init, "dlrm": JR.dlrm_init}.get(
+        jc.family, JR.seqrec_init)
+    jp = init(jc, jax.random.key(0))
+    monkeypatch.setattr(train_cli, "recsys_init", lambda c, gen, dev: (
+        recsys_params_from_numpy(jax.tree.map(np.asarray, jp), c, dev)))
+
+
+def _recording_fits(monkeypatch):
+    """Each package's ``fit``, wrapped to keep its result."""
+    runs = {}
+    for name, mod in (("jax", jax_train), ("port", train)):
+        def rec(*a, _fit=mod.fit, _name=name, **k):
+            runs[_name] = _fit(*a, **k)
+            return runs[_name]
+        monkeypatch.setattr(mod, "fit", rec)
+    return runs
+
+
+@pytest.mark.parametrize("argv", CLI_WORKLOADS,
+                         ids=[a[-1] for a in CLI_WORKLOADS])
+def test_cli_matches_jax_for_recsys_and_gnn(argv, tmp_path, monkeypatch,
+                                            capsys):
+    """``--workload recsys --arch A`` and ``--workload gnn``, 4 steps with
+    a checkpoint directory: from the reference's weights the port's CLI
+    gives ``repro.launch.train.main``'s loss history (rtol 1e-4 / atol
+    1e-5), the same steps and the same checkpoint."""
+    fresh_registry(monkeypatch, jax_obs, obs)
+    _fake_clocks(monkeypatch)
+    _jax_weights(monkeypatch, argv)
+    runs = _recording_fits(monkeypatch)
+    argv = argv + ["--steps", "4"]
+    want = _main(jax_train_cli, argv + ["--ckpt-dir", str(tmp_path / "j")],
+                 monkeypatch, capsys)
+    got = _main(train_cli, argv + ["--ckpt-dir", str(tmp_path / "t"),
+                                   "--device", "cpu"], monkeypatch, capsys)
+    assert got["steps"] == want["steps"] == "4"
+    np.testing.assert_allclose([h["loss"] for h in runs["port"].history],
+                               [h["loss"] for h in runs["jax"].history],
+                               **RUN_TOL)
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "j").iterdir()) == \
+        ["ckpt_0000000004"]
+
+
+@pytest.mark.parametrize("argv", [CLI_WORKLOADS[3], CLI_WORKLOADS[4]],
+                         ids=["bert4rec", "gnn"])
+def test_cli_resumes_recsys_and_gnn_bitwise(argv, tmp_path, monkeypatch,
+                                            capsys):
+    """1 step into a checkpoint directory, then the CLI asked for 3
+    resumes there and takes steps 2 and 3: their losses and gradient
+    norms have the bits of an uninterrupted 3-step run's.  Under torch's
+    deterministic mode: the CPU otherwise sums a gather's gradient with
+    atomics across threads (on the card the scatter sorts its ids)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for steps, where in (("1", "a"), ("3", "a"), ("3", "b")):
+            monkeypatch.setattr(sys, "argv", ["train"] + argv + [
+                "--steps", steps, "--device", "cpu", "--ckpt-dir",
+                str(tmp_path / where)])
+            runs.append(train_cli.main())
+            assert "[repro.launch.train] done" in capsys.readouterr().err
+    finally:
+        torch.use_deterministic_algorithms(False)
+    first, resumed, whole = (r.history for r in runs)
+    assert len(first) == 1 and [h["step"] for h in resumed] == [2, 3]
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in resumed] == [h[key] for h in whole[1:]]
+    assert runs[1].state.step == runs[2].state.step == 3
+    for a, b in zip(T.leaves(runs[1].state.params),
+                    T.leaves(runs[2].state.params)):
+        assert torch.equal(a, b)
 
 
 def test_cli_argument_errors_match_jax(monkeypatch, capsys):

@@ -284,6 +284,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -384,6 +385,11 @@ PACK_TILE = 256          # codec tile (the build-time POSTING_TILE)
 CODECS = ("packed", "packed-q8")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # H100 SXM, dense TF32 tensor cores
+# float32-accurate products on the tensor cores as split TF32 (each
+# operand in two TF32 parts, three TF32 products a float32 product: the
+# float32 flash_attn kernels)
+SPLIT_TF32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # special-function results (exp2, log2, rcp, ...) per clock per SM at
 # compute capability 9.0: the CUDA C++ Programming Guide's table of
 # arithmetic instruction throughput
@@ -1167,6 +1173,66 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_FLOPS_PER_S):
     by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
+
+
+def f32_bounds(n_bytes: float, flops: float) -> dict:
+    """Both bounds of float32 attention work: ``bound_ms`` with the flops
+    over split TF32's 165 TFLOP/s (the float32 kernels' rate at float32
+    accuracy, the least time), ``fma_bound_ms`` over the CUDA cores'
+    FP32 67 TFLOP/s; each the larger of that and the bytes."""
+    split = bound(n_bytes, flops, SPLIT_TF32_FLOPS_PER_S)
+    fma = bound(n_bytes, flops)
+    return dict(bound_ms=split[0], bound_by=split[1], fma_bound_ms=fma[0],
+                fma_bound_by=fma[1])
+
+
+def bounds_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}, split TF32 "
+            f"at 165 TFLOP/s; FMA bound {b['fma_bound_ms']:.5f} ms, "
+            f"{b['fma_bound_by']})")
+
+
+def ptxas_summary(report: str):
+    """One line per kernel instance of an ``nvcc -Xptxas -v`` report:
+    its name and template arguments, registers, spill bytes and any
+    warning."""
+    out, fn, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append(f"{demangled(fn)}: {m.group(1)} registers, {spill}")
+            fn = None
+        if "arning" in line:
+            out.append(line.strip())
+    return out
+
+
+def demangled(name: str) -> str:
+    """``name<args>`` from an Itanium-mangled kernel name (nested names
+    of length-prefixed parts, then integer and bool template
+    arguments); an unmangled name as it is."""
+    if not name.startswith("_Z"):
+        return name
+    i = 3 if name.startswith("_ZN") else 2
+    parts = []
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        n = int(name[i:j])
+        parts.append(name[j:j + n])
+        i = j + n
+    args = re.findall(r"L[ib](\d+)E", name[i:].split("Ev", 1)[0])
+    base = parts[-1] if parts else name
+    return f"{base}<{', '.join(args)}>" if args else base
 
 
 def time_lookup(index, requests, dev):
@@ -3300,8 +3366,9 @@ def qkv(shape, dtype, gen, dev):
 def check_flash_attn(lm, seed, dev, tag="phase 6", sweep=FA_SWEEP):
     """The kernel against its plain version on the card: the build's
     shape in bf16 (2e-2) on FA_SEEDS draws and in float32 (rtol 1e-4 /
-    atol 1e-5), then the shapes of ``sweep`` in both types.  Returns the
-    largest |diff| at the build's shape in bf16 and in float32."""
+    atol 1e-5), then the shapes of ``sweep`` in both types; two launches
+    bitwise.  Returns the largest |diff| at the build's shape in bf16 and
+    in float32."""
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = fa_build_shape(lm)
     cases = [(shape, True, torch.bfloat16, seed + i)
@@ -3314,9 +3381,14 @@ def check_flash_attn(lm, seed, dev, tag="phase 6", sweep=FA_SWEEP):
         if draw is not None:
             g.manual_seed(draw)
         q, k, v = qkv(shp, dt, g, dev)
-        got = flash_attn_kernel(q, k, v, causal=causal).float()
+        got = flash_attn_kernel(q, k, v, causal=causal)
+        again = flash_attn_kernel(q, k, v, causal=causal)
         want = flash_attn_plain(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attn differs between two launches "
+                                 f"at {shp} {dt}")
+        got = got.float()
         tol = BF16_TOL if dt == torch.bfloat16 else FA_F32_TOL
         torch.testing.assert_close(got, want, **tol)
         if not bool(torch.isfinite(got).all()):
@@ -3541,11 +3613,12 @@ def time_flash_attn(lm, launches, errs, dev, tag="phase 6",
     """flash_attn at the build's shape in bf16: the kernel (CUPTI), its
     plain version and ``F.scaled_dot_product_attention`` (the library
     yardstick, never used by the port; K and V repeated first when it
-    lacks ``enable_gqa``); then the same three on float32 inputs (the FMA
-    kernel; TF32 is off, so the library call computes in float32 too).
-    The bounds: q, k, v read once and o written once over 3.35 TB/s, or
-    the causal flops (2 products x 2 hd per (query, key) pair at or below
-    the diagonal) over 989 TFLOP/s in bf16 and 67 TFLOP/s in float32."""
+    lacks ``enable_gqa``); then the same three on float32 inputs (the
+    split-TF32 kernel; TF32 is off, so the library call computes in
+    float32 too).  The bounds: q, k, v read once and o written once over
+    3.35 TB/s, or the causal flops (2 products x 2 hd per (query, key)
+    pair at or below the diagonal) over 989 TFLOP/s in bf16, and in
+    float32 over split TF32's 165 TFLOP/s and the FMAs' 67."""
     shape = fa_build_shape(lm)
     b, s, hq, hkv, hd = shape
     q, k, v = qkv(shape, torch.bfloat16, torch.Generator(device=dev)
@@ -3575,7 +3648,7 @@ def time_flash_attn(lm, launches, errs, dev, tag="phase 6",
     f32_plain_ms = events_ms([lambda: flash_attn_plain(qf, kf, vf)], 5)
     f32_library_ms = events_ms([library(qf, kf, vf)], 20)
     f32_bytes = 2 * (qf.numel() + kf.numel()) * qf.element_size()
-    f32_b_ms, f32_b_by = bound(f32_bytes, flops)
+    f32_b = f32_bounds(f32_bytes, flops)
     log(f"{tag}: flash_attn at {shape} causal bf16 (wgmma): {ms:.4f} ms "
         f"({how}; {call_ms:.4f} ms with launch cost) = "
         f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
@@ -3583,12 +3656,11 @@ def time_flash_attn(lm, launches, errs, dev, tag="phase 6",
         f"{flops / library_ms / 1e9:.1f} TFLOP/s; bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over "
         f"the bf16 peak)")
-    log(f"{tag}: flash_attn on float32 inputs (FMA): {f32_ms:.4f} ms = "
-        f"{flops / f32_ms / 1e9:.1f} TFLOP/s; plain {f32_plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention (float32, TF32 off) "
-        f"{f32_library_ms:.4f} ms; bound {f32_b_ms:.5f} ms ({f32_b_by}: "
-        f"{f32_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over the FP32 "
-        f"peak)")
+    log(f"{tag}: flash_attn on float32 inputs (split TF32, wgmma): "
+        f"{f32_ms:.4f} ms = {flops / f32_ms / 1e9:.1f} TFLOP/s; plain "
+        f"{f32_plain_ms:.4f} ms; scaled_dot_product_attention (float32, "
+        f"TF32 off) {f32_library_ms:.4f} ms; {bounds_text(f32_b)} over "
+        f"{f32_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP")
     return dict(name=name, route="cuda", shape=list(shape),
                 source=KERNEL_SOURCE.format("flash_attn", "flash_attn"),
                 replaces=TPU_KERNELS["flash_attn"],
@@ -3597,8 +3669,8 @@ def time_flash_attn(lm, launches, errs, dev, tag="phase 6",
                 timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 f32_ms=f32_ms, f32_plain_ms=f32_plain_ms,
-                f32_library_ms=f32_library_ms, f32_bound_ms=f32_b_ms,
-                f32_bound_by=f32_b_by)
+                f32_library_ms=f32_library_ms,
+                **{f"f32_{k}": x for k, x in f32_b.items()})
 
 
 def phase6(seed: int, dev, corpus):
@@ -4134,7 +4206,9 @@ FA_BWD_SHAPES = ((16, 1024, 32, 32, 64, True), (8, 1024, 24, 8, 64, True),
                  (4, 1024, 24, 8, 128, True), (1, 1000, 8, 2, 64, True),
                  (1, 1000, 8, 2, 64, False))
 # checked in float32 only: BERT4Rec's training attention (B4R_FA_SHAPE)
-FA_BWD_F32_SHAPES = ((256, 200, 2, 2, 32, False),)
+# and the LM build's shape (PERF.md row 8f), also timed in float32
+FA_BWD_F32_SHAPES = ((256, 200, 2, 2, 32, False),
+                     (32, 512, 24, 8, 128, True))
 FA_BWD_PAST = 1e-3       # bf16: the share of values past 2e-2 (row 8's)
 FA_BWD_ITERS = 10
 
@@ -4160,8 +4234,10 @@ def check_flash_attn_bwd(seed, dev):
     forward kernel's o and lse: float32 at rtol 1e-4 / atol 1e-5, bf16 at
     most FA_BWD_PAST of the values past 2e-2; two launches bitwise; the
     forward's lse against the plain forward's (float32 bar) and its o
-    bitwise equal to a launch without lse.  Returns {shape: {dtype:
-    (largest |diff| over dQ, dK, dV, share past 2e-2, mirror |diff|)}}."""
+    bitwise equal to a launch without lse; each type's distance from the
+    plain mirror of its operands (``bf16_parts`` / ``tf32_parts``).
+    Returns {shape: {dtype: (largest |diff| over dQ, dK, dV, share past
+    2e-2, mirror |diff|)}}."""
     g = torch.Generator(device=dev).manual_seed(seed)
     errs = {}
     both = (torch.float32, torch.bfloat16)
@@ -4179,12 +4255,14 @@ def check_flash_attn_bwd(seed, dev):
             again = flash_attn_bwd_kernel(q, k, v, o, do, lse, causal=causal)
             want = flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal)
             torch.cuda.synchronize()
-            worst, past, mirror = 0.0, 0.0, None
-            if dt == torch.bfloat16:   # the kernel's own operand rounding
-                mirror = max((a.float() - m.float()).abs().max().item()
-                             for a, m in zip(got, flash_attn_bwd_plain(
-                                 q, k, v, o, do, lse, causal=causal,
-                                 bf16_parts=True)))
+            worst, past = 0.0, 0.0
+            # the kernel's own operand rounding
+            parts = ("bf16_parts" if dt == torch.bfloat16
+                     else "tf32_parts")
+            mirror = max((a.float() - m.float()).abs().max().item()
+                         for a, m in zip(got, flash_attn_bwd_plain(
+                             q, k, v, o, do, lse, causal=causal,
+                             **{parts: True})))
             for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
                 if not torch.equal(a, a2):
                     raise AssertionError(f"flash_attn_bwd's {name} differs "
@@ -4208,7 +4286,8 @@ def check_flash_attn_bwd(seed, dev):
     log("phase 12: flash_attn_bwd == plain from the forward kernel's o and "
         "lse, two launches bitwise, o with and without lse bitwise, lse at "
         "rtol 1e-4/atol 1e-5: " + "; ".join(
-            f"{s}: float32 {e[torch.float32][0]:.3g}" + (
+            f"{s}: float32 {e[torch.float32][0]:.3g} "
+            f"({e[torch.float32][2]:.3g} from the split-TF32 mirror)" + (
                 f", bf16 {e[torch.bfloat16][0]:.3g} "
                 f"({e[torch.bfloat16][1]:.1e} past 2e-2; "
                 f"{e[torch.bfloat16][2]:.3g} from the two-part mirror)"
@@ -4249,16 +4328,21 @@ def time_flash_attn_bwd(seed, dev):
     over 3.35 TB/s, or the five products' 10 hd flops per attended pair
     over the bf16 989 TFLOP/s; beside it the bf16 design's bound, its 20
     hd flops a pair over the same peak, and the TFLOP/s against each; at
-    the first shape the same on float32 inputs against the FP32 67
-    TFLOP/s."""
+    the first shape the same on float32 inputs, and last the float32
+    forward and backward at FA_BWD_F32_SHAPES' LM build shape (row 8f),
+    float32 against split TF32's 165 TFLOP/s and the FMAs' 67
+    (``f32_bounds``)."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for i, shape in enumerate(FA_BWD_SHAPES):
+    timed_shapes = [(s, (torch.bfloat16, torch.float32) if i == 0
+                     else (torch.bfloat16,))
+                    for i, s in enumerate(FA_BWD_SHAPES)]
+    timed_shapes.append((FA_BWD_F32_SHAPES[1], (torch.float32,)))
+    for shape, dtypes in timed_shapes:
         b, s, hq, hkv, hd, causal = shape
         flops = 10.0 * hd * attention_pairs(b, s, hq, causal)
-        for dt in ((torch.bfloat16, torch.float32) if i == 0
-                   else (torch.bfloat16,)):
+        for dt in dtypes:
             q, k, v, o, do, lse = bwd_inputs(shape, dt, g, dev)
             call = [lambda: flash_attn_bwd_kernel(q, k, v, o, do, lse,
                                                   causal=causal)]
@@ -4276,13 +4360,16 @@ def time_flash_attn_bwd(seed, dev):
             # q, o, dO and dQ have q's size; k, v, dK and dV k's
             n_bytes = 4 * (q.numel() + k.numel()) * q.element_size() \
                 + lse.numel() * 4
-            b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S
-                               if dt == torch.bfloat16 else FP32_FLOPS_PER_S)
+            if dt == torch.bfloat16:
+                b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+                bounds = dict(bound_ms=b_ms, bound_by=b_by)
+            else:
+                bounds = f32_bounds(n_bytes, flops)
+                b_ms, b_by = bounds["bound_ms"], bounds["bound_by"]
             row = dict(shape=list(shape), dtype=str(dt)[6:], ms=ms,
                        timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                       bytes=n_bytes, flops=flops,
-                       tflops=flops / ms / 1e9)
+                       library_ms=library_ms, bytes=n_bytes, flops=flops,
+                       tflops=flops / ms / 1e9, **bounds)
             design = ""
             if dt == torch.bfloat16:
                 # S and dP twice, dQ, dK and dV from two bf16 parts each
@@ -4295,6 +4382,19 @@ def time_flash_attn_bwd(seed, dev):
                           f"({row['design_bound_by']}), "
                           f"{row['design_tflops']:.1f} TFLOP/s of its "
                           f"{2.0 * flops / 1e9:.1f} GFLOP")
+            else:
+                design = f"; {bounds_text(bounds)}"
+            if dt == torch.float32 and shape == FA_BWD_F32_SHAPES[1]:
+                # the forward beside it, as phase 6 times it at this shape
+                f_flops = 4.0 * hd * attention_pairs(b, s, hq, causal)
+                row["fwd_ms"], row["fwd_timed_by"] = per_call_ms(
+                    [lambda: flash_attn_kernel(q, k, v, causal=causal)],
+                    FA_BWD_ITERS, "flash_attn_kernel")
+                row["fwd_bounds"] = f32_bounds(
+                    2 * (q.numel() + k.numel()) * 4, f_flops)
+                design += (f"; the forward {row['fwd_ms']:.4f} ms "
+                           f"({row['fwd_timed_by']}), "
+                           f"{bounds_text(row['fwd_bounds'])}")
             rows.append(row)
             log(f"phase 12: flash_attn_bwd at {shape} {str(dt)[6:]}: "
                 f"{ms:.4f} ms ({how}; {call_ms:.4f} ms with launch cost) = "
@@ -4560,7 +4660,9 @@ def phase12(seed: int, dev):
                f32_plain_ms=f32["plain_ms"],
                f32_library_ms=f32["library_ms"],
                f32_bound_ms=f32["bound_ms"], f32_bound_by=f32["bound_by"],
-               by_shape=[r for r in timing if r["dtype"] == "bfloat16"])
+               f32_fma_bound_ms=f32["fma_bound_ms"],
+               by_shape=[r for r in timing if r["dtype"] == "bfloat16"],
+               f32_lm_build_shape=timing[-1])
     log(f"phase 12: {time.perf_counter() - t_phase:.1f}s")
     return dict(row=row, lm=lm, moe=moe, resume=resume)
 
@@ -4661,9 +4763,16 @@ def check_b4r_attention(seed, dev):
         torch.testing.assert_close(a, w, **FA_F32_TOL, msg=name)
     fwd = (o - want_o).abs().max().item()
     bwd = max((a - w).abs().max().item() for a, w in zip(got, want))
+    # the distance from the plain mirror of the kernels' split TF32
+    m_fwd = (o - flash_attn_plain(q, k, v, causal=causal,
+                                  tf32_parts=True)).abs().max().item()
+    m_bwd = max((a - w).abs().max().item() for a, w in zip(
+        got, flash_attn_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                  tf32_parts=True)))
     log(f"phase 13: flash_attn and flash_attn_bwd float32 at BERT4Rec's "
         f"{B4R_FA_SHAPE} == plain at rtol 1e-4/atol 1e-5: forward max "
-        f"|diff| {fwd:.3g}, backward {bwd:.3g}; two launches bitwise")
+        f"|diff| {fwd:.3g}, backward {bwd:.3g} (from the split-TF32 "
+        f"mirror {m_fwd:.3g}, {m_bwd:.3g}); two launches bitwise")
     return fwd, bwd
 
 
@@ -4671,9 +4780,11 @@ def time_b4r_attention(seed, dev):
     """Both kernels at BERT4Rec's shape in float32: CUPTI device ms, the
     plain versions' ms, ``F.scaled_dot_product_attention`` and its
     backward (float32, TF32 off, timed after LIBRARY_WARMUP calls) and
-    the bounds: q, k, v and o over 3.35 TB/s or 4 hd flops a pair over
-    the FP32 67 TFLOP/s (forward); q, k, v, o, dO and lse in, dQ, dK, dV
-    out, or 10 hd flops a pair (backward)."""
+    the bounds: q, k, v and o over 3.35 TB/s or 4 hd flops a pair
+    (forward); q, k, v, o, dO and lse in, dQ, dK, dV out, or 10 hd flops
+    a pair (backward); the flops over split TF32's 165 TFLOP/s (the
+    kernels' float32-accurate rate) and over the FMAs' 67
+    (``f32_bounds``)."""
     b, s, hq, hkv, hd, causal = B4R_FA_SHAPE
     g = torch.Generator(device=dev).manual_seed(seed + 14)
     q, k, v = qkv((b, s, hq, hkv, hd), torch.float32, g, dev)
@@ -4691,7 +4802,7 @@ def time_b4r_attention(seed, dev):
     library_ms = events_ms([lib], 50)
     f_bytes = 4 * q.numel() * 4
     f_flops = 4.0 * hd * pairs
-    b_ms, b_by = bound(f_bytes, f_flops)
+    f_b = f32_bounds(f_bytes, f_flops)
     bwd_call = lambda: flash_attn_bwd_kernel(q, k, v, o, do, lse,
                                              causal=causal)
     bms, bhow = per_call_ms([bwd_call], 20, "flash_attn_bwd_")
@@ -4708,26 +4819,24 @@ def time_b4r_attention(seed, dev):
     del out
     bb_bytes = 8 * q.numel() * 4 + lse.numel() * 4
     bb_flops = 10.0 * hd * pairs
-    bb_ms, bb_by = bound(bb_bytes, bb_flops)
+    bb_b = f32_bounds(bb_bytes, bb_flops)
     log(f"phase 13: flash_attn float32 at {B4R_FA_SHAPE}: {ms:.4f} ms "
         f"({how}; {call_ms:.4f} ms with launch cost) = "
         f"{f_flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
         f"scaled_dot_product_attention {library_ms:.4f} ms ({LIBRARY_WARMUP} "
-        f"warm-up calls); bound {b_ms:.5f} ms ({b_by}: {f_bytes / 1e6:.1f} "
-        f"MB, {f_flops / 1e9:.2f} GFLOP)")
+        f"warm-up calls); {bounds_text(f_b)} over {f_bytes / 1e6:.1f} MB, "
+        f"{f_flops / 1e9:.2f} GFLOP")
     log(f"phase 13: flash_attn_bwd float32 at {B4R_FA_SHAPE}: {bms:.4f} ms "
         f"({bhow}; {b_call_ms:.4f} ms with launch cost) = "
         f"{bb_flops / bms / 1e9:.1f} TFLOP/s; plain {b_plain_ms:.3f} ms; "
         f"scaled_dot_product_attention's backward {b_library_ms:.4f} ms; "
-        f"bound {bb_ms:.5f} ms ({bb_by}: {bb_bytes / 1e6:.1f} MB, "
-        f"{bb_flops / 1e9:.2f} GFLOP)")
+        f"{bounds_text(bb_b)} over {bb_bytes / 1e6:.1f} MB, "
+        f"{bb_flops / 1e9:.2f} GFLOP")
     return (dict(ms=ms, timed_by=how, call_ms=call_ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=f_bytes, flops=f_flops),
+                 library_ms=library_ms, bytes=f_bytes, flops=f_flops, **f_b),
             dict(ms=bms, timed_by=bhow, call_ms=b_call_ms,
                  plain_ms=b_plain_ms, library_ms=b_library_ms,
-                 bound_ms=bb_ms, bound_by=bb_by, bytes=bb_bytes,
-                 flops=bb_flops))
+                 bytes=bb_bytes, flops=bb_flops, **bb_b))
 
 
 def tree_on(tree, dev):
@@ -5250,9 +5359,8 @@ def main() -> int:
     log(f"phase 0: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f}s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(report):
+            log(f"  {name}: {line}")
 
     index, rng = build_index(args.seed, dev)
     packed, _ = build_packed(index)

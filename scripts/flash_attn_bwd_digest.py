@@ -15,9 +15,9 @@ runs the tree's ``flash_attn_bwd_kernel`` on float32 inputs on the card,
 and prints one JSON line ``{"shape causal": sha256 of dQ, dK and dV's
 bytes (first 16 hex digits)}``.  The card-only test
 ``test_flash_attn_backward_keeps_its_float32_bits`` holds the checkout's
-kernel to the digests this script printed for the tree before the bf16
-backward was redesigned.  It prints the card's name and power limit first
-and needs a CUDA device.
+kernel to the digests this script printed for the tree that moved the
+float32 kernels to split TF32 on ``wgmma``.  It prints the card's name
+and power limit first and needs a CUDA device.
 """
 import hashlib
 import json

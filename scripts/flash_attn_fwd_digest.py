@@ -13,8 +13,9 @@ tree's ``flash_attn_kernel`` without an lse on the card, and prints one
 JSON line ``{"shape dtype causal": sha256 of the output's bytes (first
 16 hex digits)}``.  The card-only test
 ``test_flash_attn_forward_keeps_its_bits`` holds the checkout's kernel to
-the digests this script printed for the tree before the kernel could
-write an lse.  It prints the card's name and power limit first and needs
+the digests this script printed: the bf16 ones for the tree before the
+kernel could write an lse, the float32 one for the tree that moved the
+float32 kernel to split TF32 on ``wgmma``.  It prints the card's name and power limit first and needs
 a CUDA device.
 """
 import hashlib
@@ -23,8 +24,8 @@ import subprocess
 import sys
 
 # (B, S, Hq, Hkv, hd, dtype, causal): the LM build's shape (minitron-4b,
-# bf16, wgmma), granite-moe's head width, and the float32 FMA kernel at a
-# tail length with a group of 3
+# bf16, wgmma), granite-moe's head width, and the float32 (split TF32)
+# kernel at a tail length with a group of 3
 SHAPES = ((32, 512, 24, 8, 128, "bfloat16", True),
           (4, 512, 24, 8, 64, "bfloat16", True),
           (2, 200, 6, 2, 64, "bfloat16", False),

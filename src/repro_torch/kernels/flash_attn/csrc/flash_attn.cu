@@ -67,14 +67,41 @@
 // with 16-byte stores.  The tile layout, descriptors, barriers, TMA and
 // wgmma helpers are in sm90.cuh, shared with flash_attn_bwd.cu.
 //
-// float32 (tests and the wiring check only; its bar, rtol 1e-4 / atol
-// 1e-5, rules out the bf16 and TF32 tensor cores): flash_attn_kernel, FMAs
-// fed from shared memory.  One block per (b, h, 64-row query tile), 256
-// threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4 ty .. 4 ty +
-// 3; the query tile, pre-scaled by 1/sqrt(hd) as the TPU kernel does,
-// stays in shared memory; each 64-row KV tile is staged into one shared
-// buffer, K first, then V; the probabilities go through shared memory to
-// the P . V product.
+// float32 (BERT4Rec's attention, serving and training; the tests and the
+// wiring check): flash_attn_kernel_tf32_wgmma, every product on the
+// tensor cores as split TF32 (sm90_tf32.cuh): each float32 operand as two
+// TF32 parts, hi = tf32(x) and lo = tf32(x - hi), and three wgmma m64nNk8
+// a k-step, lo . hi, hi . lo, hi . hi, which keeps float32's accuracy
+// (one TF32 part misses rtol 1e-4 / atol 1e-5 on most values) at the
+// tensor cores' 495 / 3 = 165 TFLOP/s, against the CUDA cores' 67.
+// At BERT4Rec's (256, 200, 2 / 2, 32), full, the bound is then 2.62
+// GFLOP over 165 TFLOP/s, 0.0159 ms, beside 52.4 MB at 3.35 TB/s, 0.0156.
+// One warpgroup a block (64 query rows of one head), no producer warp:
+// TF32 wgmma has no transpose bit and TMA cannot split a value in two, so
+// a thread pass over every loaded tile writes its hi and lo parts in the
+// major order each product needs (Q and K as loaded, V as V^T) while
+// cp.async brings the next KV tile's raw rows.  S = Q . K^T runs while the
+// threads split V; P goes to P . V from registers: the accumulator holds
+// columns (2t, 2t + 1) where TF32's register-A fragment wants (t, t + 4),
+// so V^T's keys are written in that permuted order (kpos) instead of
+// moving P between lanes.  The tensor cores round their accumulator
+// toward zero, so P . V runs into a fresh accumulator each KV tile and O
+// = O corr + P . V is taken in registers.  Key tiles of 32 (16 at hd
+// 128) keep 5 blocks an SM at hd 32 (Tf32Fwd): 200 keys are 7 tiles.
+// The scale, the lse and the epilogue are the bf16 kernel's; o is written
+// in float32 from the registers.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUPTI;
+// scripts/flash_attn_f32_ab.py, PERF.md section 6 rows 8r and 8f keep
+// the numbers and their runs): 0.092 ms at BERT4Rec's shape against 0.228
+// for the FMA kernel this replaces and 0.246 for
+// scaled_dot_product_attention in float32, 5.8x the bound; 1.46 ms at the
+// build's shape in float32 against 1.78-1.95 and SDPA's 5.52.  Key tiles
+// of 64 at three blocks an SM took 0.099 ms; S's and P . V's small terms
+// in an accumulator apart from hi . hi (two shorter wgmma chains) and six
+// blocks an SM measured no faster.  ptxas: 96 / 96 / 136 / 186 registers
+// a thread at hd 16 / 32 / 64 / 128 (two more with the lse), hd 32
+// spilling 4 bytes under the five-block bound.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 6;
 // PERF.md section 6 keeps the numbers): at the build's shape the bf16
@@ -88,189 +115,9 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// float32: FMAs from shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per KV tile
-constexpr int kRows = kBQ / 16;  // query rows per thread
-constexpr int kCols = kBK / 16;  // score columns per thread
-constexpr int kLdP = kBK + 4;    // the two half-warps hit other banks
-
-__device__ __forceinline__ float4 scale4(float4 x, float s) {
-  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-}
-
-// a tile of 64 rows of HD values, rows [0, n_rows) from src (row stride
-// `stride` elements), the rest zero, into dst [64][HD + 4] as float32
-template <int HD>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int64_t stride, int n_rows,
-                                          float s, float* dst) {
-  constexpr int V = HD / 4;
-  for (int i = threadIdx.x; i < 64 * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows)
-      x = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
-    *reinterpret_cast<float4*>(dst + r * (HD + 4) + c) = scale4(x, s);
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// The log-sum-exp a row hands the backward: ln sum_t exp(q . k_t / sqrt(hd))
-// from the online softmax's max m (in that natural domain) and sum l; +inf
-// for a row that saw no key, so the backward's exp(s - lse) is 0 there
-__device__ __forceinline__ float row_lse(float m, float l) {
-  return l > 0.f ? m + logf(l) : INFINITY;
-}
-
-// max / sum over the 16 lanes of a half-warp (one query row)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int HD, bool LSE>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int Sq, int Skv, int Hq,
-                      int Hkv, int n_qt, int causal, float scale) {
-  constexpr int LD = HD + 4;
-  constexpr int NC = HD / 16;  // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
-  float* kv_s = q_s + kBQ * LD;                  // [kBK][LD], K then V
-  float* p_s = kv_s + kBK * LD;                  // [kBQ][kLdP]
-
-  // heaviest query tile first: the last tiles see the most keys
-  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
-  const int bh = (int)(blockIdx.x / n_qt);
-  const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
-  const int q0 = qt * kBQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const int64_t q_stride = (int64_t)Hq * HD;
-  const int64_t kv_stride = (int64_t)Hkv * HD;
-  const T* q_base = q + ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * HD;
-  const T* k_base = k + (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
-  const T* v_base = v + (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
-
-  load_tile<HD>(q_base, q_stride, min(kBQ, Sq - q0), scale, q_s);
-
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_kb = (Skv + kBK - 1) / kBK;
-  if (causal) n_kb = min(n_kb, (min(q0 + kBQ, Sq) - 1) / kBK + 1);
-
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int kv0 = kb * kBK;
-    const int n_kv = min(kBK, Skv - kv0);
-    __syncthreads();  // the last tile's P . V reads of kv_s are done
-    load_tile<HD>(k_base + kv0 * kv_stride, kv_stride, n_kv, 1.f, kv_s);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 kv[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(q_s + (ty * kRows + i) * LD + d);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        if (col >= n_kv || (causal && row < kv0 + col)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = expf(s[i][j] - m_safe);
-        rs += s[i][j];
-        p_s[(ty * kRows + i) * kLdP + tx + 16 * j] = s[i][j];
-      }
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe);
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();  // every K read is done and P is written
-    load_tile<HD>(v_base + kv0 * kv_stride, kv_stride, n_kv, 1.f, kv_s);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int t = 0; t < kBK; ++t) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = kv_s[t * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = p_s[(ty * kRows + i) * kLdP + t];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    if constexpr (LSE)
-      if (tx == 0) lse[(int64_t)bh * Sq + row] = row_lse(m[i], l[i]);
-    T* out = o + ((int64_t)b * Sq + row) * q_stride + (int64_t)h * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) store(out + tx + 16 * c, acc[i][c] / den);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores
@@ -523,22 +370,208 @@ __global__ void __launch_bounds__(kThreadsBf16, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: split TF32 on wgmma
+// ---------------------------------------------------------------------------
+
+// keys per KV tile: 32, or 16 at hd 128; shared memory 19 / 37 / 73 /
+// 105 KB at hd 16 / 32 / 64 / 128, so 5 / 5 / 3 / 2 blocks an SM (the
+// register bound for 5 is 102 a thread)
+template <int HD>
+struct Tf32Fwd {
+  static constexpr int BN = HD <= 64 ? 32 : 16;
+  static constexpr int MIN_BLOCKS = HD >= 128 ? 2 : (HD <= 32 ? 5 : 3);
+  using QT = TfTile<kWgRows, HD>;   // Q, K-major over hd
+  using KT = TfTile<BN, HD>;        // K; also V's raw rows
+  using VT = TfTile<HD, BN>;        // V^T, K-major over keys in kpos order
+  // Q hi, lo; K hi, lo; V^T hi, lo; V raw; room to align to 1,024 bytes
+  static constexpr int SMEM =
+      2 * QT::BYTES + 3 * KT::BYTES + 2 * VT::BYTES + 1024;
+};
+
+// One warpgroup a block: the 64 query rows q0 .. of head h of doc b.
+template <int HD, bool LSE>
+__global__ void __launch_bounds__(kTfThreads, Tf32Fwd<HD>::MIN_BLOCKS)
+    flash_attn_kernel_tf32_wgmma(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 float* __restrict__ o,
+                                 float* __restrict__ lse, int Sq, int Skv,
+                                 int Hq, int Hkv, int n_qt, int causal,
+                                 float scale_log2) {
+  using F = Tf32Fwd<HD>;
+  constexpr int BN = F::BN;
+  constexpr int NS = BN / 2;     // S accumulator values per thread
+  constexpr int NO = HD / 2;     // O accumulator values per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  auto at = [&](uint32_t a) { return smem + (a - base); };
+  const uint32_t q_hi = base, q_lo = q_hi + F::QT::BYTES;
+  const uint32_t k_hi = q_lo + F::QT::BYTES, k_lo = k_hi + F::KT::BYTES;
+  const uint32_t v_raw = k_lo + F::KT::BYTES;
+  const uint32_t vt_hi = v_raw + F::KT::BYTES, vt_lo = vt_hi + F::VT::BYTES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  // the blocks of one KV head are neighbours, heaviest query tile first
+  // (as item_at numbers the bf16 kernel's)
+  const int G = Hq / Hkv, per_kv = G * n_qt;
+  const int bk = (int)(blockIdx.x / per_kv);
+  const int in_kv = (int)(blockIdx.x % per_kv);
+  const int b = bk / Hkv, hk = bk % Hkv, h = hk * G + in_kv % G;
+  const int q0 = (n_qt - 1 - in_kv / G) * kWgRows;
+  int n_kb = (Skv + BN - 1) / BN;
+  if (causal) n_kb = min(n_kb, (min(q0 + kWgRows, Sq) - 1) / BN + 1);
+  const int64_t q_stride = (int64_t)Hq * HD, kv_stride = (int64_t)Hkv * HD;
+  const int64_t kv_base = (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
+  // K_t and V_t's raw rows, zeros past Skv
+  auto load_kv = [&](int t) {
+    const int64_t off = kv_base + (int64_t)t * BN * kv_stride;
+    load_raw<BN, HD>(k_hi, k + off, kv_stride, Skv - t * BN, tid);
+    load_raw<BN, HD>(v_raw, v + off, kv_stride, Skv - t * BN, tid);
+    cp_async_commit();
+  };
+
+  float s[NS];                   // S, then P in float32, of one KV tile
+  uint32_t ph[NS], pl[NS];       // P's hi and lo A fragments
+  float acc[NO];                 // O, unnormalised
+  float pv[NO];                  // P . V of one KV tile
+  float m[2], l[2], corr[2];
+  const int r0 = warp * 16 + g;  // fragment rows r0 and r0 + 8
+  // the online softmax of tile t on s (s[4 j + e] is row r0 + 8 (e / 2),
+  // key 8 j + 2 tq + e % 2), as the bf16 kernel's: the row max of the
+  // unscaled scores, the scale in the exponent's FMA, p = 2^(s * scale_log2
+  // - m); the causal mask only on tiles that straddle the diagonal, the
+  // tail mask only on the last
+  auto softmax = [&](int t) {
+    const int kv0 = t * BN;
+    if (kv0 + BN > Skv || (causal && kv0 + BN - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = kv0 + 8 * (i / 4) + 2 * tq + (i & 1);
+        const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+        if (col >= Skv || (causal && col > row)) s[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx) * scale_log2);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float* x = s + 4 * j + 2 * hr;
+        x[0] = ex2(fmaf(x[0], scale_log2, -m_safe));
+        x[1] = ex2(fmaf(x[1], scale_log2, -m_safe));
+        rs += x[0] + x[1];
+      }
+      corr[hr] = m[hr] == -INFINITY ? 0.f : ex2(m[hr] - m_safe);
+      l[hr] = l[hr] * corr[hr] + quad_sum(rs);
+      m[hr] = m_new;
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  load_raw<kWgRows, HD>(q_hi, q + ((int64_t)b * Sq + q0) * q_stride +
+                                  (int64_t)h * HD,
+                        q_stride, Sq - q0, tid);
+  load_kv(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<F::QT::BYTES>(at(q_hi), at(q_lo), tid);
+  split_tile<F::KT::BYTES>(at(k_hi), at(k_lo), tid);
+  fence_proxy_async();
+  __syncthreads();
+  // Per KV tile: S = Q . K^T on the tensor cores while the threads split
+  // V into V^T's parts; the softmax; then, with K_{t+1} and V_{t+1} in
+  // flight, P . V into a fresh accumulator, and O = O corr + P . V.
+  for (int t = 0; t < n_kb; ++t) {
+    wgmma_fence();
+    issue_tf32_ss<BN, HD>(s, q_hi, q_lo, k_hi, k_lo, 0);
+    wgmma_commit();
+    split_tile_t<BN, HD, false>(at(v_raw), nullptr, at(vt_hi), at(vt_lo),
+                                tid);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    fence_regs<NS>(s);
+    softmax(t);
+    split_acc_tf32<BN>(s, ph, pl);
+    __syncthreads();   // S's reads of K and every part of V^T are done
+    if (t + 1 < n_kb) load_kv(t + 1);
+    wgmma_fence();
+    issue_tf32_rs<HD, BN>(pv, ph, pl, vt_hi, vt_lo, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(pv);
+    fence_frag<NS>(ph);
+    fence_frag<NS>(pl);
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], pv[i]);
+    if (t + 1 < n_kb) {
+      cp_async_wait<0>();
+      __syncthreads();   // K_{t+1} and V_{t+1} landed; P . V's reads done
+      split_tile<F::KT::BYTES>(at(k_hi), at(k_lo), tid);
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+  // m is in the exp2 domain of the scaled scores: ln sum exp = (m + log2
+  // l) ln 2, as the bf16 kernel writes it
+  if constexpr (LSE) {
+    if (tq == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = q0 + r0 + 8 * hr;
+        if (row < Sq)
+          lse[((int64_t)b * Hq + h) * Sq + row] =
+              l[hr] > 0.f ? (m[hr] + log2f(l[hr])) * 0.6931471805599453f
+                          : INFINITY;
+      }
+    }
+  }
+  // acc[4 j + e] is (row r0 + 8 (e / 2), column 8 j + 2 tq + e % 2)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + 8 * hr;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[hr], 1e-30f);
+    float* out = o + ((int64_t)b * Sq + row) * q_stride + (int64_t)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * tq) =
+          make_float2(acc[4 * j + 2 * hr] / den,
+                      acc[4 * j + 2 * hr + 1] / den);
+  }
+}
+
 template <int HD, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                int causal, float scale, cudaStream_t stream) {
-  const int smem = (2 * 64 * (HD + 4) + kBQ * kLdP) * (int)sizeof(float);
-  auto* fn = flash_attn_kernel<float, HD, LSE>;
+  using F = Tf32Fwd<HD>;
+  auto* fn = flash_attn_kernel_tf32_wgmma<HD, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_qt = (Sq + kWgRows - 1) / kWgRows;
   const int64_t blocks = (int64_t)B * Hq * n_qt;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  fn<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  // exp(x / sqrt(hd)) = exp2(x * scale * log2(e)), in float32
+  const float scale_log2 = scale * 1.4426950408889634f;
+  fn<<<(unsigned)blocks, kTfThreads, F::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, Hq,
-      Hkv, n_qt, causal, scale);
+      Hkv, n_qt, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 

@@ -96,15 +96,35 @@
 // Issuing tile t's S and dP beside tile t - 1's dQ product, three dQ
 // blocks an SM, and a third ring stage measured no faster.
 //
-// float32 (tests and the wiring check; its bar, rtol 1e-4 / atol 1e-5,
-// rules out the bf16 and TF32 tensor cores): flash_attn_bwd_dq_kernel and
-// flash_attn_bwd_dkdv_kernel, FMAs on the CUDA cores.  Each block is 256
-// threads as a 16 x 16 grid, as the forward's float32 kernel: thread (ty,
-// tx) owns tile rows 4 ty .. 4 ty + 3 and the columns tx + 16 j; the row
-// tiles (Q pre-scaled by 1/sqrt(hd), dO, K, V) sit in shared memory as
-// [64][hd + 4]; P and dS cross to the products that sum over the tile
-// through a [64][68] buffer.  On the CUDA cores' 67 TFLOP/s (14 hd flops a
-// pair) it can be no faster than 3.6 ms at stablelm's shape.
+// float32 (BERT4Rec's training; the tests and the wiring check):
+// flash_attn_bwd_dq_tf32_wgmma and flash_attn_bwd_dkdv_tf32_wgmma, all
+// five products on the tensor cores as split TF32 (sm90_tf32.cuh: two
+// TF32 parts an operand, three products, 165 TFLOP/s at float32's
+// accuracy), the same two kernels and dataflow as bf16.  At BERT4Rec's
+// (256, 200, 2 / 2, 32), full, the bound is 6.55 GFLOP (10 hd a pair)
+// over 165 TFLOP/s, 0.0397 ms, beside 105.3 MB at 3.35 TB/s, 0.0314.
+// One warpgroup a block, no producer warp: a thread pass splits each
+// tile that cp.async lands and writes the parts each product needs, K and
+// K^T (dQ kernel), Q, Q^T, dO and dO^T (dK / dV kernel), the transposes'
+// summed index in the kpos order that lets dS and P^T go to their products
+// from the accumulator's registers.  Streamed tiles of 32 rows (16 at hd
+// 64 and 128) keep three blocks an SM at hd 32 (Tf32Bwd).  The tensor
+// cores round their accumulator toward zero: each tile's dS . K, P^T .
+// dO and dS^T . Q goes into a fresh accumulator, added to dQ, dV and dK
+// in registers (one accumulator across 1,024 causal queries put dK and dV
+// past the bar), and at hd 64 and 128 S and dP are summed 32 values of hd
+// an accumulator (mma_tf32_ss2; over all 128 at once dQ and dK of the
+// build's shape sat at 1.06 of the bar, in chunks at 0.31-0.44).
+//
+// ptxas (-Xptxas -v, chip_smoke.py phase 0), registers a thread and
+// spills: dQ 96 / 118 / 128 / 183 at hd 16 / 32 / 64 / 128, none; dK /
+// dV 162 / 160 / 168 / 255, spilling 16 bytes at hd 128 (one block an
+// SM).  Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUPTI, both
+// kernels; scripts/flash_attn_f32_ab.py, PERF.md section 6 rows 8rb and
+// 8f): 0.281 ms a call at BERT4Rec's shape (dQ 0.120, dK / dV 0.160)
+// against 0.642 for the FMA kernels this replaces and 0.60-0.71 for the
+// backward of scaled_dot_product_attention in float32, 7.1x the bound;
+// 5.89 ms at the build's shape against 5.86-7.79 and SDPA's 6.80.
 //
 #include <cmath>
 #include <cstdint>
@@ -113,297 +133,9 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// float32: FMAs from shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kB = 64;         // rows per tile: queries, and keys
-constexpr int kRows = kB / 16; // tile rows per thread
-constexpr int kCols = kB / 16; // tile columns per thread
-constexpr int kLdP = kB + 4;   // the two half-warps hit other banks
-
-// four consecutive values
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// a tile of 64 rows of HD values, rows [0, n_rows) from src (row stride
-// `stride` elements) times s, the rest zero, into dst [64][HD + 4]
-template <int HD>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int64_t stride, int n_rows,
-                                          float s, float* dst) {
-  constexpr int V = HD / 4;
-  for (int i = threadIdx.x; i < kB * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) x = load4(src + r * stride + c);
-    *reinterpret_cast<float4*>(dst + r * (HD + 4) + c) =
-        make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-  }
-}
-
-// sum over the 16 lanes of a half-warp (one tile row)
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// acc[i][j] = a[4 ty + i] . b[tx + 16 j] over HD, a and b [64][HD + 4]
-template <int HD>
-__device__ __forceinline__ void tile_dots(const float* a, const float* b,
-                                          int ty, int tx,
-                                          float (&acc)[kRows][kCols]) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 bv[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(a + (ty * kRows + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// out[4 ty + i][tx + 16 c] += sum_t w[4 ty + i][t] * x[t][tx + 16 c]:
-// w [64][kLdP], x [64][HD + 4], t in key (or query) order
-template <int HD>
-__device__ __forceinline__ void tile_product(const float* w, const float* x,
-                                             int ty, int tx,
-                                             float (&out)[kRows][HD / 16]) {
-  constexpr int LD = HD + 4;
-  constexpr int NC = HD / 16;
-#pragma unroll 4
-  for (int t = 0; t < kB; ++t) {
-    float xv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) xv[c] = x[t * LD + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float wv = w[(ty * kRows + i) * kLdP + t];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) out[i][c] = fmaf(wv, xv[c], out[i][c]);
-    }
-  }
-}
-
-// dQ of the 64 query rows q0 .. of head h, doc b, and their D
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dq_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ o,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             float* __restrict__ dsum, float* __restrict__ dq,
-                             int Sq, int Skv, int Hq, int Hkv, int n_qt,
-                             int causal, float scale) {
-  constexpr int LD = HD + 4;
-  constexpr int NC = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kB][LD], q / sqrt(hd)
-  float* do_s = q_s + kB * LD;                   // [kB][LD]
-  float* kv_s = do_s + kB * LD;                  // [kB][LD]: O, then V, K
-  float* ds_s = kv_s + kB * LD;                  // [kB][kLdP]
-
-  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);  // heaviest first
-  const int bh = (int)(blockIdx.x / n_qt);
-  const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
-  const int q0 = qt * kB, n_q = min(kB, Sq - q0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t q_stride = (int64_t)Hq * HD, kv_stride = (int64_t)Hkv * HD;
-  const int64_t q_off = ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * HD;
-  const float* k_base = k + (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
-  const float* v_base = v + (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
-
-  load_tile<HD>(q + q_off, q_stride, n_q, scale, q_s);
-  load_tile<HD>(dout + q_off, q_stride, n_q, 1.f, do_s);
-  load_tile<HD>(o + q_off, q_stride, n_q, 1.f, kv_s);
-  __syncthreads();
-
-  // D and lse of this thread's rows; a tail row's lse is +inf
-  float dr[kRows], lr[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int rl = ty * kRows + i, row = q0 + rl;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      part = fmaf(do_s[rl * LD + tx + 16 * c], kv_s[rl * LD + tx + 16 * c],
-                  part);
-    dr[i] = row_sum(part);
-    lr[i] = row < Sq ? lse[(int64_t)bh * Sq + row] : INFINITY;
-    if (tx == 0 && row < Sq) dsum[(int64_t)bh * Sq + row] = dr[i];
-  }
-
-  float acc[kRows][NC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  int n_kb = (Skv + kB - 1) / kB;
-  if (causal) n_kb = min(n_kb, (min(q0 + kB, Sq) - 1) / kB + 1);
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int kv0 = kb * kB, n_kv = min(kB, Skv - kv0);
-    float dp[kRows][kCols], s[kRows][kCols];
-    __syncthreads();  // the last reads of kv_s (O or K) and ds_s are done
-    load_tile<HD>(v_base + kv0 * kv_stride, kv_stride, n_kv, 1.f, kv_s);
-    __syncthreads();
-    tile_dots<HD>(do_s, kv_s, ty, tx, dp);
-    __syncthreads();
-    load_tile<HD>(k_base + kv0 * kv_stride, kv_stride, n_kv, 1.f, kv_s);
-    __syncthreads();
-    tile_dots<HD>(q_s, kv_s, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        const bool keep = col < n_kv && !(causal && row < kv0 + col);
-        const float p = keep ? expf(s[i][j] - lr[i]) : 0.f;
-        ds_s[(ty * kRows + i) * kLdP + col] = p * (dp[i][j] - dr[i]);
-      }
-    }
-    __syncthreads();
-    tile_product<HD>(ds_s, kv_s, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int rl = ty * kRows + i;
-    if (q0 + rl >= Sq) continue;
-    float* out = dq + q_off + rl * q_stride;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) store(out + tx + 16 * c, acc[i][c] * scale);
-  }
-}
-
-// dK and dV of the 64 keys k0 .. of KV head hk, doc b
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dkdv_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ dsum,
-                               float* __restrict__ dk, float* __restrict__ dv,
-                               int Sq, int Skv, int Hq, int Hkv, int n_kt,
-                               int causal, float scale) {
-  constexpr int LD = HD + 4;
-  constexpr int NC = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [kB][LD]
-  float* v_s = k_s + kB * LD;                    // [kB][LD]
-  float* q_s = v_s + kB * LD;                    // [kB][LD], q / sqrt(hd)
-  float* do_s = q_s + kB * LD;                   // [kB][LD]
-  float* w_s = do_s + kB * LD;                   // [kB][kLdP]: P^T, dS^T
-
-  const int kt = (int)(blockIdx.x % n_kt);       // heaviest (first) first
-  const int bk = (int)(blockIdx.x / n_kt);
-  const int b = bk / Hkv, hk = bk % Hkv, G = Hq / Hkv;
-  const int k0 = kt * kB, n_k = min(kB, Skv - k0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t q_stride = (int64_t)Hq * HD, kv_stride = (int64_t)Hkv * HD;
-  const int64_t kv_off = ((int64_t)b * Skv + k0) * kv_stride +
-                         (int64_t)hk * HD;
-
-  load_tile<HD>(k + kv_off, kv_stride, n_k, 1.f, k_s);
-  load_tile<HD>(v + kv_off, kv_stride, n_k, 1.f, v_s);
-
-  float dk_acc[kRows][NC], dv_acc[kRows][NC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  const int n_qt = (Sq + kB - 1) / kB;
-  const int qt0 = causal ? k0 / kB : 0;  // query tiles that see these keys
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const int64_t bh = (int64_t)b * Hq + h;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kB, n_q = min(kB, Sq - q0);
-      const int64_t q_off = ((int64_t)b * Sq + q0) * q_stride +
-                            (int64_t)h * HD;
-      __syncthreads();  // the last tile's reads of q_s, do_s, w_s are done
-      load_tile<HD>(q + q_off, q_stride, n_q, scale, q_s);
-      load_tile<HD>(dout + q_off, q_stride, n_q, 1.f, do_s);
-      __syncthreads();
-      // S^T and dP^T: keys 4 ty + i against queries tx + 16 j
-      float s[kRows][kCols], dp[kRows][kCols];
-      tile_dots<HD>(k_s, q_s, ty, tx, s);
-      tile_dots<HD>(v_s, do_s, ty, tx, dp);
-      float lq[kCols], dq[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int row = q0 + tx + 16 * j;
-        lq[j] = row < Sq ? lse[bh * Sq + row] : INFINITY;
-        dq[j] = row < Sq ? dsum[bh * Sq + row] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int kl = ty * kRows + i;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int row = q0 + tx + 16 * j;
-          const bool keep = kl < n_k && !(causal && row < k0 + kl);
-          const float p = keep ? expf(s[i][j] - lq[j]) : 0.f;
-          w_s[kl * kLdP + tx + 16 * j] = p;
-          s[i][j] = p * (dp[i][j] - dq[j]);  // dS^T, kept for dK
-        }
-      }
-      __syncthreads();
-      tile_product<HD>(w_s, do_s, ty, tx, dv_acc);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          w_s[(ty * kRows + i) * kLdP + tx + 16 * j] = s[i][j];
-      __syncthreads();
-      tile_product<HD>(w_s, q_s, ty, tx, dk_acc);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kl = ty * kRows + i;
-    if (kl >= n_k) continue;
-    float* out_k = dk + kv_off + kl * kv_stride;
-    float* out_v = dv + kv_off + kl * kv_stride;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store(out_k + tx + 16 * c, dk_acc[i][c]);
-      store(out_v + tx + 16 * c, dv_acc[i][c]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores
@@ -783,41 +515,385 @@ __global__ void __launch_bounds__(kThreadsWg, HD >= 128 ? 1 : 2)
                  Skv);
 }
 
+// ---------------------------------------------------------------------------
+// float32: split TF32 on wgmma
+// ---------------------------------------------------------------------------
+
+// Rows of a streamed tile (keys in the dQ kernel, queries in the dK / dV
+// kernel): 32, or 16 at hd 64 and 128.  Shared memory: dQ 29 / 58 / 89 /
+// 177 KB and dK / dV 34 / 66 / 97 / 194 KB at hd 16 / 32 / 64 / 128, so
+// three blocks an SM at hd 32, two at hd 64 and one at hd 128.
+template <int HD>
+struct Tf32Bwd {
+  static constexpr int BT = HD <= 32 ? 32 : 16;
+  static constexpr int MIN_BLOCKS = HD >= 128 ? 1 : 3;
+  // values of hd summed per accumulator in S and dP (mma_tf32_ss2)
+  static constexpr int CK = HD <= 32 ? HD : 32;
+  using RT = TfTile<kWgRows, HD>;   // the block's own rows: Q, dO or K, V
+  using ST = TfTile<BT, HD>;        // a streamed tile: K, V or Q, dO
+  using TT = TfTile<HD, BT>;        // one transposed, kpos order
+  // Q, dO (hi, lo); K, V (hi, lo); K^T (hi, lo); alignment room
+  static constexpr int SMEM_DQ =
+      4 * RT::BYTES + 4 * ST::BYTES + 2 * TT::BYTES + 1024;
+  // K, V; Q, dO; Q^T, dO^T (hi, lo each); two stages of BT lse and D
+  static constexpr int SMEM_DKDV =
+      4 * RT::BYTES + 4 * ST::BYTES + 4 * TT::BYTES + 2 * 2 * BT * 4 + 1024;
+};
+
+// dQ of the 64 query rows q0 .. of head h, doc b, and their D: one
+// warpgroup a block.
+template <int HD>
+__global__ void __launch_bounds__(kTfThreads, Tf32Bwd<HD>::MIN_BLOCKS)
+    flash_attn_bwd_dq_tf32_wgmma(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ o,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 float* __restrict__ dsum,
+                                 float* __restrict__ dq, int Sq, int Skv,
+                                 int Hq, int Hkv, int n_qt, int causal,
+                                 float scale, float scale_log2) {
+  using F = Tf32Bwd<HD>;
+  constexpr int BT = F::BT;
+  constexpr int NS = BT / 2;     // S and dP accumulator values per thread
+  constexpr int NO = HD / 2;     // dQ accumulator values per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  auto at = [&](uint32_t a) { return smem + (a - base); };
+  const uint32_t q_hi = base, q_lo = q_hi + F::RT::BYTES;
+  const uint32_t do_hi = q_lo + F::RT::BYTES, do_lo = do_hi + F::RT::BYTES;
+  const uint32_t k_hi = do_lo + F::RT::BYTES, k_lo = k_hi + F::ST::BYTES;
+  const uint32_t v_hi = k_lo + F::ST::BYTES, v_lo = v_hi + F::ST::BYTES;
+  const uint32_t kt_hi = v_lo + F::ST::BYTES, kt_lo = kt_hi + F::TT::BYTES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);  // heaviest first
+  const int bh = (int)(blockIdx.x / n_qt);
+  const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+  const int q0 = qt * kWgRows;
+  int n_kb = (Skv + BT - 1) / BT;
+  if (causal) n_kb = min(n_kb, (min(q0 + kWgRows, Sq) - 1) / BT + 1);
+  const int64_t q_stride = (int64_t)Hq * HD, kv_stride = (int64_t)Hkv * HD;
+  const int64_t q_off = ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * HD;
+  const int64_t kv_base = (int64_t)b * Skv * kv_stride + (int64_t)hk * HD;
+  auto load_kv = [&](int t) {
+    const int64_t off = kv_base + (int64_t)t * BT * kv_stride;
+    load_raw<BT, HD>(k_hi, k + off, kv_stride, Skv - t * BT, tid);
+    load_raw<BT, HD>(v_hi, v + off, kv_stride, Skv - t * BT, tid);
+    cp_async_commit();
+  };
+  load_raw<kWgRows, HD>(q_hi, q + q_off, q_stride, Sq - q0, tid);
+  load_raw<kWgRows, HD>(do_hi, dout + q_off, q_stride, Sq - q0, tid);
+  load_kv(0);
+
+  // D = rowsum(dO o O) and the lse in exp2 units of this thread's fragment
+  // rows r0 and r0 + 8, each summed over the 4 lanes that share the row
+  // (a tail row: D 0, lse +inf, so its P is 0), while the copies land
+  const int r0 = warp * 16 + g;
+  float dr[2], l2[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + 8 * hr;
+    float part = 0.f;
+    if (row < Sq) {
+      const int64_t off = q_off + (int64_t)(r0 + 8 * hr) * q_stride;
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+        const int col = (4 * c + tq) * 4;
+        const float4 x =
+            __ldg(reinterpret_cast<const float4*>(dout + off + col));
+        const float4 y =
+            __ldg(reinterpret_cast<const float4*>(o + off + col));
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+    }
+    dr[hr] = quad_sum(part);
+    l2[hr] = row < Sq ? lse[(int64_t)bh * Sq + row] * kLog2e : INFINITY;
+    if (tq == 0 && row < Sq) dsum[(int64_t)bh * Sq + row] = dr[hr];
+  }
+
+  float s[NS], dp[NS];           // S, then dS, and dP of one KV tile
+  uint32_t dh[NS], dl[NS];       // dS's hi and lo A fragments
+  float acc[NO];                 // dQ, unscaled
+  float part[NO];                // dS . K of one KV tile
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // dS of tile t into s (s[i] is row q0 + r0 + 8 ((i >> 1) & 1), key 8 (i
+  // / 4) + 2 tq + (i & 1) of the tile), as the bf16 kernel forms it
+  auto dsoftmax = [&](int t) {
+    const int kv0 = t * BT;
+    if (kv0 + BT > Skv || (causal && kv0 + BT - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = kv0 + 8 * (i / 4) + 2 * tq + (i & 1);
+        const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+        if (col >= Skv || (causal && col > row)) s[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int hr = (i >> 1) & 1;
+      s[i] = ex2(fmaf(s[i], scale_log2, -l2[hr])) * (dp[i] - dr[hr]);
+    }
+  };
+
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<F::RT::BYTES>(at(q_hi), at(q_lo), tid);
+  split_tile<F::RT::BYTES>(at(do_hi), at(do_lo), tid);
+  // Per KV tile: K_t's parts (and K^T's) and V_t's; S = Q . K^T and dP =
+  // dO . V^T; with K_{t+1} and V_{t+1} in flight, dS, then dS . K into a
+  // fresh accumulator, added to dQ.
+  for (int t = 0; t < n_kb; ++t) {
+    split_tile_t<BT, HD, true>(at(k_hi), at(k_lo), at(kt_hi), at(kt_lo),
+                               tid);
+    split_tile<F::ST::BYTES>(at(v_hi), at(v_lo), tid);
+    fence_proxy_async();
+    __syncthreads();
+    mma_tf32_ss2<BT, HD, F::CK>(s, q_hi, q_lo, k_hi, k_lo, dp, do_hi, do_lo,
+                                v_hi, v_lo);
+    __syncthreads();   // S's and dP's reads of K_t and V_t are done
+    if (t + 1 < n_kb) load_kv(t + 1);
+    dsoftmax(t);
+    split_acc_tf32<BT>(s, dh, dl);
+    wgmma_fence();
+    issue_tf32_rs<HD, BT>(part, dh, dl, kt_hi, kt_lo, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(part);
+    fence_frag<NS>(dh);
+    fence_frag<NS>(dl);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] += part[i];
+    if (t + 1 < n_kb) {
+      cp_async_wait<0>();
+      __syncthreads();   // K_{t+1} and V_{t+1} landed; dQ's reads of K^T done
+    }
+  }
+
+  // dQ times 1/sqrt(hd); acc[4 j + e] is (row r0 + 8 (e / 2), column 8 j
+  // + 2 tq + e % 2)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (q0 + r0 + 8 * hr >= Sq) continue;
+    float* out = dq + q_off + (int64_t)(r0 + 8 * hr) * q_stride;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * tq) =
+          make_float2(acc[4 * j + 2 * hr] * scale,
+                      acc[4 * j + 2 * hr + 1] * scale);
+  }
+}
+
+// dK and dV of the 64 keys k0 .. of KV head hk, doc b: one warpgroup a
+// block.
+template <int HD>
+__global__ void __launch_bounds__(kTfThreads, Tf32Bwd<HD>::MIN_BLOCKS)
+    flash_attn_bwd_dkdv_tf32_wgmma(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ dsum,
+                                   float* __restrict__ dk,
+                                   float* __restrict__ dv, int Sq, int Skv,
+                                   int Hq, int Hkv, int n_kt, int causal,
+                                   float scale, float scale_log2) {
+  using F = Tf32Bwd<HD>;
+  constexpr int BT = F::BT;
+  constexpr int NS = BT / 2;     // S^T and dP^T accumulator values
+  constexpr int NO = HD / 2;     // dK and dV accumulator values
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  auto at = [&](uint32_t a) { return smem + (a - base); };
+  const uint32_t k_hi = base, k_lo = k_hi + F::RT::BYTES;
+  const uint32_t v_hi = k_lo + F::RT::BYTES, v_lo = v_hi + F::RT::BYTES;
+  const uint32_t q_hi = v_lo + F::RT::BYTES, q_lo = q_hi + F::ST::BYTES;
+  const uint32_t do_hi = q_lo + F::ST::BYTES, do_lo = do_hi + F::ST::BYTES;
+  const uint32_t qt_hi = do_lo + F::ST::BYTES, qt_lo = qt_hi + F::TT::BYTES;
+  const uint32_t dot_hi = qt_lo + F::TT::BYTES;
+  const uint32_t dot_lo = dot_hi + F::TT::BYTES;
+  const uint32_t vec = dot_lo + F::TT::BYTES;  // per stage: lse, then D
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int kt = (int)(blockIdx.x % n_kt);       // heaviest (first) first
+  const int bk = (int)(blockIdx.x / n_kt);
+  const int b = bk / Hkv, hk = bk % Hkv, G = Hq / Hkv;
+  const int k0 = kt * kWgRows;
+  const int n_qt = (Sq + BT - 1) / BT;
+  const int qt0 = causal ? k0 / BT : 0;          // query tiles that see k0 ..
+  const int per_head = max(0, n_qt - qt0);
+  const int n_tiles = G * per_head;              // head-major, then tiles
+  const int64_t q_stride = (int64_t)Hq * HD, kv_stride = (int64_t)Hkv * HD;
+  const int64_t kv_off = ((int64_t)b * Skv + k0) * kv_stride +
+                         (int64_t)hk * HD;
+  // tile n's Q and dO rows and its BT lse and D (zeros past Sq) into stage
+  // n % 2 of the vectors
+  auto load_tile = [&](int n) {
+    const int h = hk * G + n / per_head;
+    const int q0 = (qt0 + n % per_head) * BT;
+    const int64_t bh = (int64_t)b * Hq + h;
+    const int64_t off = ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * HD;
+    load_raw<BT, HD>(q_hi, q + off, q_stride, Sq - q0, tid);
+    load_raw<BT, HD>(do_hi, dout + off, q_stride, Sq - q0, tid);
+    const uint32_t stage = vec + (n % 2) * 2 * BT * 4;
+    for (int i = tid; i < BT; i += kTfThreads) {
+      const bool in = q0 + i < Sq;
+      const int64_t row = in ? bh * Sq + q0 + i : 0;
+      cp_async4(stage + 4 * i, lse + row, in ? 4 : 0);
+      cp_async4(stage + 4 * (BT + i), dsum + row, in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  load_raw<kWgRows, HD>(k_hi, k + kv_off, kv_stride, Skv - k0, tid);
+  load_raw<kWgRows, HD>(v_hi, v + kv_off, kv_stride, Skv - k0, tid);
+  cp_async_commit();
+  if (n_tiles > 0) load_tile(0);
+
+  const int r0 = warp * 16 + g;
+  float st[NS], dpt[NS];         // S^T, then P^T; dP^T, then dS^T
+  uint32_t xh[NS], xl[NS];       // P^T's, then dS^T's, hi and lo fragments
+  float dka[NO], dva[NO];        // dK (unscaled) and dV
+  float part[NO];                // one tile's dV, then its dK
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<F::RT::BYTES>(at(k_hi), at(k_lo), tid);
+  split_tile<F::RT::BYTES>(at(v_hi), at(v_lo), tid);
+  // Per tile, in the order of the sum: the parts of Q, dO and their
+  // transposes; S^T = K . Q^T and dP^T = V . dO^T; P^T; with the next
+  // tile in flight, P^T . dO, added to dV; dS^T while it
+  // runs; dS^T . Q, added to dK (each product into a fresh accumulator).
+  // st[i] and dpt[i] are (key k0 + r0 + 8 ((i >> 1) & 1), query q0 +
+  // c(i)), c(i) = 8 (i / 4) + 2 tq + (i & 1): lse and D belong to the
+  // column.  Keys past Skv are never stored.
+  for (int n = 0; n < n_tiles; ++n) {
+    const int q0 = (qt0 + n % per_head) * BT;
+    const float* ls = reinterpret_cast<const float*>(
+        at(vec + (n % 2) * 2 * BT * 4));
+    const float* dd = ls + BT;
+    split_tile_t<BT, HD, true>(at(q_hi), at(q_lo), at(qt_hi), at(qt_lo),
+                               tid);
+    split_tile_t<BT, HD, true>(at(do_hi), at(do_lo), at(dot_hi),
+                               at(dot_lo), tid);
+    fence_proxy_async();
+    __syncthreads();
+    mma_tf32_ss2<BT, HD, F::CK>(st, k_hi, k_lo, q_hi, q_lo, dpt, v_hi,
+                                v_lo, do_hi, do_lo);
+    // a tail query (lse and D read as 0) and, under the causal mask, a
+    // query before the key give 0
+    const bool edge = q0 + BT > Sq || (causal && q0 < k0 + kWgRows - 1);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 8 * (i / 4) + 2 * tq + (i & 1);
+      const float p = ex2(fmaf(st[i], scale_log2, -ls[c] * kLog2e));
+      st[i] = edge && (q0 + c >= Sq ||
+                       (causal && q0 + c < k0 + r0 + 8 * ((i >> 1) & 1)))
+                  ? 0.f
+                  : p;
+    }
+    split_acc_tf32<BT>(st, xh, xl);
+    __syncthreads();   // S^T's and dP^T's reads of Q and dO are done
+    if (n + 1 < n_tiles) load_tile(n + 1);
+    wgmma_fence();
+    issue_tf32_rs<HD, BT>(part, xh, xl, dot_hi, dot_lo, 0);
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      dpt[i] = st[i] * (dpt[i] - dd[8 * (i / 4) + 2 * tq + (i & 1)]);
+    wgmma_wait<0>();
+    fence_regs<NO>(part);
+    fence_frag<NS>(xh);
+    fence_frag<NS>(xl);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dva[i] += part[i];
+    split_acc_tf32<BT>(dpt, xh, xl);
+    wgmma_fence();
+    issue_tf32_rs<HD, BT>(part, xh, xl, qt_hi, qt_lo, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(part);
+    fence_frag<NS>(xh);
+    fence_frag<NS>(xl);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dka[i] += part[i];
+    if (n + 1 < n_tiles) {
+      cp_async_wait<0>();
+      __syncthreads();   // the next tile landed; dV's and dK's reads done
+    }
+  }
+
+  // dK times 1/sqrt(hd) and dV; dka[4 j + e] is (key r0 + 8 (e / 2),
+  // column 8 j + 2 tq + e % 2)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (k0 + r0 + 8 * hr >= Skv) continue;
+    const int64_t off = kv_off + (int64_t)(r0 + 8 * hr) * kv_stride;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(dk + off + col) =
+          make_float2(dka[4 * j + 2 * hr] * scale,
+                      dka[4 * j + 2 * hr + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + col) =
+          make_float2(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* dsum, void* dq,
                void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
                int causal, float scale, cudaStream_t stream) {
-  constexpr int LD = HD + 4;
-  const int smem_dq = (3 * kB * LD + kB * kLdP) * (int)sizeof(float);
-  const int smem_dkdv = (4 * kB * LD + kB * kLdP) * (int)sizeof(float);
-  auto* fn_dq = flash_attn_bwd_dq_kernel<HD>;
-  auto* fn_dkdv = flash_attn_bwd_dkdv_kernel<HD>;
+  using F = Tf32Bwd<HD>;
+  if (Sq == 0) {      // no query sees a key: dK and dV are 0
+    const size_t n = (size_t)B * Skv * Hkv * HD * 4;
+    cudaError_t err = cudaMemsetAsync(dk, 0, n, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, n, stream);
+    return (int)err;
+  }
+  auto* fn_dq = flash_attn_bwd_dq_tf32_wgmma<HD>;
+  auto* fn_dkdv = flash_attn_bwd_dkdv_tf32_wgmma<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+      fn_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM_DQ);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      fn_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+      fn_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM_DKDV);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (Sq + kB - 1) / kB, n_kt = (Skv + kB - 1) / kB;
+  const int n_qt = (Sq + kWgRows - 1) / kWgRows;
+  const int n_kt = (Skv + kWgRows - 1) / kWgRows;
   const int64_t blocks_dq = (int64_t)B * Hq * n_qt;
   const int64_t blocks_dkdv = (int64_t)B * Hkv * n_kt;
   if (blocks_dq > 0x7fffffff || blocks_dkdv > 0x7fffffff)
     return (int)cudaErrorInvalidConfiguration;
+  // exp(x / sqrt(hd) - lse) = exp2(x * scale * log2(e) - lse * log2(e))
+  const float scale_log2 = scale * kLog2e;
   const float* tq = static_cast<const float*>(q);
   const float* tk = static_cast<const float*>(k);
   const float* tv = static_cast<const float*>(v);
   const float* tdo = static_cast<const float*>(dout);
-  if (blocks_dq > 0) {
-    fn_dq<<<(unsigned)blocks_dq, kThreads, smem_dq, stream>>>(
-        tq, tk, tv, static_cast<const float*>(o), tdo, lse, dsum,
-        static_cast<float*>(dq), Sq, Skv, Hq, Hkv, n_qt, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  fn_dkdv<<<(unsigned)blocks_dkdv, kThreads, smem_dkdv, stream>>>(
+  fn_dq<<<(unsigned)blocks_dq, kTfThreads, F::SMEM_DQ, stream>>>(
+      tq, tk, tv, static_cast<const float*>(o), tdo, lse, dsum,
+      static_cast<float*>(dq), Sq, Skv, Hq, Hkv, n_qt, causal, scale,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fn_dkdv<<<(unsigned)blocks_dkdv, kTfThreads, F::SMEM_DKDV, stream>>>(
       tq, tk, tv, tdo, lse, dsum, static_cast<float*>(dk),
-      static_cast<float*>(dv), Sq, Skv, Hq, Hkv, n_kt, causal, scale);
+      static_cast<float*>(dv), Sq, Skv, Hq, Hkv, n_kt, causal, scale,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 

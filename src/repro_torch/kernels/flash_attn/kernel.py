@@ -8,11 +8,14 @@ Beside each, its plain PyTorch version.
 Both take the model layout q ``(B, Sq, Hq, hd)``, k and v ``(B, Skv,
 Hkv, hd)`` (query head h reads KV head ``h // (Hq // Hkv)``), compute in
 float32 and return ``(B, Sq, Hq, hd)`` in q's dtype.  Positions count
-from 0 for queries and keys alike, as in the TPU kernel.  bfloat16
-inputs run the tensor-core kernels (``wgmma``), which carry p through
-P . V, and P and dS through the backward's products, as two bf16 parts,
-so that they keep the float32 arithmetic of the plain versions, the TPU
-kernel and the JAX model; float32 inputs run the FMA kernels.
+from 0 for queries and keys alike, as in the TPU kernel.  Both types run
+on the tensor cores (``wgmma``).  bfloat16 inputs carry p through P . V,
+and P and dS through the backward's products, as two bf16 parts, so
+that they keep the float32 arithmetic of the plain versions, the TPU
+kernel and the JAX model.  float32 inputs run every product as split
+TF32: each operand as two TF32 parts, hi = tf32(x) and lo = tf32(x -
+hi), three products (lo . hi + hi . lo + hi . hi), which keeps float32's
+accuracy (``tf32_parts=True`` mirrors it in the plain versions).
 
 With ``return_lse=True`` the forward also returns each row's
 log-sum-exp ``lse`` (B, Hq, Sq) float32, ``ln sum_t exp(q . k_t /
@@ -68,21 +71,53 @@ def _lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     return torch.where(l > 0, m + torch.log(l), float("inf"))
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 stored mantissa bits) as the kernels' cvt.rna
+    rounds it: to nearest, halves away from zero, on the bit pattern."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_parts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x as the float32 kernels feed it to a product: hi = tf32(x) and lo
+    = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the float32 kernels compute it: both operands in two TF32
+    parts, the three products lo . hi, hi . lo and hi . hi in that order
+    (lo . lo is left out)."""
+    a_hi, a_lo = _tf32_parts(a)
+    b_hi, b_lo = _tf32_parts(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, return_lse: bool = False):
+                     causal: bool = True, return_lse: bool = False,
+                     tf32_parts: bool = False):
     """The kernel's function and tiling in plain PyTorch: q tiles of
     BLOCK_Q rows pre-scaled by 1/sqrt(hd); per q tile the KV tiles of
     BLOCK_K keys, zero-padded at the tail and masked there, those wholly
     above the diagonal skipped under ``causal``; the online softmax with
     the kernel's guards (``m_safe``, a zero correction while m is -inf,
-    division by max(l, 1e-30)).  With ``return_lse``, ``(o, lse)``."""
+    division by max(l, 1e-30)).  With ``return_lse``, ``(o, lse)``.
+
+    ``tf32_parts=True`` mirrors the float32 kernel's operands (tests and
+    ``chip_smoke.py`` only): q is not pre-scaled, S = q . k^T and P . V
+    run as :func:`_tf32_mm`, and the scale goes on the float32 S; the
+    tiles stay BLOCK_K's (the kernel's are 32 keys, 16 at hd 128, which
+    moves only the rounding)."""
     _check_shapes(q, k, v)
     n_b, n_q, n_hq, d = q.shape
     n_kv, n_hkv = k.shape[1], k.shape[2]
     g = n_hq // n_hkv
     dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    mm = _tf32_mm if tf32_parts else torch.matmul
     # (B, Hkv, G, Sq, hd) against (B, Hkv, 1, Skv, hd): GQA by broadcast
-    qf = (q.float() * (1.0 / math.sqrt(d))).reshape(
+    qf = (q.float() * (1.0 if tf32_parts else scale)).reshape(
         n_b, n_q, n_hkv, g, d).permute(0, 2, 3, 1, 4)
     kf = pad_to(k.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
     vf = pad_to(v.float().permute(0, 2, 1, 3)[:, :, None], 3, BLOCK_K)
@@ -101,7 +136,9 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for kb in range(n_kb):
             k0 = kb * BLOCK_K
             kv_pos = k0 + torch.arange(BLOCK_K, device=dev)
-            s = qt @ kf[:, :, :, k0:k0 + BLOCK_K].transpose(-1, -2)
+            s = mm(qt, kf[:, :, :, k0:k0 + BLOCK_K].transpose(-1, -2))
+            if tf32_parts:
+                s = s * scale
             keep = (kv_pos < n_kv)[None, :]              # the tail mask
             if causal:
                 keep = keep & (q_pos[:, None] >= kv_pos[None, :])
@@ -112,7 +149,7 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             corr = torch.where(m == float("-inf"), 0.0,
                                torch.exp(m - m_safe))
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p @ vf[:, :, :, k0:k0 + BLOCK_K]
+            acc = acc * corr[..., None] + mm(p, vf[:, :, :, k0:k0 + BLOCK_K])
             m = m_new
         out[:, :, :, q0:q0 + BLOCK_Q] = acc / torch.clamp(l, min=1e-30)[
             ..., None]
@@ -181,7 +218,7 @@ def _bf16_parts(x: torch.Tensor) -> torch.Tensor:
 def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, do: torch.Tensor,
                          lse: torch.Tensor, *, causal: bool = True,
-                         bf16_parts: bool = False
+                         bf16_parts: bool = False, tf32_parts: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """The backward kernel's function and tiling in plain PyTorch: D =
@@ -197,19 +234,26 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chip_smoke.py`` only): q is not pre-scaled, P = exp(S / sqrt(hd) -
     lse) from the float32 S, P and dS enter their products as two bf16
     parts (:func:`_bf16_parts`; the dK / dV kernel also forms its dS
-    from P's parts), and dQ and dK are scaled at the end."""
+    from P's parts), and dQ and dK are scaled at the end.
+    ``tf32_parts=True`` mirrors the float32 kernels' operands the same
+    way, with all five products as :func:`_tf32_mm`."""
+    if bf16_parts and tf32_parts:
+        raise ValueError("bf16_parts and tf32_parts mirror different "
+                         "kernels; take one")
     _check_shapes(q, k, v)
     n_b, n_q, n_hq, d = q.shape
     n_kv, n_hkv = k.shape[1], k.shape[2]
     g = n_hq // n_hkv
     dev = q.device
     scale = 1.0 / math.sqrt(d)
+    split = bf16_parts or tf32_parts     # the scale on S and at the end
+    mm = _tf32_mm if tf32_parts else torch.matmul
 
     def grouped(x):      # (B, S, Hq, hd) -> (B, Hkv, G, S, hd) float32
         return pad_to(x.float().reshape(n_b, n_q, n_hkv, g, d)
                       .permute(0, 2, 3, 1, 4), 3, BLOCK_Q)
 
-    qf, dof = grouped(q) * (1.0 if bf16_parts else scale), grouped(do)
+    qf, dof = grouped(q) * (1.0 if split else scale), grouped(do)
     dsum = (dof * grouped(o)).sum(-1)                     # (B, Hkv, G, Sq)
     lsef = pad_to(lse.float().reshape(n_b, n_hkv, g, n_q), 3, BLOCK_Q,
                   value=float("inf"))
@@ -226,11 +270,11 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keep = (kv_pos < n_kv)[None, :]
         if causal:
             keep = keep & (q_pos[:, None] >= kv_pos[None, :])
-        s = qf[:, :, :, qs] @ kf[:, :, :, ks].transpose(-1, -2)
-        if bf16_parts:
+        s = mm(qf[:, :, :, qs], kf[:, :, :, ks].transpose(-1, -2))
+        if split:
             s = s * scale
         p = torch.where(keep, torch.exp(s - lsef[:, :, :, qs, None]), 0.0)
-        dp = dof[:, :, :, qs] @ vf[:, :, :, ks].transpose(-1, -2)
+        dp = mm(dof[:, :, :, qs], vf[:, :, :, ks].transpose(-1, -2))
         return p, dp - dsum[:, :, :, qs, None]
 
     parts = _bf16_parts if bf16_parts else (lambda x: x)
@@ -247,8 +291,8 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
         for kt in range(last_kt(qt)):
             p, dpd = tile(qt, kt)
-            dq[:, :, :, qs] += parts(p * dpd) @ kf[:, :, :, kt * BLOCK_K:
-                                                   (kt + 1) * BLOCK_K]
+            dq[:, :, :, qs] += mm(parts(p * dpd),
+                                  kf[:, :, :, kt * BLOCK_K:(kt + 1) * BLOCK_K])
     for kt in range(n_kt):
         ks = slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
         for qt in range(kt * BLOCK_K // BLOCK_Q if causal else 0, n_qt):
@@ -256,13 +300,13 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = parts(p)
             ds = parts(p * dpd)
             qs = slice(qt * BLOCK_Q, (qt + 1) * BLOCK_Q)
-            dv[:, :, :, ks] += (p.transpose(-1, -2) @ dof[:, :, :, qs]).sum(
+            dv[:, :, :, ks] += mm(p.transpose(-1, -2), dof[:, :, :, qs]).sum(
                 2, keepdim=True)
-            dk[:, :, :, ks] += (ds.transpose(-1, -2) @ qf[:, :, :, qs]).sum(
+            dk[:, :, :, ks] += mm(ds.transpose(-1, -2), qf[:, :, :, qs]).sum(
                 2, keepdim=True)
     dq = (dq[:, :, :, :n_q] * scale).permute(0, 3, 1, 2, 4).reshape(
         n_b, n_q, n_hq, d)
-    if bf16_parts:
+    if split:
         dk = dk * scale
 
     def per_kv(x):       # (B, Hkv, 1, Skv, hd) -> (B, Skv, Hkv, hd)

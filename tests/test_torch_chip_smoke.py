@@ -481,6 +481,8 @@ def test_lm_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     for name, value in dict(
             FA_BWD_SHAPES=((2, 70, 4, 4, 16, True), (1, 130, 4, 2, 32, True),
                            (1, 65, 4, 1, 16, False)),
+            FA_BWD_F32_SHAPES=((2, 70, 2, 2, 32, False),
+                               (1, 130, 6, 2, 32, True)),
             TRAIN_LM_STEPS=3, MOE_TRAIN_BATCH=(2, 40),
             LM_TRAIN_DIR=str(tmp_path / "lm")).items():
         monkeypatch.setattr(cs, name, value)
@@ -626,6 +628,7 @@ def test_recsys_phase_is_wired_in():
     assert cs.B4R_FA_SHAPE == (256, 200, 2, 2, 32, False)
     assert cs.B4R_FA_SHAPE in cs.FA_SWEEP
     assert cs.B4R_FA_SHAPE in cs.FA_BWD_F32_SHAPES
+    assert cs.FA_BWD_F32_SHAPES[1] == (32, 512, 24, 8, 128, True)
     b4r = configs.get_bundle("bert4rec").config
     assert cs.B4R_FA_SHAPE[1:5] == (b4r.seq_len, b4r.n_heads, b4r.n_heads,
                                     b4r.embed_dim // b4r.n_heads)

@@ -345,3 +345,93 @@ def test_backward_rejects_mismatched_shapes():
     k = torch.zeros(1, 8, 3, 16)
     with pytest.raises(ValueError):
         flash_attn_bwd_plain(q, k, k, q, q, torch.zeros(1, 4, 8))
+
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal): hd 16 and 32, groups of 1 and 3, Sq
+# and Skv of 70, 130 and 200 (BERT4Rec's full 200 x 200 among them),
+# causal and full
+TF32_SHAPES = [(2, 200, 200, 2, 2, 32, False), (1, 130, 70, 3, 1, 16, True),
+               (1, 70, 130, 6, 2, 32, True), (1, 200, 130, 3, 1, 16, False),
+               (1, 130, 200, 2, 2, 16, True)]
+
+
+def _tf32_mirror(arrays, do, causal):
+    """The float32 kernels' split-TF32 mirror: o, then (dQ, dK, dV) from
+    its own o and lse."""
+    tq, tk, tv = _torch(arrays)
+    o, lse = flash_attn_plain(tq, tk, tv, causal=causal, return_lse=True,
+                              tf32_parts=True)
+    return o, flash_attn_bwd_plain(tq, tk, tv, o, torch.from_numpy(do), lse,
+                                   causal=causal, tf32_parts=True)
+
+
+def _tf32_want(arrays, do, causal):
+    """JAX gqa_attention's output and its jax.grad, both jitted."""
+    o = jax.jit(lambda q, k, v: jax_gqa(q, k, v, causal=causal, chunk=64))(
+        *_jax(arrays))
+    grads = _jax_grads(lambda q, k, v: jax_gqa(q, k, v, causal=causal,
+                                               chunk=64),
+                       arrays, do, jnp.float32)
+    return o, grads
+
+
+def _tf32_inputs(b, sq, skv, hq, hkv, hd):
+    arrays = _qkv(b, sq, hq, hkv, hd, seed=11 * sq + skv + hd, skv=skv)
+    do = np.random.RandomState(sq + skv).randn(b, sq, hq, hd).astype(
+        np.float32)
+    return arrays, do
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,causal", TF32_SHAPES)
+def test_tf32_parts_match_jax(b, sq, skv, hq, hkv, hd, causal):
+    """The plain mirror of the float32 kernels' operands (every product
+    from two TF32 parts, three products; the scale on the float32 S and
+    in the backward's epilogues), forward and backward, against JAX
+    gqa_attention and its jax.grad at rtol 1e-4 / atol 1e-5, the bar the
+    card holds the kernels to."""
+    arrays, do = _tf32_inputs(b, sq, skv, hq, hkv, hd)
+    o, grads = _tf32_mirror(arrays, do, causal)
+    want_o, want = _tf32_want(arrays, do, causal)
+    np.testing.assert_allclose(_np(o), _np(want_o), **F32, err_msg="o")
+    for name, g, w in zip("qkv", grads, want):
+        assert g.dtype == torch.float32 and g.shape == (b, (sq, skv)[
+            name != "q"], (hq, hkv)[name != "q"], hd)
+        np.testing.assert_allclose(_np(g), _np(w), **F32, err_msg=name)
+
+
+def test_one_tf32_part_misses_the_float32_bar(monkeypatch):
+    """At BERT4Rec's layout, where two parts pass, the mirror with one
+    TF32 part per operand (lo dropped) misses rtol 1e-4 / atol 1e-5 on
+    the forward and on every gradient: the test above could not pass
+    with one part."""
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    arrays, do = _tf32_inputs(*TF32_SHAPES[0][:6])
+    want_o, want = _tf32_want(arrays, do, False)
+    monkeypatch.setattr(fa_kernel, "_tf32_parts",
+                        lambda x: (fa_kernel._tf32(x), torch.zeros_like(x)))
+    o, grads = _tf32_mirror(arrays, do, False)
+    for name, g, w in zip(("o", "q", "k", "v"), (o,) + tuple(grads),
+                          (want_o,) + tuple(want)):
+        g, w = _np(g), _np(w)
+        past = np.abs(g - w) > F32["atol"] + F32["rtol"] * np.abs(w)
+        assert past.mean() > 0.1, (name, past.mean())
+
+
+def test_tf32_rounds_to_nearest_away_from_zero():
+    """_tf32 keeps 10 stored mantissa bits, rounding to nearest with
+    halves away from zero (cvt.rna), signs and infinities intact, and
+    hi + lo holds x to 2^-21 of it."""
+    from repro_torch.kernels.flash_attn.kernel import _tf32, _tf32_parts
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -12,
+                      float("inf"), -0.0])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                         1.0 + 2.0 ** -10, 1.0, float("inf"), -0.0])
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(torch.signbit(_tf32(x)), torch.signbit(want))
+    r = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(
+        np.float32))
+    hi, lo = _tf32_parts(r)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - r).abs() <= r.abs() * 2.0 ** -21).all()

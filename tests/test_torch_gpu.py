@@ -863,19 +863,22 @@ def test_flash_attn_wgmma_matches_plain(hd, causal):
                                    rtol=2e-2, atol=2e-2)
 
 
-# scripts/flash_attn_fwd_digest.py on the tree before the forward kernel
-# could write an lse (commit bd5bb5a, NVIDIA H100 80GB HBM3, 700.00 W)
+# scripts/flash_attn_fwd_digest.py: the bf16 digests on the tree before
+# the forward kernel could write an lse (commit bd5bb5a), the float32 one
+# on the tree that moved the float32 kernel to split TF32 on wgmma; both
+# on an NVIDIA H100 80GB HBM3 at 700.00 W
 FWD_DIGESTS = {
     "(32, 512, 24, 8, 128) bfloat16 causal=True": "4a875c2d48519c2b",
     "(4, 512, 24, 8, 64) bfloat16 causal=True": "8a973279f3b8f2a9",
     "(2, 200, 6, 2, 64) bfloat16 causal=False": "9dbc4ca903eface6",
-    "(2, 200, 6, 2, 128) float32 causal=True": "5d85e7140d6806dd"}
+    "(2, 200, 6, 2, 128) float32 causal=True": "d5ad6de2f0fdeaaf"}
 
 
 def test_flash_attn_forward_keeps_its_bits():
     """The forward kernel without an lse (serving, the build, decode's
-    prefill) gives the bits the tree before the lse gave, at the LM
-    build's shape, hd 64 and the float32 kernel."""
+    prefill) gives the bits the tree before the lse gave at the LM
+    build's shape and hd 64 in bf16, and the float32 (split TF32) kernel
+    the bits it gave when it was written."""
     _require_cuda()
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -887,20 +890,20 @@ def test_flash_attn_forward_keeps_its_bits():
     assert mod.digests(flash_attn_kernel) == FWD_DIGESTS
 
 
-# scripts/flash_attn_bwd_digest.py on the tree before the bf16 backward
-# was redesigned (commit b560b28, NVIDIA H100 80GB HBM3, 700.00 W)
+# scripts/flash_attn_bwd_digest.py on the tree that moved the float32
+# backward to split TF32 on wgmma (NVIDIA H100 80GB HBM3, 700.00 W)
 BWD_DIGESTS = {
-    "(2, 100, 100, 6, 2, 64) causal=True": "784a9f2184ffb7a1",
-    "(1, 130, 70, 4, 1, 16) causal=False": "af9e41e9158cb322",
-    "(2, 129, 129, 8, 2, 32) causal=True": "268e61f0e3c6d701",
-    "(1, 200, 200, 4, 4, 128) causal=True": "6f65a688ee02e5dc",
-    "(1, 70, 130, 3, 1, 64) causal=True": "198f0280e7185f24"}
+    "(2, 100, 100, 6, 2, 64) causal=True": "cc4d9d0972160f1c",
+    "(1, 130, 70, 4, 1, 16) causal=False": "e76a48bd085583c9",
+    "(2, 129, 129, 8, 2, 32) causal=True": "406cfd9e90a5bda5",
+    "(1, 200, 200, 4, 4, 128) causal=True": "a29c79e177556b30",
+    "(1, 70, 130, 3, 1, 64) causal=True": "2257a7cb9321d2a5"}
 
 
 def test_flash_attn_backward_keeps_its_float32_bits():
-    """The backward kernel's float32 instances (FMAs) give the bits the
-    tree before the bf16 redesign gave, over tail lengths, Sq != Skv both
-    ways, groups of 1, 3 and 4 and every head width."""
+    """The backward kernel's float32 instances (split TF32 on wgmma) give
+    the bits they gave when they were written, over tail lengths, Sq !=
+    Skv both ways, groups of 1, 3 and 4 and every head width."""
     _require_cuda()
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -1517,7 +1520,7 @@ def test_training_step_on_cuda_matches_cpu(retriever):
 
 def test_flash_attn_at_bert4rec_shape_matches_plain():
     """BERT4Rec's training attention (256, 200, 2 / 2, 32), float32 and
-    non-causal: 200 keys are three 64-key tiles and a tail of 8, and the
+    non-causal: 200 keys are six 32-key tiles and a tail of 8, and the
     KV head's group is 1.  The forward (with and without its lse) and the
     backward kernel against their plain versions on the card at rtol
     1e-4 / atol 1e-5; two backward launches bitwise."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SEINE (query phase, offline build,
 front end, live index, ranker training, LM bridge, MoE LM and decode,
-SNRM, LM training, the recsys models and MACE) on one NVIDIA GPU.
+SNRM, LM training, the recsys models and MACE, the launch tools) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -273,6 +274,24 @@ launches CUPTI recorded over the replay ("k of n").
    stablelm at full width and 2 layers: the resumed step's loss has the
    uninterrupted run's bits.
 
+14. The launch tools (``repro_torch.launch``): ``launch.dryrun`` counts
+   all 42 (arch, shape) cells on the meta device in LAUNCH_JOBS worker
+   processes (the counting pass's seconds on a line of their own, then
+   one roofline-table line a cell); the bf16 ``flash_attn`` over
+   stablelm's whole ``prefill_32k`` shape (2^31 elements a tensor)
+   against its plain version on the last batch row's last head;
+   then, with the launch counts at 0, ``run_cell`` on the card of
+   ``seine/index_build``, ``bert4rec/serve_p99``, ``mace/molecule``,
+   ``stablelm-1.6b/prefill_32k`` and ``stablelm-1.6b/train_4k`` (the LM
+   cells one step each, train_4k's 64 microbatches), each drawn from
+   ``--seed``, with peak GB, step
+   seconds, flops, eager bytes and the roofline bound, and
+   ``seine/retrieve``'s step on phase 1's index (8 terms x 16,384
+   docs), bitwise ``SeineEngine.score``'s; ``flash_attn``,
+   ``flash_attn_bwd``, ``seg_interact``, ``embed_bag``, ``csr_lookup``
+   and ``knrm_pool`` must each have launched, and their rows in the
+   ``kernels`` line gain ``launches_by_path["launch"]``.
+
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
 of the ``repro`` package is imported.
@@ -329,6 +348,9 @@ from repro_torch.dist.live import LiveIndex  # noqa: E402
 from repro_torch.dist.partition import pack_index  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
+from repro_torch.launch import report as launch_report  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.dist.sharding import partition_index  # noqa: E402
 from repro_torch.dist.sp_decode import (  # noqa: E402
     combine_decode_stats, local_decode_stats)
@@ -4685,7 +4707,6 @@ RECSYS_SHAPES_SERVED = ("serve_p99", "retrieval_cand")
 RECSYS_SERVE_CALLS = 20
 # candidates per forward of a CTR model at retrieval_cand: an unchunked
 # AutoInt forward over 1,000,000 candidates holds ~70 GB of activations
-RECSYS_CAND_CHUNK = 65536
 RECSYS_CHECK_ROWS = 256      # serving rows also computed on the CPU
 MACE_SHAPE = "molecule"      # configs/base.py GNN_SHAPES: 128 x 30 x 64
 MACE_STEPS = 8
@@ -4860,64 +4881,6 @@ def split_of(run):
                    + f"; largest of the rest: {rest}")
 
 
-def serve_fn(cfg, params, shape, seed, dev):
-    """The serving step of ``shape`` as ``repro.launch.steps``' recsys
-    cells compose it, and its inputs (host numpy from ``seed``):
-    ``serve_p99`` the sigmoid of a CTR logit, or a sequence model's pair
-    scores, over a batch of 512; ``retrieval_cand`` one context against
-    1,000,000 candidates (a CTR model's item field set to each
-    candidate, in chunks of RECSYS_CAND_CHUNK; a sequence model's last
-    hidden state against the candidates' embeddings).  Returns
-    ``step(params, inputs) -> scores`` and the inputs."""
-    rng = np.random.RandomState(seed)
-    ctr = cfg.family in ("attn-ctr", "dlrm")
-    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    if shape.kind == "online-inference":
-        if ctr:
-            b = ctr_batch(cfg, shape.batch, seed=seed)
-            b.pop("label")
-            return (lambda p, x: torch.sigmoid(ctr_logit(cfg, p, x)),
-                    {k: on(v) for k, v in b.items()})
-        items = seqrec_batch(cfg, shape.batch, seed=seed)["items"]
-        x = {"items": on(items),
-             "target": on(rng.randint(0, cfg.n_items, shape.batch))}
-        return (lambda p, x: R.seqrec_pair_scores(p, cfg, x["items"],
-                                                  x["target"]), x)
-    n_c = shape.n_candidates
-    if not ctr:
-        items = seqrec_batch(cfg, 1, seed=seed)["items"]
-        x = {"items": on(items), "cand_ids": on(np.arange(n_c) % cfg.n_items)}
-
-        def seq_step(p, x):
-            h = R.seqrec_encode(p, cfg, x["items"])[:, -1]
-            return R.seqrec_score_items(p, h, x["cand_ids"])[0]
-        return seq_step, x
-    b = ctr_batch(cfg, 1, seed=seed)
-    x = {"sparse_ids": on(b["sparse_ids"]),
-         "cand_ids": on(rng.randint(0, cfg.vocab_sizes[0], n_c))}
-    if cfg.n_dense:
-        x["dense"] = on(b["dense"])
-
-    def ctr_step(p, x):
-        out = []
-        for c0 in range(0, x["cand_ids"].shape[0], RECSYS_CAND_CHUNK):
-            cand = x["cand_ids"][c0:c0 + RECSYS_CAND_CHUNK]
-            ids = x["sparse_ids"].expand(cand.shape[0], -1).clone()
-            ids[:, 0] = cand                    # vary the item field
-            bx = {"sparse_ids": ids}
-            if cfg.n_dense:
-                bx["dense"] = x["dense"].expand(cand.shape[0], -1)
-            out.append(torch.sigmoid(ctr_logit(cfg, p, bx)))
-        return torch.cat(out)
-    return ctr_step, x
-
-
-def ctr_logit(cfg, p, x):
-    if cfg.family == "dlrm":
-        return R.dlrm_forward(p, cfg, x["dense"], x["sparse_ids"])
-    return R.autoint_forward(p, cfg, x["sparse_ids"])
-
-
 def head_rows(x, n: int):
     """The first ``n`` rows (or candidates) of serving inputs, on the
     CPU."""
@@ -4940,7 +4903,9 @@ def serve_recsys(arch, cfg, params, seed, dev):
     rows = {}
     for name in RECSYS_SHAPES_SERVED:
         shape = served_shape(arch, name)
-        step, x = serve_fn(cfg, params, shape, seed, dev)
+        # the serving step of launch.steps' recsys cell and its inputs
+        step = launch_steps.recsys_serve_fn(cfg, shape)
+        x = launch_steps.recsys_inputs(cfg, shape, seed, dev)
         want_n = shape.batch if shape.kind == "online-inference" \
             else shape.n_candidates
         with torch.no_grad():
@@ -5336,6 +5301,143 @@ def phase13(seed: int, dev):
     return dict(rows=rows, recsys=recsys, mace=mace, cli=cli)
 
 
+# phase 14, the launch tools: every cell counted on the meta device, the
+# cells that one card holds stepped through launch.dryrun.run_cell
+LAUNCH_STEPPED = (("seine", "index_build"), ("bert4rec", "serve_p99"),
+                  ("mace", "molecule"), ("stablelm-1.6b", "prefill_32k"),
+                  ("stablelm-1.6b", "train_4k"))
+# steps a cell runs on the card (the last one timed); the LM cells' one
+# step (20 s and 55 s; the first prefill took 0.7% longer than the second)
+LAUNCH_REPEATS = {("stablelm-1.6b", "prefill_32k"): 1,
+                  ("stablelm-1.6b", "train_4k"): 1}
+LAUNCH_KERNELS = ("flash_attn", "flash_attn_bwd", "seg_interact", "embed_bag",
+                  "csr_lookup", "knrm_pool")
+LAUNCH_JOBS = max(1, min(8, (os.cpu_count() or 2) - 1))
+# seine/retrieve's step on phase 1's index (its own 144 GB index does not
+# fit): 8 query terms, the hot head and 4 Zipfian draws, x 16,384 docs
+RETRIEVE_TERMS = 8
+RETRIEVE_CANDS = 16384
+# flash_attn at stablelm's prefill_32k: (B, S, Hq, Hkv, hd) bf16 causal;
+# the plain version (131,328 tile steps a slice at S = 32,768, ~50 s on
+# the card) checks the last batch row's last head, the highest offsets
+PREFILL_ATTN_SHAPE = (32, 32768, 32, 32, 64)
+
+
+def check_prefill_attention(seed, dev):
+    """The bf16 kernel over the whole prefill_32k shape (2^31 elements a
+    tensor: 64-bit offsets) against its plain version on the last batch
+    row's last head, at the bf16 bar.  Returns the largest |diff|."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = qkv(PREFILL_ATTN_SHAPE, torch.bfloat16, g, dev)
+    t0 = time.perf_counter()
+    out = flash_attn_kernel(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    sl = lambda t: t[-1:, :, -1:].contiguous()
+    want = flash_attn_plain(sl(q), sl(k), sl(v), causal=True).float()
+    got = sl(out).float()
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    err = (got - want).abs().max().item()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("phase 14: flash_attn at prefill_32k's shape "
+                             "gave non-finite values")
+    log(f"phase 14: flash_attn at {PREFILL_ATTN_SHAPE} bf16 causal "
+        f"({q.numel():,} elements a tensor) in {ms:.1f} ms (host clock, "
+        f"first call) == plain on the last batch row's last head: max "
+        f"|diff| {err:.3g} (bar 2e-2 + 2e-2 |plain|)")
+    return err
+
+
+def retrieve_inputs(seed, dev):
+    """Phase 1's index, KNRM's weights and a query of RETRIEVE_TERMS
+    terms against RETRIEVE_CANDS distinct docs, from ``seed``."""
+    index, rng = build_index(seed, dev)
+    q = np.concatenate([np.arange(N_HOT), rng.choice(
+        np.arange(N_HOT, VOCAB), RETRIEVE_TERMS - N_HOT, replace=False,
+        p=zipf_p(VOCAB)[N_HOT:] / zipf_p(VOCAB)[N_HOT:].sum())])
+    docs = np.sort(rng.choice(N_DOCS, min(RETRIEVE_CANDS, N_DOCS),
+                              replace=False))
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
+                                        N_B, index.functions, device=dev)
+    as_ids = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    return index, params, as_ids(q), as_ids(docs)
+
+
+def log_stepped(arch, shape, rec):
+    rl, mem = rec["roofline"], rec["memory"]
+    peak = ("not measured" if mem["peak_gib_per_device"] is None
+            else f"{mem['peak_gib_per_device'] * 2**30 / 1e9:.2f} GB")
+    log(f"phase 14 [{arch}/{shape}]: peak {peak}, step "
+        f"{rec['step_s']:.4f} s (first {rec['compile_s']:.4f} s), "
+        f"flops {rl['flops_per_device']:.4g}, eager bytes "
+        f"{rl['hbm_bytes_per_device']:.4g}, t_compute "
+        f"{rl['t_compute_s']:.4g} s, t_bound {rl['t_bound_s']:.4g} s "
+        f"({rl['bottleneck']}), t_compute / step "
+        f"{rl['t_compute_s'] / rec['step_s']:.4f}, t_bound / step "
+        f"{rec['roofline_share']:.4f}")
+
+
+def phase14(seed, dev):
+    """The launch tools (module doc).  Returns the launches of the
+    stepped path by kernel and the records."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    counted = launch_dryrun.count_cells(launch_steps.all_cell_ids(),
+                                        jobs=LAUNCH_JOBS)
+    log(f"phase 14: counting pass {time.perf_counter() - t0:.1f}s "
+        f"({LAUNCH_JOBS} processes)")
+    log(f"phase 14: counted {len(counted)} cells on the meta device "
+        f"(flops of the matrix products, bytes of eager traffic; "
+        f"attention through gqa_attention at chunk 1,024)")
+    for line in launch_report.roofline_table(
+            list(counted.values())).splitlines()[2:]:
+        log(f"phase 14: {line}")
+    attn_err = check_prefill_attention(seed, dev)
+    torch.cuda.empty_cache()
+    retrieve = launch_steps.build_cell("seine", "retrieve")
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    stepped = {}
+    for arch, shape in LAUNCH_STEPPED:
+        rec = launch_dryrun.run_cell(
+            arch, shape, device=dev, seed=seed, verbose=False,
+            repeats=LAUNCH_REPEATS.get((arch, shape), 2),
+            counted=counted[(arch, shape)])
+        if rec["step_s"] is None:
+            raise AssertionError(f"phase 14 [{arch}/{shape}]: not stepped: "
+                                 f"{rec['on_card_reason']}")
+        stepped[(arch, shape)] = rec
+        log_stepped(arch, shape, rec)
+        torch.cuda.empty_cache()
+    # phase 1's index (7 GB) only after the LM cells have left the card;
+    # its build launches no kernel
+    index, kparams, q, docs = retrieve_inputs(seed, dev)
+    with torch.no_grad():
+        scores = retrieve.fn(index, kparams, q, docs)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+
+    want = SeineEngine(index, "knrm", kparams).score(q, docs)
+    assert_equal(scores, want, "phase 14: seine/retrieve's step against "
+                 "SeineEngine.score")
+    if tuple(scores.shape) != (docs.shape[0],) or not bool(
+            torch.isfinite(scores).all()):
+        raise AssertionError("phase 14: seine/retrieve's scores")
+    missing = [k for k in LAUNCH_KERNELS if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"phase 14: {missing} never launched through "
+                             f"launch.steps ({launched})")
+    log(f"phase 14: seine/retrieve's step on phase 1's index, "
+        f"{q.shape[0]} terms x {docs.shape[0]} docs == SeineEngine.score "
+        f"bitwise; launches through launch.steps "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    del index
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=launched, stepped=stepped, counted=counted,
+                attn_err=attn_err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5401,6 +5503,12 @@ def main() -> int:
     kernels.append(lm_train["row"])
     torch.cuda.empty_cache()
     kernels += phase13(args.seed, dev)["rows"]
+    torch.cuda.empty_cache()
+    launch = phase14(args.seed, dev)
+    for row in kernels:
+        if row["name"] in LAUNCH_KERNELS:
+            row.setdefault("launches_by_path", {})["launch"] = \
+                launch["launches"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,6 @@ import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.embed_bag import segment_bag_sums
 from ..kernels.seg_interact import seg_interact_kernel
@@ -122,7 +121,9 @@ def doc_interactions(doc_tokens: torch.Tensor, seg_ids: torch.Tensor,
     # exact-match matrix (B, U, Lp)
     matchf = ((uniq_terms[:, :, None] == doc_tokens[:, None, :])
               & tok_valid[:, None, :] & term_valid[:, :, None]).float()
-    onehot = F.one_hot(seg, nseg).float()                # (B, Lp, nseg)
+    # one_hot(seg, nseg), without one_hot's range check (a host read)
+    onehot = (seg[..., None] == torch.arange(nseg, device=seg.device)
+              ).float()                                  # (B, Lp, nseg)
     # integer-valued sums of 0/1: exact in any order
     counts = matchf @ onehot                             # (B, U, nseg)
     tf = counts[..., :n_b]

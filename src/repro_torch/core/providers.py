@@ -102,8 +102,10 @@ class HashProvider:
         seg_sum = segment_bag_sums(
             self._table, torch.where(valid & in_range, tokens.long(), -1),
             bins, N_SEG_CTX)                               # (..., 64, De)
-        onehot = (torch.nn.functional.one_hot(bins, N_SEG_CTX)
-                  * in_range[..., None]).to(e.dtype)       # (..., n, 64)
+        # one_hot(bins, 64), without one_hot's range check (a host read)
+        onehot = ((bins[..., None] == torch.arange(N_SEG_CTX,
+                                                   device=bins.device))
+                  & in_range[..., None]).to(e.dtype)       # (..., n, 64)
         seg_cnt = (onehot * valid[..., None]).sum(-2)      # (..., 64)
         seg_mean = seg_sum / torch.clamp(seg_cnt, min=1.0)[..., None]
         at = torch.where(seg < 0, seg + N_SEG_CTX, seg).clamp(

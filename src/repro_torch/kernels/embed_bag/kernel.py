@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -45,30 +46,32 @@ MAX_SEGMENT_TOKENS = 6144   # the segment kernel stages 8 bytes per token
 
 
 def embed_bag_plain(table: torch.Tensor, indices: torch.Tensor,
-                    bag_ptr: torch.Tensor) -> torch.Tensor:
+                    bag_ptr: torch.Tensor, max_bag: Optional[int] = None
+                    ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, summing in the kernel's
-    order: the r-th live row of every bag is added in pass r, one add
-    per bag per pass, so each bag accumulates in index order (in bf16,
-    rounded after every add, as the kernel does)."""
+    order: the r-th row of every bag is added in pass r, one add per bag
+    per pass (a negative index adds nothing), so each bag accumulates in
+    index order (in bf16, rounded after every add, as the kernel does).
+    The passes run to ``max_bag``, a bound on the rows of a bag, which
+    keeps every shape static (no host read: the function runs on meta
+    tensors); by default the longest bag, read from the device."""
     n_rows, d = table.shape
     n_bags = bag_ptr.shape[0] - 1
     out = torch.zeros((n_bags, d), dtype=table.dtype, device=table.device)
-    if n_bags == 0 or indices.shape[0] == 0:
+    nnz = indices.shape[0]
+    if n_bags == 0 or nnz == 0:
         return out
-    ptr_ = bag_ptr.long()
-    pos = torch.arange(indices.shape[0], device=table.device)
-    bag = torch.searchsorted(ptr_[1:], pos, right=True)
-    keep = (indices >= 0) & (pos >= ptr_[0]) & (bag < n_bags)
-    bag, pos = bag[keep], pos[keep]
-    rows = indices[keep].long().clamp(max=n_rows - 1)
-    rank = pos - ptr_[bag]
-    order = torch.argsort(rank, stable=True)
-    bag, rows = bag[order], rows[order]
-    start = 0
-    for count in torch.bincount(rank).tolist():
-        b = bag[start:start + count]          # distinct bags: one add each
-        out[b] = out[b] + table[rows[start:start + count]]
-        start += count
+    ptr_ = bag_ptr.long().clamp(0, nnz)
+    start = ptr_[:-1]
+    size = (ptr_[1:] - start).clamp(min=0)
+    if max_bag is None:
+        max_bag = int(size.max())
+    for r in range(max_bag):
+        at = (start + r).clamp(max=nnz - 1)
+        row = indices[at].long()
+        live = (size > r) & (row >= 0)
+        add = table[row.clamp(0, n_rows - 1)]
+        out = torch.where(live[:, None], out + add, out)
     return out
 
 
@@ -134,7 +137,9 @@ def segment_bag_sums_plain(table: torch.Tensor, rows: torch.Tensor,
                            bins: torch.Tensor, n_bins: int) -> torch.Tensor:
     """The segment entry's function in plain PyTorch: the sort-based
     bags of :func:`segment_bags` summed by :func:`embed_bag_plain`."""
-    out = embed_bag_plain(table, *segment_bags(rows, bins, n_bins))
+    # a bag holds at most one doc's n tokens: n passes, static
+    out = embed_bag_plain(table, *segment_bags(rows, bins, n_bins),
+                          max_bag=rows.shape[-1])
     return out.reshape(*rows.shape[:-1], n_bins, table.shape[1])
 
 

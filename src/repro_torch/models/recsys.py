@@ -187,7 +187,9 @@ def uses_flash_attn(cfg: RecsysConfig) -> bool:
         and cfg.embed_dim // max(cfg.n_heads, 1) in HEAD_DIMS
 
 
-def _one_chunk(q, k, v, *, causal: bool) -> torch.Tensor:
+def whole_sequence_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """``gqa_attention`` over one chunk of the whole sequence, as the
+    reference computes a sequence model's attention."""
     return gqa_attention(q, k, v, causal=causal, chunk=max(k.shape[1], 1))
 
 
@@ -200,7 +202,7 @@ def seqrec_encode(p: Params, cfg: RecsysConfig, items: torch.Tensor, *,
     n_b, n_s = items.shape
     d, n_h = cfg.embed_dim, max(cfg.n_heads, 1)
     hd = d // n_h
-    attend = attention if uses_flash_attn(cfg) else _one_chunk
+    attend = attention if uses_flash_attn(cfg) else whole_sequence_attention
     x = gather_clip(p["item_emb"], items) + p["pos_emb"][None, :n_s]
     for bp in p["blocks"]:
         h = layer_norm(x, bp["ln1_s"], bp["ln1_b"])

@@ -274,12 +274,17 @@ def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
     q = (h @ lp["wq"]).reshape(n_b, n_s, hq, hd)
     k = (h @ lp["wk"]).reshape(n_b, n_s, hkv, hd)
     v = (h @ lp["wv"]).reshape(n_b, n_s, hkv, hd)
+    del h
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_out is not None:
         kv_out.append((k, v))
     o = attention(q, k, v, causal=True)
+    # drop the frame's references before the FFN's wide temporaries (a
+    # 32k-token prefill holds 16 GB in them); autograd keeps what it saved
+    del q, k, v
     x = x + o.reshape(n_b, n_s, hq * hd) @ lp["wo"]
+    del o
     y, aux = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
     return x + y, aux
 

@@ -45,6 +45,7 @@ from repro_torch.data.batching import (PairSampler, candidates_for_query,
 from repro_torch.data.synth_corpus import generate
 from repro_torch.serving import NoIndexEngine, SeineEngine
 from torch_helpers import adversarial
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

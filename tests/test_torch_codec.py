@@ -40,6 +40,7 @@ from torch_codec_rows import (INT32_MAX, INT32_MIN, adversarial_index,
                               adversarial_queries, adversarial_rows)
 from torch_helpers import (K_SWEEP, TILE_SWEEP, adversarial,
                            assert_same_partition, export, t)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 CODECS = ("packed", "packed-q8")
 TOL = dict(rtol=1e-5, atol=1e-6)

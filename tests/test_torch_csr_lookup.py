@@ -30,6 +30,7 @@ from repro_torch.kernels.csr_lookup.kernel import (FENCE_SEARCH, ID_SEARCH,
 from repro_torch.kernels.utils import SOURCES
 from torch_helpers import (K_SWEEP, TILE_SWEEP, adversarial, export,
                            jax_layout, t)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 QUERY = (3, 0, -1, 7, 99, 5)
 

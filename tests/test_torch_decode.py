@@ -31,6 +31,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.dist import sp_decode as S
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as T
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

@@ -27,6 +27,7 @@ from repro_torch.kernels.embed_bag import (bag_ptr_from_offsets, embed_bag,
                                            embed_bag_plain, embed_bag_ref,
                                            segment_bag_sums)
 from repro_torch.models.embedding_bag import MultiTable, embedding_bag
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 # tests/test_kernels.py::TestEmbedBag's sweep

@@ -20,6 +20,7 @@ from repro_torch.kernels.csr_lookup import csr_retrieve_topk
 from repro_torch.serving import (SeineEngine, ServeStats, serve_batches,
                                  serve_retrieval)
 from torch_helpers import adversarial, export, jax_layout
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 LAYOUTS = ("single", "k2", "k4")

@@ -13,6 +13,7 @@ from repro import obs as jax_obs
 from repro.dist import fault as jax_fault
 from repro_torch import obs
 from repro_torch.dist import fault
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 
 def _both():

@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attn import (BLOCK_K, BLOCK_Q,
                                             flash_attn_plain)
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.models.layers import gqa_attention, naive_attention
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

@@ -32,6 +32,7 @@ from repro_torch.serving import (CoalescingScorer, DeadlineExceeded,
                                  ServingFrontend, plan_coalesced,
                                  run_open_loop)
 from repro_torch.serving import coalesce, frontend
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 K_SWEEP = (1, 2, 4)
 RETRIEVERS = ("knrm", "deeptilebars", "hint", "deepimpact")

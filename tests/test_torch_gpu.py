@@ -83,6 +83,7 @@ from repro_torch.serving import (NoIndexEngine, SeineEngine,
                                  ServingFrontend)
 from repro_torch.tree import flatten_with_paths, tree_map
 from torch_codec_rows import adversarial_index, adversarial_queries
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 pytestmark = pytest.mark.gpu
 
@@ -1573,3 +1574,55 @@ def test_recsys_and_mace_training_steps_on_cuda_match_cpu(arch):
         np.testing.assert_allclose([h[key] for h in runs[0].history],
                                    [h[key] for h in runs[2].history],
                                    rtol=1e-4, atol=1e-5, err_msg=key)
+
+
+def _smoke_lm_bundles(monkeypatch):
+    """``launch.steps.build_cell`` over a bf16 smoke stablelm whose
+    train_4k is (4, 64) in 2 microbatches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    real = S.get_bundle
+    shape = ShapeConfig(name="train_4k", kind="training", seq_len=64,
+                        global_batch=4)
+
+    def bundle(arch):
+        b = real(arch)
+        return dataclasses.replace(b, config=dataclasses.replace(
+            smoke(arch), dtype="bfloat16"), shapes=(shape,))
+    monkeypatch.setattr(S, "get_bundle", bundle)
+    monkeypatch.setattr(S, "MICROBATCH_TOKENS", 128)
+
+
+def test_run_cell_trains_a_lm_cell_through_both_attention_kernels(
+        monkeypatch):
+    """``launch.dryrun.run_cell`` of a smoke bf16 LM training cell on the
+    card: counted, stepped (2 microbatches, remat), the forward and the
+    backward attention kernels launched by the step."""
+    _require_cuda()
+    from repro_torch.launch import dryrun
+    _smoke_lm_bundles(monkeypatch)
+    before = (flash_attn_kernel.launches, flash_attn_bwd_kernel.launches)
+    rec = dryrun.run_cell("stablelm-1.6b", "train_4k", device="cuda",
+                          repeats=1, verbose=False)
+    assert rec["on_card"] and rec["step_s"] > 0
+    assert rec["memory"]["peak_gib_per_device"] > 0
+    n_l = smoke("stablelm-1.6b").n_layers
+    # per microbatch and layer: forward and recompute, then one backward
+    assert flash_attn_kernel.launches - before[0] == 2 * 2 * n_l
+    assert flash_attn_bwd_kernel.launches - before[1] == 2 * n_l
+
+
+def test_run_cell_builds_through_seg_interact_and_embed_bag(monkeypatch):
+    """``run_cell`` of SEINE's ``index_build`` cell at 64 docs on the
+    card: one ``seg_interact`` launch, and ``embed_bag``'s segment entry
+    twice (the contextual mix, ``log_cond_prob``) a step."""
+    _require_cuda()
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    monkeypatch.setattr(S, "SEINE_BUILD_DOCS", 64)
+    before = (seg_interact_kernel.launches, embed_bag_kernel.launches)
+    rec = dryrun.run_cell("seine", "index_build", device="cuda", repeats=2,
+                          verbose=False)
+    assert rec["on_card"] and rec["meta"]["docs_per_step"] == 64
+    assert (seg_interact_kernel.launches - before[0],
+            embed_bag_kernel.launches - before[1]) == (2, 4)

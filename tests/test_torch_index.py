@@ -23,6 +23,7 @@ from repro_torch.models.embedding_bag import MultiTable
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import SeineEngine, ServingFrontend
 from torch_helpers import export, jax_layout
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEGMENT_ARRAYS = ("term_offsets", "doc_ids", "values", "fences", "idf",

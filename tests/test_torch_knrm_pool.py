@@ -13,6 +13,7 @@ from repro.retrievers.knrm import kernel_features as jax_features
 from repro_torch.kernels.knrm_pool import (MUS, SIGMAS, kernel_features,
                                            knrm_pool, knrm_pool_kernel,
                                            knrm_pool_ref)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -41,6 +41,7 @@ from repro_torch.data.synth_corpus import generate
 from repro_torch.dist.live import LiveIndex, found_counts, live_index
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import SeineEngine, ServingFrontend, make_qmeta
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 QUERY = (3, 0, -1, 7, 99, 5)    # dup term, pad slot, out-of-vocab id

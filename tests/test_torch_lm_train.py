@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attn import (flash_attn_bwd_kernel,
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as T
 from repro_torch.train import value_and_grad
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 

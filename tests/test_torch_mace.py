@@ -36,6 +36,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import mace as MA
 from repro_torch.train import (adam, apply_updates, clip_by_global_norm,
                                value_and_grad)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 EQUI = 1e-4

@@ -23,6 +23,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import smoke
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import transformer as T
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

@@ -17,6 +17,7 @@ from repro_torch.dist.sharding import partition_index
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import (SeineEngine, ServingFrontend,
                                  serve_batches, serve_retrieval)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 
 def _record(mod):

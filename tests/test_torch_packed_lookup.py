@@ -31,6 +31,7 @@ from repro_torch.kernels.csr_lookup.ref import _lane_scale, _route
 from repro_torch.kernels.utils import SOURCES
 from torch_codec_rows import adversarial_index, adversarial_queries
 from torch_helpers import export, t
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 CODECS = ("packed", "packed-q8")
 TILES = (8, 64, 256)

@@ -28,6 +28,7 @@ from repro_torch.dist.sharding import (partition_index, plan_posting_ranges,
                                        plan_term_ranges)
 from repro_torch.serving import SeineEngine
 from torch_helpers import adversarial, assert_same_partition
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 K_PLAN = (1, 2, 3, 4, 8)
 K_PART = (1, 2, 3, 4)

@@ -38,6 +38,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import recsys as R
 from repro_torch.train import (adam, apply_updates, clip_by_global_norm,
                                value_and_grad)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 ARCHS = ("autoint", "dlrm-mlperf", "sasrec", "bert4rec")
 FWD = dict(rtol=1e-5, atol=1e-6)

@@ -15,6 +15,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data.synth_corpus import ZIPF_FUNCTIONS
 from repro_torch.retrievers import (QMeta, all_retrievers, get_retriever,
                                     hinge_pair_loss)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 B, Q, N_B = 48, 6, 7

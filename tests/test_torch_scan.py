@@ -50,6 +50,7 @@ from repro_torch.kernels.csr_lookup import (lane_bounds_kernel,
                                             retrieve_windows_packed_kernel)
 from repro_torch.serving import SeineEngine, make_qmeta
 from torch_codec_rows import adversarial_index, adversarial_queries
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 CODECS = ("none", "packed", "packed-q8")
 # a -1 slot and a past-vocab term: lanes that own nothing

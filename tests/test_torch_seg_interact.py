@@ -36,6 +36,7 @@ from repro_torch.kernels.seg_interact.kernel import (N_CLASSES, SLICE,
                                                      fold_events,
                                                      live_windows, n_chunks,
                                                      term_tile_for)
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 UNIT_TOL = dict(rtol=1e-3, atol=1e-4)

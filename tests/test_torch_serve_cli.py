@@ -19,6 +19,7 @@ from repro.launch import serve as jax_serve
 from repro_torch import obs
 from repro_torch.launch import serve
 from torch_helpers import fresh_registry
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 LIVE = ["--partition", "term", "--live", "--live-compact", "--target-qps",
         "200", "--coalesce", "--n-queries", "16", "--candidates", "50"]

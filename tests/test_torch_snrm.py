@@ -20,6 +20,7 @@ from repro.train import apply_updates as jax_apply
 from repro_torch.convert import snrm_params_from_numpy
 from repro_torch.core import snrm as S
 from repro_torch.train import adam, apply_updates, value_and_grad
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 

@@ -9,6 +9,7 @@ from hypothesis import strategies as st
 
 from repro.data.tokenizer import HashTokenizer as JaxTokenizer
 from repro_torch.data.tokenizer import HashTokenizer
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 CASES = ("Neural Information Retrieval with segments!", "Apple", "apple",
          "extraordinarily", "the quick brown fox jumps over a lazy dog " * 10,

@@ -43,6 +43,7 @@ from repro_torch.retrievers import all_retrievers, get_retriever
 from repro_torch import train
 from repro_torch.train import loop as torch_loop
 from torch_helpers import export, fresh_registry
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 OPT_TOL = dict(rtol=1e-6, atol=1e-7)
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)

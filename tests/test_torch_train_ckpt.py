@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.dist.compression import init_error_feedback
 from repro_torch.dist.fault import PreemptionGuard
 from repro_torch import train
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 FUNCTIONS = ("tf", "idf_indicator", "dot", "cosine", "gauss_max",
              "linear_agg", "max_op", "mlp_emb", "log_cond_prob")

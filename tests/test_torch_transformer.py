@@ -44,6 +44,7 @@ from repro_torch.data.synth_corpus import generate
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as T
 from repro_torch.serving import NoIndexEngine
+import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(rtol=1e-4, atol=1e-5)

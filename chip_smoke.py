@@ -291,6 +291,21 @@ launches CUPTI recorded over the replay ("k of n").
    ``flash_attn_bwd``, ``seg_interact``, ``embed_bag``, ``csr_lookup``
    and ``knrm_pool`` must each have launched, and their rows in the
    ``kernels`` line gain ``launches_by_path["launch"]``.
+15. The serving half of the mesh paths on a 1 x 1 mesh over NCCL
+   (``launch.mesh.make_host_mesh``): phase 1's index (kept on the host
+   since phase 4) served through ``SeineEngine(mesh=)`` as a single CSR
+   (``shard_index``), as its K = 4 partition and with
+   ``partition="term"`` and the shard count left to the mesh; each
+   answers phase 3's 16 requests bitwise as phase 3's mesh-less engine
+   did, with ``csr_lookup``, ``knrm_pool`` and the collectives'
+   counts at 0 just before and read just after (NCCL's kernels as the
+   profiler records them), and the meshed and mesh-less p50 per request
+   beside the card's name and power limit; ``build_partitioned(mesh=)``
+   over the first MESH_BUILD_DOCS docs of phase 5's corpus, bitwise the
+   mesh-less build; ``sp_decode_attention(mesh, "model")`` at phase
+   10's decode-cache shape against the mesh-less merge (rtol 1e-5 /
+   atol 1e-5); ``restore_checkpoint(shardings=)`` of phase 9's last
+   KNRM checkpoint, every leaf bitwise the saved one.
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -351,7 +366,15 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
 from repro_torch.launch import report as launch_report  # noqa: E402
 from repro_torch.launch import steps as launch_steps  # noqa: E402
-from repro_torch.dist.sharding import partition_index  # noqa: E402
+from repro_torch.ckpt import restore_checkpoint  # noqa: E402
+from repro_torch.convert import index_to_device  # noqa: E402
+from repro_torch.dist.collective import (  # noqa: E402
+    all_gather_stack, all_reduce_sum)
+from repro_torch.dist.sharding import (  # noqa: E402
+    P, partition_index, tree_shardings)
+from repro_torch.dist.sp_decode import sp_decode_attention  # noqa: E402
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     release_world)
 from repro_torch.dist.sp_decode import (  # noqa: E402
     combine_decode_stats, local_decode_stats)
 from repro_torch.kernels.csr_lookup import (  # noqa: E402
@@ -1090,6 +1113,7 @@ def phase3(index, packed, rng, dev, seed):
                                                 requests, queries)
         results[codec] = (s, h)
     check_packed_paths(index, packed, requests, queries, results, dev)
+    phase3.scores = scores          # phase 15 serves them again, meshed
     # host times spread between paths run one after another: a second
     # round in the reverse order, with the raw K=4 partition beside them
     # (the same shards as the packed paths, codec "none")
@@ -3351,6 +3375,10 @@ def phase9(ctx, seed: int, dev):
         f"step loop's thread); peak device memory "
         f"{'not measured' if peak is None else f'{peak:.2f} GB'}; wall "
         f"{time.perf_counter() - t_phase:.1f}s")
+    # phase 15 restores the last KNRM checkpoint onto a mesh
+    keep = os.path.join(MESH_DIR, "knrm", f"ckpt_{steps_kept[-1]:010d}")
+    shutil.rmtree(os.path.dirname(keep), ignore_errors=True)
+    shutil.copytree(os.path.join(ckpt_dir, os.path.basename(keep)), keep)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return dict(launches=launched, per_step=per_step, p50_ms=p50,
                 p95_ms=p95, ms_per_pair=sec.mean() / TRAIN_BATCH,
@@ -5438,6 +5466,232 @@ def phase14(seed, dev):
                 attn_err=attn_err)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving half of the mesh paths on a 1 x 1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_BUILD_DOCS = 2_048     # phase 5's first docs, built with and without
+MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
+MESH_COUNTERS = {"all_reduce": all_reduce_sum,
+                 "all_gather": all_gather_stack}
+
+
+def mesh_counts():
+    return dict(launch_counts(), **{n: fn.launches
+                                    for n, fn in MESH_COUNTERS.items()})
+
+
+def zero_counts():
+    for fn in list(COUNTERS.values()) + list(MESH_COUNTERS.values()):
+        fn.launches = 0
+
+
+def nccl_kernels(run) -> dict:
+    """Device ms of each NCCL entry the profiler records while ``run``
+    runs (0 where it records no device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+            if "nccl" in e.key.lower()}
+
+
+def mesh_serving(ctx, seed, dev, mesh, card):
+    """Phase 1's index served on the mesh three ways, each bitwise phase
+    3's mesh-less scores; the meshed and mesh-less p50 per request."""
+    spec = get_retriever("knrm")
+    params = spec.init(torch.Generator().manual_seed(seed), N_B,
+                       ctx["index"].functions, device=dev)
+    requests, want = ctx["requests"], ctx["scores"]
+    out = {}
+    for path, index, kw in (
+            ("single CSR", ctx["index"], {}),
+            (f"K={K_SHARDS}", ctx["pidx"], {}),
+            ("term, K from the mesh", ctx["index"],
+             dict(partition="term"))):
+        t0 = time.perf_counter()
+        engine = SeineEngine(index, "knrm", params, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        serve_batches(engine, requests[:1])         # warm-up
+        zero_counts()
+        scores, stats = serve_batches(engine, requests)
+        launched = mesh_counts()
+        for i, (got, w) in enumerate(zip(scores, want)):
+            if not np.array_equal(got, w):
+                raise AssertionError(
+                    f"phase 15 [{path}]: request {i}'s meshed scores differ "
+                    f"from phase 3's (max |diff| "
+                    f"{np.abs(got - w).max():.3g})")
+        for name in ("csr_lookup", "knrm_pool", "all_reduce", "all_gather"):
+            if launched[name] < N_REQUESTS:
+                raise AssertionError(f"phase 15 [{path}]: {name} launched "
+                                     f"{launched[name]} times for "
+                                     f"{N_REQUESTS} requests")
+        # the same device arrays served mesh-less: the placement holds all
+        # of them on a 1 x 1 mesh
+        meshless = SeineEngine(dataclasses.replace(engine.index,
+                                                   placement=None),
+                               "knrm", params)
+        serve_batches(meshless, requests[:1])
+        plain, pstats = serve_batches(meshless, requests)
+        if not all(np.array_equal(a, b) for a, b in zip(plain, want)):
+            raise AssertionError(f"phase 15 [{path}]: mesh-less scores "
+                                 "differ from phase 3's")
+        pl = engine.index.placement
+        k = getattr(engine.index, "n_shards", 1)
+        log(f"phase 15 [{path}]: placed K={k} rows/shards [{pl.lo}, "
+            f"{pl.hi}) over {pl.axes} in "
+            f"{place_s:.2f}s; {N_REQUESTS} requests == phase 3's mesh-less "
+            f"scores bitwise; launches {launched}")
+        log(f"phase 15 [{path}] ({card}): p50 per request meshed "
+            f"{stats.p50_ms:.3f} ms (p95 {stats.p95_ms:.3f}), mesh-less "
+            f"{pstats.p50_ms:.3f} ms (p95 {pstats.p95_ms:.3f})")
+        out[path] = dict(launches=launched, p50_ms=stats.p50_ms,
+                         meshless_p50_ms=pstats.p50_ms)
+        del meshless
+        if path != "term, K from the mesh":
+            del engine
+            torch.cuda.empty_cache()
+    # last, as a capture leaves the host slower for the timings after it
+    # (scripts/mesh_serving_ab.py)
+    nccl = nccl_kernels(lambda: serve_batches(engine, requests[:2]))
+    log(f"phase 15: NCCL entries the profiler recorded over 2 meshed "
+        f"requests (device ms): {nccl or 'none'}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_build(corpus, seed, dev, mesh):
+    """build_partitioned(mesh=) over phase 5's first MESH_BUILD_DOCS docs,
+    bitwise the mesh-less build of the same docs."""
+    cfg, _, vocab, toks, segs, _ = corpus
+    n = min(MESH_BUILD_DOCS, toks.shape[0])
+    provider = HashProvider(vocab.size, cfg.embed_dim,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=dev)
+    ip = init_interaction_params(torch.Generator().manual_seed(seed + 1),
+                                 cfg.embed_dim, device=dev)
+    builder = IndexBuilder(cfg, vocab, provider, ip=ip, device=dev)
+    kw = dict(batch_size=BUILD_BATCH, max_uniq=BUILD_MAX_UNIQ)
+    t0 = time.perf_counter()
+    plain = builder.build_partitioned(toks[:n], segs[:n], BUILD_K, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    zero_counts()
+    placed = builder.build_partitioned(toks[:n], segs[:n], BUILD_K,
+                                       mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launched = mesh_counts()
+    for name in ("seg_interact", "embed_bag"):
+        if launched[name] <= 0:
+            raise AssertionError(f"phase 15: the meshed build launched no "
+                                 f"{name}")
+    for name in ("term_offsets", "doc_ids", "values", "fences",
+                 "term_to_shard", "range_lo", "range_hi", "split_term",
+                 "split_doc", "idf", "doc_len", "seg_len"):
+        a, b = getattr(placed, name), getattr(plain, name)
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"phase 15: the meshed build's {name} "
+                                 "differs from the mesh-less build's")
+    log(f"phase 15: build_partitioned(mesh=) K={placed.n_shards} over "
+        f"{n} docs of phase 5's corpus in {t2 - t1:.2f}s (mesh-less "
+        f"{t1 - t0:.2f}s), every array bitwise the mesh-less build's; "
+        f"launches {launched}")
+    return dict(docs=n, launches=launched)
+
+
+def mesh_decode(seed, dev, mesh):
+    """sp_decode_attention at phase 10's decode-cache shape against the
+    mesh-less merge of the whole cache."""
+    lm = moe_config()
+    n_b, n_s = DECODE_PROMPTS, DECODE_PROMPT_LEN + DECODE_STEPS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype = getattr(torch, lm.dtype)          # the cache's, bf16 at width
+    k, v = (torch.randn(n_b, n_s, lm.n_kv_heads, lm.head_dim, generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    q = torch.randn(n_b, lm.n_heads, lm.head_dim, generator=g,
+                    device=dev).to(dtype)
+    lengths = (n_s - torch.arange(n_b, device=dev) * (n_s // n_b)).to(
+        torch.int32)
+    zero_counts()
+    got = sp_decode_attention(mesh, "model")(q, k, v, lengths)
+    torch.cuda.synchronize()
+    gathers = all_gather_stack.launches
+    valid = torch.arange(n_s, device=dev)[None] < lengths[:, None]
+    want = combine_decode_stats(*(x[None] for x in local_decode_stats(
+        q, k, v, valid)))
+    torch.testing.assert_close(got, want, **MERGE_TOL)
+    err = (got - want).abs().max().item()
+    if gathers != 1:
+        raise AssertionError(f"phase 15: sp_decode_attention ran {gathers} "
+                             "all_gathers, not one")
+    log(f"phase 15: sp_decode_attention(mesh, 'model') over the cache "
+        f"{tuple(k.shape)} {k.dtype}, q {tuple(q.shape)}, lengths "
+        f"{lengths.tolist()}: one all_gather, max |diff| {err:.3g} against "
+        f"the mesh-less merge (bar rtol 1e-5 / atol 1e-5)")
+    return err
+
+
+def mesh_restore(dev, mesh):
+    """Phase 9's last KNRM checkpoint restored onto the mesh, every leaf
+    (a DTensor) bitwise the saved one."""
+    ckpt_dir = os.path.join(MESH_DIR, "knrm")
+    step = latest_step(ckpt_dir)
+    with open(os.path.join(ckpt_dir, f"ckpt_{step:010d}",
+                           "manifest.json")) as f:
+        names = json.load(f)["names"]
+    with np.load(os.path.join(ckpt_dir, f"ckpt_{step:010d}",
+                              "arrays.npz")) as z:
+        saved = {n: z[n] for n in names if n.startswith("params/")}
+    target = {}
+    for name, a in saved.items():         # the saved tree's structure
+        node = target
+        *path, leaf = name.split("/")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = torch.zeros(a.shape, device=dev)
+    sh = tree_shardings(mesh, target, [(r".*", P("data"))])
+    tree, manifest = restore_checkpoint(ckpt_dir, target, shardings=sh)
+    n = 0
+    for name, leaf in flatten_with_paths(tree):
+        full = leaf.full_tensor().cpu().numpy()
+        if not np.array_equal(full, saved[name]):
+            raise AssertionError(f"phase 15: restored {name} differs from "
+                                 "the saved leaf")
+        n += 1
+    if n != len(saved):
+        raise AssertionError(f"phase 15: restored {n} of {len(saved)} "
+                             "leaves")
+    log(f"phase 15: restore_checkpoint(shardings=) of phase 9's step "
+        f"{manifest['step']}: {n} leaves as DTensors on the mesh, each "
+        f"bitwise the saved leaf")
+    return n
+
+
+def phase15(ctx, seed, dev, corpus, card=""):
+    """The serving half of the mesh paths on a 1 x 1 mesh (module doc)."""
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=dev)
+    try:
+        log(f"phase 15: {mesh} over {torch.distributed.get_backend()}")
+        out = dict(serving=mesh_serving(ctx, seed, dev, mesh, card))
+        out["build"] = mesh_build(corpus, seed, dev, mesh)
+        out["decode_err"] = mesh_decode(seed, dev, mesh)
+        out["restored"] = mesh_restore(dev, mesh)
+    finally:
+        release_world()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log(f"phase 15: wall {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5470,6 +5724,13 @@ def main() -> int:
     phase2_packed(index, packed, p2)
     requests, queries, launches = phase3(index, packed, rng, dev, args.seed)
     kernels = phase4(index, packed, requests, queries, launches, p2, dev)
+    # phase 15 serves phase 1's index again, from host copies
+    t0 = time.perf_counter()
+    mesh_ctx = dict(index=index_to_device(index, "cpu"),
+                    pidx=index_to_device(packed["none"], "cpu"),
+                    requests=requests, scores=phase3.scores)
+    log(f"phase 4: phase 1's index and its K={K_SHARDS} partition copied to "
+        f"the host for phase 15 in {time.perf_counter() - t0:.2f}s")
     del index, packed, p2
     torch.cuda.empty_cache()
     corpus = build_corpus(args.seed)
@@ -5509,6 +5770,17 @@ def main() -> int:
         if row["name"] in LAUNCH_KERNELS:
             row.setdefault("launches_by_path", {})["launch"] = \
                 launch["launches"][row["name"]]
+    torch.cuda.empty_cache()
+    meshed = phase15(mesh_ctx, args.seed, dev, corpus, card)
+    del mesh_ctx
+    for row in kernels:
+        for path, run in meshed["serving"].items():
+            if row["name"] in ("csr_lookup", "knrm_pool"):
+                row.setdefault("launches_by_path", {})[f"mesh {path}"] = \
+                    run["launches"][row["name"]]
+        if row["name"] in ("seg_interact", "embed_bag"):
+            row.setdefault("launches_by_path", {})["mesh build"] = \
+                meshed["build"]["launches"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

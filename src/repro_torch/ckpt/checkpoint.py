@@ -53,7 +53,7 @@ _ASYNC_ERRORS: List[BaseException] = []
 _LOCK = threading.Lock()
 _SEQ = itertools.count()
 _IN_FLIGHT: Set[str] = set()        # this process's unpublished tmp dirs
-_PUBLISH = threading.Lock()         # one checkpoint publish at a time
+_PUBLISH = threading.Lock()         # one ckpt or index publish at a time
 _log = obs.get_logger("repro.ckpt")
 
 
@@ -113,10 +113,27 @@ def save_index(index_dir: str, index: Any, *,
     the caller's thread; ``async_write=True`` moves the file I/O and the
     publish to a background thread, whose failure is counted on
     ``seine_ckpt_write_errors_total`` and raised by :func:`wait_async`.
-    Returns ``index_dir``."""
+    Returns ``index_dir``.
+
+    An index placed on a mesh is saved by every rank of it together:
+    its rows or shards are gathered, and once every rank has reached a
+    barrier rank 0 writes the same files as the mesh-less save would
+    (synchronously, whatever ``async_write`` says); a second barrier
+    returns when the index is published."""
     from ..core.index import SegmentInvertedIndex
     from ..dist.partition import PartitionedIndex, _host
 
+    if getattr(index, "placement", None) is not None:
+        import torch.distributed as dist
+
+        from ..dist.collective import barrier
+        from ..dist.sharding import gather_index
+        whole = gather_index(index)
+        barrier()
+        if dist.get_rank() == 0:
+            save_index(index_dir, whole)
+        barrier()
+        return index_dir
     os.makedirs(os.path.dirname(index_dir) or ".", exist_ok=True)
     if isinstance(index, PartitionedIndex):
         kind, n_shards = "partitioned", index.n_shards
@@ -167,23 +184,11 @@ def save_index(index_dir: str, index: Any, *,
                 np.savez(os.path.join(tmp, "common.npz"), **common)
                 with open(os.path.join(tmp, INDEX_MANIFEST), "w") as f:
                     json.dump(manifest, f)
-                if os.path.exists(index_dir):
-                    # move the live index aside before publishing, so a
-                    # writer stopped between the two replaces leaves it
-                    # recoverable at <dir>.old*
-                    old = _unique_sibling(index_dir, "old")
-                    os.replace(index_dir, old)
-                    os.replace(tmp, index_dir)
-                    with _LOCK:
-                        _IN_FLIGHT.discard(tmp)
-                        keep = set(_IN_FLIGHT)
-                    for stale in (glob.glob(index_dir.rstrip("/") + ".old*")
-                                  + glob.glob(index_dir.rstrip("/")
-                                              + ".tmp*")):
-                        if stale not in keep:
-                            shutil.rmtree(stale, ignore_errors=True)
-                else:
-                    os.replace(tmp, index_dir)      # atomic publish
+                # one publish at a time: the existence check, both
+                # replaces and the sweep, so two writers never move each
+                # other's directory away between the check and a replace
+                with _PUBLISH:
+                    _publish_index(tmp, index_dir)
             obs.counter("seine_index_saves_total",
                         "index dir publishes").inc()
         except BaseException as e:
@@ -200,6 +205,29 @@ def save_index(index_dir: str, index: Any, *,
     else:
         write()
     return index_dir
+
+
+def _publish_index(tmp: str, index_dir: str) -> None:
+    """``tmp`` becomes ``index_dir`` (the caller holds ``_PUBLISH``)."""
+    if not os.path.exists(index_dir):
+        os.replace(tmp, index_dir)                  # atomic publish
+        return
+    # move the live index aside before publishing, so a writer stopped
+    # between the two replaces leaves it recoverable at <dir>.old*
+    old = _unique_sibling(index_dir, "old")
+    os.replace(index_dir, old)
+    os.replace(tmp, index_dir)
+    # list the siblings before reading which writes are in flight: a
+    # write's name joins _IN_FLIGHT before its directory exists, so every
+    # unpublished directory listed here is in the set read after it
+    siblings = (glob.glob(index_dir.rstrip("/") + ".old*")
+                + glob.glob(index_dir.rstrip("/") + ".tmp*"))
+    with _LOCK:
+        _IN_FLIGHT.discard(tmp)
+        keep = set(_IN_FLIGHT)
+    for stale in siblings:
+        if stale not in keep:
+            shutil.rmtree(stale, ignore_errors=True)
 
 
 def load_index_shard(index_dir: str, k: int) -> Dict[str, np.ndarray]:
@@ -357,21 +385,23 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *,
     ``repro_torch.tree.assign``) and each leaf a tensor of the target
     leaf's dtype on its device.  A leaf missing from the checkpoint
     raises ``KeyError``, a shape that differs ``ValueError``.
-    ``shardings=`` (reshard-on-load onto a mesh) is not ported and
-    raises ``NotImplementedError``, as ``mesh=`` does."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...) places arrays on a mesh, "
-            "which is not ported yet")
+
+    ``shardings``: a tree of ``dist.sharding.NamedSharding`` matching
+    ``target`` (e.g. ``tree_shardings``' result), on a mesh of any shape
+    (reshard-on-load).  Every leaf then comes back as a DTensor on that
+    mesh, of the stored dtype, built from this rank's slice of the
+    stored array (no collective): its ``full_tensor()`` is the saved
+    leaf, bitwise, on every rank."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = _step_dir(ckpt_dir, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    shard_flat = None if shardings is None else T.leaves(shardings)
     leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for name, leaf in T.flatten_with_paths(target):
+        for i, (name, leaf) in enumerate(T.flatten_with_paths(target)):
             if name not in data:
                 raise KeyError(f"checkpoint missing leaf {name}")
             arr = data[name]
@@ -381,7 +411,21 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *,
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{arr.shape} vs {want}")
             t = _from_numpy(arr)
-            if isinstance(leaf, torch.Tensor):
+            if shard_flat is not None:
+                t = _place_leaf(t, shard_flat[i])
+            elif isinstance(leaf, torch.Tensor):
                 t = t.to(device=leaf.device, dtype=leaf.dtype)
             leaves.append(t)
     return T.unflatten(target, leaves), manifest
+
+
+def _place_leaf(t: torch.Tensor, sharding) -> torch.Tensor:
+    """A DTensor of the whole ``t`` laid out by ``sharding`` (a
+    ``dist.sharding.NamedSharding``), from this rank's slice."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.mesh import mesh_device
+    local = sharding.local_slice(t).to(mesh_device(sharding.mesh))
+    return DTensor.from_local(local.contiguous(), sharding.mesh,
+                              sharding.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())

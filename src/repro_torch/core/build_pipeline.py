@@ -442,12 +442,12 @@ class BuildPipeline:
                           codec_tile: Optional[int] = None):
         """Shard-native build: runs -> K term-range shards directly,
         packed at merge time under ``codec``.  Returns
-        ``(PartitionedIndex, BuildStats)``.  A ``mesh`` is not ported yet
-        and raises."""
+        ``(PartitionedIndex, BuildStats)``.  With ``mesh`` every rank
+        runs this same deterministic build and keeps its own shards
+        (``dist.sharding.shard_partitioned_index``); a codec then
+        raises ``ValueError``."""
         from ..dist.partition import partitioned_from_runs
 
-        if mesh is not None:
-            raise NotImplementedError("mesh placement is not ported yet")
         spiller, stats = self.stream_runs(
             tokens, seg_ids, batch_size=batch_size, max_uniq=max_uniq,
             spill_dir=spill_dir, verbose=verbose)
@@ -461,7 +461,7 @@ class BuildPipeline:
                 spiller.runs, k, idf=self.vocab.idf, doc_len=doc_len,
                 seg_len=seg_len, n_docs=tokens.shape[0],
                 vocab_size=self.vocab.size, n_b=self.cfg.n_segments,
-                functions=self.functions, codec=codec,
+                functions=self.functions, mesh=mesh, codec=codec,
                 codec_tile=codec_tile, device=self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize()

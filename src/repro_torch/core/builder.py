@@ -1,6 +1,6 @@
 """The offline SEINE indexer: corpus -> segment inverted index (port of
-``repro.core.builder``, without a mesh; it logs to ``repro.core.build``
-as the reference does).
+``repro.core.builder``; it logs to ``repro.core.build`` as the
+reference does).
 
 ``IndexBuilder.build`` and ``.build_partitioned`` are thin wrappers over
 the staged streaming pipeline (``core.build_pipeline.BuildPipeline``):
@@ -125,7 +125,8 @@ class IndexBuilder:
                           codec_tile: Optional[int] = None):
         """K term-range shards straight from the streamed runs (the
         global CSR is never materialised), packed at merge time under
-        ``codec``.  Returns a PartitionedIndex.  ``mesh`` raises."""
+        ``codec``.  Returns a PartitionedIndex, placed on ``mesh`` when
+        one is given (every rank builds, each keeps its own shards)."""
         pidx, stats = self.pipeline.build_partitioned(
             tokens, seg_ids, k, batch_size=batch_size, max_uniq=max_uniq,
             spill_dir=spill_dir, verbose=verbose, mesh=mesh, codec=codec,

@@ -15,7 +15,7 @@ wraps negative ids and raises past the end.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +101,9 @@ class SegmentInvertedIndex:
     # (ceil(nnz/POSTING_TILE),) int32 — every POSTING_TILE-th doc id, the
     # first level of the tiled serving bisect
     fences: Optional[torch.Tensor] = None
+    # placed on a mesh (dist.sharding.shard_index): ``values`` holds the
+    # posting rows [placement.lo, placement.hi) only; None: the whole
+    placement: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -112,6 +115,14 @@ class SegmentInvertedIndex:
 
     @property
     def nbytes(self) -> int:
+        """The whole index's bytes (every rank's rows, when placed)."""
+        if self.placement is not None:
+            return self.placement.nbytes
+        return self.placed_per_device_nbytes
+
+    @property
+    def placed_per_device_nbytes(self) -> int:
+        """The bytes of the arrays this rank holds."""
         return sum(a.numel() * a.element_size()
                    for a in (self.term_offsets, self.doc_ids, self.values,
                              self.idf, self.doc_len, self.seg_len,
@@ -140,10 +151,16 @@ class SegmentInvertedIndex:
     def lookup_pairs(self, term_ids: torch.Tensor, doc_ids: torch.Tensor
                      ) -> torch.Tensor:
         """(..., Q) term ids x (...,) doc ids -> (..., Q, n_b, n_f).
-        Missing pairs -> zeros."""
+        Missing pairs -> zeros.  Placed: each rank reads the rows it
+        holds and the parts merge over the mesh."""
         pos, found = self.lookup_positions(term_ids, doc_ids)
-        vals = gather_clip(self.values, pos)
-        return vals * found[..., None, None]
+        pl = self.placement
+        if pl is None:
+            vals = gather_clip(self.values, pos)
+            return vals * found[..., None, None]
+        found = found & (pos >= pl.lo) & (pos < pl.hi)
+        vals = gather_clip(self.values, pos - pl.lo)
+        return pl.merge(vals * found[..., None, None])
 
     def lookup_pair_rows(self, terms: torch.Tensor, docs: torch.Tensor
                          ) -> torch.Tensor:
@@ -167,9 +184,20 @@ class SegmentInvertedIndex:
         ref on either device; ``"kernel"`` forces the kernel's dataflow,
         which on the CPU runs the kernel's plain per-cell version (the
         parity tests).  ``tile`` overrides the kernel's posting-tile
-        width.
+        width.  Placed on a mesh, each rank looks its rows up through the
+        kernel's dataflow (``csr_lookup_held``) and the parts merge by
+        ``all_reduce`` over ``model``; ``impl`` must then be None.
         """
-        from ..kernels.csr_lookup import csr_lookup
+        from ..kernels.csr_lookup import csr_lookup, csr_lookup_held
+        pl = self.placement
+        if pl is not None:
+            if impl is not None:
+                raise ValueError("a placed index looks up through the "
+                                 "kernel's dataflow only; pass impl=None")
+            return pl.merge(csr_lookup_held(
+                self.term_offsets[None], self.doc_ids[None],
+                self.values[None], None, None, query_terms, doc_ids,
+                rows=(pl.lo, pl.hi), fences=pl.fences[None], tile=tile))
         return csr_lookup(
             self.term_offsets[None], self.doc_ids[None], self.values[None],
             None, None, query_terms, doc_ids,

@@ -1,6 +1,6 @@
 """Term-range partitioned SEINE index, and the merger that builds it.
 
-Port of ``repro.dist.partition``, without a mesh.
+Port of ``repro.dist.partition``.
 K contiguous term-range shards, each with its own local ``term_offsets``
 / ``doc_ids`` / ``values``, padded to common widths and stacked on a
 leading K axis; two small tables route a global term to its shard:
@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,9 @@ class PartitionedIndex:
     tile_word_off: Optional[torch.Tensor] = None  # (K, F+1) int32
     values_q: Optional[torch.Tensor] = None       # (K, Nmax, n_b, n_f) int8
     value_scale: Optional[torch.Tensor] = None    # (K, Vmax) f32
+    # placed on a mesh (dist.sharding.shard_partitioned_index): the
+    # stacked arrays hold the shards [placement.lo, placement.hi) only
+    placement: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -100,7 +103,9 @@ class PartitionedIndex:
 
     @property
     def nnz(self) -> int:
-        """True stored pairs (padding excluded)."""
+        """True stored pairs (padding excluded; every rank's, placed)."""
+        if self.placement is not None:
+            return self.placement.nnz
         return int(self.term_offsets[:, -1].sum())
 
     @property
@@ -132,13 +137,33 @@ class PartitionedIndex:
 
     @property
     def nbytes(self) -> int:
-        """Total bytes across all shards (padding included)."""
+        """Total bytes across all shards (padding included; every rank's,
+        placed)."""
+        if self.placement is not None:
+            return self.placement.nbytes
+        return self.placed_per_device_nbytes
+
+    @property
+    def placed_per_device_nbytes(self) -> int:
+        """The bytes of the arrays this rank holds (all of them unless
+        the index is placed on a mesh whose model axis splits K)."""
         return self.posting_nbytes + sum(
             a.numel() * a.element_size()
             for a in (self.term_offsets, self.fences, self.term_to_shard,
                       self.range_lo, self.range_hi, self.split_term,
                       self.split_doc, self.idf, self.doc_len, self.seg_len)
             if a is not None)
+
+    def _held(self):
+        """The global shards ``(s0, s1)`` in the stacked arrays when the
+        index is placed, else None."""
+        pl = self.placement
+        return None if pl is None else (pl.lo, pl.hi)
+
+    def _meshless(self, what: str) -> None:
+        if self.placement is not None:
+            raise ValueError(f"{what} is mesh-less only; serve a mesh-less "
+                             "index for it")
 
     @property
     def avg_doc_len(self) -> torch.Tensor:
@@ -176,7 +201,16 @@ class PartitionedIndex:
                      *, alive=None) -> torch.Tensor:
         """(..., Q) term ids x (...,) doc ids -> (..., Q, n_b, n_f): one
         routed bisect per (term, doc) pair against its owning shard,
-        zeros for absent pairs, non-owned terms and dead docs."""
+        zeros for absent pairs, non-owned terms and dead docs.  Placed,
+        each rank resolves the pairs of its shards and the partial M
+        merge by ``all_reduce`` over ``model``."""
+        if self.placement is not None:
+            from ..kernels.csr_lookup import lookup_pairs_ref
+            return self.placement.merge(lookup_pairs_ref(
+                self.term_offsets, self.doc_ids, self.values,
+                self.term_to_shard, self.range_lo, term_ids, doc_ids,
+                self.split_term, self.split_doc, alive=alive,
+                held=self._held()))
         if self.codec != "none":
             from ..kernels.csr_lookup import lookup_pairs_packed_ref
             return lookup_pairs_packed_ref(
@@ -197,6 +231,7 @@ class PartitionedIndex:
         through ``kernels.csr_lookup.csr_lookup_pairs`` (the lookup
         kernel on CUDA, routed per pair)."""
         from ..kernels.csr_lookup import csr_lookup_pairs
+        self._meshless("lookup_pair_rows")
         return csr_lookup_pairs(
             self.term_offsets, self.doc_ids, self._serve_values,
             self.term_to_shard, self.range_lo, terms, docs,
@@ -209,8 +244,24 @@ class PartitionedIndex:
                   alive=None) -> torch.Tensor:
         """query_terms (Q,), doc_ids (B,) -> M_{q,d} (B, Q, n_b, n_f)
         through ``kernels.csr_lookup.csr_lookup`` (``impl`` and ``tile``
-        as there; a packed index takes only its codec tile)."""
-        from ..kernels.csr_lookup import csr_lookup
+        as there; a packed index takes only its codec tile).  Placed on
+        a mesh, each rank routes every cell, looks up those of its own
+        shards through the kernel's dataflow (``csr_lookup_held``: the
+        others get empty windows, hence exact zeros) and the partial M
+        merge by ``all_reduce`` over ``model``, bitwise the whole M;
+        ``impl`` and ``alive`` must then be None."""
+        from ..kernels.csr_lookup import csr_lookup, csr_lookup_held
+        if self.placement is not None:
+            if impl is not None or alive is not None:
+                raise ValueError("a placed index looks up through the "
+                                 "kernel's dataflow only, with no alive "
+                                 "mask; pass impl=None and alive=None")
+            return self.placement.merge(csr_lookup_held(
+                self.term_offsets, self.doc_ids, self.values,
+                self.term_to_shard, self.range_lo, query_terms, doc_ids,
+                held=self._held(), fences=self.fences,
+                split_term=self.split_term, split_doc=self.split_doc,
+                tile=tile))
         return csr_lookup(
             self.term_offsets, self.doc_ids, self._serve_values,
             self.term_to_shard, self.range_lo, query_terms, doc_ids,
@@ -230,6 +281,7 @@ class PartitionedIndex:
         ``kernels.csr_lookup.csr_retrieve_topk``: the live index scans
         its whole doc space and adds its delta's M through them."""
         from ..kernels.csr_lookup import csr_retrieve_topk
+        self._meshless("retrieve_topk")
         return csr_retrieve_topk(
             self.term_offsets, self.doc_ids, self._serve_values,
             self.term_to_shard, self.range_lo, self.range_hi, query_terms,
@@ -246,6 +298,7 @@ class PartitionedIndex:
         block function: one lane-bounds table for all the blocks on the
         kernel path)."""
         from ..kernels.csr_lookup.ops import _block_scanner
+        self._meshless("block_scanner")
         c = self._codec_kwargs()
         return _block_scanner(
             self.term_offsets, self.doc_ids, self._serve_values,
@@ -315,6 +368,7 @@ def pack_index(pidx: PartitionedIndex, codec: str,
     from ..core.index import POSTING_TILE, build_fences
 
     codec = validate_codec(codec)
+    pidx._meshless("pack_index")
     if pidx.codec != "none":
         raise ValueError(f"index is already packed ({pidx.codec!r}); "
                          "unpack_index first to re-encode")
@@ -379,16 +433,22 @@ def partitioned_from_runs(runs: Sequence, k: int, *, idf, doc_len,
     a shard's span pin at its nnz, doc ids pad with ``n_docs``, values
     with zeros.  ``k`` beyond the populated terms is clamped with a
     warning.  Under a codec the ids are packed at ``codec_tile`` (default
-    ``POSTING_TILE``) and the fences anchor at that tile.  A ``mesh``
-    is not ported yet and raises.
+    ``POSTING_TILE``) and the fences anchor at that tile.  With ``mesh``
+    the result is placed by ``dist.sharding.shard_partitioned_index``
+    (every rank merges the same runs and keeps its own shards); a codec
+    cannot be combined with a mesh.
     """
     from ..core.codec import validate_codec
     from ..core.index import POSTING_TILE, build_fences
-    from .sharding import plan_posting_ranges, plan_term_ranges
+    from .sharding import (plan_posting_ranges, plan_term_ranges,
+                           shard_partitioned_index)
 
     codec = validate_codec(codec)
-    if mesh is not None:
-        raise NotImplementedError("mesh placement is not ported yet")
+    if codec != "none" and mesh is not None:
+        raise ValueError(
+            "codec != 'none' cannot be combined with a mesh: packed "
+            "posting buffers have no partial-sum mesh lowering (pack "
+            "after gathering, or serve the mesh index uncompressed)")
     dev = resolve_device(device)
     counts = merged_term_counts(runs, vocab_size)
     n_pop = int(np.count_nonzero(counts))
@@ -534,7 +594,7 @@ def partitioned_from_runs(runs: Sequence, k: int, *, idf, doc_len,
     if codec != "none":
         over.update(_codec_arrays(codec, t, doc_ids, over["values"],
                                   offs_t))
-    return PartitionedIndex(
+    pidx = PartitionedIndex(
         term_to_shard=to_dev(term_to_shard),
         range_lo=to_dev(t_first.astype(np.int32)),
         idf=f32(idf), doc_len=f32(doc_len), seg_len=f32(seg_len),
@@ -544,3 +604,6 @@ def partitioned_from_runs(runs: Sequence, k: int, *, idf, doc_len,
         split_term=to_dev(split_term) if any_split else None,
         split_doc=to_dev(split_doc) if any_split else None,
         **over)
+    if mesh is not None:
+        pidx = shard_partitioned_index(pidx, mesh)
+    return pidx

@@ -10,14 +10,16 @@ single-token GQA query; the slices merge by the log-sum-exp identity
     acc* = sum_i acc_i * exp(m_i - m*)
     out  = acc* / l*
 
-which is the attention over the whole cache.  Both functions run on
-one device; the sharded step over a mesh (``sp_decode_attention``) is
-not ported yet.
+which is the attention over the whole cache.  The two merge functions
+run on one device; :func:`sp_decode_attention` is the step with the
+cache's sequence axis split over a mesh axis: each rank takes the stats
+of its slice, one ``all_gather`` of the (tiny) stats crosses the axis,
+and every rank merges them into the whole attention output.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -62,10 +64,50 @@ def combine_decode_stats(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
     return acc_glob / torch.clamp(l_glob, min=1e-30)[..., None]
 
 
-def sp_decode_attention(mesh, axis: str):
-    """The decode attention with the cache sharded over ``mesh``'s
-    ``axis``: not ported yet (the mesh paths, ROADMAP Queue 1 item 4)."""
-    raise NotImplementedError(
-        "sp_decode_attention needs a mesh; the mesh paths are not ported "
-        "yet (ROADMAP Queue 1 item 4). On one device, merge slices with "
-        "local_decode_stats and combine_decode_stats")
+def _slice(t, n: int, rank: int) -> torch.Tensor:
+    """This rank's part of the sequence axis (dim 1) of ``t``: a DTensor's
+    local part, or slice ``rank`` of a whole tensor cut in ``n``."""
+    if hasattr(t, "to_local"):
+        return t.to_local()
+    if t.shape[1] % n:
+        raise ValueError(f"the cache's {t.shape[1]} positions do not split "
+                         f"over {n} ranks")
+    s_loc = t.shape[1] // n
+    return t[:, rank * s_loc:(rank + 1) * s_loc]
+
+
+def sp_decode_attention(mesh, axis: str) -> Callable:
+    """The decode-attention step with the KV cache's sequence axis split
+    over ``mesh``'s ``axis`` (a DeviceMesh of ``launch.mesh``).
+
+    Returns ``fn(q, k, v, lengths) -> (B, Hq, hd)`` float32, to be called
+    by every rank of the mesh: q (B, Hq, hd); k, v (B, S, Hkv, hd), whole
+    (this rank takes slice ``rank`` of ``S_loc = S / n``) or as DTensors
+    sharded on dim 1 over ``axis`` (their local part is the slice);
+    ``lengths`` (B,) each row's valid cache length.  Each rank computes
+    ``local_decode_stats`` over its slice (positions offset by ``rank *
+    S_loc``), all-gathers (m, l, acc) in one collective of O(B * Hq *
+    hd) over the axis' group, and merges them with
+    ``combine_decode_stats``: every rank returns the whole output.
+    """
+    from ..launch.mesh import axes_group
+    from .collective import all_gather_stack
+    if axis not in mesh.mesh_dim_names:
+        raise ValueError(f"the mesh has no axis {axis!r}; its axes are "
+                         f"{mesh.mesh_dim_names}")
+    group = axes_group(mesh, (axis,))
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    rank = mesh.get_local_rank(axis)
+
+    def fn(q, k, v, lengths):
+        k, v = _slice(k, n, rank), _slice(v, n, rank)
+        s_loc = k.shape[1]
+        pos = rank * s_loc + torch.arange(s_loc, device=k.device)
+        valid = pos[None, :] < lengths[:, None]
+        m, l, acc = local_decode_stats(q, k, v, valid)
+        stats = all_gather_stack(
+            torch.cat([m[..., None], l[..., None], acc], dim=-1), group)
+        return combine_decode_stats(stats[..., 0], stats[..., 1],
+                                    stats[..., 2:])
+
+    return fn

@@ -71,18 +71,19 @@ def _check_packed_args(codec, packed, fences, values, tile, t):
 
 
 def _route_cells(query_terms, doc_targets, term_offsets, term_to_shard,
-                 range_lo, split_term, split_doc):
+                 range_lo, split_term, split_doc, held=None):
     """The kernels' routing: ``(k, lo, hi)`` per term (Q,), or per pair
     (Q, B) when hot terms are split by doc range; plus the term ids of
-    the same shape (for the q8 scales)."""
+    the same shape (for the q8 scales).  ``held = (s0, s1)``: only the
+    global shards ``[s0, s1)`` are in ``term_offsets`` (``ref._window``)."""
     if split_term is None:
         return route_terms(query_terms, term_offsets, term_to_shard,
-                           range_lo) + (query_terms,)
+                           range_lo, held) + (query_terms,)
     shape = (query_terms.shape[0], doc_targets.shape[0])     # (Q, B)
     w = query_terms[:, None].expand(shape)
     return route_pairs(w, doc_targets[None].expand(shape), term_offsets,
                        term_to_shard, range_lo, split_term,
-                       split_doc) + (w,)
+                       split_doc, held) + (w,)
 
 
 def _as_i32(a: torch.Tensor) -> torch.Tensor:
@@ -160,6 +161,41 @@ def csr_lookup(term_offsets: torch.Tensor, doc_ids: Optional[torch.Tensor],
                             _as_i32(doc_targets), doc_ids, fences,
                             values.to(torch.float32), tile=t)
     return _mask_dead_rows(out, alive, doc_targets)
+
+
+def csr_lookup_held(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
+                    values: torch.Tensor, term_to_shard, range_lo,
+                    query_terms: torch.Tensor, doc_targets: torch.Tensor, *,
+                    held=None, rows=None,
+                    fences: Optional[torch.Tensor] = None,
+                    split_term: Optional[torch.Tensor] = None,
+                    split_doc: Optional[torch.Tensor] = None,
+                    tile: Optional[int] = None) -> torch.Tensor:
+    """One rank's part of :func:`csr_lookup` under a mesh, through the
+    lookup kernel (its plain version on the CPU): M (B, Q, n_b, n_f)
+    with the rows of the postings this rank holds and exact zeros for
+    every other cell, so the ranks' parts sum to the whole M.
+
+    ``held = (s0, s1)``: a PartitionedIndex's shards ``[s0, s1)``, whose
+    local stack ``term_offsets`` / ``doc_ids`` / ``values`` / ``fences``
+    are; a cell routed to another shard gets an empty posting window.
+    ``rows = (r0, r1)``: a single CSR (K == 1) whose skeleton is whole
+    and whose ``values`` hold the posting rows ``[r0, r1)``; each cell's
+    window is cut to those rows, searched in the rows' own ``fences``."""
+    t = int(tile or POSTING_TILE)
+    k, lo, hi, _ = _route_cells(query_terms, doc_targets, term_offsets,
+                                term_to_shard, range_lo, split_term,
+                                split_doc, held)
+    if rows is not None:
+        r0, r1 = rows
+        lo, hi = lo.clamp(r0, r1) - r0, hi.clamp(r0, r1) - r0
+        doc_ids = doc_ids[:, r0:r1]
+    if (fences is None or t != POSTING_TILE
+            or fences.shape[1] != fence_count(doc_ids.shape[1], t)):
+        fences = build_fences(doc_ids, t)
+    return csr_lookup_kernel(_as_i32(k), _as_i32(lo), _as_i32(hi),
+                             _as_i32(doc_targets), doc_ids.contiguous(),
+                             fences, values.to(torch.float32), tile=t)
 
 
 def csr_lookup_pairs(term_offsets: torch.Tensor,

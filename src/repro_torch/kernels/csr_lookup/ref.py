@@ -40,11 +40,30 @@ def _alive_at(alive: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return gather_clip(alive, d)
 
 
+def _window(term_ids, term_offsets, k, row, held):
+    """``(k, lo, hi)`` of the routed cells: the posting window of term row
+    ``row`` in shard ``k``, empty (``lo == hi``, never found) for
+    negative terms.  ``held = (s0, s1)``: ``term_offsets`` holds only the
+    global shards ``[s0, s1)`` (a rank's shards under a mesh), ``k``
+    comes back local to them, and the cells of any other shard get an
+    empty window."""
+    live = term_ids >= 0
+    if held is not None:
+        s0, s1 = held
+        live = live & (k >= s0) & (k < s1)
+        k = (k - s0).clamp(0, s1 - s0 - 1)
+    vmax = term_offsets.shape[1] - 1
+    lo = term_offsets[k.long(), row.long()]
+    hi = term_offsets[k.long(), (row + 1).clamp(0, vmax).long()]
+    return k, lo, torch.where(live, hi, lo)
+
+
 def route_terms(term_ids: torch.Tensor, term_offsets: torch.Tensor,
-                term_to_shard, range_lo):
+                term_to_shard, range_lo, held=None):
     """Route global term ids to ``(k, lo, hi)`` shaped like ``term_ids``;
     ``lo == hi`` (never found) for negative and past-vocab terms.
-    ``term_to_shard=None`` is the single-CSR case (K == 1)."""
+    ``term_to_shard=None`` is the single-CSR case (K == 1); ``held`` as
+    in :func:`_window`."""
     vmax = term_offsets.shape[1] - 1
     w = term_ids.clamp(min=0)
     if term_to_shard is None:
@@ -53,16 +72,13 @@ def route_terms(term_ids: torch.Tensor, term_offsets: torch.Tensor,
     else:
         k = gather_clip(term_to_shard, w).to(torch.int32)
         row = w - gather_clip(range_lo, k)
-    row = row.clamp(0, vmax)
-    lo = term_offsets[k.long(), row.long()]
-    hi = term_offsets[k.long(), (row + 1).clamp(0, vmax).long()]
-    hi = torch.where(term_ids >= 0, hi, lo)     # negatives: empty range
-    return k, lo, hi
+    return _window(term_ids, term_offsets, k, row.clamp(0, vmax), held)
 
 
 def route_pairs(term_ids: torch.Tensor, doc_targets: torch.Tensor,
                 term_offsets: torch.Tensor, term_to_shard, range_lo,
-                split_term: torch.Tensor, split_doc: torch.Tensor):
+                split_term: torch.Tensor, split_doc: torch.Tensor,
+                held=None):
     """Per-pair routing for doc-range sub-sharded indexes; ``term_ids``
     and ``doc_targets`` share one shape, so does ``(k, lo, hi)``."""
     vmax = term_offsets.shape[1] - 1
@@ -72,24 +88,21 @@ def route_pairs(term_ids: torch.Tensor, doc_targets: torch.Tensor,
            & (split_doc <= doc_targets[..., None])).sum(-1)
     k = k0 + hop.to(torch.int32)
     row = (w - gather_clip(range_lo, k)).clamp(0, vmax)
-    lo = term_offsets[k.long(), row.long()]
-    hi = term_offsets[k.long(), (row + 1).clamp(0, vmax).long()]
-    hi = torch.where(term_ids >= 0, hi, lo)     # negatives: empty range
-    return k, lo, hi
+    return _window(term_ids, term_offsets, k, row, held)
 
 
 def _route(term_ids, doc_targets, term_offsets, term_to_shard, range_lo,
-           split_term, split_doc):
+           split_term, split_doc, held=None):
     """Per-term routing broadcast over the pairs when no sub-shards
     exist, per-pair routing when they do.  Outputs are pair-shaped."""
     shape = torch.broadcast_shapes(term_ids.shape, doc_targets.shape)
     if split_term is None:
         k, lo, hi = route_terms(term_ids, term_offsets, term_to_shard,
-                                range_lo)
+                                range_lo, held)
         return k.expand(shape), lo.expand(shape), hi.expand(shape)
     return route_pairs(term_ids.expand(shape), doc_targets.expand(shape),
                        term_offsets, term_to_shard, range_lo, split_term,
-                       split_doc)
+                       split_doc, held)
 
 
 def _flat_rows(values: torch.Tensor) -> torch.Tensor:
@@ -99,14 +112,15 @@ def _flat_rows(values: torch.Tensor) -> torch.Tensor:
 
 def lookup_pairs_ref(term_offsets, doc_ids, values, term_to_shard,
                      range_lo, term_ids, doc_targets, split_term=None,
-                     split_doc=None, alive=None) -> torch.Tensor:
+                     split_doc=None, alive=None, held=None) -> torch.Tensor:
     """Generic-batch routed lookup: term_ids (..., Q) x doc_targets
     broadcastable (...,) -> (..., Q, n_b, n_f), zeros for absent pairs
-    and for docs that ``alive`` marks dead."""
+    and for docs that ``alive`` marks dead (``held`` as in
+    :func:`_window`: zeros for pairs of shards held elsewhere)."""
     K, N = doc_ids.shape
     d = doc_targets[..., None].expand(term_ids.shape)
     k, lo, hi = _route(term_ids, d, term_offsets, term_to_shard, range_lo,
-                       split_term, split_doc)
+                       split_term, split_doc, held)
     base = k * N
     flat = doc_ids.reshape(K * N)
     pos = _bisect(flat, base + lo, base + hi, d, n_iter=bisect_steps(N))

@@ -43,8 +43,8 @@ Two passes:
   A step that fails is a failure (``.err``, exit 1); nothing falls back
   to the CPU.
 
-Only one card and no mesh: ``--mesh`` takes ``single`` and
-``--strategy`` ``tp2d``; the others are ROADMAP Queue 1 item 4e.
+One card and no mesh: ``--mesh`` takes ``single`` and ``--strategy``
+``tp2d``; the others are ROADMAP Queue 1 item 4e2.
 """
 from __future__ import annotations
 
@@ -403,9 +403,9 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--strategy", default="tp2d", choices=["tp2d", "fsdp"])
     args = ap.parse_args(argv)
     if args.mesh != "single" or args.strategy != "tp2d":
-        print(f"dryrun: --mesh {args.mesh} --strategy {args.strategy} needs "
-              f"a mesh of cards; this port runs on one: {MESH_ITEM}",
-              file=sys.stderr)
+        print(f"dryrun: --mesh {args.mesh} --strategy {args.strategy} "
+              f"places the cells on a mesh, which the launch tools do not "
+              f"do yet: {MESH_ITEM}", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("dryrun: --device cuda needs a card; count on the CPU with "

@@ -10,8 +10,8 @@ counterpart of: here :func:`terms_from_counts` takes the flops and
 bytes that ``launch/dryrun.py``'s counting pass adds up op by op on the
 meta device.  On one card nothing crosses a link, so the collective
 term is 0 and ``coll_by_op`` is ``{"total": 0.0}``; the reference's HLO
-parser ``collective_bytes`` waits for the mesh paths (ROADMAP Queue 1
-item 4e).  A step's total is still composed as in the reference:
+parser ``collective_bytes`` waits for training under a mesh (ROADMAP
+Queue 1 item 4e2).  A step's total is still composed as in the reference:
 
     total = cost(step) + sum_c multiplier_c * cost(component_c)
 

@@ -32,8 +32,16 @@ serving.  ``--metrics-out`` writes the ``obs`` snapshot.
 
 Everything runs on the card (``--device`` defaults to CUDA, and the run
 fails when there is none); ``--device cpu`` runs the kernels' plain
-versions and exists for the tests.  ``--data-parallel`` (mesh serving)
-is not ported and exits with an error.
+versions and exists for the tests.
+
+``--data-parallel`` serves on a mesh of ``data`` = the world's size
+(``launch.mesh.make_host_mesh``): run it under ``torchrun
+--nproc-per-node N`` (one card per rank, NCCL; gloo with ``--device
+cpu``), or as one process for a 1 x 1 mesh.  Every rank builds the same
+index and serves the same requests; the candidate count and
+``--batch-pad`` are rounded to multiples of N as in the reference, and
+only rank 0 logs and writes ``--metrics-out``.  With ``REPRO_LOG=debug``
+rank 0 also logs each request's scores (``scores`` lines).
 """
 from __future__ import annotations
 
@@ -58,7 +66,8 @@ def _per_device_at_k(pidx) -> int:
         a.numel() * a.element_size() for a in (pidx.term_offsets,
                                                 pidx.fences)
         if a is not None)
-    return sharded // pidx.n_shards + (pidx.nbytes - sharded)
+    held = pidx.term_offsets.shape[0]       # this rank's shards
+    return sharded // held + (pidx.placed_per_device_nbytes - sharded)
 
 
 def _join(thread: threading.Thread, errors: list) -> None:
@@ -170,16 +179,22 @@ def main() -> None:
     from ..serving import (NoIndexEngine, SeineEngine, ServingFrontend,
                            run_open_loop, serve_batches, serve_retrieval)
 
-    if args.data_parallel:
-        ap.error("--data-parallel: mesh serving is not ported (mesh= "
-                 "raises everywhere in the port); serve on one device")
+    if args.retrieve_k and args.data_parallel:
+        ap.error("--retrieve-k is mesh-less only (the scan's segment "
+                 "scatter has no SPMD lowering yet); drop --data-parallel")
     if args.retrieve_k < 0:
         ap.error(f"--retrieve-k must be >= 0, got {args.retrieve_k}")
     if args.codec != "none" and args.partition != "term":
         ap.error(f"--codec {args.codec} requires --partition term (the "
                  "packed layout is the stacked-shard PartitionedIndex)")
+    if args.codec != "none" and args.data_parallel:
+        ap.error("--codec is mesh-less only (the SPMD partial-sum lookup "
+                 "has no packed lowering); drop --data-parallel")
     if args.target_qps < 0:
         ap.error(f"--target-qps must be >= 0, got {args.target_qps}")
+    if args.target_qps and args.data_parallel:
+        ap.error("--target-qps (open-loop frontend) is mesh-less only; "
+                 "drop --data-parallel")
     if args.target_qps and args.retrieve_k:
         ap.error("--target-qps serves candidate re-scoring; drop "
                  "--retrieve-k")
@@ -201,6 +216,10 @@ def main() -> None:
     if args.live and args.partition != "term":
         ap.error("--live requires --partition term (the LiveIndex base "
                  "is the stacked-shard PartitionedIndex)")
+    if args.live and args.data_parallel:
+        ap.error("--live is mesh-less only (compaction swaps the base "
+                 "generation underneath any placement); drop "
+                 "--data-parallel")
     if args.live and args.compare_noindex:
         ap.error("--compare-noindex rebuilds interactions from the "
                  "static corpus; drop it with --live")
@@ -218,6 +237,16 @@ def main() -> None:
             ap.error(f"--metrics-out directory does not exist: {out_dir}")
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        import torch.distributed as dist
+
+        from .mesh import ensure_world, make_host_mesh, mesh_device
+        n_dev = ensure_world(dev)
+        if dist.get_rank() != 0:
+            obs.set_level("error")          # only rank 0 logs
+        mesh = make_host_mesh(data=n_dev, device=dev)
+        dev = mesh_device(mesh)             # this rank's card
 
     cfg = seine_smoke()
     ds = generate(cfg, seed=args.seed)
@@ -257,6 +286,21 @@ def main() -> None:
     queries = pad_queries(ds.queries, vocab.map_tokens, q_len=6)
     rng = np.random.RandomState(args.seed)
     n_cand = min(args.candidates, len(ds.docs))
+    if args.data_parallel:
+        # keep the candidate batch divisible by the rank count, else the
+        # engine's divisibility guard replicates the whole batch
+        adj = (n_cand // n_dev) * n_dev or n_cand
+        if adj != n_cand:
+            _log.info("candidates adjusted", was=n_cand, now=adj,
+                      devices=n_dev)
+            n_cand = adj
+        if args.batch_pad and args.batch_pad % n_dev:
+            # a bucket that does not tile the ranks would pad requests
+            # to shapes the data axis does not divide
+            adj_pad = -(-args.batch_pad // n_dev) * n_dev
+            _log.info("batch-pad adjusted", was=args.batch_pad,
+                      now=adj_pad, devices=n_dev)
+            args.batch_pad = adj_pad
     requests = []
     for i in range(args.n_queries):
         qi = i % len(queries)
@@ -266,8 +310,11 @@ def main() -> None:
     spec = get_retriever(args.retriever)
     params = spec.init(torch.Generator().manual_seed(args.seed),
                        cfg.n_segments, index.functions, device=dev)
+    if mesh is not None:
+        _log.info("data-parallel", devices=mesh.size(),
+                  mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
     engine = SeineEngine(
-        index, args.retriever, params,
+        index, args.retriever, params, mesh=mesh,
         partition=(None if args.partition == "none" or args.live
                    else args.partition),
         n_shards=None if args.live else (args.shards or None))
@@ -311,7 +358,7 @@ def main() -> None:
         _log.info(
             "term-partitioned (shard-native build)",
             shards=pidx.n_shards, codec=pidx.codec,
-            mb_per_device=f"{pidx.nbytes / 1e6:.1f}",
+            mb_per_device=f"{pidx.placed_per_device_nbytes / 1e6:.1f}",
             mb_per_device_at_k=f"{_per_device_at_k(pidx) / 1e6:.1f}",
             total_mb=f"{pidx.nbytes / 1e6:.1f}")
     # single-process liveness: rank 0 beats around the serve loop so the
@@ -391,6 +438,9 @@ def main() -> None:
         _join(ingest_thread, live_errors)
     hb.beat(0)  # final beat AFTER the measured loop drains (see above)
     hb.dead_ranks()                      # records heartbeat-age gauges
+    for i, sc in enumerate(scores):
+        _log.debug("scores", request=i,
+                   values=",".join(f"{x:.9g}" for x in np.asarray(sc)))
     _log.info("SEINE", ms_per_request=f"{stats.ms_per_request:.2f}",
               p50=f"{stats.p50_ms:.2f}", p95=f"{stats.p95_ms:.2f}",
               requests=args.n_queries, candidates=n_cand,
@@ -407,9 +457,15 @@ def main() -> None:
                   p50=f"{nstats.p50_ms:.2f}", p95=f"{nstats.p95_ms:.2f}",
                   speedup=f"{nstats.ms_per_request / stats.ms_per_request:.1f}x")
 
-    if args.metrics_out:
+    rank0 = mesh is None or dist.get_rank() == 0
+    if args.metrics_out and rank0:
         obs.write_metrics(args.metrics_out)
         _log.info("metrics written", path=args.metrics_out)
+    if mesh is not None:
+        from .mesh import release_world
+        release_world()
+        if dist.is_initialized():       # a torchrun world
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

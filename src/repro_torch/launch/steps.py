@@ -18,9 +18,10 @@ accumulation (a microbatch of at most 16,384 tokens), ``ce_chunks = max(8,
 S // 256)``, ``adam(3e-4)`` with ``clip_by_global_norm(1.0)`` and remat;
 MACE's node and edge counts padded to 512; the recsys ``adam(1e-3)``, the
 128 BERT4Rec negatives and the CTR candidates set into field 0.  Mesh
-placement (the reference's ``in_shardings``) has no one-card counterpart:
-``in_shardings`` is None and ``strategy="fsdp"`` raises, naming ROADMAP
-Queue 1 item 4e, as every ``mesh=`` path of the port does.
+placement (the reference's ``in_shardings``) waits for training under a
+mesh: ``in_shardings`` is None and ``strategy="fsdp"`` raises, naming
+ROADMAP Queue 1 item 4e2 (the serving half of the mesh paths is
+``launch/mesh.py`` and ``dist/sharding.py``).
 
 Where the port parts from the reference on purpose:
 
@@ -73,7 +74,8 @@ COUNT_ATTENTION = functools.partial(gqa_attention, chunk=ATTN_CHUNK)
 MICROBATCH_TOKENS = 16384
 # candidates of a CTR model's retrieval step scored at once
 CTR_CAND_CHUNK = 65536
-MESH_ITEM = "ROADMAP Queue 1 item 4e (the mesh paths)"
+MESH_ITEM = ("ROADMAP Queue 1 item 4e2 (training and the launch tools "
+             "under a mesh)")
 
 Materialize = Callable[[torch.device, int], Tuple[Any, ...]]
 
@@ -156,8 +158,8 @@ def _tokens(rng: np.random.RandomState, vocab: int, shape) -> np.ndarray:
 def _check_strategy(strategy: str) -> None:
     if strategy != "tp2d":
         raise NotImplementedError(
-            f"strategy {strategy!r} places parameters across a mesh; one "
-            f"card has none: {MESH_ITEM}")
+            f"strategy {strategy!r} places parameters across a mesh, "
+            f"which the launch tools do not do yet: {MESH_ITEM}")
 
 
 # ===========================================================================

@@ -1,8 +1,8 @@
 """Query-time retrieval engine (the paper's retrieval phase, Fig. 1).
 
-Port of ``repro.serving.engine`` without a mesh (``mesh=`` raises), live
-index included.  The engine and the serving loops record the
-reference's ``obs`` counters, gauges and spans.
+Port of ``repro.serving.engine``, live index and mesh included.  The
+engine and the serving loops record the reference's ``obs`` counters,
+gauges and spans.
 ``SeineEngine`` looks M_{q,d} up from the segment inverted index (raw or
 with packed postings) and scores it with a registered retriever; on CUDA
 tensors the lookup, the first-stage scan and KNRM's kernel bank run the
@@ -82,8 +82,24 @@ class SeineEngine:
     ``partition="term"`` or a pre-built index of that codec, and packs at
     ``codec_tile`` (default ``POSTING_TILE``).  ``lookup_tile`` overrides
     the lookup kernel's posting-tile width (every width gives the same
-    M); a packed index serves only at its codec tile.  ``mesh=`` is not
-    ported yet and raises ``NotImplementedError``.
+    M); a packed index serves only at its codec tile.
+
+    With ``mesh`` (a DeviceMesh of ``launch.mesh``; every rank builds the
+    engine and calls ``score`` with the same arguments) the index is
+    placed as the reference places it: a single CSR by
+    ``dist.sharding.shard_index`` (value rows over ``model``), with
+    ``partition="term"`` by ``partition_index`` into ``n_shards``
+    (default: the model axis' size) shards over ``model``, a pre-built
+    PartitionedIndex by ``shard_partitioned_index``.  ``score`` splits
+    the candidates over the data axes (``fit_spec``'s guard: a batch
+    they do not divide is scored whole on every rank), looks up each
+    rank's slice over the rank's postings through the lookup kernel,
+    sums the partial M over ``model``, scores through the retriever
+    (KNRM's ``knrm_pool`` kernel) and gathers the scores over the data
+    axes in rank order: every rank returns the whole batch's scores,
+    bitwise those of the mesh-less engine.  Packed codecs and a
+    LiveIndex are mesh-less only (``ValueError``), so are ``retrieve``
+    and the sampled lookup statistics.
 
     A :class:`~repro_torch.dist.live.LiveIndex` mutates underneath the
     engine: every ``score`` / ``retrieve`` reads its current view once
@@ -116,10 +132,14 @@ class SeineEngine:
             raise ValueError(
                 f"lookup_tile must be positive, got {lookup_tile}; "
                 "pass None for the default POSTING_TILE")
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
+        self.mesh = mesh
+        self._data_axes = ()
         self._live = bool(getattr(index, "is_live", False))
         if self._live:
+            if mesh is not None:
+                raise ValueError(
+                    "a LiveIndex cannot serve under a mesh: compaction "
+                    "swaps the base generation underneath the placement")
             if partition is not None:
                 raise ValueError(
                     "a LiveIndex is already partitioned (its base); "
@@ -134,10 +154,28 @@ class SeineEngine:
                     f"engine codec {codec!r} conflicts with the pre-built "
                     f"index's codec {index.codec!r}; pack it with "
                     "pack_index or pass codec='none'")
+            if mesh is not None and index.codec != "none":
+                raise ValueError(
+                    "packed codecs cannot serve under a mesh: the SPMD "
+                    "partial-sum lookup has no packed lowering (serve "
+                    "mesh-less, or build with codec='none')")
+            if mesh is not None:
+                from ..dist.sharding import shard_partitioned_index
+                index = shard_partitioned_index(index, mesh)
         elif partition == "term":
-            from ..dist.sharding import partition_index
-            index = partition_index(index, int(n_shards or 1), codec=codec,
+            from ..dist.sharding import mesh_shape, partition_index
+            k = (int(n_shards) if n_shards is not None else
+                 mesh_shape(mesh).get("model", 1) if mesh is not None
+                 else 1)
+            index = partition_index(index, k, mesh=mesh, codec=codec,
                                     codec_tile=codec_tile)
+        elif mesh is not None:
+            from ..dist.sharding import shard_index
+            index = shard_index(index, mesh)
+        if mesh is not None:
+            from ..dist.sharding import data_axes, mesh_shape
+            self._data_axes = data_axes(mesh) or tuple(
+                a for a in mesh_shape(mesh) if a != "model")
         if (getattr(index, "codec", "none") != "none"
                 and lookup_tile is not None
                 and int(lookup_tile) != int(index.codec_tile)):
@@ -190,20 +228,46 @@ class SeineEngine:
 
     @torch.inference_mode()
     def score(self, query_terms, doc_ids) -> torch.Tensor:
-        """query_terms (Q,), doc_ids (B,) -> scores (B,) on the device."""
+        """query_terms (Q,), doc_ids (B,) -> scores (B,) on the device
+        (under a mesh: the whole batch's, on every rank)."""
         query_terms, doc_ids = self._ids(query_terms), self._ids(doc_ids)
         if obs.enabled():
             self._scores_counter.inc()
             self._n_calls += 1
-            if self._n_calls == 1 or self._n_calls % self._sample_every == 0:
+            # mesh-less only: a placed index holds part of the postings
+            if self.mesh is None and (self._n_calls == 1 or
+                                      self._n_calls % self._sample_every
+                                      == 0):
                 if self.defer_lookup_stats:
                     self._pending_stats = (query_terms, doc_ids)
                 else:
                     self._sample_lookup_stats(query_terms, doc_ids)
+        if self.mesh is not None:
+            return self._score_placed(query_terms, doc_ids)
         index = self._serving_index()
         m = index.qd_matrix(query_terms, doc_ids, tile=self._lookup_tile)
         meta = make_qmeta(index, query_terms, doc_ids)
         return self.spec.score(self.params, m, meta, index.functions)
+
+    def _place(self, doc_ids: torch.Tensor):
+        """This rank's slice of the candidates and the sharding it came
+        from (candidates over the data axes, with ``fit_spec``'s guard:
+        a batch they do not divide stays whole, sharding None)."""
+        from ..dist.sharding import NamedSharding, P, fit_spec
+        spec = (fit_spec(self.mesh, P(self._data_axes),
+                         tuple(doc_ids.shape))
+                if self._data_axes else P())
+        if not spec:
+            return doc_ids, None
+        sh = NamedSharding(self.mesh, spec)
+        return sh.local_slice(doc_ids), sh
+
+    def _score_placed(self, query_terms, doc_ids) -> torch.Tensor:
+        local, sh = self._place(doc_ids)
+        m = self.index.qd_matrix(query_terms, local, tile=self._lookup_tile)
+        meta = make_qmeta(self.index, query_terms, local)
+        scores = self.spec.score(self.params, m, meta, self.index.functions)
+        return scores if sh is None else sh.gather(scores)
 
     def flush_lookup_stats(self) -> None:
         """Run a deferred sampled-stats lookup, if one is staged (the
@@ -273,7 +337,11 @@ class SeineEngine:
         lists and return the corpus-wide top-k as ``(scores, doc_ids)``,
         each ``(min(k, n_docs),)``, scores descending, ties toward the
         lower doc id.  ``doc_block`` sets the scan's doc-block width
-        (default: the whole corpus up to 1024)."""
+        (default: the whole corpus up to 1024).  Mesh-less engines only."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "retrieve() is mesh-less only for now; serve a mesh-less "
+                "engine for first-stage retrieval")
         if int(k) <= 0:
             raise ValueError(f"k must be positive, got {k}")
         query_terms = self._ids(query_terms)

@@ -283,9 +283,23 @@ def test_build_partitioned_with_a_codec(port):
     docs = torch.arange(port["index"].n_docs, dtype=torch.int32)
     assert got.codec == "packed" and got.codec_tile == 64
     assert torch.equal(got.qd_matrix(q, docs), raw.qd_matrix(q, docs))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port["builder"].build_partitioned(port["toks"], port["segs"], 2,
-                                          mesh=object())
+    # on a mesh (1 x 1, gloo) the build runs and is the mesh-less one;
+    # a codec cannot be combined with a mesh, as in the reference
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        placed = port["builder"].build_partitioned(
+            port["toks"], port["segs"], 2, batch_size=16, mesh=mesh)
+        assert placed.placement.mesh is mesh
+        for n in ("term_offsets", "doc_ids", "values", "fences",
+                  "term_to_shard", "range_lo", "range_hi"):
+            assert torch.equal(getattr(placed, n), getattr(raw, n)), n
+        assert torch.equal(placed.qd_matrix(q, docs), raw.qd_matrix(q, docs))
+        with pytest.raises(ValueError, match="mesh"):
+            port["builder"].build_partitioned(port["toks"], port["segs"], 2,
+                                              codec="packed", mesh=mesh)
+    finally:
+        release_world()
 
 
 def seine_world_queries(port):

@@ -457,9 +457,19 @@ class TestConstructionGuards:
         SeineEngine(p, "knrm", params, codec="packed")  # re-stated: fine
 
     def test_engine_rejects_mesh_with_packed(self, world):
+        from repro_torch.launch.mesh import make_host_mesh, release_world
         p = partition_index(world, 1, codec="packed")
-        with pytest.raises(NotImplementedError, match="mesh"):
-            SeineEngine(p, "knrm", _engines_params(world), mesh=object())
+        mesh = make_host_mesh(1, 1, device="cpu")
+        try:
+            with pytest.raises(ValueError, match="packed codecs cannot "
+                               "serve under a mesh"):
+                SeineEngine(p, "knrm", _engines_params(world), mesh=mesh)
+            with pytest.raises(ValueError, match="cannot be combined with "
+                               "a mesh"):
+                SeineEngine(world, "knrm", _engines_params(world),
+                            mesh=mesh, partition="term", codec="packed")
+        finally:
+            release_world()
 
     def test_engine_rejects_lookup_tile_mismatch(self, world):
         p = partition_index(world, 2, codec="packed", codec_tile=64)

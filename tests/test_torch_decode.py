@@ -249,8 +249,23 @@ def test_merge_equals_gqa_attention_decode(n_slices):
 
 
 def test_sp_decode_attention_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        S.sp_decode_attention(None, "seq")
+    """``sp_decode_attention`` runs on a (1 x 1, gloo) mesh and gives the
+    merge of the whole cache; an axis the mesh lacks raises."""
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    q, k, v, ln = _merge_case(2, [23, 64, 5], n_b=3)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        out = S.sp_decode_attention(mesh, "model")(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(ln))
+        got = _slices(q, k, v, ln, 1, S)
+        want = S.combine_decode_stats(*[torch.stack([s[j] for s in got])
+                                        for j in range(3)])
+        np.testing.assert_allclose(out.numpy(), want.numpy(), **MERGE)
+        with pytest.raises(ValueError, match="no axis 'seq'"):
+            S.sp_decode_attention(mesh, "seq")
+    finally:
+        release_world()
 
 
 def test_readme_decode_recipe_runs():

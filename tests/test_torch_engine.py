@@ -158,8 +158,7 @@ def test_unported_engine_options_raise(small):
     port = index_to_device(small["single"], device="cpu")
     _, eng = _engines("knrm", small["single"], port)
     params = eng.params
-    for kw, exc in ((dict(mesh=object()), NotImplementedError),
-                    (dict(codec="packed"), ValueError),
+    for kw, exc in ((dict(codec="packed"), ValueError),
                     (dict(codec="zstd"), ValueError),
                     (dict(partition="doc"), ValueError),
                     (dict(partition="term", n_shards=0), ValueError),
@@ -174,8 +173,21 @@ def test_unported_engine_options_raise(small):
         SeineEngine(live, "knrm", params, partition="term")
     with pytest.raises(ValueError, match="conflicts"):
         SeineEngine(live, "knrm", params, codec="packed")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SeineEngine(live, "knrm", params, mesh=object())
+    # a mesh is accepted (1 x 1, gloo: the scores are the mesh-less
+    # engine's), a live index under a mesh is refused
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        meshed = SeineEngine(port, "knrm", params, mesh=mesh)
+        q0, d0 = np.asarray((0, 3, -1), np.int32), np.arange(
+            64, dtype=np.int32)
+        np.testing.assert_array_equal(meshed.score(q0, d0).numpy(),
+                                      eng.score(q0, d0).numpy())
+        with pytest.raises(ValueError, match="LiveIndex cannot serve under "
+                           "a mesh"):
+            SeineEngine(live, "knrm", params, mesh=mesh)
+    finally:
+        release_world()
     with pytest.raises(ValueError, match="k must be positive"):
         eng.retrieve(np.zeros(6, np.int32), 0)
     # a partitioned index is served as it is, at any lookup tile, and a

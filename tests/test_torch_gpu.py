@@ -271,6 +271,41 @@ def test_engine_on_cuda_matches_cpu(layout):
         torch.testing.assert_close(s_g.cpu(), s_c, **TOL)
 
 
+@pytest.mark.parametrize("layout", ["k1", "k4"])
+def test_engine_on_a_1x1_nccl_mesh_matches_meshless(layout):
+    """The engine on a 1 x 1 mesh over NCCL: the index placed on the card
+    (a single CSR's value rows, or the K = 4 shards, over 'model'), the
+    lookup and knrm_pool kernels launched, the partial M summed and the
+    scores gathered by NCCL; the scores bitwise the mesh-less engine's
+    on the card, as a single CSR, term-partitioned and pre-built."""
+    _require_cuda()
+    from repro_torch.dist.collective import all_gather_stack, all_reduce_sum
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    idx = _index(layout, "cuda")
+    params = get_retriever("knrm").init(torch.Generator().manual_seed(0),
+                                        idx.n_b, idx.functions,
+                                        device="cuda")
+    q = np.array([0, 3, 7, -1, 12, 1000], np.int32)
+    docs = np.arange(-1, idx.n_docs + 2, dtype=np.int32)
+    want = SeineEngine(idx, "knrm", params).score(q, docs)
+    mesh = make_host_mesh(1, 1)
+    try:
+        kinds = [{}] if layout == "k4" else [{}, dict(partition="term")]
+        for kw in kinds:
+            before = (csr_lookup_kernel.launches, knrm_pool_kernel.launches,
+                      all_reduce_sum.launches, all_gather_stack.launches)
+            eng = SeineEngine(idx, "knrm", params, mesh=mesh, **kw)
+            assert eng.index.device.type == "cuda"
+            got = eng.score(q, docs)
+            torch.cuda.synchronize()
+            after = (csr_lookup_kernel.launches, knrm_pool_kernel.launches,
+                     all_reduce_sum.launches, all_gather_stack.launches)
+            assert all(a > b for a, b in zip(after, before)), kw
+            assert torch.equal(got, want), kw
+    finally:
+        release_world()
+
+
 def _packed_layout(layout, device):
     if layout == "adversarial":
         return adversarial_index(device=device)

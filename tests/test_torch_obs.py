@@ -5,6 +5,7 @@ reference's inventory."""
 import io
 import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -307,12 +308,16 @@ def test_sync_save_raises_and_counts(seine_world, tmp_path, monkeypatch):
 def test_concurrent_saves_of_one_dir_do_not_collide(seine_world, tmp_path):
     """Writes of one process to one directory each have their own
     temporary name (the reference's ``<dir>.tmp<pid>`` is shared, so two
-    async writes publish into each other), and the last one wins."""
+    async writes publish into each other) and publish one at a time, and
+    the last one wins: four async saves, 20 rounds."""
     from repro_torch.ckpt import load_index, save_index, wait_async
     from repro_torch.convert import index_to_device
     index = index_to_device(seine_world["index"], device="cpu")
     d = str(tmp_path / "index")
-    for _ in range(4):
-        save_index(d, index, async_write=True)
-    wait_async()
-    assert torch.equal(load_index(d, device="cpu").doc_ids, index.doc_ids)
+    for _ in range(20):
+        for _ in range(4):
+            save_index(d, index, async_write=True)
+        wait_async()
+        assert torch.equal(load_index(d, device="cpu").doc_ids,
+                           index.doc_ids)
+        assert os.listdir(tmp_path) == ["index"]

@@ -187,8 +187,26 @@ def test_merge_run_parts_matches_jax(hot_term_index):
 
 
 def test_mesh_is_not_ported(ports):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        partition_index(ports["hot"][1], 2, mesh=object())
+    """``partition_index(mesh=)`` places the partition (a 1 x 1 gloo mesh
+    here: every shard on the one rank, the same arrays as the mesh-less
+    partition); a codec cannot be combined with a mesh, as in the
+    reference."""
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    index = ports["world"][1]
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        placed = partition_index(index, 2, mesh=mesh)
+        plain = partition_index(index, 2)
+        assert (placed.placement.lo, placed.placement.hi) == (0, 2)
+        assert placed.nnz == plain.nnz and placed.nbytes == plain.nbytes
+        for n in ("term_offsets", "doc_ids", "values", "fences",
+                  "term_to_shard", "range_lo", "range_hi"):
+            assert torch.equal(getattr(placed, n), getattr(plain, n)), n
+        with pytest.raises(ValueError, match="cannot be combined with a "
+                           "mesh"):
+            partition_index(index, 2, mesh=mesh, codec="packed")
+    finally:
+        release_world()
 
 
 @pytest.mark.parametrize("k", (1, 2, 3))

@@ -10,6 +10,8 @@ the served and rejected counts at a rate nothing sheds, and every metric
 family, span name and label set in ``--metrics-out``.  The argument
 errors are checked one by one against the reference's messages.
 """
+import os
+import subprocess
 import sys
 
 import pytest
@@ -17,6 +19,7 @@ import pytest
 from repro import obs as jax_obs
 from repro.launch import serve as jax_serve
 from repro_torch import obs
+from repro_torch.obs import log as obs_log
 from repro_torch.launch import serve
 from torch_helpers import fresh_registry
 import torch_threads  # noqa: F401  (PyTorch threads per test process)
@@ -136,6 +139,10 @@ ERRORS = [
     ["--live-hold-frac", "0.3"],
     ["--metrics-out", "/nonexistent-dir/x.prom"],
     ["--partition", "doc"],
+    ["--data-parallel", "--retrieve-k", "5"],
+    ["--data-parallel", "--partition", "term", "--codec", "packed"],
+    ["--data-parallel", "--target-qps", "10"],
+    ["--data-parallel", "--partition", "term", "--live"],
 ]
 
 
@@ -151,11 +158,44 @@ def test_argument_errors_match_jax(argv, monkeypatch, capsys):
     assert msgs[0] == msgs[1]
 
 
+def _scores(err: str) -> list:
+    """The ``scores`` debug lines' values, request by request."""
+    return [line.split(" values=")[1] for line in err.splitlines()
+            if line.startswith("[repro.launch.serve] DEBUG: scores ")]
+
+
 def test_data_parallel_and_no_card_refused(monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["serve", "--data-parallel"])
-    with pytest.raises(SystemExit):
-        serve.main()
-    assert "mesh serving is not ported" in capsys.readouterr().err
+    """``--data-parallel`` serves: two gloo ranks under ``torchrun`` log
+    the single-process CLI's scores (``REPRO_LOG=debug``), rank 0 alone
+    logging, and so does a 1 x 1 mesh in process; without ``--device
+    cpu`` and without a card the CLI fails."""
+    argv = ["serve", "--n-queries", "3", "--candidates", "32", "--device",
+            "cpu"]
+    level = obs_log.level_name()
+    obs.set_level("debug")
+    try:
+        got = []
+        for extra in ([], ["--data-parallel"]):
+            fresh_registry(monkeypatch, obs)
+            monkeypatch.setattr(sys, "argv", argv + extra)
+            serve.main()
+            got.append(_scores(capsys.readouterr().err))
+    finally:
+        obs.set_level(level)
+    assert len(got[0]) == 3 and got[1] == got[0]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH="src", REPRO_LOG="debug",
+               OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--data-parallel"] + argv[1:], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=240)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert _scores(run.stderr) == got[0]
+    assert "data-parallel devices=2 mesh={'data': 2, 'model': 1}" in \
+        run.stderr
+    assert run.stderr.count("[repro.launch.serve] SEINE ") == 1
     # the CLI runs on the card by default and never carries on on the CPU
     monkeypatch.setattr(sys, "argv", ["serve", "--n-queries", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -122,8 +122,19 @@ def test_retention_extra_and_errors(tmp_path):
         restore_checkpoint(d, {"w": torch.zeros(3), "n": {"b": torch.ones(4)}})
     with pytest.raises(KeyError, match="checkpoint missing leaf x"):
         restore_checkpoint(d, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        restore_checkpoint(d, tree, shardings={"w": None})
+    # shardings= places every leaf on a mesh (1 x 1, gloo): DTensors
+    # whose whole tensors are the saved leaves
+    from repro_torch.dist.sharding import P, tree_shardings
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        sh = tree_shardings(mesh, tree, [(r"^w$", P("data", "model"))])
+        got, manifest = restore_checkpoint(d, tree, shardings=sh)
+        assert manifest["step"] == 40 and got["none"] is None
+        assert torch.equal(got["w"].full_tensor(), tree["w"])
+        assert torch.equal(got["n"]["b"].full_tensor(), tree["n"]["b"])
+    finally:
+        release_world()
 
 
 def test_async_save_copies_on_the_callers_thread(tmp_path):

@@ -306,6 +306,30 @@ launches CUPTI recorded over the replay ("k of n").
    10's decode-cache shape against the mesh-less merge (rtol 1e-5 /
    atol 1e-5); ``restore_checkpoint(shardings=)`` of phase 9's last
    KNRM checkpoint, every leaf bitwise the saved one.
+16. The training half of the mesh paths on a 1 x 1 mesh over NCCL:
+   ``launch.steps``' cells built with the mesh, their arguments placed
+   as DTensors (``Cell.place``) and stepped: stablelm-1.6b at full
+   width and phase 12's (16, 1,024), ``adamw(3e-4)``, remat, under
+   ``fsdp`` and under ``tp2d``, granite-moe at 4 layers under ``fsdp``,
+   MACE ``molecule`` and DLRM ``train_batch`` (phase 13's table cut),
+   each step's loss, grad norm and next parameters and moments bitwise
+   the mesh-less step's, with the ``flash_attn`` / ``flash_attn_bwd``
+   launches of a step (48 / 24 for stablelm), the NCCL entries the
+   profiler records, ms a step meshed and mesh-less, tokens/s and peak
+   bytes beside the card's name and power limit; ``seine/retrieve``
+   placed on phase 1's index (``shard_index``: the ``csr_lookup``
+   kernel on the held rows, partial M summed by ``all_reduce``,
+   ``knrm_pool``) bitwise the mesh-less step; a 2-layer stablelm's
+   fsdp-placed state saved (rank 0 writes whole tensors) and restored
+   onto the tp2d layout bitwise.  Then, the NCCL world ended, three
+   cells are counted on a fake world of 512 ranks by ``launch.dryrun
+   --mesh multi`` processes, one a cell, all at once: stablelm-1.6b
+   ``train_4k`` under ``fsdp``, granite-moe ``train_4k`` and DLRM
+   ``train_batch`` at full Criteo width, each with its argument bytes a
+   device, collective bytes by op, ``t_collective`` and counting
+   seconds.  The ``kernels`` rows of ``flash_attn``,
+   ``flash_attn_bwd``, ``csr_lookup`` and ``knrm_pool`` gain these
+   launches.
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -372,6 +396,7 @@ from repro_torch.dist.collective import (  # noqa: E402
     all_gather_stack, all_reduce_sum)
 from repro_torch.dist.sharding import (  # noqa: E402
     P, partition_index, tree_shardings)
+from repro_torch.dist.dtensor import local_value as whole  # noqa: E402
 from repro_torch.dist.sp_decode import sp_decode_attention  # noqa: E402
 from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
                                      release_world)
@@ -5418,7 +5443,7 @@ def phase14(seed, dev):
         f"(flops of the matrix products, bytes of eager traffic; "
         f"attention through gqa_attention at chunk 1,024)")
     for line in launch_report.roofline_table(
-            list(counted.values())).splitlines()[2:]:
+            list(counted.values()), "card").splitlines()[2:]:
         log(f"phase 14: {line}")
     attn_err = check_prefill_attention(seed, dev)
     torch.cuda.empty_cache()
@@ -5691,6 +5716,309 @@ def phase15(ctx, seed, dev, corpus, card=""):
     log(f"phase 15: wall {time.perf_counter() - t0:.1f}s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 16: the training half of the mesh paths on a 1 x 1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = (16, 1024)   # phase 12's (batch, sequence)
+MESH_MOE_SHAPE = (8, 1024)      # phase 12's MoE batch, at its 4 layers
+MESH_TRAIN_STEPS = 3            # steps timed a strategy (the first checked)
+MESH_CKPT_LAYERS = 2            # phase 12's resume cut
+MESH_TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_train")
+MESH_COUNT_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_count")
+# cells counted on a fake world of 512 ranks, (arch, shape, strategy)
+MESH_COUNTS = (("stablelm-1.6b", "train_4k", "fsdp"),
+               ("granite-moe-3b-a800m", "train_4k", "tp2d"),
+               ("dlrm-mlperf", "train_batch", "tp2d"))
+MESH_COUNT_MESH = "multi"
+MESH_COUNT_TIMEOUT_S = 300
+
+
+def mesh_count_records():
+    """Count the MESH_COUNTS cells on a fake world of 512 ranks: one
+    ``launch.dryrun --mesh multi --in-process`` process a cell, all at
+    once and waited for (a fake world and the NCCL one cannot share a
+    process); their records."""
+    shutil.rmtree(MESH_COUNT_DIR, ignore_errors=True)
+    os.makedirs(MESH_COUNT_DIR)
+    rcs = launch_dryrun._spawn(
+        [[(arch, shape)] for arch, shape, _ in MESH_COUNTS], MESH_COUNT_DIR,
+        ["--mesh", MESH_COUNT_MESH, "--in-process"],
+        extra=[["--strategy", strategy] for *_, strategy in MESH_COUNTS],
+        timeout=MESH_COUNT_TIMEOUT_S)
+    recs = {}
+    for (arch, shape, strategy), rc in zip(MESH_COUNTS, rcs):
+        path = launch_dryrun.out_path(MESH_COUNT_DIR, arch, shape,
+                                      MESH_COUNT_MESH, strategy)
+        if rc != 0 or not os.path.exists(path):
+            err = ""
+            if os.path.exists(path + ".err"):
+                with open(path + ".err") as f:
+                    err = f.read()[-2000:]
+            raise AssertionError(f"phase 16: counting {arch}/{shape} on "
+                                 f"{MESH_COUNT_MESH} failed (exit {rc}): "
+                                 f"{err}")
+        with open(path) as f:
+            recs[(arch, shape, strategy)] = json.load(f)
+    return recs
+
+
+def lm_shape(shape):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(name="train_4k", kind="training", seq_len=shape[1],
+                       global_batch=shape[0])
+
+
+def same_tree(got, want, what):
+    """Every leaf of ``got`` (DTensors on a 1 x 1 mesh) bitwise ``want``'s."""
+    for (name, a), (_, b) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(want), strict=True):
+        a = whole(a)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the "
+                                 f"mesh-less step's")
+
+
+def step_pair(plain, placed, args, what, dev, steps=1):
+    """The mesh-less and the placed step from the same arguments: their
+    metrics and next states held bitwise, the placed one's launches
+    counted over its step; then ``steps`` more steps of each from the
+    same state, timed, with the peak memory of those."""
+    cuda = dev.type == "cuda"
+    p_args = placed.place(args)
+    zero_counts()
+    got = placed.fn(*p_args)
+    torch.cuda.synchronize()
+    launched = mesh_counts()
+    want = plain.fn(*args)
+    torch.cuda.synchronize()
+    for name in want[2]:
+        a, b = whole(got[2][name]), want[2][name]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} {a.item()!r} != the "
+                                 f"mesh-less step's {b.item()!r}")
+    same_tree(got[0], want[0], f"{what} parameters")
+    same_tree(got[1], want[1], f"{what} optimizer state")
+    metrics = {k: whole(v).item() for k, v in want[2].items()}
+    del got, want
+    times = {}
+    for tag, cell, a in (("meshed", placed, p_args),
+                         ("mesh-less", plain, args)):
+        ms = []
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = cell.fn(*a)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            del out
+        times[tag] = dict(ms=ms, p50_ms=float(np.percentile(ms, 50)),
+                          peak_bytes=torch.cuda.max_memory_allocated()
+                          if cuda else None)
+    return dict(metrics=metrics, launches=launched, times=times,
+                placed_args=p_args)
+
+
+def mesh_train_lm(seed, dev, mesh, card):
+    """stablelm-1.6b at full width and phase 12's shape placed ``fsdp``
+    and ``tp2d`` (adamw(3e-4), remat), then granite-moe at 4 layers under
+    ``fsdp``: each meshed step bitwise the mesh-less one."""
+    out = {}
+    for arch, n_layers, shape, strategies in (
+            (TRAIN_LM_ARCH, None, MESH_TRAIN_SHAPE, ("fsdp", "tp2d")),
+            (MOE_ARCH, MOE_TRAIN_LAYERS, MESH_MOE_SHAPE, ("fsdp",))):
+        cfg = train_lm_config(arch, n_layers)
+        sh = lm_shape(shape)
+        opt = adamw(3e-4)
+        plain = launch_steps._lm_train_cell(cfg, sh, None, opt=opt)
+        args = plain.make_args(dev, seed)
+        for strategy in strategies:
+            what = f"phase 16 [{arch} {strategy}]"
+            placed = launch_steps._lm_train_cell(cfg, sh, mesh,
+                                                 strategy=strategy, opt=opt)
+            run = step_pair(plain, placed, args, what, dev,
+                            steps=MESH_TRAIN_STEPS)
+            per_step = {n: run["launches"][n] for n in ("flash_attn",
+                                                         "flash_attn_bwd")}
+            want = {"flash_attn": 2 * cfg.n_layers,
+                    "flash_attn_bwd": cfg.n_layers}
+            if per_step != want:
+                raise AssertionError(f"{what}: launches {run['launches']}, "
+                                     f"expected {want}")
+            p_args = run.pop("placed_args")
+            nccl = nccl_kernels(lambda: placed.fn(*p_args))
+            del p_args
+            tokens = shape[0] * shape[1]
+            t = run["times"]
+            log(f"{what}: the meshed step == the mesh-less step bitwise "
+                f"(loss {run['metrics']['loss']:.6f}, grad norm "
+                f"{run['metrics']['grad_norm']:.6f}, every next parameter "
+                f"and moment); launches of its step {per_step}; NCCL "
+                f"entries of a step (device ms): {nccl or 'none'}")
+            log(f"{what} ({card}): ms a step meshed "
+                + ", ".join(f"{x:.1f}" for x in t["meshed"]["ms"])
+                + f" (p50 {t['meshed']['p50_ms']:.1f}, "
+                f"{tokens / (t['meshed']['p50_ms'] / 1e3):.1f} tokens/s, "
+                f"peak {peak_text(t['meshed']['peak_bytes'])}), mesh-less "
+                + ", ".join(f"{x:.1f}" for x in t["mesh-less"]["ms"])
+                + f" (p50 {t['mesh-less']['p50_ms']:.1f}, "
+                f"{tokens / (t['mesh-less']['p50_ms'] / 1e3):.1f} tokens/s, "
+                f"peak {peak_text(t['mesh-less']['peak_bytes'])})")
+            out[(arch, strategy)] = dict(run, nccl=nccl, per_step=per_step)
+            torch.cuda.empty_cache()
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_small(seed, dev, mesh):
+    """MACE's molecule step and DLRM's train_batch (phase 13's table
+    cut) placed, each bitwise its mesh-less step."""
+    from repro_torch.configs.base import ShapeConfig
+    out = {}
+    mace_shape = get_bundle("mace").shape(MACE_SHAPE)
+    for name, make in (
+            ("dlrm-mlperf/train_batch", lambda m: launch_steps._recsys_cell(
+                recsys_config("dlrm-mlperf"), ShapeConfig(
+                    name="train_batch", kind="training",
+                    batch=RECSYS_TRAIN_BATCH["dlrm-mlperf"]), m)),
+            ("mace/molecule", lambda m: launch_steps._mace_cell(
+                mace_config(), mace_shape, m))):
+        plain, placed = make(None), make(mesh)
+        run = step_pair(plain, placed, plain.make_args(dev, seed),
+                        f"phase 16 [{name}]", dev)
+        run.pop("placed_args")
+        log(f"phase 16 [{name}]: the meshed step == the mesh-less step "
+            f"bitwise (loss {run['metrics']['loss']:.6f}, every next "
+            f"parameter and moment); ms meshed "
+            f"{run['times']['meshed']['p50_ms']:.2f}, mesh-less "
+            f"{run['times']['mesh-less']['p50_ms']:.2f}")
+        out[name] = run
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_retrieve(ctx, seed, dev, mesh):
+    """seine/retrieve placed: phase 1's index by ``shard_index``, the
+    candidates split over the batch axes, each rank's lookup through the
+    ``csr_lookup`` kernel merged by ``all_reduce`` and pooled by
+    ``knrm_pool``: bitwise the mesh-less cell's scores."""
+    index = index_to_device(ctx["index"], dev)
+    rng = np.random.RandomState(seed)
+    q = np.concatenate([np.arange(N_HOT), rng.choice(
+        np.arange(N_HOT, VOCAB), RETRIEVE_TERMS - N_HOT, replace=False,
+        p=zipf_p(VOCAB)[N_HOT:] / zipf_p(VOCAB)[N_HOT:].sum())])
+    docs = np.sort(rng.choice(N_DOCS, min(RETRIEVE_CANDS, N_DOCS),
+                              replace=False))
+    kparams = get_retriever("knrm").init(torch.Generator().manual_seed(seed),
+                                         N_B, index.functions, device=dev)
+    as_ids = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    args = (index, kparams, as_ids(q), as_ids(docs))
+    want = launch_steps.build_cell("seine", "retrieve").fn(*args)
+    placed = launch_steps.build_cell("seine", "retrieve", mesh)
+    p_args = placed.place(args)
+    zero_counts()
+    got = whole(placed.fn(*p_args))
+    torch.cuda.synchronize()
+    launched = mesh_counts()
+    assert_equal(got, want, "phase 16: the meshed seine/retrieve step "
+                 "against the mesh-less step")
+    for name in ("csr_lookup", "knrm_pool", "all_reduce"):
+        if launched[name] <= 0:
+            raise AssertionError(f"phase 16: seine/retrieve launched no "
+                                 f"{name} ({launched})")
+    log(f"phase 16 [seine/retrieve]: placed ({q.shape[0]} terms x "
+        f"{docs.shape[0]} docs, rows [{p_args[0].placement.lo}, "
+        f"{p_args[0].placement.hi}) over {p_args[0].placement.axes}) == "
+        f"the mesh-less step bitwise; launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    return dict(launches=launched)
+
+
+def mesh_checkpoint(seed, dev, mesh):
+    """stablelm at full width cut to 2 layers, placed fsdp, one meshed
+    step, its state saved (rank 0 writes whole tensors) and read back
+    onto the tp2d layout (reshard-on-load): every leaf bitwise."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.dist.sharding import opt_state_shardings
+    cfg = train_lm_config(TRAIN_LM_ARCH, MESH_CKPT_LAYERS)
+    sh = lm_shape(MESH_TRAIN_SHAPE)
+    placed = launch_steps._lm_train_cell(cfg, sh, mesh, strategy="fsdp",
+                                         opt=adamw(3e-4))
+    p, o, _ = placed.fn(*placed.place(placed.make_args(dev, seed)))
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(MESH_TRAIN_DIR, 1, {"params": p, "opt": o})
+    t_save = time.perf_counter() - t0
+    tp = launch_steps._lm_train_cell(cfg, sh, mesh, strategy="tp2d")
+    target = {"params": p, "opt": o}
+    shardings = {"params": tp.in_shardings[0],
+                 "opt": opt_state_shardings(mesh, o, tp.in_shardings[0])}
+    t0 = time.perf_counter()
+    tree, manifest = restore_checkpoint(MESH_TRAIN_DIR, target,
+                                        shardings=shardings)
+    t_load = time.perf_counter() - t0
+    n = 0
+    for (name, a), (_, b) in zip(flatten_with_paths(tree),
+                                 flatten_with_paths(target), strict=True):
+        if not torch.equal(whole(a), whole(b)):
+            raise AssertionError(f"phase 16: restored {name} differs from "
+                                 "the saved meshed state")
+        n += 1
+    arrays = os.path.join(MESH_TRAIN_DIR, "ckpt_0000000001", "arrays.npz")
+    n_bytes = os.path.getsize(arrays)
+    log(f"phase 16: the fsdp-placed {cfg.name} state at {MESH_CKPT_LAYERS} "
+        f"layers saved ({n_bytes} bytes, {t_save:.2f}s) and restored onto "
+        f"the tp2d layout ({t_load:.2f}s): {n} leaves bitwise, step "
+        f"{manifest['step']}")
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    return n
+
+
+def log_mesh_counts(recs, card):
+    out = {}
+    for (arch, shape, strategy), rec in recs.items():
+        rl = rec["roofline"]
+        coll = {k: v for k, v in rl["coll_by_op"].items()}
+        log(f"phase 16 [count {arch}/{shape} {strategy} on "
+            f"{MESH_COUNT_MESH}, {rec['n_devices']} fake ranks, host of "
+            f"{card}]: argument bytes a device "
+            f"{rec['memory']['argument_bytes_per_device']}, flops a device "
+            f"{rl['flops_per_device']:.6g}, eager bytes a device "
+            f"{rl['hbm_bytes_per_device']:.6g}, collective bytes by op "
+            f"{coll}, t_collective {rl['t_collective_s']:.6g} s, bottleneck "
+            f"{rl['bottleneck']}, useful flops "
+            f"{rec['useful_flops_ratio']}, counted in {rec['lower_s']} s")
+        out[f"{arch}/{shape}/{strategy}"] = dict(
+            argument_bytes=rec["memory"]["argument_bytes_per_device"],
+            coll_by_op=coll, t_collective_s=rl["t_collective_s"],
+            count_s=rec["lower_s"])
+    return out
+
+
+def phase16(ctx, seed, dev, card=""):
+    """The training half of the mesh paths on a 1 x 1 mesh (module
+    doc)."""
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=dev)
+    try:
+        log(f"phase 16: {mesh} over {torch.distributed.get_backend()}")
+        out = dict(lm=mesh_train_lm(seed, dev, mesh, card))
+        out["small"] = mesh_train_small(seed, dev, mesh)
+        out["retrieve"] = mesh_retrieve(ctx, seed, dev, mesh)
+        out["restored"] = mesh_checkpoint(seed, dev, mesh)
+    finally:
+        release_world()
+        shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    t_card = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["counts"] = log_mesh_counts(mesh_count_records(), card)
+    log(f"phase 16: wall {t_card:.1f}s on the card, then "
+        f"{time.perf_counter() - t1:.1f}s counting on the host")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5772,7 +6100,17 @@ def main() -> int:
                 launch["launches"][row["name"]]
     torch.cuda.empty_cache()
     meshed = phase15(mesh_ctx, args.seed, dev, corpus, card)
+    torch.cuda.empty_cache()
+    trained_mesh = phase16(mesh_ctx, args.seed, dev, card)
     del mesh_ctx
+    for row in kernels:
+        if row["name"] in ("flash_attn", "flash_attn_bwd"):
+            row.setdefault("launches_by_path", {}).update({
+                f"mesh train {arch} {strategy}": run["per_step"][row["name"]]
+                for (arch, strategy), run in trained_mesh["lm"].items()})
+        if row["name"] in ("csr_lookup", "knrm_pool"):
+            row.setdefault("launches_by_path", {})["mesh retrieve"] = \
+                trained_mesh["retrieve"]["launches"][row["name"]]
     for row in kernels:
         for path, run in meshed["serving"].items():
             if row["name"] in ("csr_lookup", "knrm_pool"):

@@ -292,10 +292,35 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     aside first and removed after.  ``async_write=True`` moves the file
     I/O and the publish to a background thread, whose failure is counted
     on ``seine_ckpt_write_errors_total`` and raised by
-    :func:`wait_async`."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    :func:`wait_async`.
+
+    A tree of DTensors (placed on a mesh) is saved as whole tensors:
+    every rank of the mesh must call, the leaves are gathered one at a
+    time on every rank (``full_tensor``) and rank 0 copies each to the
+    host before the next is gathered, so a device holds one whole leaf
+    at a time beside its shards; rank 0 alone writes, synchronously, and
+    the world waits at a barrier for the publish.  The files are then
+    those of the same tree saved mesh-less, which
+    ``restore_checkpoint(shardings=)`` reads onto a mesh of any shape."""
+    from ..dist.dtensor import is_dtensor
     flat = T.flatten_with_paths(tree)
-    arrays = {name: _to_numpy(leaf) for name, leaf in flat}
+    placed = any(is_dtensor(leaf) for _, leaf in flat)
+    if placed:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        arrays = {}
+        for name, leaf in flat:
+            whole = leaf.full_tensor() if is_dtensor(leaf) else leaf
+            if rank == 0:
+                arrays[name] = _to_numpy(whole)
+            del whole
+        if rank != 0:
+            dist.barrier()
+            return _step_dir(ckpt_dir, step)
+        async_write = False
+    else:
+        arrays = {name: _to_numpy(leaf) for name, leaf in flat}
+    os.makedirs(ckpt_dir, exist_ok=True)
     manifest = {
         "step": int(step),
         "names": [n for n, _ in flat],
@@ -332,6 +357,12 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
 
     if async_write:
         _spawn_async(write)
+    elif placed:
+        import torch.distributed as dist
+        try:
+            write()
+        finally:
+            dist.barrier()
     else:
         write()
     return final
@@ -391,7 +422,9 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *,
     (reshard-on-load).  Every leaf then comes back as a DTensor on that
     mesh, of the stored dtype, built from this rank's slice of the
     stored array (no collective): its ``full_tensor()`` is the saved
-    leaf, bitwise, on every rank."""
+    leaf, bitwise, on every rank.  Without ``shardings`` a target leaf
+    that is a DTensor comes back placed as it is."""
+    from ..dist.dtensor import is_dtensor
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -413,6 +446,11 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *,
             t = _from_numpy(arr)
             if shard_flat is not None:
                 t = _place_leaf(t, shard_flat[i])
+            elif is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(
+                    t.to(device=leaf.device, dtype=leaf.dtype),
+                    leaf.device_mesh, leaf.placements, src_data_rank=None)
             elif isinstance(leaf, torch.Tensor):
                 t = t.to(device=leaf.device, dtype=leaf.dtype)
             leaves.append(t)

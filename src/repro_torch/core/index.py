@@ -53,7 +53,18 @@ def gather_clip(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     negative indexing), then every index is clamped to [0, n - 1].  So a
     negative candidate doc id -3 reads doc n - 3's stats, as in the
     reference; callers that want -1 to mean "nothing" clamp it to 0
-    themselves, as the reference does."""
+    themselves, as the reference does.
+
+    Under a mesh (DTensor operands) the table is gathered to
+    ``Replicate()`` and each rank reads the rows of its own ids: the
+    result keeps the ids' splits (``dist.dtensor``)."""
+    from ..dist.dtensor import any_dtensor, on_local, sharded_rows
+    if any_dtensor(a, idx):
+        from torch.distributed.tensor import Replicate
+        ref = idx if any_dtensor(idx) else a
+        rep = (Replicate(),) * ref.device_mesh.ndim
+        pl = sharded_rows(idx) if any_dtensor(idx) else rep
+        return on_local(gather_clip, (a, idx), [rep, pl], out_placements=pl)
     n = a.shape[0]
     idx = idx.long()
     return a[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]

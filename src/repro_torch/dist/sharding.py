@@ -376,12 +376,13 @@ def index_shardings(mesh, index) -> Any:
         fences=None if index.fences is None else rep)
 
 
-def shard_index(index, mesh):
+def shard_index(index, mesh, device=None):
     """Place a built SegmentInvertedIndex on ``mesh`` (on this rank's
-    device): this rank keeps the value rows ``index_shardings`` gives it
-    and the replicated skeleton, and builds fences of its own over its
-    rows' doc ids.  Lookups then run over those rows and merge by
-    ``all_reduce`` over ``model``."""
+    device, or ``device``: the meta device for a count): this rank keeps
+    the value rows ``index_shardings`` gives it and the replicated
+    skeleton, and builds fences of its own over its rows' doc ids.
+    Lookups then run over those rows and merge by ``all_reduce`` over
+    ``model``."""
     from ..core.index import build_fences
     from ..launch.mesh import mesh_device
     if index.placement is not None:
@@ -390,7 +391,7 @@ def shard_index(index, mesh):
         raise ValueError("the index is already placed on another mesh")
     sh = index_shardings(mesh, index)
     lo, hi = sh.values.index_range(0, index.values.shape[0])
-    dev = mesh_device(mesh)
+    dev = device if device is not None else mesh_device(mesh)
     arrays = _place_all(index, ("term_offsets", "doc_ids", "idf",
                                 "doc_len", "seg_len", "fences"),
                         lambda a: a.to(dev))

@@ -15,6 +15,9 @@ run on one device; :func:`sp_decode_attention` is the step with the
 cache's sequence axis split over a mesh axis: each rank takes the stats
 of its slice, one ``all_gather`` of the (tiny) stats crosses the axis,
 and every rank merges them into the whole attention output.
+:func:`placed_decode_attention` is the same step on a placed cache
+(DTensors, the batch also split), which ``models.transformer``'s
+``decode_step`` takes under a mesh.
 """
 from __future__ import annotations
 
@@ -111,3 +114,77 @@ def sp_decode_attention(mesh, axis: str) -> Callable:
                                     stats[..., 2:])
 
     return fn
+
+
+def _seq_split(k):
+    """(the mesh dimension that splits the cache's sequence axis, or
+    None; this rank's first position)."""
+    from torch.distributed.tensor import Shard
+    dims = [i for i, p in enumerate(k.placements) if p == Shard(1)]
+    if len(dims) > 1:
+        raise ValueError(f"the cache's sequence axis is split over mesh "
+                         f"dimensions {dims}; one at most")
+    if not dims:
+        return None, 0
+    mesh = k.device_mesh
+    n = mesh.size(dims[0])
+    stride = -(-k.shape[1] // n)                # torch.chunk's sizes
+    return dims[0], mesh.get_local_rank(dims[0]) * stride
+
+
+def batch_placements(k) -> tuple:
+    """``k``'s batch split (``Shard(0)``), every other dimension whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) else Replicate() for p in k.placements)
+
+
+def placed_decode_attention(q, k, v, lengths) -> torch.Tensor:
+    """Single-token GQA decode over a placed cache: k, v (B, S, Hkv, hd)
+    DTensors with the sequence split over at most one mesh dimension and
+    the batch over any; q (B, Hq, hd) and ``lengths`` (B,) valid lengths.
+    Each rank takes the statistics of its slice of its rows, all-gathers
+    them over the sequence's mesh dimension and merges them: (B, Hq, hd)
+    float32, split as the batch is."""
+    from ..dist.dtensor import on_local
+    from .collective import all_gather_stack
+    dim, start = _seq_split(k)
+    group = None if dim is None else k.device_mesh.get_group(dim)
+    batch = batch_placements(k)
+
+    def local(ql, kl, vl, ll):
+        pos = start + torch.arange(kl.shape[1], device=kl.device)
+        m, l, acc = local_decode_stats(ql, kl, vl,
+                                       pos[None, :] < ll[:, None])
+        if group is None:
+            return combine_decode_stats(m[None], l[None], acc[None])
+        stats = all_gather_stack(
+            torch.cat([m[..., None], l[..., None], acc], dim=-1), group)
+        return combine_decode_stats(stats[..., 0], stats[..., 1],
+                                    stats[..., 2:])
+
+    return on_local(local, (q, k, v, lengths),
+                    [batch, k.placements, v.placements, batch],
+                    out_placements=batch)
+
+
+def placed_write_at(cache, at, new) -> None:
+    """``cache[b, at[b]] = new[b]`` in place on a placed cache (B, S, ...)
+    (a DTensor, the sequence split over at most one mesh dimension): each
+    rank writes the rows whose position falls in its slice; a position
+    past the cache is dropped."""
+    from ..dist.dtensor import is_dtensor
+    _, start = _seq_split(cache)
+    batch = batch_placements(cache)
+    local = cache.to_local()
+    at = (at.redistribute(at.device_mesh, batch).to_local()
+          if is_dtensor(at) else at)
+    new = (new.redistribute(new.device_mesh, batch).to_local()
+           if is_dtensor(new) else new)
+    rel = at.long() - start
+    fits = ((rel >= 0) & (rel < local.shape[1])
+            & (at < cache.shape[1]))[:, None, None]
+    rows = torch.arange(local.shape[0], device=local.device)
+    pos = rel.clamp(0, local.shape[1] - 1)
+    with torch.no_grad():
+        local[rows, pos] = torch.where(fits, new.to(local.dtype),
+                                       local[rows, pos])

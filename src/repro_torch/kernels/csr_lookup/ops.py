@@ -181,8 +181,16 @@ def csr_lookup_held(term_offsets: torch.Tensor, doc_ids: torch.Tensor,
     are; a cell routed to another shard gets an empty posting window.
     ``rows = (r0, r1)``: a single CSR (K == 1) whose skeleton is whole
     and whose ``values`` hold the posting rows ``[r0, r1)``; each cell's
-    window is cut to those rows, searched in the rows' own ``fences``."""
+    window is cut to those rows, searched in the rows' own ``fences``.
+
+    On the meta device (a count, where the kernel's plain version cannot
+    run its data-dependent searches) it counts the torch ref's lookup
+    over the arrays this rank holds."""
     t = int(tile or POSTING_TILE)
+    if values.device.type == "meta":
+        return csr_lookup_ref(term_offsets, doc_ids, values, term_to_shard,
+                              range_lo, query_terms, doc_targets,
+                              split_term, split_doc)
     k, lo, hi, _ = _route_cells(query_terms, doc_targets, term_offsets,
                                 term_to_shard, range_lo, split_term,
                                 split_doc, held)

@@ -14,13 +14,26 @@ CUDA meshes run over NCCL, one card per rank (``LOCAL_RANK``); CPU
 meshes (``device="cpu"``, the tests) over gloo.  A CUDA world whose NCCL
 group fails to start raises: it never becomes a gloo world.  Importing
 this module starts nothing.
+
+:func:`set_mesh` makes a mesh current for a block, as ``jax.set_mesh``
+does; the model hints (``models.layers.maybe_constrain`` /
+``maybe_replicate``) read it through :func:`current_mesh`.
+
+:func:`make_fake_world` starts a world of 256 or 512 ranks on torch's
+``fake`` backend in this process, the counterpart of the reference's
+``XLA_FLAGS=--xla_force_host_platform_device_count=512``: collectives
+return at once and move nothing, so DTensors on the meta device can be
+placed on the production meshes and their steps counted
+(``launch/dryrun.py --mesh``).  A fake world and a real one cannot
+share a process, so a mesh count runs in a process of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -31,6 +44,40 @@ AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
 
 _STARTED: dict = {}     # the world this module started: its store's dir
+_CURRENT: list = []     # the meshes set_mesh made current, innermost last
+
+
+@contextlib.contextmanager
+def set_mesh(mesh) -> Iterator:
+    """Make ``mesh`` the current mesh inside the block (``jax.set_mesh``)."""
+    _CURRENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.pop()
+
+
+def current_mesh():
+    """The innermost mesh :func:`set_mesh` made current, or None."""
+    return _CURRENT[-1] if _CURRENT else None
+
+
+def make_fake_world(n: int) -> int:
+    """Start a world of ``n`` ranks on torch's ``fake`` backend, this
+    process rank 0 (for counting on the meta device; no collective moves
+    a byte).  Joining a world that is already fake and of ``n`` ranks is
+    a no-op; any other world raises."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"a fake world of {n} ranks cannot start: this process "
+                f"is already in a {dist.get_backend()} world of "
+                f"{dist.get_world_size()}")
+        return n
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    _STARTED["root"] = None
+    return n
 
 
 def _backend(dev: torch.device) -> str:
@@ -64,12 +111,13 @@ def ensure_world(device=None) -> int:
 def release_world() -> None:
     """End the world of one process that :func:`ensure_world` started (a
     world joined under ``torchrun`` is its launcher's to end)."""
-    root = _STARTED.pop("root", None)
-    if root is None:
+    if "root" not in _STARTED:
         return
+    root = _STARTED.pop("root")
     if dist.is_initialized():
         dist.destroy_process_group()
-    shutil.rmtree(root, ignore_errors=True)
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _mesh(dev: torch.device, shape: Tuple[int, ...],
@@ -92,14 +140,21 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device=None):
     return _mesh(dev, (data, model), AXES)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         fake: bool = False):
     """The pod mesh: (16, 16) over ("data", "model"), or (2, 16, 16) over
     ("pod", "data", "model") with ``multi_pod``; it needs a world of
-    exactly 256 or 512 ranks and raises on any other."""
+    exactly 256 or 512 ranks and raises on any other.  ``fake`` starts
+    that world on the fake backend first (:func:`make_fake_world`) and
+    places the mesh on the meta device's stand-in, the CPU."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     need = 1
     for s in shape:
         need *= s
+    if fake:
+        make_fake_world(need)
+        return _mesh(torch.device("cpu"), shape,
+                     POD_AXES if multi_pod else AXES)
     have = dist.get_world_size() if dist.is_initialized() else None
     if have != need:
         raise RuntimeError(

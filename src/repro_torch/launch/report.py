@@ -3,8 +3,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir dryrun_results_torch]
 
-Reads either package's records.  A cell the port only counted (not
-stepped on the card) has no peak, compile seconds or temp bytes: those
+Reads either package's records, one-card (``card``) and mesh
+(``single``, ``multi``) records alike; ``--mesh`` picks the roofline
+table's.  A cell the port only counted (not stepped on the card, or
+counted on a mesh) has no peak, compile seconds or temp bytes: those
 cells show ``-``.
 """
 from __future__ import annotations
@@ -89,7 +91,8 @@ def main() -> None:
     ap.add_argument("--dir", default="dryrun_results_torch")
     ap.add_argument("--what", default="roofline",
                     choices=["roofline", "dryrun"])
-    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "single", "multi"])
     args = ap.parse_args()
     recs = load(args.dir)
     if args.what == "roofline":

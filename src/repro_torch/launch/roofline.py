@@ -1,4 +1,4 @@
-"""Roofline terms of a step on one card (port of
+"""Roofline terms of a step on one card or one device of a mesh (port of
 ``repro.launch.roofline``).
 
 The constants are an NVIDIA H100 80GB HBM3's (SXM): 989 TFLOP/s dense
@@ -9,9 +9,14 @@ direction of NVLink for ``ICI_BW``.  The reference reads XLA's
 counterpart of: here :func:`terms_from_counts` takes the flops and
 bytes that ``launch/dryrun.py``'s counting pass adds up op by op on the
 meta device.  On one card nothing crosses a link, so the collective
-term is 0 and ``coll_by_op`` is ``{"total": 0.0}``; the reference's HLO
-parser ``collective_bytes`` waits for training under a mesh (ROADMAP
-Queue 1 item 4e2).  A step's total is still composed as in the reference:
+term is 0 and ``coll_by_op`` is ``{"total": 0.0}``.  On a mesh the
+counting pass records the collectives each device issues, the
+``_c10d_functional`` ops DTensor's redistributions run (and ``c10d``'s
+in-place ones, which the placed index's merge calls), and
+:func:`collective_bytes` sums their result bytes by op under the
+reference's HLO names, as the reference's parser of the compiled HLO
+does; ``t_collective`` is those bytes over ``ICI_BW``.  A step's total is
+still composed as in the reference:
 
     total = cost(step) + sum_c multiplier_c * cost(component_c)
 
@@ -21,11 +26,60 @@ LM training cells' microbatch, see ``launch/steps.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 PEAK_FLOPS = 989e12          # dense bf16, tensor cores
 HBM_BW = 3.35e12             # bytes/s, HBM3
 ICI_BW = 450e9               # bytes/s a direction, NVLink
+
+# the collectives of torch.distributed, by the reference's HLO op names
+COLLECTIVE_OPS = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_c10d_functional.broadcast": "broadcast",
+    "c10d.allreduce_": "all-reduce",
+    "c10d.allgather_": "all-gather",
+    "c10d._allgather_base_": "all-gather",
+    "c10d.allgather_into_tensor_coalesced_": "all-gather",
+    "c10d.reduce_scatter_": "reduce-scatter",
+    "c10d._reduce_scatter_base_": "reduce-scatter",
+    "c10d.alltoall_": "all-to-all",
+    "c10d.alltoall_base_": "all-to-all",
+    "c10d.broadcast_": "broadcast",
+    "c10d.send": "collective-permute",
+    "c10d.recv_": "collective-permute",
+}
+
+
+def collective_op(func) -> Optional[str]:
+    """The reference's name of a collective op (an ``OpOverload``), or
+    None for any other op."""
+    return COLLECTIVE_OPS.get(str(func._overloadpacket))
+
+
+def collective_bytes(calls: Iterable[Tuple[Any, Any]]) -> Dict[str, float]:
+    """Per-device result bytes of collective ops, by op kind, from the
+    ``(op, result)`` pairs a counting pass recorded; ``"total"`` sums
+    them.  The result of an all-gather is the gathered tensor, of a
+    reduce-scatter this device's part, of an all-reduce the whole
+    tensor, as the HLO result shapes the reference sums."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    out: Dict[str, float] = {}
+    for func, result in calls:
+        op = collective_op(func)
+        if op is None:
+            continue
+        n = sum(t.numel() * t.element_size() for t in tree_leaves(result)
+                if isinstance(t, torch.Tensor))
+        out[op] = out.get(op, 0.0) + float(n)
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out
 
 
 @dataclass
@@ -86,7 +140,8 @@ def terms_from_counts(flops: float, hbm_bytes: float,
                       coll_by_op: Optional[Dict[str, float]] = None
                       ) -> RooflineTerms:
     """The terms of one counted function: its flops, the bytes its ops
-    read and write, and its collective bytes by op (none on one card)."""
+    read and write, and its collective bytes by op (none on one card;
+    :func:`collective_bytes` on a mesh)."""
     coll = dict(coll_by_op) if coll_by_op else {}
     coll["total"] = sum(v for k, v in coll.items() if k != "total")
     return RooflineTerms(flops=float(flops), hbm_bytes=float(hbm_bytes),

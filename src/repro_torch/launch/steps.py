@@ -1,6 +1,6 @@
 """The grid's cells: a step function and its inputs for each of the 40
 (architecture x input shape) cells, plus SEINE's two system cells, on one
-card (port of ``repro.launch.steps``).
+card or placed on a mesh (port of ``repro.launch.steps``).
 
 Inputs are tensors on the meta device, the counterpart of the
 reference's ``jax.eval_shape`` / ``ShapeDtypeStruct``: parameters come
@@ -12,23 +12,39 @@ materialises the same inputs on a real device from a seed: parameters
 through the ``init_*`` functions with an explicit ``torch.Generator``,
 batches from numpy.
 
-Every rule of the reference that changes a cell's numbers is kept, with
-one device in place of the mesh: the LM training cells' gradient
-accumulation (a microbatch of at most 16,384 tokens), ``ce_chunks = max(8,
-S // 256)``, ``adam(3e-4)`` with ``clip_by_global_norm(1.0)`` and remat;
-MACE's node and edge counts padded to 512; the recsys ``adam(1e-3)``, the
-128 BERT4Rec negatives and the CTR candidates set into field 0.  Mesh
-placement (the reference's ``in_shardings``) waits for training under a
-mesh: ``in_shardings`` is None and ``strategy="fsdp"`` raises, naming
-ROADMAP Queue 1 item 4e2 (the serving half of the mesh paths is
-``launch/mesh.py`` and ``dist/sharding.py``).
+Every rule of the reference that changes a cell's numbers is kept: the
+LM training cells' gradient accumulation (a microbatch of at most 16,384
+tokens a device over the batch axes), ``ce_chunks = max(8, S // 256)``,
+``adam(3e-4)`` with ``clip_by_global_norm(1.0)`` and remat; MACE's node
+and edge counts padded to 512; the recsys ``adam(1e-3)``, the 128
+BERT4Rec negatives and the CTR candidates set into field 0.
+
+``build_cell(..., mesh=None)`` is the one-card cell: ``in_shardings`` is
+None.  With a mesh (a ``DeviceMesh``, or a ``dist.sharding.AbstractMesh``
+to resolve the layouts alone) every cell carries the reference's
+``in_shardings`` as trees of the port's ``NamedSharding``: parameters by
+the family's rules (``lm_param_rules`` or, under ``strategy="fsdp"``,
+``lm_param_rules_fsdp``), optimizer state by ``opt_state_shardings``,
+batches split over the batch axes.  Under FSDP the LM batch is split
+over the flat grid, and its ``pod`` axis moves to the sequence when the
+grid exceeds the batch; each layer gathers its weights in its body
+(``gather_layer_weights``) and the MoE dispatch runs over every axis.
+``Cell.place`` turns materialised or meta arguments into DTensors by
+``in_shardings`` (a rank's local part of each), and the step of a cell
+on a ``DeviceMesh`` runs them under ``launch.mesh.set_mesh`` and
+``implicit_replication``: DTensor's sharding propagation inserts the
+collectives XLA's partitioner inserts in the reference, and
+``dist.dtensor`` covers what it has no rule for.
 
 Where the port parts from the reference on purpose:
 
 * SEINE's ``retrieve`` cell calls ``qd_matrix`` with the port's own
   dispatch (the ``csr_lookup`` kernel and KNRM's ``knrm_pool`` for CUDA
   tensors), where the reference forces ``impl="jnp"`` to keep an SPMD
-  plan.
+  plan.  Placed, its index is ``dist.sharding.shard_index``'s (each rank
+  holds its ``model`` rows, looks them up with the kernel and the partial
+  M are summed by ``all_reduce``) and each rank scores its own split of
+  the candidates.
 * SEINE's ``index_build`` cell sums its 64 segments a doc through the
   ``embed_bag`` kernel's segment entry (``HashProvider.contextualize``,
   the same mix), where the reference writes a ``segment_sum``.
@@ -54,10 +70,17 @@ import torch
 
 from .. import tree as TR
 from ..configs import get_bundle
+from ..dist.sharding import (NamedSharding, data_axes, gnn_param_rules,
+                             lm_cache_spec, lm_param_rules,
+                             lm_param_rules_fsdp, mesh_shape,
+                             opt_state_shardings, recsys_param_rules,
+                             tree_shardings)
+from ..dist.sharding import PartitionSpec as P
 from ..configs.base import ShapeConfig, TransformerConfig
 from ..data import recsys_data as R_DATA
 from ..data.graph import batched_molecules, random_graph, subgraph_shape
 from ..kernels.flash_attn import flash_attention
+from ..kernels.flash_attn.ops import per_rank
 from ..models import mace as MA
 from ..models import recsys as R
 from ..models import transformer as T
@@ -69,13 +92,13 @@ from .train import recsys_init, recsys_loss_fn
 META = torch.device("meta")
 # the chunked attention the reference's cells lower (``attn_chunk``)
 ATTN_CHUNK = 1024
-COUNT_ATTENTION = functools.partial(gqa_attention, chunk=ATTN_CHUNK)
+COUNT_ATTENTION = per_rank(functools.partial(gqa_attention,
+                                             chunk=ATTN_CHUNK))
 # a microbatch's tokens at most, on one device (the reference's cap)
 MICROBATCH_TOKENS = 16384
 # candidates of a CTR model's retrieval step scored at once
 CTR_CAND_CHUNK = 65536
-MESH_ITEM = ("ROADMAP Queue 1 item 4e2 (training and the launch tools "
-             "under a mesh)")
+STRATEGIES = ("tp2d", "fsdp")
 
 Materialize = Callable[[torch.device, int], Tuple[Any, ...]]
 
@@ -98,7 +121,7 @@ class Cell:
     step_name: str                      # train_step | serve_step | ...
     fn: Callable
     args: Tuple[Any, ...]               # meta tensors
-    in_shardings: Any = None            # no placement on one card
+    in_shardings: Any = None            # None: one card, no placement
     donate: Tuple[int, ...] = ()
     components: List[Component] = field(default_factory=list)
     meta: Dict[str, Any] = field(default_factory=dict)
@@ -108,10 +131,75 @@ class Cell:
     count_args: Optional[Tuple[Any, ...]] = None
     count_kwargs: Dict[str, Any] = field(default_factory=dict)
     materialize: Optional[Materialize] = None
+    # the mesh of in_shardings; on a DeviceMesh the step (and each
+    # component) runs placed arguments (``_meshed``)
+    mesh: Any = None
+
+    def __post_init__(self):
+        if hasattr(self.mesh, "mesh_dim_names"):
+            self.fn = _meshed(self.fn, self.mesh)
+            for c in self.components:
+                c.fn = _meshed(c.fn, self.mesh)
 
     def make_args(self, device, seed: int = 0) -> Tuple[Any, ...]:
         """``args`` on ``device``, drawn from ``seed``."""
         return self.materialize(torch.device(device), seed)
+
+    def place(self, args: Tuple[Any, ...], shardings: Any = None
+              ) -> Tuple[Any, ...]:
+        """``args`` (whole tensors, materialised or meta) as this rank's
+        DTensors by ``shardings`` (default ``in_shardings``): each leaf
+        keeps the part its sharding gives this rank, with no collective;
+        SEINE's index is placed by ``dist.sharding.shard_index``."""
+        return _place(args, self.in_shardings if shardings is None
+                      else shardings)
+
+
+def _place(tree, sh):
+    from torch.distributed.tensor import distribute_tensor
+    from ..core.index import SegmentInvertedIndex
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree.detach(), sh.mesh, sh.placements,
+                                 src_data_rank=None)
+    if isinstance(tree, torch.nn.Module):           # a ParamTree
+        return _place(TR.tree_map(lambda t: t, tree), sh)
+    if isinstance(tree, SegmentInvertedIndex):
+        from ..dist.sharding import shard_index
+        return shard_index(tree, sh.values.mesh, device=tree.values.device)
+    if isinstance(tree, dict):
+        return {k: _place(v, sh[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_place(v, s) for v, s in zip(tree, sh)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, sh))
+    return tree
+
+
+def _ns(mesh, spec) -> NamedSharding:
+    return NamedSharding(mesh, spec)
+
+
+def _rep(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def _rep_tree(mesh, tree):
+    return TR.tree_map(lambda _: _rep(mesh), tree)
+
+
+def _meshed(fn: Callable, mesh) -> Callable:
+    """``fn`` run with ``mesh`` current and plain tensors taken as
+    replicated (a placed cell's step)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from .mesh import set_mesh
+        with set_mesh(mesh), implicit_replication():
+            return fn(*args, **kwargs)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -156,24 +244,44 @@ def _tokens(rng: np.random.RandomState, vocab: int, shape) -> np.ndarray:
 
 
 def _check_strategy(strategy: str) -> None:
-    if strategy != "tp2d":
-        raise NotImplementedError(
-            f"strategy {strategy!r} places parameters across a mesh, "
-            f"which the launch tools do not do yet: {MESH_ITEM}")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got "
+                         f"{strategy!r}")
 
 
 # ===========================================================================
 # LM cells
 # ===========================================================================
 
-def lm_accum(shape: ShapeConfig) -> int:
-    """The reference's microbatching rule on one device: halve the batch
-    while a microbatch holds more than MICROBATCH_TOKENS tokens."""
+def lm_accum(shape: ShapeConfig, n_data: int = 1) -> int:
+    """The reference's microbatching rule: halve the batch while a
+    microbatch still splits evenly over the ``n_data`` devices of the
+    batch axes and holds more than MICROBATCH_TOKENS tokens a device."""
     B, S = shape.global_batch, shape.seq_len
     accum = 1
-    while B // (accum * 2) >= 1 and (B // accum) * S > MICROBATCH_TOKENS:
+    while (B // (accum * 2) >= n_data and (B // (accum * 2)) % n_data == 0
+           and (B // accum) * S // n_data > MICROBATCH_TOKENS):
         accum *= 2
     return accum
+
+
+def _prod(sizes: Dict[str, int], axes) -> int:
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+def lm_batch_axes(mesh, batch: int, strategy: str
+                  ) -> Tuple[Tuple[str, ...], Optional[str]]:
+    """(the axes the LM training batch splits over, the sequence's axis):
+    the batch axes under tp2d; the flat grid under FSDP, with ``pod``
+    moved to the sequence when the grid does not divide the batch."""
+    da = data_axes(mesh)
+    if strategy != "fsdp":
+        return da, None
+    sizes = mesh_shape(mesh)
+    if batch % _prod(sizes, da + ("model",)):
+        return (tuple(a for a in da if a != "pod") + ("model",),
+                "pod" if "pod" in sizes else None)
+    return da + ("model",), None
 
 
 def _lm_meta(cfg: TransformerConfig, **kw) -> Dict[str, Any]:
@@ -181,16 +289,20 @@ def _lm_meta(cfg: TransformerConfig, **kw) -> Dict[str, Any]:
             "n_active_params": cfg.n_active_params}
 
 
-def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
-                   accum: Optional[int] = None,
-                   strategy: str = "tp2d") -> Cell:
-    _check_strategy(strategy)
+def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, mesh=None,
+                   *, accum: Optional[int] = None, strategy: str = "tp2d",
+                   opt=None) -> Cell:
     B, S = shape.global_batch, shape.seq_len
+    fsdp = strategy == "fsdp"
+    da, seq_axis, n_data = (), None, 1
+    if mesh is not None:
+        da, seq_axis = lm_batch_axes(mesh, B, strategy)
+        n_data = _prod(mesh_shape(mesh), da)
     if accum is None:
-        accum = lm_accum(shape)
+        accum = lm_accum(shape, n_data)
     mb = B // accum
     ce_chunks = max(8, S // 256)
-    opt = adam(3e-4)
+    opt = opt or adam(3e-4)
 
     params_s = _lm_params_meta(cfg)
     opt_s = opt.init(params_s)
@@ -200,7 +312,7 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
     def loss_of(attention):
         return lambda params, batch: T.lm_loss(
             params, batch, cfg, attention=attention, ce_chunks=ce_chunks,
-            remat=True)
+            remat=True, gather_layer_weights=fsdp)
 
     def train_step(params, opt_state, batch, *, attention=flash_attention):
         """One optimizer step over every microbatch ``batch`` holds
@@ -213,8 +325,9 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
         else:
             dev = batch["tokens"].device
             loss = torch.zeros((), device=dev)
-            grads = TR.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = TR.tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             for i in range(batch["tokens"].shape[0]):
                 loss, grads = microbatch(params, (loss, grads),
                                          {k: v[i] for k, v in batch.items()},
@@ -243,6 +356,13 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
                     device)
         return params, opt.init(params), batch
 
+    in_sh = pshard = mb_sh = None
+    if mesh is not None:
+        pshard = tree_shardings(mesh, params_s, lm_param_rules_fsdp()
+                                if fsdp else lm_param_rules())
+        in_sh = (pshard, opt_state_shardings(mesh, opt_s, pshard),
+                 {k: _ns(mesh, P(None, da, seq_axis)) for k in batch_s})
+        mb_sh = {k: _ns(mesh, P(da, seq_axis)) for k in batch_s}
     comps = []
     count_args = None
     if accum > 1:
@@ -250,13 +370,15 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
         acc_s = (_meta((), torch.float32), TR.tree_map(
             lambda p: _meta(p.shape, torch.float32), params_s))
         comps = [Component("microbatch", microbatch, (params_s, acc_s, mb_s),
+                           in_shardings=None if mesh is None else (
+                               pshard, (_rep(mesh), pshard), mb_sh),
                            multiplier=accum - 1)]
         count_args = (params_s, opt_s,
                       {k: v[:1] for k, v in batch_s.items()})
-    return Cell(arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
+    return Cell(mesh=mesh, arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
                 step_name="train_step", fn=train_step,
-                args=(params_s, opt_s, batch_s), donate=(0, 1),
-                components=comps,
+                args=(params_s, opt_s, batch_s), in_shardings=in_sh,
+                donate=(0, 1), components=comps,
                 meta=_lm_meta(cfg, ce_chunks=ce_chunks, accum=accum,
                               microbatch=mb, strategy=strategy,
                               tokens=B * S),
@@ -265,7 +387,8 @@ def _lm_train_cell(cfg: TransformerConfig, shape: ShapeConfig, *,
                 materialize=make)
 
 
-def _lm_prefill_cell(cfg: TransformerConfig, shape: ShapeConfig) -> Cell:
+def _lm_prefill_cell(cfg: TransformerConfig, shape: ShapeConfig,
+                     mesh=None) -> Cell:
     B, S = shape.global_batch, shape.seq_len
     params_s = _lm_params_meta(cfg)
     tok_s = _meta((B, S), torch.int32)
@@ -280,15 +403,19 @@ def _lm_prefill_cell(cfg: TransformerConfig, shape: ShapeConfig) -> Cell:
                 torch.from_numpy(_tokens(rng, cfg.vocab_size, (B, S))).to(
                     device))
 
+    in_sh = None if mesh is None else (
+        tree_shardings(mesh, params_s, lm_param_rules()),
+        _ns(mesh, P(data_axes(mesh), None)))
     # the whole forward is counted: eager torch runs every layer
-    return Cell(arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
+    return Cell(mesh=mesh, arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
                 step_name="serve_step", fn=serve_step, args=(params_s, tok_s),
-                meta=_lm_meta(cfg, tokens=B * S),
+                in_shardings=in_sh, meta=_lm_meta(cfg, tokens=B * S),
                 count_kwargs={"attention": COUNT_ATTENTION},
                 materialize=make)
 
 
-def _lm_decode_cell(cfg: TransformerConfig, shape: ShapeConfig) -> Cell:
+def _lm_decode_cell(cfg: TransformerConfig, shape: ShapeConfig,
+                    mesh=None) -> Cell:
     B, S = shape.global_batch, shape.seq_len
     dt = T._dt(cfg)
     params_s = _lm_params_meta(cfg)
@@ -319,9 +446,16 @@ def _lm_decode_cell(cfg: TransformerConfig, shape: ShapeConfig) -> Cell:
         return params, cache, torch.from_numpy(
             _tokens(rng, cfg.vocab_size, (B,))).to(device)
 
-    return Cell(arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
+    in_sh = None
+    if mesh is not None:
+        cspec = _ns(mesh, lm_cache_spec(mesh, seq_shard=True, batch=B))
+        in_sh = (tree_shardings(mesh, params_s, lm_param_rules()),
+                 T.KVCache(cspec, cspec, _rep(mesh)),
+                 _ns(mesh, P(data_axes(mesh))) if B > 1 else _rep(mesh))
+    return Cell(mesh=mesh, arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
                 step_name="serve_step", fn=serve_step,
-                args=(params_s, cache_s, tok_s), donate=(1,),
+                args=(params_s, cache_s, tok_s), in_shardings=in_sh,
+                donate=(1,),
                 meta=_lm_meta(cfg, tokens=B, kv_len=S), materialize=make)
 
 
@@ -370,7 +504,7 @@ def _mace_batch(cfg, shape: ShapeConfig, N: int, E: int, seed: int
     }
 
 
-def _mace_cell(cfg, shape: ShapeConfig) -> Cell:
+def _mace_cell(cfg, shape: ShapeConfig, mesh=None) -> Cell:
     N0, E0, n_graphs = mace_sizes(shape)
     # the reference pads node and edge counts to its mesh tile; the same
     # sizes are kept here
@@ -405,9 +539,22 @@ def _mace_cell(cfg, shape: ShapeConfig) -> Cell:
         return (params, opt.init(params),
                 _on(_mace_batch(cfg, shape, N, E, seed), device))
 
-    return Cell(arch_id="mace", shape_name=shape.name, kind=shape.kind,
+    in_sh = None
+    if mesh is not None:
+        # nodes and edges split over the whole mesh, as the reference
+        # places them (the parameters are replicated, so the model axis
+        # is free batch parallelism); models.mace gathers them and runs
+        # the whole step on every rank
+        pshard = tree_shardings(mesh, params_s, gnn_param_rules())
+        allax = data_axes(mesh) + ("model",)
+        rows = lambda t: _ns(mesh, P(allax, *([None] * (t.ndim - 1))))
+        in_sh = (pshard, opt_state_shardings(mesh, opt_s, pshard),
+                 {k: _rep(mesh) if k == "energy" else rows(t)
+                  for k, t in batch_s.items()})
+    return Cell(mesh=mesh, arch_id="mace", shape_name=shape.name, kind=shape.kind,
                 step_name="train_step", fn=train_step,
-                args=(params_s, opt_s, batch_s), donate=(0, 1),
+                args=(params_s, opt_s, batch_s), in_shardings=in_sh,
+                donate=(0, 1),
                 meta={"n_nodes": N, "n_edges": E, "n_graphs": n_graphs,
                       "n_nodes_unpadded": N0, "n_edges_unpadded": E0},
                 materialize=make)
@@ -537,10 +684,28 @@ def recsys_serve_fn(cfg, shape: ShapeConfig) -> Callable:
     return serve_step
 
 
-def _recsys_cell(cfg, shape: ShapeConfig) -> Cell:
+def _recsys_batch_shardings(mesh, cfg, shape: ShapeConfig, batch_s):
+    """The reference's batch layouts: a batch split over the batch axes
+    (a sequence model's 128 negatives whole); a retrieval step's one
+    context whole and its candidates split."""
+    da = data_axes(mesh)
+    split = lambda t: _ns(mesh, P(da, *([None] * (t.ndim - 1))))
+    if shape.kind == "retrieval-scoring":
+        return {k: split(t) if k == "cand_ids" else _rep(mesh)
+                for k, t in batch_s.items()}
+    seq_train = shape.kind == "training" and cfg.family == "seq-rec"
+    return {k: _rep(mesh) if seq_train and t.ndim == 1 else split(t)
+            for k, t in batch_s.items()}
+
+
+def _recsys_cell(cfg, shape: ShapeConfig, mesh=None) -> Cell:
     opt = adam(1e-3)
     params_s = _meta_tree(R.param_shapes(cfg))
     batch_s = _recsys_specs(cfg, shape)
+    pshard = bshard = None
+    if mesh is not None:
+        pshard = tree_shardings(mesh, params_s, recsys_param_rules())
+        bshard = _recsys_batch_shardings(mesh, cfg, shape, batch_s)
     seq = cfg.family == "seq-rec"
     count_kwargs = ({"attention": R.whole_sequence_attention} if seq
                     else {})
@@ -563,9 +728,12 @@ def _recsys_cell(cfg, shape: ShapeConfig) -> Cell:
             return (params, opt.init(params),
                     recsys_inputs(cfg, shape, seed, device))
 
-        return Cell(arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
+        in_sh = None if mesh is None else (
+            pshard, opt_state_shardings(mesh, opt_s, pshard), bshard)
+        return Cell(mesh=mesh, arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
                     step_name="train_step", fn=train_step,
-                    args=(params_s, opt_s, batch_s), donate=(0, 1),
+                    args=(params_s, opt_s, batch_s), in_shardings=in_sh,
+                    donate=(0, 1),
                     meta={"batch": shape.batch}, count_kwargs=count_kwargs,
                     materialize=make)
 
@@ -575,9 +743,11 @@ def _recsys_cell(cfg, shape: ShapeConfig) -> Cell:
 
     meta = ({"n_candidates": shape.n_candidates}
             if shape.kind == "retrieval-scoring" else {"batch": shape.batch})
-    return Cell(arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
+    return Cell(mesh=mesh, arch_id=cfg.name, shape_name=shape.name, kind=shape.kind,
                 step_name="serve_step", fn=recsys_serve_fn(cfg, shape),
-                args=(params_s, batch_s), meta=meta,
+                args=(params_s, batch_s),
+                in_shardings=None if mesh is None else (pshard, bshard),
+                meta=meta,
                 count_kwargs=count_kwargs, materialize=make)
 
 
@@ -623,7 +793,25 @@ def seine_build_step(table, idf, ip, tokens, segs, uniq):
     """Interaction rows (B, U, n_b, n_f) of a batch of docs: the
     HashProvider's contextual mix (each doc's 64 segment means, through
     the ``embed_bag`` kernel's segment entry) and ``doc_interactions``
-    (``seg_interact``)."""
+    (``seg_interact``).  Placed, the table, idf and interaction
+    parameters are gathered whole and each rank builds the rows of its
+    own split of the docs with the kernels."""
+    from ..dist.dtensor import any_dtensor, on_local, sharded_rows
+    if any_dtensor(tokens):
+        from torch.distributed.tensor import Replicate
+        ips = TR.leaves(ip)
+        rep = (Replicate(),) * tokens.device_mesh.ndim
+        docs = sharded_rows(tokens)
+        return on_local(
+            lambda t, i, tok, sg, u, *loc: _build_rows(
+                t, i, TR.unflatten(ip, loc), tok, sg, u),
+            (table, idf, tokens, segs, uniq, *ips),
+            [rep, rep, docs, docs, docs] + [rep] * len(ips),
+            out_placements=docs)
+    return _build_rows(table, idf, ip, tokens, segs, uniq)
+
+
+def _build_rows(table, idf, ip, tokens, segs, uniq):
     from ..core.interactions import FUNCTION_NAMES, doc_interactions
     from ..core.providers import HashProvider
     with torch.no_grad():
@@ -638,7 +826,23 @@ def seine_build_step(table, idf, ip, tokens, segs, uniq):
 def seine_retrieve_step(index, kparams, query, cands):
     """KNRM's scores of ``cands`` for ``query`` over ``index``: M through
     ``qd_matrix`` (the ``csr_lookup`` kernel for CUDA tensors), the
-    pooling through ``knrm_pool``."""
+    pooling through ``knrm_pool``.  Placed (a ``shard_index`` index,
+    candidates split over the batch axes), each rank scores its own
+    candidates: its lookup reads the rows it holds and the partial M are
+    summed over ``model`` inside ``qd_matrix``."""
+    from ..dist.dtensor import any_dtensor, is_dtensor, on_local, sharded_rows
+    if any_dtensor(cands):
+        from torch.distributed.tensor import Replicate
+        rep = (Replicate(),) * cands.device_mesh.ndim
+        kp = TR.tree_map(lambda v: v.redistribute(
+            v.device_mesh, rep).to_local() if is_dtensor(v) else v, kparams)
+        split = sharded_rows(cands)
+        return on_local(lambda q, c: _knrm_scores(index, kp, q, c),
+                        (query, cands), [rep, split], out_placements=split)
+    return _knrm_scores(index, kparams, query, cands)
+
+
+def _knrm_scores(index, kparams, query, cands):
     from ..retrievers import get_retriever
     from ..serving.engine import make_qmeta
     with torch.no_grad():
@@ -647,7 +851,7 @@ def seine_retrieve_step(index, kparams, query, cands):
         return get_retriever("knrm").score(kparams, m, meta, index.functions)
 
 
-def _seine_cells() -> List[Cell]:
+def _seine_cells(mesh=None) -> List[Cell]:
     from ..core.index import SegmentInvertedIndex
     from ..core.interactions import FUNCTION_NAMES, init_interaction_params
     from ..kernels.knrm_pool import MUS
@@ -664,12 +868,18 @@ def _seine_cells() -> List[Cell]:
                    device)
         return table, idf, ip, docs["tokens"], docs["segs"], docs["uniq"]
 
-    build = Cell(arch_id="seine", shape_name="index_build", kind="indexing",
+    build_args = (_meta((V, De)), _meta((V,)), _ip_meta(De),
+                  _meta((B_docs, Lp), torch.int32),
+                  _meta((B_docs, Lp), torch.int32),
+                  _meta((B_docs, U), torch.int32))
+    build_sh = retrieve_sh = None
+    if mesh is not None:
+        docs = _ns(mesh, P(data_axes(mesh), None))
+        build_sh = (_ns(mesh, P("model", None)), _ns(mesh, P("model")),
+                    _rep_tree(mesh, build_args[2]), docs, docs, docs)
+    build = Cell(mesh=mesh, arch_id="seine", shape_name="index_build", kind="indexing",
                  step_name="build_step", fn=seine_build_step,
-                 args=(_meta((V, De)), _meta((V,)), _ip_meta(De),
-                       _meta((B_docs, Lp), torch.int32),
-                       _meta((B_docs, Lp), torch.int32),
-                       _meta((B_docs, U), torch.int32)),
+                 args=build_args, in_shardings=build_sh,
                  meta={"docs_per_step": B_docs, "vocab": V, "n_b": n_b},
                  materialize=make_build)
 
@@ -683,6 +893,12 @@ def _seine_cells() -> List[Cell]:
         n_docs=n_docs, vocab_size=V, n_b=n_b, functions=FUNCTION_NAMES)
     kparams_s = {"w": _meta((len(MUS), 1)), "b": _meta((1,))}
 
+    if mesh is not None:
+        from ..dist.sharding import index_shardings
+        retrieve_sh = (index_shardings(mesh, idx_s),
+                       _rep_tree(mesh, kparams_s), _rep(mesh),
+                       _ns(mesh, P(data_axes(mesh))))
+
     def make_retrieve(device, seed):
         raise MemoryError(f"seine/retrieve's index holds {nnz:,} postings "
                           f"of ({n_b}, {n_f}) float32 values; it is "
@@ -692,7 +908,7 @@ def _seine_cells() -> List[Cell]:
         arch_id="seine", shape_name="retrieve", kind="retrieval-scoring",
         step_name="serve_step", fn=seine_retrieve_step,
         args=(idx_s, kparams_s, _meta((Q,), torch.int32),
-              _meta((B_cand,), torch.int32)),
+              _meta((B_cand,), torch.int32)), in_shardings=retrieve_sh,
         meta={"nnz": nnz, "candidates": B_cand}, materialize=make_retrieve)
     return [build, retrieve]
 
@@ -701,27 +917,45 @@ def _seine_cells() -> List[Cell]:
 # dispatch
 # ===========================================================================
 
-def build_cell(arch_id: str, shape_name: str,
+def build_cell(arch_id: str, shape_name: str, mesh=None,
                strategy: str = "tp2d") -> Cell:
+    """The cell ``(arch_id, shape_name)``: on one card with ``mesh=None``;
+    with a mesh, carrying the reference's ``in_shardings`` (and, on a
+    ``DeviceMesh``, a step that runs placed arguments).  ``strategy``
+    ("tp2d" or "fsdp") chooses the LM training cells' layout."""
     _check_strategy(strategy)
     if arch_id == "seine":
-        for c in _seine_cells():
-            if c.shape_name == shape_name:
-                return c
-        raise KeyError(shape_name)
+        cells = [c for c in _seine_cells(mesh) if c.shape_name == shape_name]
+        if not cells:
+            raise KeyError(shape_name)
+        cell = cells[0]
+    else:
+        b = get_bundle(arch_id)
+        shape = b.shape(shape_name)
+        if b.domain == "lm":
+            if shape.kind == "training":
+                cell = _lm_train_cell(b.config, shape, mesh,
+                                      strategy=strategy)
+            elif shape.kind == "inference-prefill":
+                cell = _lm_prefill_cell(b.config, shape, mesh)
+            else:
+                cell = _lm_decode_cell(b.config, shape, mesh)
+        elif b.domain == "gnn":
+            cell = _mace_cell(b.config, shape, mesh)
+        elif b.domain == "recsys":
+            cell = _recsys_cell(b.config, shape, mesh)
+        else:
+            raise ValueError(b.domain)
+    return cell
+
+
+def is_lm_training(arch_id: str, shape_name: str) -> bool:
+    """Whether the cell is a LM training cell (the cells ``strategy``
+    changes)."""
+    if arch_id == "seine":
+        return False
     b = get_bundle(arch_id)
-    shape = b.shape(shape_name)
-    if b.domain == "lm":
-        if shape.kind == "training":
-            return _lm_train_cell(b.config, shape, strategy=strategy)
-        if shape.kind == "inference-prefill":
-            return _lm_prefill_cell(b.config, shape)
-        return _lm_decode_cell(b.config, shape)
-    if b.domain == "gnn":
-        return _mace_cell(b.config, shape)
-    if b.domain == "recsys":
-        return _recsys_cell(b.config, shape)
-    raise ValueError(b.domain)
+    return b.domain == "lm" and b.shape(shape_name).kind == "training"
 
 
 def all_cell_ids(include_seine: bool = True) -> List[Tuple[str, str]]:

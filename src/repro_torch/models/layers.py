@@ -1,8 +1,8 @@
 """The layer helpers of the retrievers, the LM, the recsys models and MACE
-(port of the init helpers, ``mlp_apply``, ``rms_norm``, ``layer_norm``,
-RoPE and the attention functions of ``repro.models.layers``; the mesh helpers ``maybe_constrain`` and
-``maybe_replicate`` are not ported), and ``softmax``, rounded as
-``jax.nn.softmax``.
+(port of ``repro.models.layers``: the init helpers, ``mlp_apply``,
+``rms_norm``, ``layer_norm``, RoPE, the attention functions and the mesh
+hints ``maybe_constrain`` / ``maybe_replicate``), and ``softmax``,
+rounded as ``jax.nn.softmax``.
 
 A scorer's parameters live in :class:`ParamTree`, an ``nn.Module``
 holding the same nested dict/list structure as the reference's parameter
@@ -20,6 +20,77 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def _resolve_axis(a, names: Tuple[str, ...]):
+    if a is None:
+        return None
+    if a == "__data__":
+        return tuple(n for n in ("pod", "data") if n in names) or None
+    if a == "__all__":
+        return names or None
+    if isinstance(a, tuple):
+        return tuple(n for n in a if n in names) or None
+    return a if a in names else None
+
+
+def maybe_constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """``x`` redistributed to the layout ``axes`` name (one entry a
+    dimension: a mesh axis, a tuple of them, None, or the pseudo-axes
+    ``"__data__"``, every batch axis present, and ``"__all__"``, every
+    axis) when a mesh is current (``launch.mesh.set_mesh``) and ``x`` is
+    a DTensor; otherwise ``x`` itself.  An axis tuple that does not
+    divide its dimension is shrunk from the left ('pod' before
+    'data'/'model'), and dropped only when nothing divides; when every
+    entry is dropped ``x`` comes back as it is.  Mesh axes no entry
+    names are replicated, as under ``with_sharding_constraint``."""
+    from ..dist.dtensor import is_dtensor
+    from ..launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    placements = constrain_placements(tuple(x.shape), mesh, *axes)
+    if placements is None:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def constrain_placements(shape: Tuple[int, ...], mesh, *axes):
+    """The placements :func:`maybe_constrain` gives a tensor of ``shape``
+    on ``mesh`` for the layout ``axes``, or None when every entry is
+    dropped."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    spec = [_resolve_axis(a, names) for a in axes]
+    for i, s in enumerate(spec):
+        if s is None:
+            continue
+        keep = list(s if isinstance(s, tuple) else (s,))
+        while keep and shape[i] % math.prod(sizes[a] for a in keep):
+            keep.pop(0)
+        spec[i] = tuple(keep) or None
+    if all(s is None for s in spec):
+        return None
+    placements = [Replicate()] * len(names)
+    for d, s in enumerate(spec):
+        for a in s or ():
+            placements[names.index(a)] = Shard(d)
+    return placements
+
+
+def maybe_replicate(x: torch.Tensor) -> torch.Tensor:
+    """``x`` gathered to ``Replicate()`` on every mesh dimension when a
+    mesh is current and ``x`` is a DTensor; otherwise ``x`` itself.
+    Under FSDP a layer's weights go through it inside the (remat'd)
+    layer body, so each layer gathers its weights in the forward and
+    again in the recomputation, and the backward of the gather is the
+    gradient's reduce-scatter."""
+    from ..dist.dtensor import is_dtensor, replicate_all
+    from ..launch.mesh import current_mesh
+    if current_mesh() is None or not is_dtensor(x):
+        return x
+    return replicate_all(x)
 
 
 class ParamTree(nn.Module):

@@ -14,8 +14,19 @@ order the threads arrive), which a resumed run needs; on the CPU it
 adds with atomics across threads unless torch's deterministic mode is
 on.  The forces are ``-dE/dpositions`` by ``torch.autograd.grad`` with
 ``create_graph`` when gradients are on, so ``mace_loss`` trains through
-them: a gradient of a gradient.  The reference's sharding hint
-(``maybe_constrain``) has no meaning on one device and is dropped.
+them: a gradient of a gradient.
+
+Under a mesh (DTensor parameters or inputs) MACE runs unpartitioned:
+``forward`` and ``mace_loss`` gather every operand to ``Replicate()``
+and each rank computes the whole batch of graphs
+(``dist.dtensor.replicated``).  The reference pins its edge and node
+tensors over every mesh axis (``maybe_constrain`` over ``"__all__"``);
+the port has no such pins.  The forces are a second derivative, and
+torch 2.11 drops the second derivative through a DTensor
+redistribution (on an H100 its energy-only gradients were bitwise the
+mesh-less ones, its force-matching ones 2.5% off), so a partitioned
+MACE needs its force derivative taken through explicit local ops and
+collectives.
 """
 from __future__ import annotations
 
@@ -127,15 +138,21 @@ def init_params(cfg: MACEConfig, gen: torch.Generator, device=None
 # forward
 # ---------------------------------------------------------------------------
 
-def forward(p: Params, cfg: MACEConfig, *, species: torch.Tensor,
-            positions: torch.Tensor, senders: torch.Tensor,
-            receivers: torch.Tensor, graph_idx: torch.Tensor,
-            n_graphs: int) -> torch.Tensor:
+def forward(p: Params, cfg: MACEConfig, **inputs) -> torch.Tensor:
     """Total energy per graph.
 
     species (N,), positions (N,3), senders/receivers (E,),
-    graph_idx (N,) -> energies (n_graphs,).
+    graph_idx (N,), n_graphs -> energies (n_graphs,).  Under a mesh,
+    whole on every rank (module doc).
     """
+    from ..dist.dtensor import replicated
+    return replicated(_forward)(p, cfg, **inputs)
+
+
+def _forward(p: Params, cfg: MACEConfig, *, species: torch.Tensor,
+             positions: torch.Tensor, senders: torch.Tensor,
+             receivers: torch.Tensor, graph_idx: torch.Tensor,
+             n_graphs: int) -> torch.Tensor:
     N = species.shape[0]
     C = cfg.d_hidden
     snd, rcv = senders.long(), receivers.long()
@@ -224,7 +241,13 @@ def energy_and_forces(p: Params, cfg: MACEConfig, **inputs):
 
 def mace_loss(p: Params, cfg: MACEConfig, batch: Dict[str, torch.Tensor],
               n_graphs: int, force_weight: float = 10.0) -> torch.Tensor:
-    """Energy + force matching loss (the standard MACE objective)."""
+    """Energy + force matching loss (the standard MACE objective).
+    Under a mesh, whole on every rank (module doc)."""
+    from ..dist.dtensor import replicated
+    return replicated(_mace_loss)(p, cfg, batch, n_graphs, force_weight)
+
+
+def _mace_loss(p, cfg, batch, n_graphs, force_weight):
     inputs = {k: batch[k] for k in INPUTS}
     e, f = energy_and_forces(p, cfg, n_graphs=n_graphs, **inputs)
     le = torch.mean(torch.square(e - batch["energy"]))

@@ -151,7 +151,8 @@ def dlrm_forward(p: Params, cfg: RecsysConfig, dense: torch.Tensor,
     n = allv.shape[1]
     # jnp.triu_indices(n, k=1): the same row-major order
     iu, ju = torch.triu_indices(n, n, 1, device=allv.device)
-    flat = inter[:, iu, ju]                                       # (B, 351)
+    from ..dist.dtensor import rows_local
+    flat = rows_local(lambda t: t[:, iu, ju], inter)              # (B, 351)
     x = torch.cat([z, flat], dim=1)
     return mlp_apply(p["top"], x, act=torch.relu)[:, 0]
 

@@ -139,8 +139,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def dense_ffn(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    h = silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
-    return h @ lp["w_down"]
+    from ..dist.dtensor import matmul
+    h = silu(matmul(x, lp["w_gate"])) * matmul(x, lp["w_up"])
+    return matmul(h, lp["w_down"])
 
 
 # -- MoE dispatch (capacity-based; Switch/GShard token-drop semantics) ------
@@ -189,26 +190,155 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig,
               capacity_factor: Optional[float] = None) -> Routing:
     """The float32 router, top-k with its renormalisation by
     ``max(sum, 1e-9)``, the Switch aux loss on each token's first
-    choice, and the slot ranks, for x: (G, M, D) token groups."""
-    n_g, n_m, _ = x.shape
-    n_e, k = cfg.moe.n_experts, cfg.moe.top_k
+    choice, and the slot ranks, for x: (G, M, D) token groups.  Under a
+    mesh each rank routes its own groups (``dist.dtensor.group_split``:
+    the top-k and the slot ranks' ``sort`` / ``cummax`` / ``scatter``
+    are per group); the aux loss's two means over the groups are the
+    ranks' partial sums, reduced."""
+    from ..dist.dtensor import group_split, is_dtensor, matmul, on_local
     if capacity_factor is None:
         capacity_factor = cfg.moe.capacity_factor
-    probs = softmax(x.float() @ router, -1)                        # (G,M,E)
+    probs = softmax(matmul(x.float(), router), -1)                 # (G,M,E)
+    if not is_dtensor(probs):
+        topv, eid, pos, me, ce_frac = _route(probs, cfg, capacity_factor)
+    else:
+        from torch.distributed.tensor import Partial, Replicate
+        groups = group_split(probs)
+        part = tuple(Partial() if p.is_shard() else p for p in groups)
+        topv, eid, pos, me, ce_frac = on_local(
+            _route, (probs,), groups, cfg, capacity_factor, probs.shape[0],
+            out_placements=[groups] * 3 + [part] * 2)
+        whole = (Replicate(),) * probs.device_mesh.ndim
+        me, ce_frac = (t.redistribute(probs.device_mesh, whole)
+                       for t in (me, ce_frac))
+    aux = cfg.moe.router_aux_coef * cfg.moe.n_experts * torch.sum(
+        me * ce_frac)
+    return Routing(topv, eid, pos, moe_capacity(
+        probs.shape[1], cfg.moe.top_k, cfg.moe.n_experts, capacity_factor),
+        aux)
+
+
+def _route(probs: torch.Tensor, cfg: TransformerConfig,
+           capacity_factor: float, n_groups: Optional[int] = None) -> Tuple:
+    """(topv, eid, pos, mean probability, first-choice fraction) of
+    ``probs`` (G, M, E); the two means scaled by G / ``n_groups`` (the
+    groups of all ranks), so that their sum over the ranks is the mean
+    over all groups."""
+    n_g, n_m, _ = probs.shape
+    n_e, k = cfg.moe.n_experts, cfg.moe.top_k
     topv, topi = top_k(probs, k)                                   # (G,M,K)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))
     # one_hot(topi[..., 0]), without one_hot's range check (a host sync)
-    first = topi[..., :1] == torch.arange(n_e, device=x.device)
+    first = topi[..., :1] == torch.arange(n_e, device=probs.device)
     ce_frac = first.float().mean(dim=(0, 1))
-    aux = cfg.moe.router_aux_coef * n_e * torch.sum(me * ce_frac)
+    if n_groups is not None and n_groups != n_g:
+        me, ce_frac = me * (n_g / n_groups), ce_frac * (n_g / n_groups)
     eid = topi.reshape(n_g, n_m * k)
-    return Routing(topv, eid, moe_slots(eid),
-                   moe_capacity(n_m, k, n_e, capacity_factor), aux)
+    return topv, eid, moe_slots(eid), me, ce_frac
+
+
+def _dispatch(x: torch.Tensor, eid: torch.Tensor, pos: torch.Tensor,
+              cap: int, n_e: int, k: int, window: Optional[Tuple] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The expert-major dispatch buffer (E, G * C, D) of x (G, M, D),
+    each kept (token, slot) pair's buffer row and its keep mask.  With
+    ``window`` (e0, e1, r0, r1) the buffer holds experts [e0, e1) and
+    rows [r0, r1) of each expert's G * C alone; the pairs' rows keep the
+    whole buffer's numbering."""
+    n_g, n_m, d = x.shape
+    dev = x.device
+    kept = pos < cap
+    g_idx = torch.arange(n_g, device=dev)[:, None]
+    # buffer row of each kept (token, slot): (e * G + g) * C + pos
+    row = (eid * n_g + g_idx) * cap + pos.clamp(max=cap - 1)
+    if window is None:
+        e0, e1, r0, r1 = 0, n_e, 0, n_g * cap
+        inside, at = kept, row
+    else:
+        e0, e1, r0, r1 = window
+        gc = g_idx * cap + pos.clamp(max=cap - 1)
+        inside = kept & (eid >= e0) & (eid < e1) & (gc >= r0) & (gc < r1)
+        at = (eid - e0) * (r1 - r0) + gc - r0
+    n_rows = (e1 - e0) * (r1 - r0)
+    # the token each buffer row holds; n_g * n_m (a zero row) if none
+    tok = (g_idx * n_m + torch.arange(n_m * k, device=dev) // k)
+    holder = torch.full((n_rows + 1,), n_g * n_m, dtype=torch.long,
+                        device=dev)
+    holder.index_put_((torch.where(inside, at, n_rows).flatten(),),
+                      tok.flatten())
+    xz = torch.cat([x.reshape(n_g * n_m, d), x.new_zeros(1, d)])
+    return xz[holder[:-1]].reshape(e1 - e0, r1 - r0, d), row, kept
+
+
+def _dispatch_window(x, rows: tuple, shape: Tuple[int, ...],
+                     layout: Tuple) -> Tuple[tuple, Optional[Tuple]]:
+    """(the placements this rank's dispatch buffer is built in, its
+    ``_dispatch`` window) for the whole buffer ``shape`` (E, G * C, D):
+    the layout's placements (``layers.constrain_placements``) where they
+    keep every split of the groups' rows (``rows``) and split further
+    only inside a rank's groups, so each rank builds just its part of
+    the pinned buffer (the window: its experts and rows, None when that
+    is all of its groups' buffer); ``rows`` otherwise."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_part
+    from .layers import constrain_placements
+    mesh = x.device_mesh
+    want = constrain_placements(shape, mesh, *layout)
+    if want is None:
+        return rows, None
+    want = tuple(want)
+    last_rows = max((i for i, p in enumerate(rows) if p.is_shard()),
+                    default=-1)
+    for i, (r, w) in enumerate(zip(rows, want)):
+        if r.is_shard() and w != r:
+            return rows, None
+        if not r.is_shard() and w.is_shard() and (
+                w.dim == 2 or (w.dim == 1 and i < last_rows)):
+            return rows, None
+    if want == rows:
+        return rows, None
+    size, at = local_part(shape, mesh, want)
+    _, base = local_part(shape, mesh, rows)
+    r0 = at[1] - base[1]
+    return want, (at[0], at[0] + size[0], r0, r0 + size[1])
+
+
+def _combine(y: torch.Tensor, row: torch.Tensor, kept: torch.Tensor,
+             topv: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's kept expert outputs (rows of y (E, G * C, D)),
+    weighted by its top-k weights and summed: (G, M, D)."""
+    n_g = row.shape[0]
+    y = y.reshape(-1, y.shape[-1])
+    back = torch.where(kept[..., None], y[row], 0).reshape(
+        n_g, row.shape[1] // k, k, y.shape[-1])
+    return (back * topv[..., None].to(y.dtype)).sum(dim=2)
+
+
+def _dispatch_layout(n_e: int, batch_axes: str) -> Tuple:
+    """The reference's three (G, E, C, D) dispatch-buffer layouts on the
+    port's expert-major (E, G * C, D) buffer: experts over ``model`` and
+    groups over the batch axes (expert-parallel, when E divides
+    ``model``); groups over the batch axes and capacity rows over
+    ``model`` (tensor-parallel within an expert); groups over every axis
+    (FSDP, ``batch_axes="__all__"``)."""
+    from ..launch.mesh import current_mesh
+    mesh = current_mesh()
+    n_model = (dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+               if mesh is not None else 1)
+    if batch_axes != "__data__":
+        return (None, "__all__", None)
+    if n_e % n_model == 0:
+        return ("model", "__data__", None)
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    return (None, tuple(a for a in ("pod", "data", "model")
+                        if a in names) or None, None)
 
 
 def moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
-            capacity_factor: Optional[float] = None
+            capacity_factor: Optional[float] = None,
+            batch_axes: str = "__data__"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (G, M, D) token groups -> (out (G, M, D), aux loss).
 
@@ -221,59 +351,103 @@ def moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     rows.  The routing, the dispatch into the buffer and the combine
     back run under ``torch.profiler`` ranges (``moe.route``,
     ``moe.dispatch``, ``moe.combine``), so a profile attributes their
-    device time."""
-    n_g, n_m, d = x.shape
+    device time.
+
+    Under a mesh (DTensor x) each rank routes and dispatches its own
+    groups (``dist.dtensor.group_split``; any other split of x is
+    gathered first): the whole buffer's dimension 1 is split as x's
+    groups are.  The buffer's layout is the one :func:`_dispatch_layout`
+    picks for ``batch_axes`` ("__data__" under tensor parallelism,
+    "__all__" under FSDP), and each rank builds only its part of it
+    (:func:`_dispatch_window`: its experts under expert parallelism, its
+    rows within an expert), so no rank holds the whole batch's buffer;
+    the expert products' outputs are pinned to the same layout, go back
+    to the groups' split, each rank combines its own groups, and the
+    result takes x's split."""
+    from ..dist.dtensor import (group_split, is_dtensor, like, matmul,
+                                on_local)
+    from .layers import maybe_constrain
     n_e, k = cfg.moe.n_experts, cfg.moe.top_k
-    dt, dev = x.dtype, x.device
+    layout = _dispatch_layout(n_e, batch_axes)
+    pin = lambda t: maybe_constrain(t, *layout)
     with record_function("moe.route"):
         r = moe_route(x, lp["router"], cfg, capacity_factor)
+    groups = group_split(x) if is_dtensor(x) else None
+    if groups is not None:
+        from torch.distributed.tensor import Shard
+        rows = tuple(Shard(1) if p.is_shard() else p for p in groups)
+        built, window = _dispatch_window(
+            x, rows, (n_e, x.shape[0] * r.cap, x.shape[-1]), layout)
     with record_function("moe.dispatch"):
-        cap, kept = r.cap, r.pos < r.cap
-        g_idx = torch.arange(n_g, device=dev)[:, None]
-        # buffer row of each kept (token, slot): (e * G + g) * C + pos
-        row = (r.eid * n_g + g_idx) * cap + r.pos.clamp(max=cap - 1)
-        # the token each buffer row holds; n_g * n_m (a zero row) if none
-        tok = (g_idx * n_m + torch.arange(n_m * k, device=dev) // k)
-        holder = torch.full((n_e * n_g * cap + 1,), n_g * n_m,
-                            dtype=torch.long, device=dev)
-        holder.index_put_((torch.where(kept, row, n_e * n_g * cap)
-                           .flatten(),), tok.flatten())
-        xz = torch.cat([x.reshape(n_g * n_m, d), x.new_zeros(1, d)])
-        buf = xz[holder[:-1]].reshape(n_e, n_g * cap, d)           # (E,GC,D)
-    h = silu(torch.bmm(buf, lp["we_gate"])) * torch.bmm(buf, lp["we_up"])
-    y = torch.bmm(h, lp["we_down"]).reshape(n_e * n_g * cap, d)
+        if groups is None:
+            buf, row, kept = _dispatch(x, r.eid, r.pos, r.cap, n_e, k)
+        else:
+            buf, row, kept = on_local(
+                _dispatch, (x, r.eid, r.pos), groups, r.cap, n_e, k,
+                window, out_placements=[built, groups, groups])
+        buf = pin(buf)                                             # (E,GC,D)
+    h = pin(silu(torch.bmm(buf, lp["we_gate"]))
+            * torch.bmm(buf, lp["we_up"]))
+    y = pin(torch.bmm(h, lp["we_down"]))
     with record_function("moe.combine"):
-        back = torch.where(kept[..., None], y[row], 0).reshape(n_g, n_m, k,
-                                                               d)
-        out = (back * r.topv[..., None].to(dt)).sum(dim=2)
+        if groups is None:
+            out = _combine(y, row, kept, r.topv, k)
+        else:
+            out = like(on_local(_combine, (y, row, kept, r.topv),
+                                [rows, groups, groups, groups], k,
+                                out_placements=groups), x)
 
     if cfg.moe.n_shared_experts:
-        hs = silu(x @ lp["ws_gate"]) * (x @ lp["ws_up"])
-        out = out + hs @ lp["ws_down"]
+        hs = silu(matmul(x, lp["ws_gate"])) * matmul(x, lp["ws_up"])
+        out = out + matmul(hs, lp["ws_down"])
     return out, r.aux
 
 
-def _ffn(h: torch.Tensor, lp: Params, cfg: TransformerConfig
+def _ffn(h: torch.Tensor, lp: Params, cfg: TransformerConfig,
+         moe_batch_axes: str = "__data__"
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe is None:
         return dense_ffn(h, lp), torch.zeros((), device=h.device)
-    return moe_ffn(h, lp, cfg)
+    return moe_ffn(h, lp, cfg, batch_axes=moe_batch_axes)
 
 
 # -- transformer block -------------------------------------------------------
 
+def split_heads(t: torch.Tensor, n_h: int) -> torch.Tensor:
+    """(..., n_h * hd) -> (..., n_h, hd).  A DTensor keeps a split of the
+    last dimension as a split of the heads where it divides them
+    (``dist.dtensor``: gathered otherwise) and reshapes each rank's
+    part."""
+    from ..dist.dtensor import divisible, reshape_local
+    hd = t.shape[-1] // n_h
+    t = divisible(t, -1, n_h)
+    last = t.ndim - 1
+    return reshape_local(lambda u: u.reshape(*u.shape[:-1], -1, hd), t,
+                         {d: d for d in range(last + 1)})
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n_h, hd) -> (..., n_h * hd), a split of the heads kept."""
+    from ..dist.dtensor import reshape_local
+    return reshape_local(lambda u: u.reshape(*u.shape[:-2], -1), t,
+                         {d: d for d in range(t.ndim - 1)})
+
+
 def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
           positions: torch.Tensor, attention: Attention = flash_attention,
-          kv_out: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+          kv_out: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+          moe_batch_axes: str = "__data__"
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm block.  x: (B, S, D) -> (x, MoE aux loss).  When
-    ``kv_out`` is a list, the block's roped k and v are appended to it."""
+    ``kv_out`` is a list, the block's roped k and v are appended to it.
+    ``moe_batch_axes`` as in :func:`moe_ffn`."""
+    from ..dist.dtensor import matmul
     n_b, n_s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(n_b, n_s, hq, hd)
-    k = (h @ lp["wk"]).reshape(n_b, n_s, hkv, hd)
-    v = (h @ lp["wv"]).reshape(n_b, n_s, hkv, hd)
+    q = split_heads(matmul(h, lp["wq"]), hq)
+    k = split_heads(matmul(h, lp["wk"]), hkv)
+    v = split_heads(matmul(h, lp["wv"]), hkv)
     del h
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -283,10 +457,25 @@ def block(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
     # drop the frame's references before the FFN's wide temporaries (a
     # 32k-token prefill holds 16 GB in them); autograd keeps what it saved
     del q, k, v
-    x = x + o.reshape(n_b, n_s, hq * hd) @ lp["wo"]
+    x = x + matmul(merge_heads(o), lp["wo"])
     del o
-    y, aux = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
+    y, aux = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                  moe_batch_axes)
     return x + y, aux
+
+
+def gathered_block(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+                   **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`block` under FSDP: the layer's weights gathered whole
+    (``maybe_replicate``) inside the body, so a remat'd layer gathers
+    them again when it is recomputed; the expert weights ``we_*`` keep
+    their expert split (gathering them moves E x the bytes of the tokens
+    they process), and the MoE dispatch runs batch-parallel over every
+    axis."""
+    from .layers import maybe_replicate
+    lp = {name: t if name.startswith("we_") else maybe_replicate(t)
+          for name, t in lp.items()}
+    return block(x, lp, cfg, moe_batch_axes="__all__", **kw)
 
 
 def _layers(params: Params) -> List[Params]:
@@ -301,7 +490,8 @@ def _layers(params: Params) -> List[Params]:
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             *, attention: Attention = flash_attention,
-            kv_out: Optional[list] = None, remat: bool = True
+            kv_out: Optional[list] = None, remat: bool = True,
+            gather_layer_weights: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (final hidden (B, S, D), summed MoE aux loss).
     The embedding gather is the reference's ``mode="clip"`` one: an id
@@ -316,7 +506,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     the backward, as the reference's ``jax.checkpoint`` of the scanned
     body; the values are the same.  Without gradients, and with
     ``kv_out`` (which the recompute would append to again), layers run
-    as they are."""
+    as they are.
+
+    ``gather_layer_weights``: FSDP, each layer through
+    :func:`gathered_block` (a no-op without a current mesh)."""
     n_b, n_s = tokens.shape
     x = gather_clip(params["embed"], tokens)                     # (B, S, D)
     positions = torch.arange(n_s, device=x.device)[None].expand(n_b, n_s)
@@ -324,14 +517,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     layers = _layers(params)
     remat = remat and kv_out is None and torch.is_grad_enabled() and any(
         t.requires_grad for t in params["layers"].values())
+    body = gathered_block if gather_layer_weights else block
     for lp in layers:
         if remat:
-            x, a = checkpoint(block, x, lp, cfg, positions=positions,
+            x, a = checkpoint(body, x, lp, cfg, positions=positions,
                               attention=attention, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = block(x, lp, cfg, positions=positions,
-                         attention=attention, kv_out=kv_out)
+            x, a = body(x, lp, cfg, positions=positions,
+                        attention=attention, kv_out=kv_out)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -356,7 +550,15 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) summed and returned in float32.  On CUDA, bf16
     operands stay bf16 on the tensor cores (``out_dtype``); otherwise
     both are widened to float32, which for bf16 values is the same
-    product (the reference's ``preferred_element_type=float32``)."""
+    product (the reference's ``preferred_element_type=float32``).
+
+    DTensor operands (under a mesh, where ``out_dtype`` has no sharding
+    rule) multiply on each rank's local parts: a's rows and b's columns
+    keep their splits, the contracted dimension is gathered, and the
+    product is split as they were."""
+    from ..dist.dtensor import any_dtensor, matmul
+    if any_dtensor(a, b):
+        return matmul(a, b, _mm_f32)
     if a.is_cuda and torch.bfloat16 in (a.dtype, b.dtype):
         return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
                         out_dtype=torch.float32)
@@ -380,6 +582,20 @@ class _LogitsF32(torch.autograd.Function):
         return (_mm_f32(g, w.T).to(h.dtype), _mm_f32(h.T, g).to(w.dtype))
 
 
+def _gold(logits: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """``logits[..., lab]``.  Under a mesh the logits may be split over
+    the vocabulary (tensor parallelism), where a gather has no sharding
+    rule that holds: the gold logit is then the sum over the vocabulary
+    of the logits where the label is, which each rank sums over its own
+    part of the vocabulary (exact: one term is not zero)."""
+    from ..dist.dtensor import is_dtensor
+    if is_dtensor(logits):
+        hit = lab[..., None] == torch.arange(logits.shape[-1],
+                                             device=logits.device)
+        return torch.where(hit, logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, lab[..., None])[..., 0]
+
+
 def chunked_ce_loss(hidden: torch.Tensor, labels: torch.Tensor,
                     unembed: torch.Tensor, n_chunks: int = 8
                     ) -> torch.Tensor:
@@ -389,6 +605,10 @@ def chunked_ce_loss(hidden: torch.Tensor, labels: torch.Tensor,
     chunk of c positions the (B, c, V) float32 logits (bf16 operands,
     float32 sums), ``logsumexp`` minus the gold logit, summed over the
     valid positions with their count; the total over max(count, 1)."""
+    from ..dist.dtensor import reshape_local, whole_dims
+    # chunks are cut along, and flattened with, the sequence: a split of
+    # it (FSDP's pod axis) is gathered first
+    hidden, labels = whole_dims(hidden, (1,)), whole_dims(labels, (1,))
     n_b, n_s, d = hidden.shape
     n_chunks = min(n_chunks, n_s)
     while n_s % n_chunks:
@@ -397,11 +617,13 @@ def chunked_ce_loss(hidden: torch.Tensor, labels: torch.Tensor,
     tot = torch.zeros((), device=hidden.device)
     cnt = torch.zeros((), device=hidden.device)
     for i in range(n_chunks):
-        h = hidden[:, i * c:(i + 1) * c].reshape(n_b * c, d)
+        h = reshape_local(lambda u: u.reshape(-1, d),
+                          hidden[:, i * c:(i + 1) * c], {0: 0, 2: 1})
         lab = labels[:, i * c:(i + 1) * c].long()
-        logits = _LogitsF32.apply(h, unembed).reshape(n_b, c, -1)
+        logits = reshape_local(lambda u: u.reshape(-1, c, u.shape[-1]),
+                               _LogitsF32.apply(h, unembed), {0: 0, 1: 2})
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab.clamp(min=0)[..., None])[..., 0]
+        gold = _gold(logits, lab.clamp(min=0))
         valid = (lab >= 0).float()
         tot = tot + torch.sum((lse - gold) * valid)
         cnt = cnt + valid.sum()
@@ -410,13 +632,15 @@ def chunked_ce_loss(hidden: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: TransformerConfig, *, attention: Attention = flash_attention,
-            ce_chunks: int = 8, remat: bool = True) -> torch.Tensor:
+            ce_chunks: int = 8, remat: bool = True,
+            gather_layer_weights: bool = False) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     (B, S), -1 ignored) plus the MoE aux loss, as the reference's.  Its
     ``attn_chunk`` sizes the jnp attention's KV chunks; the kernels tile
-    by themselves."""
+    by themselves.  ``gather_layer_weights`` as in :func:`forward`."""
     hidden, aux = forward(params, batch["tokens"], cfg, attention=attention,
-                          remat=remat)
+                          remat=remat,
+                          gather_layer_weights=gather_layer_weights)
     ce = chunked_ce_loss(hidden, batch["labels"],
                          unembed_matrix(cfg, params), n_chunks=ce_chunks)
     return ce + aux
@@ -445,7 +669,13 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 def _write_at(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
               new: torch.Tensor) -> None:
     """cache[b, at[b]] = new[b] in place, a row with ``at`` past the
-    cache left as it is (the reference's scatter drops it)."""
+    cache left as it is (the reference's scatter drops it).  A placed
+    cache (a DTensor) writes on each rank's slice
+    (``dist.sp_decode.placed_write_at``)."""
+    from ..dist.dtensor import is_dtensor
+    if is_dtensor(cache):
+        from ..dist.sp_decode import placed_write_at
+        return placed_write_at(cache, at, new)
     n_s = cache.shape[1]
     pos = at.long().clamp(max=n_s - 1)
     fits = (at < n_s)[:, None, None]
@@ -458,7 +688,13 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     """One autoregressive step.  tokens: (B,) -> (logits (B, V) float32,
     the cache one longer).  Each row's k and v are written at its own
     ``length`` into ``cache``'s tensors, which the returned cache shares
-    (the step updates the cache in place, as a donated buffer)."""
+    (the step updates the cache in place, as a donated buffer).
+
+    A placed cache (DTensors, the sequence split over ``model`` as the
+    reference's decode cell lays it out) writes each row on the rank
+    that holds its position and attends by the log-sum-exp merge of the
+    ranks' slices (``dist.sp_decode.placed_decode_attention``)."""
+    from ..dist.dtensor import is_dtensor, matmul
     n_b = tokens.shape[0]
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -470,16 +706,21 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     for i, lp in enumerate(_layers(params)):
         kc, vc = cache.k[i], cache.v[i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = (h @ lp["wq"]).reshape(n_b, 1, hq, hd)
-        k = (h @ lp["wk"]).reshape(n_b, 1, hkv, hd)
-        v = (h @ lp["wv"]).reshape(n_b, 1, hkv, hd)
+        q = split_heads(matmul(h, lp["wq"]), hq)
+        k = split_heads(matmul(h, lp["wk"]), hkv)
+        v = split_heads(matmul(h, lp["wv"]), hkv)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         _write_at(kc, rows, length, k[:, 0])
         _write_at(vc, rows, length, v[:, 0])
-        o = gqa_attention(q, kc, vc, causal=False, chunk=chunk,
-                          kv_valid_len=length + 1)
-        x = x + o.reshape(n_b, 1, hq * hd) @ lp["wo"]
+        if is_dtensor(kc):
+            from ..dist.sp_decode import placed_decode_attention
+            o = placed_decode_attention(q[:, 0], kc, vc, length + 1)
+            o = o.to(q.dtype)[:, None]
+        else:
+            o = gqa_attention(q, kc, vc, causal=False, chunk=chunk,
+                              kv_valid_len=length + 1)
+        x = x + matmul(merge_heads(o), lp["wo"])
         y, _ = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(n_b, 1, d),
                     lp, cfg)
         x = x + y

@@ -71,7 +71,14 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
     loss and the gradients over microbatches ``batch[i]`` (every leaf of
     the batch has a leading axis of ``accum``), in order, then scales by
     ``1 / accum``.  ``donate`` is accepted and has no effect (torch
-    frees the old state when the caller drops it)."""
+    frees the old state when the caller drops it).
+
+    Placed state (DTensor parameters, optimizer state and batch, as the
+    reference's ``jit`` on sharded inputs) steps on its mesh: the step
+    runs with that mesh current (``launch.mesh.set_mesh``) and plain
+    tensors taken as replicated, its gradients, moments and updates
+    keep their parameter's placement, and its metrics come back
+    replicated."""
     del donate
 
     def grads_of(params, batch):
@@ -79,8 +86,9 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
             return value_and_grad(loss_fn, params, batch)
         dev = T.leaves(params)[0].device
         tot = torch.zeros((), dtype=torch.float32, device=dev)
-        g = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        g = T.tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format),
+            params)
         for i in range(accum):
             mb = T.tree_map(lambda x: x[i], batch)
             l, gi = value_and_grad(loss_fn, params, mb)
@@ -89,6 +97,21 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
         return tot * inv, T.tree_map(lambda x: x * inv, g)
 
     def step(params, opt_state, residual, batch):
+        mesh = _mesh_of(params)
+        if mesh is None:
+            return plain_step(params, opt_state, residual, batch)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        from ..launch.mesh import set_mesh
+        from ..dist.dtensor import replicate_all
+        with set_mesh(mesh), implicit_replication():
+            *state, metrics = plain_step(params, opt_state, residual, batch)
+            # whole values on every rank (a loss may be a partial sum)
+            return (*state, {k: replicate_all(v) for k, v in
+                             metrics.items()})
+
+    def plain_step(params, opt_state, residual, batch):
         loss, grads = grads_of(params, batch)
         with torch.no_grad():
             if compression:
@@ -101,6 +124,15 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
                                              "grad_norm": gnorm}
 
     return step
+
+
+def _mesh_of(tree):
+    """The mesh of the first DTensor leaf of ``tree``, or None."""
+    from ..dist.dtensor import is_dtensor
+    for leaf in T.leaves(tree):
+        if is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
 
 
 @dataclass

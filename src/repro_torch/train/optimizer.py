@@ -38,7 +38,9 @@ def _over(x: float, t: torch.Tensor) -> torch.Tensor:
 
 
 def _zeros(p) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=F32, device=p.device)
+    """Float32 zeros of ``p``'s shape (and, for a DTensor, placement)."""
+    return torch.zeros_like(p, dtype=F32,
+                            memory_format=torch.contiguous_format)
 
 
 def apply_updates(params, updates):

@@ -17,6 +17,7 @@ from repro_torch.kernels.csr_lookup import ops as lookup_ops
 from repro_torch.kernels.knrm_pool import ops as knrm_ops
 from repro_torch.retrievers import get_retriever
 from repro_torch.serving import SeineEngine, serve_batches
+from repro_torch.kernels.flash_attn import ops as fa_ops
 from torch_chip_smoke_helpers import _counting, _load_script, _patch_build
 import torch_threads  # noqa: F401  (PyTorch threads per test process)
 
@@ -62,5 +63,58 @@ def test_mesh_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert out["decode_err"] < 1e-5
     assert out["restored"] == len(list(params.state_dict()))
     assert not (tmp_path / "mesh").exists()
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_mesh_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 16 at smoke configs and tiny shapes over gloo: the placed
+    LM steps (fsdp and tp2d, the MoE under fsdp), MACE, DLRM and
+    seine/retrieve bitwise their mesh-less steps, the kernels' launches
+    counted, the reshard-on-load, and a counted cell read back from its
+    worker."""
+    cs = _load_script()
+    for name, value in dict(
+            N_DOCS=1500, VOCAB=3000, TAIL_DRAWS=30, RETRIEVE_CANDS=300,
+            MESH_TRAIN_SHAPE=(4, 32), MESH_MOE_SHAPE=(4, 32),
+            MESH_TRAIN_STEPS=1,
+            MESH_COUNTS=(("autoint", "serve_p99", "tp2d"),),
+            MESH_TRAIN_DIR=str(tmp_path / "train"),
+            MESH_COUNT_DIR=str(tmp_path / "count")).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "train_lm_config",
+                        lambda name, n_layers=None: smoke(name))
+    monkeypatch.setattr(cs, "mace_config", lambda: smoke("mace"))
+    monkeypatch.setattr(cs, "recsys_config", lambda arch: smoke(arch))
+    monkeypatch.setitem(cs.RECSYS_TRAIN_BATCH, "dlrm-mlperf", 64)
+    monkeypatch.setattr(cs, "nccl_kernels", lambda run: {})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(lookup_ops, "_use_kernel",
+                        lambda impl, like: impl in (None, "kernel"))
+    for mod, name in ((lookup_ops, "csr_lookup_kernel"),
+                      (knrm_ops, "knrm_pool_kernel"),
+                      (fa_ops, "flash_attn_kernel"),
+                      (fa_ops, "flash_attn_bwd_kernel")):
+        monkeypatch.setattr(mod, name, _counting(getattr(cs, name)))
+    dev = torch.device("cpu")
+    index, _ = cs.build_index(0, dev)
+    # the card's segment sums sort their ids; the CPU's add with atomics
+    # across threads unless deterministic
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = cs.phase16({"index": index}, 0, dev, "card, 700 W")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert set(out["lm"]) == {("stablelm-1.6b", "fsdp"),
+                              ("stablelm-1.6b", "tp2d"),
+                              ("granite-moe-3b-a800m", "fsdp")}
+    for run in out["lm"].values():
+        assert run["per_step"]["flash_attn_bwd"] == 2
+    assert set(out["small"]) == {"mace/molecule", "dlrm-mlperf/train_batch"}
+    assert out["retrieve"]["launches"]["csr_lookup"] > 0
+    assert out["restored"] > 10
+    rec = out["counts"]["autoint/serve_p99/tp2d"]
+    assert rec["argument_bytes"] > 0 and "total" in rec["coll_by_op"]
+    assert not (tmp_path / "train").exists()
     import torch.distributed as dist
     assert not dist.is_initialized()

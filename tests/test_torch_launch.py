@@ -479,7 +479,7 @@ def test_run_cell_counts_a_smoke_cell_and_report_renders_it(monkeypatch,
     out = tmp_path / "rec"
     assert dryrun.main(["--arch", "stablelm-1.6b", "--shape", "prefill_32k",
                         "--device", "meta", "--out", str(out)]) == 0
-    rec = json.loads((out / "stablelm-1.6b__prefill_32k__single.json")
+    rec = json.loads((out / "stablelm-1.6b__prefill_32k__card.json")
                      .read_text())
     c = configs.smoke("stablelm-1.6b")
     want = _prefill_flops(c, 2, 64)
@@ -490,9 +490,9 @@ def test_run_cell_counts_a_smoke_cell_and_report_renders_it(monkeypatch,
         math.prod(s) * 4 for s, _ in S.T.param_specs(c).values()) + 2 * 64 * 4
     assert rec["roofline"]["coll_by_op"] == {"total": 0.0}
     recs = report.load(str(out))
-    table = report.roofline_table(recs)
+    table = report.roofline_table(recs, "card")
     assert "| stablelm-1.6b | prefill_32k | baseline | - |" in table
-    assert "| stablelm-1.6b | prefill_32k | single | 1 | - |" in \
+    assert "| stablelm-1.6b | prefill_32k | card | 1 | - |" in \
         report.dryrun_table(recs)
 
 
@@ -572,17 +572,27 @@ def test_report_tables_match_the_reference(tmp_path):
         989e12, 3.35e12, 450e9)
 
 
-def test_cli_refuses_what_one_card_cannot_do(capsys, monkeypatch):
+def test_cli_refuses_without_a_card_and_counts_on_a_mesh(capsys,
+                                                          monkeypatch,
+                                                          tmp_path):
+    """Without a card ``--device cuda`` is refused; ``--mesh multi
+    --device meta`` counts MACE's molecule cell in a worker process on a
+    fake world of 512 ranks: one device's record, with its collectives
+    (the edges and nodes are split over the whole mesh)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert dryrun.main(["--arch", "yi-9b", "--shape", "train_4k"]) != 0
     assert "needs a card" in capsys.readouterr().err
-    for flags in (["--mesh", "multi"], ["--strategy", "fsdp"]):
-        assert dryrun.main(["--all", "--device", "meta", *flags]) != 0
-        assert "item 4e2" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 4e2"):
-        S.build_cell("yi-9b", "train_4k", strategy="fsdp")
     with pytest.raises(RuntimeError, match="needs a card"):
         dryrun.run_cell("yi-9b", "train_4k", device="cuda")
+    assert dryrun.main(["--arch", "mace", "--shape", "molecule", "--mesh",
+                        "multi", "--device", "meta", "--out",
+                        str(tmp_path), "--quiet"]) == 0
+    rec = json.loads((tmp_path / "mace__molecule__multi.json").read_text())
+    assert rec["n_devices"] == 512 and rec["mesh"] == "multi"
+    coll = rec["roofline"]["coll_by_op"]
+    assert coll["total"] > 0 and set(coll) - {"total"}
+    assert rec["on_card"] is False and rec["memory"]["peak_gib_per_device"] \
+        is None
 
 
 def _embed_bag_passes(table, indices, bag_ptr):

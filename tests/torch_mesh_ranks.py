@@ -78,6 +78,10 @@ def rank_main(rank: int, world: int, store: str, work: str) -> None:
             out.update(_decode(work, tuple(shape)))
         if tasks.get("restore"):
             out.update(_restore(work, tuple(tasks["restore"])))
+        for shape in tasks.get("train", []):
+            out.update(_train(tuple(shape)))
+        if tasks.get("fit"):
+            out.update(_fit(work, tuple(tasks["fit"])))
         np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
@@ -255,3 +259,332 @@ def _restore(work: str, shape) -> dict:
                         s.local_slice(torch.from_numpy(saved[name]))))
         out[f"restore/spec/{name}"] = np.array(repr(s.spec))
     return out
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh (tests/test_torch_train_mesh.py)
+# ---------------------------------------------------------------------------
+
+LM_SHAPE = dict(name="train_4k", kind="training", seq_len=16,
+                global_batch=12)
+TRAIN_CASES = (("stablelm-1.6b", "fsdp"), ("stablelm-1.6b", "tp2d"),
+               ("granite-moe-3b-a800m", "fsdp"),
+               ("granite-moe-3b-a800m", "tp2d"), ("mace", "tp2d"),
+               ("dlrm-mlperf", "tp2d"))
+
+
+def train_cell(arch: str, strategy: str, mesh):
+    """A smoke-size training cell of ``arch``, on ``mesh`` or (None)
+    mesh-less: the LM at (12, 16), MACE on 3 molecules of 6 atoms padded
+    to 512, DLRM's smoke tables at a batch of 24."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    cfg = configs.smoke(arch)
+    if arch == "mace":
+        return S._mace_cell(cfg, ShapeConfig(
+            name="molecule", kind="batched-small-graphs", n_nodes=6,
+            n_edges=10, n_graphs=3), mesh)
+    if arch == "dlrm-mlperf":
+        return S._recsys_cell(cfg, ShapeConfig(
+            name="train_batch", kind="training", batch=24), mesh)
+    return S._lm_train_cell(cfg, ShapeConfig(**LM_SHAPE), mesh,
+                            strategy=strategy)
+
+
+def plain_cfg(arch: str):
+    from repro_torch import configs
+    return configs.smoke(arch)
+
+
+def _whole(tree) -> list:
+    from repro_torch import tree as T
+    return [(n, (x.full_tensor() if hasattr(x, "full_tensor") else x)
+             .detach().float().numpy())
+            for n, x in T.flatten_with_paths(tree)]
+
+
+def _train(shape) -> dict:
+    """Each training case's step on the mesh from the mesh-less cell's
+    arguments: its loss, grad norm and Adam moments (the gradients, as
+    0.1 g and 0.001 g^2) against the mesh-less step's; then Adam's
+    update on the mesh from the mesh-less step's gradients and state
+    against the mesh-less update."""
+    import copy
+
+    from repro_torch import tree as T
+    from repro_torch.train.optimizer import adam
+    torch.use_deterministic_algorithms(True)
+    mesh = _mesh(shape)
+    tag = "x".join(map(str, shape))
+    out = {}
+    for arch, strategy in TRAIN_CASES:
+        key = f"train/{tag}/{arch}/{strategy}"
+        plain, placed = train_cell(arch, strategy, None), train_cell(
+            arch, strategy, mesh)
+        args = plain.make_args("cpu", 0)
+        p_ref, o_ref, m_ref = plain.fn(*copy.deepcopy(args))
+        p_got, o_got, m_got = placed.fn(*placed.place(copy.deepcopy(args)))
+        for name in m_ref:
+            out[f"{key}/metric/{name}"] = np.array(
+                [float(m_ref[name]), float(m_got[name].full_tensor()
+                                           if hasattr(m_got[name],
+                                                      "full_tensor")
+                                           else m_got[name])])
+        for part in ("mu", "nu"):
+            for (n, a), (_, b) in zip(_whole(o_ref[part]),
+                                      _whole(o_got[part])):
+                out[f"{key}/{part}/{n}/ref"] = a
+                out[f"{key}/{part}/{n}/got"] = b
+        out[f"{key}/placed"] = np.array(sum(
+            hasattr(x, "placements") for x in T.leaves(p_got)))
+    # a decode step on a placed cache (the sequence over model, the
+    # batch over data), granite's MoE and stablelm's dense layers
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    for arch in ("stablelm-1.6b", "granite-moe-3b-a800m"):
+        sh = ShapeConfig(name="decode_32k", kind="inference-decode",
+                         seq_len=24, global_batch=4)
+        plain = S._lm_decode_cell(configs.smoke(arch), sh, None)
+        placed = S._lm_decode_cell(configs.smoke(arch), sh, mesh)
+        args = plain.make_args("cpu", 0)
+        want = plain.fn(*copy.deepcopy(args))
+        got = placed.fn(*placed.place(copy.deepcopy(args)))
+        for name, a, b in (("logits", want[0], got[0]),
+                           ("k", want[1].k, got[1].k),
+                           ("v", want[1].v, got[1].v)):
+            out[f"decode/{tag}/{arch}/{name}/ref"] = a.numpy()
+            out[f"decode/{tag}/{arch}/{name}/got"] = \
+                b.full_tensor().float().numpy()
+    # MACE's energies on placed inputs (split over every axis; the
+    # forward gathers them)
+    from repro_torch.models import mace as MA
+    from repro_torch.launch.mesh import set_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    plain = train_cell("mace", "tp2d", None)
+    placed = train_cell("mace", "tp2d", mesh)
+    params, _, batch = plain.make_args("cpu", 0)
+    kw = dict(cfg=plain_cfg("mace"), n_graphs=plain.meta["n_graphs"])
+    want = MA.forward(params, **kw, **{k: batch[k] for k in MA.INPUTS})
+    pp = placed.place(params, placed.in_shardings[0])
+    pb = placed.place(batch, placed.in_shardings[2])
+    with set_mesh(mesh), implicit_replication():
+        got = MA.forward(pp, **kw, **{k: pb[k] for k in MA.INPUTS})
+    out[f"energy/{tag}/ref"] = want.numpy()
+    out[f"energy/{tag}/got"] = got.full_tensor().numpy()
+    # the update from the same state: random gradients, Adam after one
+    # step, on the mesh and mesh-less
+    plain = train_cell("stablelm-1.6b", "fsdp", None)
+    placed = train_cell("stablelm-1.6b", "fsdp", mesh)
+    params, opt_state, _ = plain.make_args("cpu", 1)
+    gen = torch.Generator().manual_seed(2)
+    grads = T.tree_map(lambda p: torch.randn(p.shape, generator=gen), params)
+    opt = adam(3e-4)
+    s1 = opt.update(grads, opt_state, params)[1]
+    u_ref, _ = opt.update(grads, s1, params)
+    pshard = placed.in_shardings[0]
+    gp, pp = placed.place(grads, pshard), placed.place(params, pshard)
+    sp = placed.place(s1, placed.in_shardings[1])
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        u_got, _ = opt.update(gp, sp, pp)
+    for (n, a), (_, b) in zip(_whole(u_ref), _whole(u_got)):
+        out[f"update/{tag}/{n}/ref"] = a
+        out[f"update/{tag}/{n}/got"] = b
+    return out
+
+
+def _fit(work: str, shape) -> dict:
+    """``fit`` of three steps on placed state (the stablelm FSDP cell's
+    loss through ``make_train_step``) against the mesh-less ``fit``,
+    with a checkpoint at the end; the checkpoint restored onto a mesh of
+    another shape, and saved from there again."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.dist.sharding import (P, NamedSharding, lm_param_rules,
+                                           tree_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import lm_batch_axes
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.loop import TrainState, fit, make_train_step
+    from repro_torch.train.optimizer import adam
+    mesh = _mesh(shape)
+    cfg = configs.smoke("stablelm-1.6b")
+    placed = train_cell("stablelm-1.6b", "fsdp", mesh)
+    params, opt_state, batch = train_cell(
+        "stablelm-1.6b", "fsdp", None).make_args("cpu", 3)
+    mb = {k: v[0] for k, v in batch.items()}
+    da, seq = lm_batch_axes(mesh, LM_SHAPE["global_batch"], "fsdp")
+    mb_sh = {k: NamedSharding(mesh, P(da, seq)) for k in mb}
+    out = {}
+    for tag in ("plain", "mesh"):
+        meshed = tag == "mesh"
+        loss = (lambda p, b, g=meshed: TF.lm_loss(
+            p, b, cfg, ce_chunks=8, remat=True, gather_layer_weights=g))
+        state = TrainState(params, opt_state, None, 0)
+        b0 = mb
+        if meshed:
+            state = TrainState(placed.place(params, placed.in_shardings[0]),
+                               placed.place(opt_state,
+                                            placed.in_shardings[1]),
+                               None, 0)
+            b0 = placed.place(mb, mb_sh)
+        res = fit(state, make_train_step(loss, adam(3e-4)), lambda i: b0,
+                  n_steps=3, verbose=False,
+                  ckpt_dir=os.path.join(work, "fit_mesh") if meshed
+                  else None)
+        out[f"fit/{tag}/loss"] = np.array([h["loss"] for h in res.history])
+        for n, a in _whole(res.state.params):
+            out[f"fit/{tag}/params/{n}"] = a
+    # the meshed checkpoint onto a mesh of another shape, bitwise
+    other = make_host_mesh(shape[0] * shape[1], 1, device="cpu")
+    sh = {"params": tree_shardings(other, params, lm_param_rules())}
+    tree, manifest = restore_checkpoint(os.path.join(work, "fit_mesh"),
+                                        {"params": params}, shardings=sh)
+    for n, a in _whole(tree):
+        out[f"fit/restored/{n}"] = a
+    out["fit/restored/step"] = np.array(manifest["step"])
+    save_checkpoint(os.path.join(work, "fit_again"), 3, tree)
+    out["fit/rank"] = np.array(dist.get_rank())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a fake world in this process (tests/test_torch_launch_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _pl(x) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+    return [f"S{p.dim}" if isinstance(p, Shard) else
+            "R" if isinstance(p, Replicate) else "P" for p in x.placements]
+
+
+def fake_world_checks(n: int) -> dict:
+    """The mesh hints, collective bytes and local flops on meta DTensors
+    in a world of ``n`` ranks of torch's fake backend (this process is
+    rank 0; no collective moves a byte)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import count_local
+    from repro_torch.launch.mesh import make_fake_world, set_mesh
+    from repro_torch.models.layers import maybe_constrain, maybe_replicate
+    make_fake_world(n)
+
+    def mesh(shape, names):
+        return DeviceMesh("cpu", torch.arange(n).view(*shape),
+                          mesh_dim_names=names)
+
+    def place(shape, m, placements, grad=False):
+        t = distribute_tensor(torch.empty(shape, device="meta"), m,
+                              placements, src_data_rank=None)
+        return t.requires_grad_() if grad else t
+    out = {}
+    if n == 3:
+        m = mesh((1, 3), ("data", "model"))
+        x = place((6, 4), m, [Replicate()] * 2)
+        with set_mesh(m):
+            out["model_rows"] = _pl(maybe_constrain(x, "model"))
+            y = place((4, 4), m, [Replicate()] * 2)
+            out["model_not_dividing_same"] = maybe_constrain(
+                y, "model") is y
+        m1 = mesh((3,), ("model",))
+        z = place((6, 4), m1, [Replicate()])
+        with set_mesh(m1):
+            out["data_absent_same"] = maybe_constrain(z, "__data__") is z
+        return out
+    m = mesh((2, 2), ("data", "model"))
+    rep = [Replicate()] * 2
+    dx = place((8, 6), m, rep)
+    out["no_mesh_same"] = maybe_constrain(dx, "__data__") is dx
+    plain = torch.zeros(8, 6)
+    with set_mesh(m):
+        out["plain_same"] = (maybe_constrain(plain, "__data__") is plain
+                             and maybe_replicate(plain) is plain)
+        out["data_model"] = _pl(maybe_constrain(dx, "__data__", "model"))
+        out["all_rows"] = _pl(maybe_constrain(dx, "__all__", None))
+        odd = place((3, 6), m, rep)
+        out["nothing_divides_same"] = maybe_constrain(odd, "__data__") is odd
+        out["replicate"] = _pl(maybe_replicate(
+            place((8, 6), m, [Shard(0), Shard(1)])))
+        # FSDP: a weight split over the grid, gathered for a batch split
+        # the same way; its gradient leaves through a reduce-scatter
+        w = place((8, 16), m, [Shard(0), Shard(0)], grad=True)
+        xb = place((8, 8), m, [Shard(0), Shard(0)])
+        terms, wr = count_local(maybe_replicate, (w,), {})
+        out["replicate_fwd"] = terms.coll_by_op
+        y = (xb @ wr).sum()
+        terms, _ = count_local(lambda: y.backward(), (), {})
+        out["replicate_bwd"] = terms.coll_by_op
+        out["grad_placements"] = _pl(w.grad)
+    pod = mesh((2, 2, 1), ("pod", "data", "model"))
+    with set_mesh(pod):
+        out["pod_shrunk"] = _pl(maybe_constrain(
+            place((2, 6), pod, [Replicate()] * 3), "__all__"))
+    d = mesh((4,), ("d",))
+    w = place((8, 16), d, [Shard(0)])
+    out["gather"] = count_local(
+        lambda: w.redistribute(d, [Replicate()]), (), {})[0].coll_by_op
+    xs, ws = place((4, 8), d, [Shard(1)]), place((8, 16), d, [Shard(0)])
+    out["reduce"] = count_local(lambda: (xs @ ws).full_tensor(), (),
+                                {})[0].coll_by_op
+    gs = place((8, 8), d, [Shard(1)])
+    out["scatter"] = count_local(
+        lambda: (gs @ ws).redistribute(d, [Shard(0)]), (), {})[0].coll_by_op
+    x = place((64, 8), d, [Shard(0)])
+    out["sum"] = count_local(lambda: x.sum().full_tensor(), (),
+                             {})[0].coll_by_op
+    a, b = place((64, 32), d, [Shard(0)]), place((32, 16), d, [Replicate()])
+    out["local_flops"] = count_local(lambda: a @ b, (), {})[0].flops
+    out["global_flops"] = 2 * 64 * 32 * 16
+    above = FlopCounterMode(display=False)
+    with above:
+        a @ b
+    out["mode_above_flops"] = above.get_total_flops()
+    out.update(_moe_counts(m))
+    return out
+
+
+def _moe_counts(m) -> dict:
+    """One device's counts of the smoke granite-moe's ``moe_ffn``
+    (forward and backward, (8, 16) tokens, weights replicated) with the
+    groups split over both axes of ``m`` and ``batch_axes="__all__"``,
+    beside the mesh-less counts; and of its FSDP training cell."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.dryrun import count_local
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import transformer as TF
+    cfg = plain_cfg("granite-moe-3b-a800m")
+    lp = {k.split(".", 1)[1]: torch.empty(shape[1:], device="meta",
+                                          requires_grad=True)
+          for k, (shape, _) in TF.param_specs(cfg).items()
+          if k.startswith("layers.")}
+    x = torch.empty(8, 16, cfg.d_model, device="meta", requires_grad=True)
+
+    def step(x, lp):
+        y, aux = TF.moe_ffn(x, lp, cfg, batch_axes="__all__")
+        (y.float().sum() + aux).backward()
+
+    def place(t, pl):
+        return distribute_tensor(t.detach(), m, pl,
+                                 src_data_rank=None).requires_grad_()
+    whole, _ = count_local(lambda: step(x, lp), (), {})
+    xd = place(x, [Shard(0), Shard(0)])
+    lpd = {k: place(v, [Replicate()] * 2) for k, v in lp.items()}
+    with set_mesh(m):
+        dev, _ = count_local(lambda: step(xd, lpd), (), {})
+    plain = train_cell("granite-moe-3b-a800m", "fsdp", None)
+    cell = train_cell("granite-moe-3b-a800m", "fsdp", m)
+    cell_whole, _ = count_local(plain.fn, plain.args, plain.count_kwargs)
+    cell_dev, _ = count_local(cell.fn, cell.place(cell.args),
+                              cell.count_kwargs)
+    return {"moe_flops": [whole.flops, dev.flops],
+            "moe_bytes": [whole.hbm_bytes, dev.hbm_bytes],
+            "moe_coll": dev.coll_by_op, "n_experts": cfg.moe.n_experts,
+            "d_model": cfg.d_model,
+            "moe_cell_flops": [cell_whole.flops, cell_dev.flops]}

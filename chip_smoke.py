@@ -311,9 +311,13 @@ launches CUPTI recorded over the replay ("k of n").
    as DTensors (``Cell.place``) and stepped: stablelm-1.6b at full
    width and phase 12's (16, 1,024), ``adamw(3e-4)``, remat, under
    ``fsdp`` and under ``tp2d``, granite-moe at 4 layers under ``fsdp``,
-   MACE ``molecule`` and DLRM ``train_batch`` (phase 13's table cut),
-   each step's loss, grad norm and next parameters and moments bitwise
-   the mesh-less step's, with the ``flash_attn`` / ``flash_attn_bwd``
+   DLRM ``train_batch`` (phase 13's table cut) and MACE ``molecule``
+   and ``minibatch_lg`` (169,984 nodes, 168,960 edges) at full width on
+   each rank's nodes and edges (``dist.collective``'s
+   ``all_gather_rows``, ``reduce_scatter_rows`` and ``all_reduce_sum``
+   must each have run), each step's loss, grad norm and next parameters
+   and moments bitwise the mesh-less step's (MACE's force gradients
+   included), with the ``flash_attn`` / ``flash_attn_bwd``
    launches of a step (48 / 24 for stablelm), the NCCL entries the
    profiler records, ms a step meshed and mesh-less, tokens/s and peak
    bytes beside the card's name and power limit; ``seine/retrieve``
@@ -321,15 +325,15 @@ launches CUPTI recorded over the replay ("k of n").
    kernel on the held rows, partial M summed by ``all_reduce``,
    ``knrm_pool``) bitwise the mesh-less step; a 2-layer stablelm's
    fsdp-placed state saved (rank 0 writes whole tensors) and restored
-   onto the tp2d layout bitwise.  Then, the NCCL world ended, three
+   onto the tp2d layout bitwise.  Then, the NCCL world ended, five
    cells are counted on a fake world of 512 ranks by ``launch.dryrun
    --mesh multi`` processes, one a cell, all at once: stablelm-1.6b
-   ``train_4k`` under ``fsdp``, granite-moe ``train_4k`` and DLRM
-   ``train_batch`` at full Criteo width, each with its argument bytes a
-   device, collective bytes by op, ``t_collective`` and counting
-   seconds.  The ``kernels`` rows of ``flash_attn``,
-   ``flash_attn_bwd``, ``csr_lookup`` and ``knrm_pool`` gain these
-   launches.
+   ``train_4k`` under ``fsdp``, granite-moe ``train_4k``, DLRM
+   ``train_batch`` at full Criteo width and MACE ``ogb_products`` and
+   ``minibatch_lg``, each with its argument bytes, flops and collective
+   bytes by op a device, ``t_collective`` and counting seconds.  The
+   ``kernels`` rows of ``flash_attn``, ``flash_attn_bwd``,
+   ``csr_lookup`` and ``knrm_pool`` gain these launches.
 
 The second-to-last line of output is one JSON object with a ``kernels``
 list; the last is ``{"ok": true, "device": {...}}``.  Nothing of JAX or
@@ -393,7 +397,7 @@ from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.convert import index_to_device  # noqa: E402
 from repro_torch.dist.collective import (  # noqa: E402
-    all_gather_stack, all_reduce_sum)
+    all_gather_rows, all_gather_stack, all_reduce_sum, reduce_scatter_rows)
 from repro_torch.dist.sharding import (  # noqa: E402
     P, partition_index, tree_shardings)
 from repro_torch.dist.dtensor import local_value as whole  # noqa: E402
@@ -5498,7 +5502,9 @@ def phase14(seed, dev):
 MESH_BUILD_DOCS = 2_048     # phase 5's first docs, built with and without
 MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
 MESH_COUNTERS = {"all_reduce": all_reduce_sum,
-                 "all_gather": all_gather_stack}
+                 "all_gather": all_gather_stack,
+                 "all_gather_rows": all_gather_rows,
+                 "reduce_scatter_rows": reduce_scatter_rows}
 
 
 def mesh_counts():
@@ -5729,7 +5735,13 @@ MESH_COUNT_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_count")
 # cells counted on a fake world of 512 ranks, (arch, shape, strategy)
 MESH_COUNTS = (("stablelm-1.6b", "train_4k", "fsdp"),
                ("granite-moe-3b-a800m", "train_4k", "tp2d"),
-               ("dlrm-mlperf", "train_batch", "tp2d"))
+               ("dlrm-mlperf", "train_batch", "tp2d"),
+               ("mace", "ogb_products", "tp2d"),
+               ("mace", "minibatch_lg", "tp2d"))
+# MACE's cells stepped placed and mesh-less (configs/base.py GNN_SHAPES),
+# and the collectives each rank's nodes and edges run through
+MESH_MACE_SHAPES = ("molecule", "minibatch_lg")
+MACE_COLLECTIVES = ("all_gather_rows", "reduce_scatter_rows", "all_reduce")
 MESH_COUNT_MESH = "multi"
 MESH_COUNT_TIMEOUT_S = 300
 
@@ -5873,28 +5885,44 @@ def mesh_train_lm(seed, dev, mesh, card):
     return out
 
 
+def mace_shape(name: str):
+    return get_bundle("mace").shape(name)
+
+
 def mesh_train_small(seed, dev, mesh):
-    """MACE's molecule step and DLRM's train_batch (phase 13's table
-    cut) placed, each bitwise its mesh-less step."""
+    """DLRM's train_batch (phase 13's table cut) and MACE's
+    MESH_MACE_SHAPES placed, each bitwise its mesh-less step; MACE's
+    steps each ran its three collectives."""
     from repro_torch.configs.base import ShapeConfig
     out = {}
-    mace_shape = get_bundle("mace").shape(MACE_SHAPE)
-    for name, make in (
-            ("dlrm-mlperf/train_batch", lambda m: launch_steps._recsys_cell(
-                recsys_config("dlrm-mlperf"), ShapeConfig(
-                    name="train_batch", kind="training",
-                    batch=RECSYS_TRAIN_BATCH["dlrm-mlperf"]), m)),
-            ("mace/molecule", lambda m: launch_steps._mace_cell(
-                mace_config(), mace_shape, m))):
+    cells = [("dlrm-mlperf/train_batch", lambda m: launch_steps._recsys_cell(
+        recsys_config("dlrm-mlperf"), ShapeConfig(
+            name="train_batch", kind="training",
+            batch=RECSYS_TRAIN_BATCH["dlrm-mlperf"]), m))]
+    cells += [(f"mace/{name}", lambda m, name=name: launch_steps._mace_cell(
+        mace_config(), mace_shape(name), m)) for name in MESH_MACE_SHAPES]
+    for name, make in cells:
         plain, placed = make(None), make(mesh)
         run = step_pair(plain, placed, plain.make_args(dev, seed),
                         f"phase 16 [{name}]", dev)
         run.pop("placed_args")
+        what = ""
+        if name.startswith("mace/"):
+            coll = {n: run["launches"][n] for n in MACE_COLLECTIVES}
+            if not all(coll.values()):
+                raise AssertionError(f"phase 16 [{name}]: a collective of "
+                                     f"the partitioned step never ran: "
+                                     f"{coll}")
+            m, t = placed.meta, run["times"]
+            what = (f" ({m['n_nodes']} nodes, {m['n_edges']} edges; "
+                    f"collectives of its step {coll}; peak meshed "
+                    f"{peak_text(t['meshed']['peak_bytes'])}, mesh-less "
+                    f"{peak_text(t['mesh-less']['peak_bytes'])})")
         log(f"phase 16 [{name}]: the meshed step == the mesh-less step "
             f"bitwise (loss {run['metrics']['loss']:.6f}, every next "
             f"parameter and moment); ms meshed "
             f"{run['times']['meshed']['p50_ms']:.2f}, mesh-less "
-            f"{run['times']['mesh-less']['p50_ms']:.2f}")
+            f"{run['times']['mesh-less']['p50_ms']:.2f}{what}")
         out[name] = run
         torch.cuda.empty_cache()
     return out
@@ -5993,6 +6021,7 @@ def log_mesh_counts(recs, card):
             f"{rec['useful_flops_ratio']}, counted in {rec['lower_s']} s")
         out[f"{arch}/{shape}/{strategy}"] = dict(
             argument_bytes=rec["memory"]["argument_bytes_per_device"],
+            flops=rl["flops_per_device"],
             coll_by_op=coll, t_collective_s=rl["t_collective_s"],
             count_s=rec["lower_s"])
     return out

@@ -13,12 +13,6 @@ them op by op.  These helpers cover what propagation cannot:
   names the placements the kernel treats independently (batch rows,
   heads); operands placed otherwise are redistributed to them first,
   explicitly.
-* :func:`replicated` gathers an op's DTensor operands to ``Replicate()``
-  and runs it on the whole tensors, which is what the SPMD partitioner
-  does with an op it cannot split.  Its gathers are collectives counted
-  like any other (``launch.roofline``).  Under a mesh ``models.mace``'s
-  ``forward`` and ``mace_loss`` run whole through it (index ops with no
-  sharding rule, and forces that are a second derivative).
 * :func:`group_split` names the placements under which a function that
   treats the groups of its input (its dimension 0) independently runs
   on each rank's groups: the MoE routing (``sort`` / ``cummax`` /
@@ -48,7 +42,6 @@ that is not routed through these raises, as DTensor raises.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Sequence
 
 import torch
@@ -257,28 +250,6 @@ def divisible(x, dim: int, parts: int):
           for i, p in enumerate(x.placements)]
     return x if tuple(pl) == tuple(x.placements) else x.redistribute(mesh,
                                                                      pl)
-
-
-def replicated(fn: Callable) -> Callable:
-    """``fn`` run on whole tensors when any tensor argument (or a leaf
-    of a dict, list or tuple argument) is a DTensor: those are gathered
-    to ``Replicate()``, the others taken as the same on every rank, and
-    every tensor of the result is a replicated DTensor.  Plain tensors
-    run ``fn`` as it is."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        from torch.utils._pytree import tree_leaves, tree_map
-        dts = [a for a in tree_leaves((args, kwargs)) if is_dtensor(a)]
-        if not dts:
-            return fn(*args, **kwargs)
-        from torch.distributed.tensor import Replicate
-        mesh = dts[0].device_mesh
-        rep = (Replicate(),) * mesh.ndim
-        loc = lambda a: (a.redistribute(mesh, rep).to_local()
-                         if is_dtensor(a) else a)
-        args, kwargs = tree_map(loc, (args, kwargs))
-        return _wrap(fn(*args, **kwargs), mesh, rep)
-    return run
 
 
 def local_value(x):

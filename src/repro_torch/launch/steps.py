@@ -543,8 +543,7 @@ def _mace_cell(cfg, shape: ShapeConfig, mesh=None) -> Cell:
     if mesh is not None:
         # nodes and edges split over the whole mesh, as the reference
         # places them (the parameters are replicated, so the model axis
-        # is free batch parallelism); models.mace gathers them and runs
-        # the whole step on every rank
+        # is free batch parallelism); models.mace runs each rank's own
         pshard = tree_shardings(mesh, params_s, gnn_param_rules())
         allax = data_axes(mesh) + ("model",)
         rows = lambda t: _ns(mesh, P(allax, *([None] * (t.ndim - 1))))

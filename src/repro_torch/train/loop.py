@@ -44,8 +44,9 @@ class TrainState:
 def value_and_grad(loss_fn: Callable, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)``: grads a plain tree
     of ``params``' structure, zeros for a leaf the loss does not use (as
-    ``jax.grad`` gives).  A ``nn.Module``'s parameters are differentiated
-    as they are; a plain tree's leaves through detached copies."""
+    ``jax.grad`` gives), a DTensor's with its parameter's placements.  A
+    ``nn.Module``'s parameters are differentiated as they are; a plain
+    tree's leaves through detached copies."""
     if isinstance(params, nn.Module):
         xs, live = T.leaves(params), params
     else:
@@ -54,9 +55,19 @@ def value_and_grad(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         loss = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, xs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
+    grads = [torch.zeros_like(x) if g is None else _summed(g, x)
              for x, g in zip(xs, grads)]
     return loss.detach(), T.unflatten(params, grads)
+
+
+def _summed(g, x):
+    """``g`` with ``x``'s placements where it is a DTensor partial sum
+    (a replicated parameter's gradient from each rank's part, as
+    ``models.mace`` gives it): summed here, once."""
+    from ..dist.dtensor import is_dtensor
+    if is_dtensor(g) and any(p.is_partial() for p in g.placements):
+        return g.redistribute(g.device_mesh, x.placements)
+    return g
 
 
 def make_train_step(loss_fn: Callable, opt: Optimizer, *,

@@ -7,6 +7,8 @@ reshard-on-load of a KNRM checkpoint.  The kernels' names are wrapped in
 launch counters, as in the other rehearsals
 (``torch_chip_smoke_helpers``).
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -69,10 +71,11 @@ def test_mesh_phase_runs_on_the_cpu(monkeypatch, tmp_path):
 
 def test_mesh_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """Phase 16 at smoke configs and tiny shapes over gloo: the placed
-    LM steps (fsdp and tp2d, the MoE under fsdp), MACE, DLRM and
-    seine/retrieve bitwise their mesh-less steps, the kernels' launches
-    counted, the reshard-on-load, and a counted cell read back from its
-    worker."""
+    LM steps (fsdp and tp2d, the MoE under fsdp), MACE (``molecule`` and
+    ``minibatch_lg`` cut to a small graph, each rank's nodes and edges:
+    the three collectives ran), DLRM and seine/retrieve bitwise their
+    mesh-less steps, the kernels' launches counted, the reshard-on-load,
+    and a counted cell read back from its worker."""
     cs = _load_script()
     for name, value in dict(
             N_DOCS=1500, VOCAB=3000, TAIL_DRAWS=30, RETRIEVE_CANDS=300,
@@ -85,6 +88,11 @@ def test_mesh_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "train_lm_config",
                         lambda name, n_layers=None: smoke(name))
     monkeypatch.setattr(cs, "mace_config", lambda: smoke("mace"))
+    # minibatch_lg cut to 8 seeds of fanout (3, 2): 80 nodes, 72 edges
+    real_shape = cs.mace_shape
+    monkeypatch.setattr(cs, "mace_shape", lambda name: dataclasses.replace(
+        real_shape(name), batch_nodes=8, fanout=(3, 2))
+        if name == "minibatch_lg" else real_shape(name))
     monkeypatch.setattr(cs, "recsys_config", lambda arch: smoke(arch))
     monkeypatch.setitem(cs.RECSYS_TRAIN_BATCH, "dlrm-mlperf", 64)
     monkeypatch.setattr(cs, "nccl_kernels", lambda run: {})
@@ -110,7 +118,11 @@ def test_mesh_train_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                               ("granite-moe-3b-a800m", "fsdp")}
     for run in out["lm"].values():
         assert run["per_step"]["flash_attn_bwd"] == 2
-    assert set(out["small"]) == {"mace/molecule", "dlrm-mlperf/train_batch"}
+    assert set(out["small"]) == {"mace/molecule", "mace/minibatch_lg",
+                                 "dlrm-mlperf/train_batch"}
+    for name in ("mace/molecule", "mace/minibatch_lg"):
+        for coll in cs.MACE_COLLECTIVES:
+            assert out["small"][name]["launches"][coll] > 0, (name, coll)
     assert out["retrieve"]["launches"]["csr_lookup"] > 0
     assert out["restored"] > 10
     rec = out["counts"]["autoint/serve_p99/tp2d"]

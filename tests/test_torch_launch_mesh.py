@@ -14,7 +14,9 @@
   join a gloo world in another test), on meta DTensors
   (``torch_mesh_ranks.fake_world_checks``); ``x.sum()`` on ``x`` sharded
   4 ways moves the bytes the reference's ``collective_bytes`` parses from
-  the HLO of the same program on 4 forced host devices.
+  the HLO of the same program on 4 forced host devices; MACE's training
+  step on a (2, 2) mesh counts a quarter of its one-device flops, no
+  local op on every edge, and the collectives' closed form.
 """
 import json
 import os
@@ -293,3 +295,37 @@ def test_moe_dispatch_runs_on_each_ranks_groups(fake_checks):
     assert coll["all-reduce"] <= 2 * (2 * 4 * n_e + 4 * d * n_e)
     cell_whole, cell_dev = four["moe_cell_flops"]
     assert cell_dev == cell_whole / 4
+
+
+def test_mace_runs_each_ranks_nodes_and_edges(fake_checks):
+    """MACE's training step at its published config (d_hidden 128, 2
+    layers, correlation 3) on a random graph of 1,024 nodes and 1,536
+    edges placed on a (2, 2) mesh: one device's flops are at most 0.3 of
+    the one-device count (its own quarter of the nodes and edges), no
+    local op holds a tensor of every edge, and its collectives' result
+    bytes are the design's closed form.  With W ranks of B = ceil(N / W)
+    node rows, C channels, L layers, G graphs and f = 4 bytes: the
+    forward gathers the positions (3 columns) and each layer's mixed
+    (h_s, h_v) (4C) and reduce-scatters its (A_s, A_v, A_t) (13C); the
+    forces' backward gathers each layer's A gradients and reduce-scatters
+    the (h_s, h_v) gradients of the layers after the first and the
+    positions'; the loss's backward runs each of those Functions'
+    backward once more.  So all-gather W B f (6 + (34 L - 4) C),
+    reduce-scatter B f (3 + (34 L - 4) C), and all-reduce f (G + 1 +
+    the parameters the loss reads): the energies, the force term and
+    the partial gradients summed once."""
+    four = fake_checks[4]
+    whole, dev = four["mace_flops"]
+    assert dev <= 0.3 * whole
+    assert four["mace_edge_ops"] == []
+    z = four["mace_sizes"]
+    w, f = 4, 4
+    b = -(-z["n_nodes"] // w)
+    c, n_l = z["d_hidden"], z["n_layers"]
+    per = (34 * n_l - 4) * c
+    assert four["mace_coll"] == {
+        "all-gather": float(w * b * f * (6 + per)),
+        "reduce-scatter": float(b * f * (3 + per)),
+        "all-reduce": float(f * (z["n_graphs"] + 1 + z["n_params_read"])),
+        "total": float(w * b * f * (6 + per) + b * f * (3 + per)
+                       + f * (z["n_graphs"] + 1 + z["n_params_read"]))}

@@ -82,6 +82,10 @@ def rank_main(rank: int, world: int, store: str, work: str) -> None:
             out.update(_train(tuple(shape)))
         if tasks.get("fit"):
             out.update(_fit(work, tuple(tasks["fit"])))
+        if tasks.get("mace"):
+            out.update(_mace(work, tuple(tasks["mace"])))
+        if tasks.get("collectives"):
+            out.update(_collectives())
         np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
@@ -357,8 +361,8 @@ def _train(shape) -> dict:
             out[f"decode/{tag}/{arch}/{name}/ref"] = a.numpy()
             out[f"decode/{tag}/{arch}/{name}/got"] = \
                 b.full_tensor().float().numpy()
-    # MACE's energies on placed inputs (split over every axis; the
-    # forward gathers them)
+    # MACE's energies on placed inputs (split over every axis; each rank
+    # runs its own nodes and edges)
     from repro_torch.models import mace as MA
     from repro_torch.launch.mesh import set_mesh
     from torch.distributed.tensor.experimental import implicit_replication
@@ -449,6 +453,187 @@ def _fit(work: str, shape) -> dict:
     out["fit/restored/step"] = np.array(manifest["step"])
     save_checkpoint(os.path.join(work, "fit_again"), 3, tree)
     out["fit/rank"] = np.array(dist.get_rank())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MACE partitioned on a mesh (tests/test_torch_mace_mesh.py)
+# ---------------------------------------------------------------------------
+
+MACE_DTYPES = ("float64", "float32")
+
+
+def mace_cfg():
+    """The smoke MACE at correlation order 3 (every product-basis path)."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.smoke("mace"), correlation_order=3)
+
+
+def mace_graphs() -> dict:
+    """The test graphs, padded by ``launch.steps._mace_cell`` to 1,024
+    nodes and 1,536 edges: a random graph of 700 nodes and 1,500 edges
+    (its edges cross every rank's block of nodes) and 40 molecules of 13
+    atoms (molecules straddle the blocks)."""
+    from repro_torch.configs.base import ShapeConfig
+    return {"random": ShapeConfig(name="full_graph_sm", kind="full-graph",
+                                  n_nodes=700, n_edges=1500),
+            "molecules": ShapeConfig(name="molecule",
+                                     kind="batched-small-graphs",
+                                     n_nodes=13, n_edges=30, n_graphs=40)}
+
+
+def mace_batch(graph: str) -> dict:
+    """``graph``'s batch from seed 3 (numpy), with random force targets."""
+    from repro_torch.launch import steps as S
+    shape = mace_graphs()[graph]
+    cell = S._mace_cell(mace_cfg(), shape, None)
+    b = S._mace_batch(mace_cfg(), shape, cell.meta["n_nodes"],
+                      cell.meta["n_edges"], seed=3)
+    b["forces"] = (np.random.RandomState(4).randn(*b["forces"].shape)
+                   * 0.1).astype(np.float32)
+    return b
+
+
+def mace_cast(tree, dtype: str):
+    """Every floating tensor of ``tree`` (a dict, list or tensor; numpy
+    arrays made tensors) in ``dtype``."""
+    from repro_torch import tree as T
+    dt = getattr(torch, dtype)
+
+    def cast(x):
+        x = torch.as_tensor(np.asarray(x)) if isinstance(x, np.ndarray) else x
+        return x.to(dt) if x.is_floating_point() else x
+    return T.tree_map(cast, tree)
+
+
+def _mace(work: str, shape) -> dict:
+    """MACE's loss, every gradient, energies and forces on the mesh, the
+    parameters (``mace_params.pt``, the reference's draw) and each test
+    graph placed as ``_mace_cell`` places them, in float64 and float32;
+    this rank's forces with the rows they are, and the collectives'
+    launches."""
+    from repro_torch import tree as T
+    from repro_torch.dist import collective as C
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import axes_group
+    from repro_torch.models import mace as MA
+    from repro_torch.train.loop import value_and_grad
+    torch.use_deterministic_algorithms(True)
+    mesh = _mesh(shape)
+    tag = "x".join(map(str, shape))
+    cfg = mace_cfg()
+    params = torch.load(os.path.join(work, "mace_params.pt"),
+                        weights_only=True)
+    group = axes_group(mesh, mesh.mesh_dim_names)
+    out = {}
+    for graph, gshape in mace_graphs().items():
+        cell = S._mace_cell(cfg, gshape, mesh)
+        n_graphs = cell.meta["n_graphs"]
+        for dtype in MACE_DTYPES:
+            key = f"mace/{tag}/{graph}/{dtype}"
+            before = [f.launches for f in (C.all_gather_rows,
+                                           C.reduce_scatter_rows,
+                                           C.all_reduce_sum)]
+            pp = cell.place(mace_cast(params, dtype), cell.in_shardings[0])
+            batch = mace_cast(mace_batch(graph), dtype)
+            pb = cell.place(batch, cell.in_shardings[2])
+            loss, grads = value_and_grad(
+                lambda p, b: MA.mace_loss(p, cfg, b, n_graphs), pp, pb)
+            out[f"{key}/loss"] = loss.to_local().numpy()
+            for n, g in T.flatten_with_paths(grads):
+                out[f"{key}/grad/{n}"] = g.to_local().numpy()
+                out[f"{key}/whole/{n}"] = np.array(
+                    all(p.is_replicate() for p in g.placements))
+            with torch.no_grad():
+                e, f = MA.energy_and_forces(pp, cfg, n_graphs=n_graphs,
+                                            **{k: pb[k] for k in MA.INPUTS})
+            out[f"{key}/energy"] = e.to_local().numpy()
+            # placed parameters beside plain (whole) inputs
+            with torch.no_grad():
+                e = MA.forward(pp, cfg, n_graphs=n_graphs,
+                               **{k: batch[k] for k in MA.INPUTS})
+            out[f"{key}/energy_of_whole_inputs"] = e.to_local().numpy()
+            out[f"{key}/forces"] = f.to_local().numpy()
+            out[f"{key}/forces_shape"] = np.array(f.shape)
+            out[f"{key}/rows"] = np.array(C.row_block(f.shape[0], group))
+            out[f"{key}/launches"] = np.array([
+                f.launches - b for f, b in zip(
+                    (C.all_gather_rows, C.reduce_scatter_rows,
+                     C.all_reduce_sum), before)])
+    return out
+
+
+class Parts:
+    """The three collectives' test functions of a tensor ``x`` whole on
+    every rank (float64): each takes this rank's part through
+    ``collective._Broadcast`` (a whole input each rank uses for its part:
+    its gradient summed over the group, as a replicated parameter's is)
+    and returns a value whole on every rank, with rank-dependent weights
+    so each rank's part counts."""
+
+    def __init__(self, group, n: int):
+        from repro_torch.dist.collective import row_block
+        import torch.distributed as dist
+        self.group, self.n = group, n
+        self.lo, self.hi = row_block(n, group)
+        gen = torch.Generator().manual_seed(11)
+        w = dist.get_world_size(group)
+        r = dist.get_rank(group)
+        self.w = (torch.rand((w, n, 2), generator=gen,
+                             dtype=torch.float64) + 0.5)[r]
+        self.u = (torch.rand((w, n, 2), generator=gen,
+                             dtype=torch.float64) + 0.5)[r]
+
+    def _whole(self, x):
+        from repro_torch.dist.collective import _Broadcast
+        return _Broadcast.apply(x, self.group)
+
+    def all_gather_rows(self, x):
+        from repro_torch.dist import collective as C
+        mine = self._whole(x)[self.lo:self.hi]
+        g = C.all_gather_rows(torch.tanh(mine) ** 2, self.group, self.n)
+        return C.all_reduce_sum(self.w * torch.sin(g), self.group)
+
+    def reduce_scatter_rows(self, x):
+        from repro_torch.dist import collective as C
+        s = C.reduce_scatter_rows(self.w * torch.sin(self._whole(x)),
+                                  self.group)
+        g = C.all_gather_rows(s * s, self.group, self.n)
+        return C.all_reduce_sum(self.u * g, self.group)
+
+    def all_reduce_sum(self, x):
+        from repro_torch.dist import collective as C
+        y = C.all_reduce_sum(self.w * torch.exp(self._whole(x) * 0.5),
+                             self.group)
+        return y * y
+
+
+COLLECTIVE_ROWS = (7, 5)      # over 4 ranks: blocks 2, 2, 2, 1 and 2, 2, 1, 0
+
+
+def _collectives() -> dict:
+    """``gradcheck`` and ``gradgradcheck`` of the three collectives over
+    the world (float64), at row counts that leave the last ranks fewer
+    rows or none; every rank draws the same inputs and seeds."""
+    import torch.distributed as dist
+    from torch.autograd import gradcheck, gradgradcheck
+    out = {}
+    for n in COLLECTIVE_ROWS:
+        parts = Parts(dist.group.WORLD, n)
+        for name in ("all_gather_rows", "reduce_scatter_rows",
+                     "all_reduce_sum"):
+            fn = getattr(parts, name)
+            x = torch.randn((n, 2), generator=torch.Generator().manual_seed(
+                n), dtype=torch.float64, requires_grad=True)
+            out[f"collective/{n}/{name}/grad"] = np.array(
+                gradcheck(fn, (x,), eps=1e-6, atol=1e-8,
+                          raise_exception=False))
+            torch.manual_seed(5)
+            out[f"collective/{n}/{name}/gradgrad"] = np.array(
+                gradgradcheck(fn, (x,), eps=1e-6, atol=1e-8,
+                              raise_exception=False))
     return out
 
 
@@ -546,7 +731,62 @@ def fake_world_checks(n: int) -> dict:
         a @ b
     out["mode_above_flops"] = above.get_total_flops()
     out.update(_moe_counts(m))
+    out.update(_mace_counts(m))
     return out
+
+
+def _mace_counts(m) -> dict:
+    """One device's counts of the MACE training step at its published
+    config on a random graph of 700 nodes and 1,500 edges (padded to
+    1,024 and 1,536) placed on ``m``, beside the one-device count; the
+    sizes the collectives' closed form needs; and the local ops that
+    held a tensor of every edge (none should)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    cfg = configs.get_bundle("mace").config
+    shape = mace_graphs()["random"]
+    plain, cell = S._mace_cell(cfg, shape, None), S._mace_cell(cfg, shape, m)
+    whole, _ = dryrun.count(plain.fn, plain.args, {})
+    dev, _ = dryrun.count_local(cell.fn, cell.place(cell.args), {})
+    n_edges = cell.meta["n_edges"]
+
+    class EdgeWatch(TorchDispatchMode):
+        """The names of the local ops with a tensor of ``n_edges`` rows."""
+        seen: set = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if not dryrun._propagating() and any(
+                    isinstance(t, torch.Tensor) and t.ndim
+                    and t.shape[0] == n_edges
+                    for t in tree_leaves((args, kwargs, out))):
+                self.seen.add(str(func))
+            return out
+    args = cell.place(cell.args)
+    with EdgeWatch() as watch:
+        cell.fn(*args)
+    # the parameters the loss reaches: all but mix_t (no feature reads
+    # it) and the last layer's mix_v (no layer reads its h_v)
+    layers = plain.args[0]["layers"]
+    unread = [lp["mix_t"] for lp in layers] + [layers[-1]["mix_v"]]
+    return {"mace_flops": [whole.flops, dev.flops],
+            "mace_coll": dev.coll_by_op,
+            "mace_sizes": dict(n_nodes=cell.meta["n_nodes"],
+                               n_edges=n_edges, n_graphs=1,
+                               d_hidden=cfg.d_hidden, n_layers=cfg.n_layers,
+                               n_params_read=sum(
+                                   t.numel() for t in T.leaves(
+                                       plain.args[0])) - sum(
+                                   t.numel() for t in unread)),
+            "mace_edge_ops": sorted(watch.seen)}
 
 
 def _moe_counts(m) -> dict:
